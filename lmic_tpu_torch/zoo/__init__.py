@@ -1,0 +1,103 @@
+"""Model zoo for the ported image codecs.
+
+Counterpart of lmic_tpu/zoo/__init__.py:48-189 (reference
+compressai/zoo/image.py:189-246) for the three non-autoregressive
+architectures of the serving path. `create_model` builds the module on the
+CPU from a seed, so the same seed gives the same weights on every device,
+then hands it to the codec wrapper on `device` (CUDA unless told otherwise).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from lmic_tpu_torch import default_device
+from lmic_tpu_torch.models.codec import (
+    CompressionCodec,
+    FactorizedPriorCodec,
+    HyperpriorCodec,
+)
+from lmic_tpu_torch.models.image import (
+    FactorizedPrior,
+    MeanScaleHyperprior,
+    ScaleHyperprior,
+)
+
+# quality -> (N, M) (reference zoo/image.py:189-246)
+cfgs: Dict[str, Dict[int, Tuple[int, int]]] = {
+    "bmshj2018-factorized": {
+        **{q: (128, 192) for q in range(1, 6)},
+        **{q: (192, 320) for q in range(6, 9)},
+    },
+    "bmshj2018-hyperprior": {
+        **{q: (128, 192) for q in range(1, 6)},
+        **{q: (192, 320) for q in range(6, 9)},
+    },
+    "mbt2018-mean": {
+        **{q: (128, 192) for q in range(1, 5)},
+        **{q: (192, 320) for q in range(5, 9)},
+    },
+}
+
+# architecture -> (module class, codec wrapper class)
+model_architectures: Dict[str, Tuple[Any, Any]] = {
+    "bmshj2018-factorized": (FactorizedPrior, FactorizedPriorCodec),
+    "bmshj2018-hyperprior": (ScaleHyperprior, HyperpriorCodec),
+    "mbt2018-mean": (MeanScaleHyperprior, HyperpriorCodec),
+}
+
+
+def make_module(architecture: str, quality: int, channel: int = 3,
+                generator: Optional[torch.Generator] = None, **kwargs):
+    """Build the module for an architecture/quality; `N=`/`M=` override
+    the quality table's widths (parity tests use narrow models)."""
+    if architecture not in model_architectures:
+        raise ValueError(f'Invalid architecture name "{architecture}"')
+    if quality not in cfgs[architecture]:
+        raise ValueError(f'Invalid quality value "{quality}"')
+    N, M = cfgs[architecture][quality]
+    N = kwargs.pop("N", N)
+    M = kwargs.pop("M", M)
+    if kwargs:
+        raise TypeError(f"unexpected arguments {sorted(kwargs)}")
+    module_cls, _ = model_architectures[architecture]
+    return module_cls(N=N, M=M, channel=channel, generator=generator)
+
+
+@torch.no_grad()
+def _init_convs(module: nn.Module, generator: torch.Generator):
+    """lmic_tpu's (flax's) conv initialisation, drawn from `generator`:
+    LeCun-normal kernels (variance 1/fan_in, truncated at two standard
+    deviations) and zero biases. It keeps activations at unit scale, so
+    random-weight codecs code non-trivial latents."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            fan_in = w[0].numel()  # (O, I, kh, kw): I*kh*kw
+            if isinstance(m, nn.ConvTranspose2d):  # (I, O, kh, kw)
+                fan_in = w.shape[0] * w[0, 0].numel()
+            # flax divides by the truncated normal's std at [-2, 2]
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            nn.init.zeros_(m.bias)
+
+
+def create_model(architecture: str, quality: int, seed: int = 0,
+                 channel: int = 3, device=None, state_dict=None,
+                 **kwargs) -> CompressionCodec:
+    """Construct the module with weights drawn from `seed` (or loaded from
+    a `state_dict` with CompressAI key names) and wrap it in its codec on
+    `device`. Raises without a GPU unless `device="cpu"` is given."""
+    device = default_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    module = make_module(architecture, quality, channel=channel,
+                         generator=generator, **kwargs)
+    _, codec_cls = model_architectures[architecture]
+    _init_convs(module, generator)
+    if state_dict is not None:
+        module.load_state_dict(state_dict)
+    return codec_cls(module, device)

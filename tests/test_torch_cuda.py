@@ -1,0 +1,108 @@
+"""The port on the card: the CUDA GDN kernel against its plain version,
+the layer and the codecs against the CPU path. Every test needs an NVIDIA
+GPU and skips elsewhere. This file imports no JAX, so it also runs where
+JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lmic_tpu_torch import zoo
+from lmic_tpu_torch.layers import GDN
+from lmic_tpu_torch.ops import gdn
+
+pytestmark = pytest.mark.cuda
+
+# the bars of tests/test_pallas_gdn.py: max|a-b| / max(1, max|b|)
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+def _data(rows, C, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((rows, C), generator=g)
+    beta = torch.rand(C, generator=g) + 0.5
+    gamma = torch.rand((C, C), generator=g) * 0.02 + 0.1 * torch.eye(C)
+    return [t.to("cuda", dtype) for t in (x, beta, gamma)]
+
+
+def _rel_err(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", [(6151, 192), (6144, 128), (1, 16),
+                                    (130, 320)])
+def test_kernel_matches_reference(dtype, inverse, rows, C):
+    x, beta, gamma = _data(rows, C, dtype)
+    n0 = gdn.LAUNCHES["gdn_fwd"]
+    got = gdn.gdn_core(x, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    assert gdn.LAUNCHES["gdn_fwd"] == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _rel_err(got, gdn.gdn_reference(x, beta, gamma, inverse)) \
+        < TOL[dtype]
+    # no atomics, fixed summation order: the same bytes on every launch
+    assert torch.equal(got, gdn.gdn_core(x, beta, gamma, inverse))
+
+
+def test_kernel_refuses_what_it_does_not_take():
+    x, beta, gamma = _data(64, 32, torch.float32)
+    with pytest.raises(TypeError):
+        gdn.gdn_fwd(x.double(), beta.double(), gamma.double())
+    with pytest.raises(ValueError):
+        gdn.gdn_fwd(x, beta[:16], gamma)
+    with pytest.raises(ValueError):
+        gdn.gdn_fwd(x, beta.cpu(), gamma)
+    with pytest.raises(NotImplementedError):
+        gdn.gdn_fwd(x.requires_grad_(), beta, gamma)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_layer_on_card_matches_cpu(inverse):
+    layer = GDN(64, inverse=inverse)
+    with torch.no_grad():
+        layer.gamma.add_(torch.rand((64, 64),
+                                    generator=torch.Generator().manual_seed(1))
+                         * 0.1)
+        x = torch.randn((2, 64, 9, 7)).contiguous(
+            memory_format=torch.channels_last)
+        want = layer(x)
+        layer.cuda()
+        got = layer(x.cuda())
+        # an NCHW-contiguous input takes an explicit copy, same bytes
+        assert torch.equal(got, layer(x.cuda().contiguous()))
+    assert _rel_err(got.cpu(), want) < 1e-5
+
+
+@pytest.mark.parametrize("arch", sorted(zoo.model_architectures))
+def test_codec_on_card(arch):
+    cuda = zoo.create_model(arch, 1, seed=0, device="cuda", N=32, M=48)
+    cpu = zoo.create_model(arch, 1, seed=0, device="cpu", N=32, M=48)
+    cuda.update()
+    cpu.update()  # tables are evaluated on the CPU on both
+    np.testing.assert_array_equal(cuda.eb_state.table.cdf,
+                                  cpu.eb_state.table.cdf)
+    x = (np.random.default_rng(0).random((2, 64, 128, 3)) * 255).astype(
+        np.uint8)
+    n0 = gdn.LAUNCHES["gdn_fwd"]
+    out = cuda.compress(x)
+    assert gdn.LAUNCHES["gdn_fwd"] == n0 + 3 * x.shape[0]  # per image
+    assert cuda.compress(x)["strings"] == out["strings"]
+    rec = cuda.decompress(out["strings"], out["shape"], u8=True)["x_hat"]
+    assert rec.shape == x.shape and rec.dtype == np.uint8
+    with torch.no_grad():
+        xt = torch.from_numpy(x[:1]).permute(0, 3, 1, 2).float() / 255
+        y_cpu = cpu.module.g_a(xt)
+        y_cuda = cuda.module.g_a(xt.cuda()).cpu()
+    assert _rel_err(y_cuda, y_cpu) < 1e-4

@@ -1,0 +1,99 @@
+"""lmic_tpu_torch.ops against lmic_tpu.ops: lower_bound, the non-negative
+reparametrization and STE rounding, forward and gradients against
+jax.grad; the CDF quantizer integer-equal on random pmfs."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lmic_tpu.ops import cdf as jcdf
+from lmic_tpu.ops import math as jmath
+from lmic_tpu_torch.ops import cdf as tcdf
+from lmic_tpu_torch.ops import math as tmath
+
+torch.set_num_threads(2)
+
+
+def _vjp_jax(fn, x, g):
+    y, vjp = jax.vjp(fn, jnp.asarray(x))
+    return np.asarray(y), np.asarray(vjp(jnp.asarray(g))[0])
+
+
+def _vjp_torch(fn, x, g):
+    xt = torch.tensor(x, requires_grad=True)
+    y = fn(xt)
+    y.backward(torch.tensor(g))
+    return y.detach().numpy(), xt.grad.numpy()
+
+
+def _data(seed, n=4096):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, n).astype(np.float32)
+    g = rng.normal(0, 1, n).astype(np.float32)
+    return x, g
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lower_bound_forward_and_gradient(seed):
+    # exact: max and the pass-through mask are the same elementwise ops
+    x, g = _data(seed)
+    bound = np.float32(0.1)
+    want = _vjp_jax(lambda v: jmath.lower_bound(v, jnp.float32(bound)), x, g)
+    got = _vjp_torch(lambda v: tmath.lower_bound(v, float(bound)), x, g)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    got = _vjp_torch(tmath.LowerBound(bound), x, g)
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("minimum", [0.0, 1e-6])
+def test_non_negative_parametrizer(minimum):
+    # a square and a subtraction of the pedestal in f32: equal to 1 ulp
+    x, g = _data(2)
+    jp = jmath.NonNegativeParametrizer(minimum=minimum)
+    tp = tmath.NonNegativeParametrizer(minimum=minimum)
+    want = _vjp_jax(jp, x, g)
+    got = _vjp_torch(tp, x, g)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-12)
+    init = np.abs(x) * 0.1
+    np.testing.assert_allclose(
+        tp.init(torch.from_numpy(init)).numpy(),
+        np.asarray(jp.init(jnp.asarray(init))), rtol=1e-6,
+    )
+
+
+def test_ste_round_forward_and_gradient():
+    # half-to-even rounding on both sides, identity gradient: exact
+    x, g = _data(3)
+    x[:8] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, -3.5]
+    want = _vjp_jax(jmath.ste_round, x, g)
+    got = _vjp_torch(tmath.ste_round, x, g)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_from_amp_upcasts_only():
+    for dt in (torch.bfloat16, torch.float16):
+        assert tmath.from_amp(torch.ones(2, dtype=dt)).dtype == torch.float32
+    for dt in (torch.float32, torch.float64):
+        assert tmath.from_amp(torch.ones(2, dtype=dt)).dtype == dt
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_quantized_cdf_equals_lmic_tpu(seed):
+    rng = np.random.default_rng(seed)
+    rows, L = 12, 40
+    pmf = rng.random((rows, L)).astype(np.float32) ** 4  # sparse-ish tails
+    pmf[:, ::7] = 0.0  # zero-width intervals force the repair loop
+    pmf /= pmf.sum(1, keepdims=True)
+    tail = rng.random(rows).astype(np.float32) * 1e-6
+    length = rng.integers(5, L + 1, rows)
+    want = jcdf.batched_pmf_to_quantized_cdf(pmf, tail, length, L)
+    got = tcdf.batched_pmf_to_quantized_cdf(pmf, tail, length, L)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tcdf.pmf_to_quantized_cdf(pmf[0]), jcdf.pmf_to_quantized_cdf(pmf[0])
+    )

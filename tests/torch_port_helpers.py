@@ -1,0 +1,100 @@
+"""Shared set-up of the lmic_tpu_torch parity tests: the same weights and
+coding tables in the JAX package and in the port, made from a seed."""
+
+import jax
+import numpy as np
+import torch
+
+from lmic_tpu import zoo as jzoo
+from lmic_tpu_torch import zoo as tzoo
+from lmic_tpu_torch.zoo.convert import (
+    coding_state_from_numpy,
+    state_dict_from_jax,
+)
+
+ARCHS = ("bmshj2018-factorized", "bmshj2018-hyperprior", "mbt2018-mean")
+N, M = 16, 24
+IMAGE = (2, 64, 128, 3)  # H, W multiples of 64 (the hyperprior factor)
+
+
+def pixels(shape=IMAGE, seed=0):
+    return (np.random.default_rng(seed).random(shape) * 255).astype(np.uint8)
+
+
+def jax_params(arch, seed=0):
+    """lmic_tpu init for `arch` at N/M, as numpy, with GDN gammas pushed
+    off the diagonal (so the channel mixing is exercised) and the
+    bottleneck medians moved off zero (so they matter in the symbols)."""
+    codec = jzoo.create_model(arch, 1, key=jax.random.key(seed),
+                              input_size=IMAGE[1:3], N=N, M=M)
+    params = jax.tree.map(np.asarray, codec.variables["params"])
+    rng = np.random.default_rng(seed)
+    for seq in ("g_a_net", "g_s_net"):
+        for layer in params[seq].values():
+            if "gamma" in layer:
+                layer["gamma"] = (layer["gamma"] + rng.uniform(
+                    0, 0.05, layer["gamma"].shape)).astype(np.float32)
+    q = params["entropy_bottleneck"]["quantiles"].copy()
+    q[:, :, 1] += rng.uniform(-0.3, 0.3, q.shape[0])[:, None]
+    params["entropy_bottleneck"]["quantiles"] = q.astype(np.float32)
+    return params
+
+
+def jax_codec(arch, params):
+    codec = jzoo.create_model(arch, 1, variables={"params": params},
+                              N=N, M=M)
+    codec.update(force=True)
+    return codec
+
+
+def port_codec(arch, params):
+    return tzoo.create_model(arch, 1, device="cpu", N=N, M=M,
+                             state_dict=state_dict_from_jax(arch, params))
+
+
+def carry_tables(jc, pc):
+    """Install the JAX codec's coding tables on the port codec."""
+    def table(t):
+        return {"cdf": t.cdf, "cdf_length": t.cdf_length, "offset": t.offset}
+
+    gc = None
+    if jc.gc_state is not None:
+        gc = dict(table(jc.gc_state.table),
+                  scale_table=jc.gc_state.scale_table)
+    return coding_state_from_numpy(
+        pc, eb=dict(table(jc.eb_state.table), medians=jc.eb_state.medians),
+        gc=gc,
+    )
+
+
+def table_drift(got, want):
+    """How far two CdfTables of one geometry are apart: (rows that differ,
+    share of entries that differ, largest entry difference)."""
+    diff = np.abs(got.cdf.astype(np.int64) - want.cdf)
+    return (int((diff != 0).any(1).sum()), float((diff != 0).mean()),
+            int(diff.max()))
+
+
+def nchw(a):
+    """NHWC numpy -> NCHW channels_last torch tensor."""
+    return torch.from_numpy(np.array(a)).permute(0, 3, 1, 2)
+
+
+def nhwc(t):
+    return t.permute(0, 2, 3, 1).detach().numpy()
+
+
+if __name__ == "__main__":
+    # the port's own update() tables against lmic_tpu's, per arch:
+    #   JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/torch_port_helpers.py
+    for arch in ARCHS:
+        params = jax_params(arch)
+        jc, pc = jax_codec(arch, params), port_codec(arch, params)
+        pc.update()
+        for name in ("eb_state", "gc_state"):
+            want = getattr(jc, name)
+            if want is not None:
+                rows, share, worst = table_drift(getattr(pc, name).table,
+                                                 want.table)
+                print(f"{arch} {name}: {rows} of {len(want.table.cdf)} rows, "
+                      f"{share:.4%} of entries, max |diff| {worst}")
