@@ -7,19 +7,30 @@ Phases, each of which raises (exit code != 0) on any failure:
 
 1. environment: the card's name and power limit, the torch/CUDA/nvcc
    versions; the port's native sources are built, all at once;
-2. kernel: the CUDA GDN forward (`gdn_fwd`) against its plain version on
-   the card at the main path's shapes, C in {128, 192}, f32 and bf16, both
-   directions, with CUDA-event timings of the kernel, the plain version and
-   the nearest PyTorch composite, beside the least time the card could take;
-3. serving (the main path): mbt2018-mean at quality 8 (N=192, M=320) from a
-   seed, served by the port's HTTP server; three seeded 512x768 uint8
-   images go through POST /compress and /decompress with the launch counts
-   set to 0 just before and read just after; then the decoded bytes are
-   held to the direct codec calls, encoding to be deterministic, decoding
-   to recover exactly the encoded latents, and the CUDA transforms to the
-   CPU plain-version transforms on a small input;
+2. kernels: the CUDA GDN forward (`gdn_fwd`) and backward (`gdn_bwd`,
+   three launches) against their plain versions on the card at the main
+   paths' shapes (serving: 98,304 / 24,576 / 6,144 / 6,151 rows; training:
+   262,144 / 65,536 / 16,384 / 16,391 rows), C in {128, 192}, f32 and bf16,
+   both directions, each deterministic, with CUDA-event timings of the
+   kernel, the plain version and a cuBLAS composite of the same math, beside
+   the least time the card could take;
+3. serving: mbt2018-mean at quality 8 (N=192, M=320) from a seed, served by
+   the port's HTTP server; three seeded 512x768 uint8 images go through
+   POST /compress and /decompress with the launch counts set to 0 just
+   before and read just after; then the decoded bytes are held to the
+   direct codec calls, encoding to be deterministic, decoding to recover
+   exactly the encoded latents, and the CUDA transforms to the CPU
+   plain-version transforms on a small input;
 4. the other archs: one direct round trip each of bmshj2018-factorized and
-   bmshj2018-hyperprior at quality 8, 512x768.
+   bmshj2018-hyperprior at quality 8, 512x768;
+5. training: mbt2018-mean at quality 7 (N=192, M=320, lambda 10240), the
+   widest model lmic_tpu's trainer takes, from a seed, batch 16 of seeded
+   256x256 images: timed steps in f32 and in bf16 AMP with the launch
+   counts set to 0 just before and read just after (6 forward and 6 of
+   each backward kernel per step), the loss falling over 10 steps, a
+   profile of the GDN kernels' share, one step's gradients on the card
+   against the CPU on a narrow model with the same noise, and the trained
+   model saved, reloaded, finalized and round-tripped through the codec.
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -34,6 +45,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -49,11 +61,17 @@ PEAKS = {
     "H100 NVL": (3.9e12, 60e12, 835e12),
     "H100": (3.35e12, 67e12, 989e12),  # SXM (HBM3)
 }
-KERNEL_SHAPES = [(n, C) for C in (128, 192)
-                 for n in (98_304, 24_576, 6_144, 6_151)]
+# GDN rows (N*H*W) of the main paths: a q8 512x768 round trip (one image)
+# and a training step (batch 16 of 256x256); the fourth of each is ragged
+SERVE_ROWS = (98_304, 24_576, 6_144, 6_151)
+TRAIN_ROWS = (262_144, 65_536, 16_384, 16_391)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # as tests/test_pallas_gdn.py
 IMAGE = (1, 512, 768, 3)  # Kodak geometry
 SERVE_ARCH, QUALITY = "mbt2018-mean", 8
+# lmic_tpu's trainer: batch 16, 256x256 patches (utils/train_cli.py), lambda
+# table of 7 entries, so quality 7 is the widest trainable model
+TRAIN_ARCH, TRAIN_QUALITY, TRAIN_LAMBDA = "mbt2018-mean", 7, 10240
+TRAIN_BATCH = (16, 256, 256, 3)
 
 
 def log(*a):
@@ -76,14 +94,17 @@ def phase_environment():
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  nvcc: {nvcc[-1]}")
     t0 = time.perf_counter()
-    sources = ("gdn_fwd.cu", "lmic_rans.cc")
+    sources = ("gdn_fwd.cu", "gdn_bwd.cu", "lmic_rans.cc")
     with ThreadPoolExecutor(len(sources)) as pool:  # one compiler each
         libs = list(pool.map(_build.build, sources))
     log(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
-    with open(libs[0] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("ptxas:", line.strip())
+    for source, lib in zip(sources, libs):
+        if not source.endswith(".cu"):
+            continue
+        with open(lib + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log(f"ptxas {source}:", line.strip())
     return smi
 
 
@@ -116,55 +137,120 @@ def _time_ms(fn, runs=20, warmup=3):
     return float(np.median(times))
 
 
+def _gdn_inputs(gen, n, C, dt):
+    import torch
+
+    x = torch.randn((n, C), generator=gen, device="cuda").to(dt)
+    beta = (torch.rand(C, generator=gen, device="cuda") + 0.5).to(dt)
+    gamma = (torch.rand((C, C), generator=gen, device="cuda") * 0.02
+             + 0.1 * torch.eye(C, device="cuda")).to(dt)
+    g = torch.randn((n, C), generator=gen, device="cuda").to(dt)
+    return x, beta, gamma, g
+
+
+def _errors(got, want):
+    """(max |a-b|, max |a-b| / max(1, max |b|)) over the outputs."""
+    abs_err = rel = 0.0
+    for a, b in zip(got, want):
+        e = (a.float() - b.float()).abs().max().item()
+        abs_err = max(abs_err, e)
+        rel = max(rel, e / max(1.0, b.float().abs().max().item()))
+    return abs_err, rel
+
+
+def _bwd_composite(x, beta, gamma, gamma_t, g, inverse):
+    """The backward's math in a few cuBLAS/elementwise calls, in the input
+    dtype (bf16 products on the tensor cores): the yardstick."""
+    import torch
+
+    x2 = x * x
+    norm = torch.addmm(beta, x2, gamma_t)
+    r = torch.rsqrt(norm)
+    if inverse:
+        dn, scale = 0.5 * g * x * r, norm * r
+    else:
+        dn, scale = -0.5 * g * x * (r * r * r), r
+    dx = torch.addcmul(g * scale, 2 * x, dn @ gamma)
+    return dx, dn.sum(0), dn.t() @ x2
+
+
 def phase_kernel(peaks):
+    """Both GDN kernels against their plain versions at every main-path
+    shape; returns the per-shape cases of each."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
 
     mem_bw, fp32, bf16 = peaks
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = []
-    for n, C in KERNEL_SHAPES:
+    cases = {"gdn_fwd": [], "gdn_bwd": []}
+    shapes = [(n, C) for C in (128, 192) for n in SERVE_ROWS + TRAIN_ROWS]
+    for n, C in shapes:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
-            x = torch.randn((n, C), generator=gen, device="cuda").to(dt)
-            beta = (torch.rand(C, generator=gen, device="cuda") + 0.5).to(dt)
-            gamma = (torch.rand((C, C), generator=gen, device="cuda") * 0.02
-                     + 0.1 * torch.eye(C, device="cuda")).to(dt)
+            x, beta, gamma, g = _gdn_inputs(gen, n, C, dt)
             gamma_t = gamma.t().contiguous()
             es = x.element_size()
-            nbytes = (2 * n * C + C * C + C) * es
-            ops = 2 * n * C * C + 4 * n * C
-            t_mem, t_ops = nbytes / mem_bw, ops / (fp32 if es == 4 else bf16)
+            peak = fp32 if es == 4 else bf16
             for inverse in (False, True):
-                got = gdn.gdn_fwd(x, beta, gamma, inverse)
-                want = gdn.gdn_reference(x, beta, gamma, inverse)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                rel = err / max(1.0, want.float().abs().max().item())
-                if not rel < TOL[dtype]:
-                    raise AssertionError(
-                        f"gdn_fwd {n}x{C} {dtype} inverse={inverse}: "
-                        f"error {rel:.3g} >= {TOL[dtype]}"
-                    )
-                if not torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse)):
-                    raise AssertionError("gdn_fwd is not deterministic")
                 rs = torch.sqrt if inverse else torch.rsqrt
-                cases.append({
-                    "impl": "cuda", "shape": [n, C], "dtype": dtype,
-                    "inverse": inverse, "max_abs_err": err,
-                    "max_rel_err": rel,
-                    "us": 1e3 * _time_ms(
-                        lambda: gdn.gdn_fwd(x, beta, gamma, inverse)),
-                    "plain_us": 1e3 * _time_ms(
-                        lambda: gdn.gdn_reference(x, beta, gamma, inverse)),
-                    "library_us": 1e3 * _time_ms(
-                        lambda: x * rs(torch.addmm(beta, x * x, gamma_t))),
-                    "bound_us": 1e6 * max(t_mem, t_ops),
-                    "bound_by": "operations" if t_ops > t_mem else "bytes",
-                    "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
-                })
+                work = {
+                    "gdn_fwd": (
+                        lambda: (gdn.gdn_fwd(x, beta, gamma, inverse),),
+                        lambda: (gdn.gdn_reference(x, beta, gamma,
+                                                   inverse),),
+                        lambda: x * rs(torch.addmm(beta, x * x, gamma_t)),
+                        # x read, y written, gamma and beta read
+                        (2 * n * C + C * C + C) * es,
+                        2 * n * C * C + 4 * n * C,
+                    ),
+                    "gdn_bwd": (
+                        lambda: gdn.gdn_bwd(x, beta, gamma, g, inverse),
+                        lambda: gdn.gdn_bwd_reference(x, beta, gamma, g,
+                                                      inverse),
+                        lambda: _bwd_composite(x, beta, gamma, gamma_t, g,
+                                               inverse),
+                        # x and g read, dx written; gamma, beta read;
+                        # dgamma, dbeta written
+                        (3 * n * C + 2 * (C * C + C)) * es,
+                        6 * n * C * C + 12 * n * C,
+                    ),
+                }
+                for name, (run, plain, composite, nbytes, ops) in \
+                        work.items():
+                    if name == "gdn_bwd" and n in SERVE_ROWS:
+                        continue  # serving runs no backward
+                    got = run()
+                    want = plain()
+                    torch.cuda.synchronize()
+                    err, rel = _errors(got, want)
+                    if not rel < TOL[dtype]:
+                        raise AssertionError(
+                            f"{name} {n}x{C} {dtype} inverse={inverse}: "
+                            f"error {rel:.3g} >= {TOL[dtype]}")
+                    if not all(torch.equal(a, b) for a, b in zip(got, run())):
+                        raise AssertionError(f"{name} is not deterministic")
+                    t_mem, t_ops = nbytes / mem_bw, ops / peak
+                    cases[name].append({
+                        "shape": [n, C], "dtype": dtype, "inverse": inverse,
+                        "max_abs_err": err, "max_rel_err": rel,
+                        "us": 1e3 * _time_ms(run),
+                        "plain_us": 1e3 * _time_ms(plain),
+                        "library_us": 1e3 * _time_ms(composite),
+                        "bound_us": 1e6 * max(t_mem, t_ops),
+                        "bound_by": ("operations" if t_ops > t_mem
+                                     else "bytes"),
+                        "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
+                    })
+            del x, beta, gamma, g, gamma_t
     return cases
+
+
+def _reset_counts():
+    from lmic_tpu_torch.ops import gdn
+
+    for k in gdn.LAUNCHES:
+        gdn.LAUNCHES[k] = 0
 
 
 def _post(port, path, payload):
@@ -281,7 +367,7 @@ def phase_serving():
     try:
         port = server.server_address[1]
         bodies, recs, times, stats = [], [], [], []
-        gdn.LAUNCHES["gdn_fwd"] = 0
+        _reset_counts()
         for x in images:
             f = io.BytesIO()
             _write_pixels(f, x)
@@ -295,13 +381,16 @@ def phase_serving():
             recs.append(rec)
             times.append((1e3 * (t2 - t1), 1e3 * (t3 - t2)))
             stats.append({**enc_stats, **codec.stats})
-        launches = gdn.LAUNCHES["gdn_fwd"]
+        counts = dict(gdn.LAUNCHES)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+    launches = counts.pop("gdn_fwd")
     if launches != 6 * len(images):  # 3 GDN in g_a + 3 IGDN in g_s
         raise AssertionError(f"main path launched gdn_fwd {launches} times")
+    if any(counts.values()):  # no autograd under inference_mode
+        raise AssertionError(f"serving launched backward kernels: {counts}")
     for i, (x, body, rec, (tc, td), st) in enumerate(
             zip(images, bodies, recs, times, stats)):
         shape, groups = read_body(io.BytesIO(body))
@@ -355,6 +444,210 @@ def phase_other_archs():
             f"CUDA vs CPU transforms within {worst:.3g}")
 
 
+def _train_batch(shape, seed):
+    """Seeded images as a (B, C, H, W) float32 batch in [0, 1] on the card,
+    channels_last."""
+    import torch
+
+    x = np.concatenate(_images(shape[0], (1, *shape[1:]), seed=seed))
+    return torch.from_numpy(x.astype(np.float32) / 255.0).permute(
+        0, 3, 1, 2).cuda()
+
+
+def _steps(step, state, batch, gen, n):
+    """n train steps, each timed on the host clock between two
+    synchronizes; returns (ms per step, metrics per step)."""
+    import torch
+
+    ms, metrics = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return ms, metrics
+
+
+GDN_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
+               "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
+
+
+def _profile(step, state, batch, gen, n=3):
+    """Device time per step of the GDN kernels and of all kernels, the
+    wall time per step, and the device ms per step of each GDN kernel and
+    of the other kernels that take the most, from a torch.profiler trace
+    of n steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    gdn_us = total_us = 0.0
+    by_kernel = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        total_us += us
+        name = next((k for k in GDN_KERNELS if k in evt.key), None)
+        if name:
+            gdn_us += us
+        name = name or evt.key[:60]
+        by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    return gdn_us / 1e3 / n, total_us / 1e3 / n, wall, top
+
+
+def _train_cpu_agreement():
+    """One step of a narrow mbt2018-mean (N=32, M=48) on the card and on
+    the CPU, same weights and noise: losses within 1e-4, and every clipped
+    gradient leaf within 1e-3 of its largest value (f32 sums in another
+    order on each device)."""
+    from lmic_tpu_torch.utils.crosscheck import train_step_agreement
+
+    x = _train_batch((2, 64, 128, 3), seed=11).cpu()
+    loss_err, grad_err, _ = train_step_agreement(
+        TRAIN_ARCH, TRAIN_QUALITY, x, TRAIN_LAMBDA, N=32, M=48)
+    if not (loss_err < 1e-4 and grad_err < 1e-3):
+        raise AssertionError(f"training step on the card vs the CPU: loss "
+                             f"{loss_err:.3g}, gradients {grad_err:.3g}")
+    return loss_err, grad_err
+
+
+def _finalize(state, tmp):
+    """save -> load -> update_model_file -> load_updated_model -> one
+    compress/decompress of a 512x768 image that decodes to the encoded
+    latents, with the strings of the trained codec."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils import checkpoint as ckpt
+    from lmic_tpu_torch.utils.train import create_train_state, make_optimizer
+
+    def fresh(seed):
+        return zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=seed,
+                                device="cuda")
+
+    path = os.path.join(tmp, "train.ckpt")
+    ckpt.save_checkpoint(path, state, {"epoch": 0, "arch": TRAIN_ARCH,
+                                       "quality": TRAIN_QUALITY},
+                         is_best=True)
+    other = create_train_state(fresh(1).module, make_optimizer())
+    other, extra = ckpt.load_checkpoint(path, other)
+    want = state.module.state_dict()
+    if other.step != state.step or extra["arch"] != TRAIN_ARCH or not all(
+            torch.equal(v, want[k])
+            for k, v in other.module.state_dict().items()):
+        raise AssertionError("checkpoint did not restore the train state")
+    trained = fresh(2)
+    ckpt.load_train_params(path, trained.module)
+    out_path = ckpt.update_model_file(tmp, trained,
+                                      f"{TRAIN_ARCH}-q{TRAIN_QUALITY}")
+    deployed = ckpt.load_updated_model(out_path, fresh(3))
+    x = _images(1, seed=5)[0]
+    out = deployed.compress(x)
+    if out["strings"] != trained.compress(x)["strings"]:
+        raise AssertionError("the finalized codec codes other strings")
+    _roundtrip_checks(deployed, x, out["strings"], out["shape"])
+    got = deployed.decompress(out["strings"], out["shape"], u8=True)["x_hat"]
+    nbytes = sum(len(s) for g in out["strings"] for s in g)
+    mse = np.mean((got.astype(np.float64) - x) ** 2)
+    return (os.path.basename(out_path),
+            8 * nbytes / (x.shape[1] * x.shape[2]),
+            10 * np.log10(255 ** 2 / mse))
+
+
+def phase_training():
+    """The training main path: mbt2018-mean q7, batch 16 of 256x256, f32
+    and bf16 AMP. Returns the launch counts of the timed steps and the
+    number of those steps."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    batch = _train_batch(TRAIN_BATCH, seed=1)
+    counts = {k: 0 for k in gdn.LAUNCHES}
+    steps = 0
+    trained = None
+    for mode, dtype, timed in (("f32", None, 8), ("amp", torch.bfloat16, 5)):
+        t0 = time.perf_counter()
+        module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
+                                  device="cuda", dtype=dtype).module
+        opt = make_optimizer()
+        state = create_train_state(module, opt)
+        step = make_train_step(module, opt, TRAIN_LAMBDA)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        _, warm = _steps(step, state, batch, gen, 2)
+        t_warm = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        ms, mets = _steps(step, state, batch, gen, timed)
+        launched = dict(gdn.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in launched.items():
+            if v != 6 * timed:  # 3 GDN in g_a, 3 IGDN in g_s per step
+                raise AssertionError(
+                    f"{mode}: {k} launched {v} times in {timed} steps")
+            counts[k] += v
+        steps += timed
+        losses = [m["loss"] for m in warm + mets]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{mode}: loss not finite: {losses}")
+        if mode == "f32":
+            _, last = _steps(step, state, batch, gen, 1)
+            losses.append(last[0]["loss"])
+            if not losses[10] < losses[0]:  # 11 losses: after 10 steps
+                raise AssertionError(f"loss did not fall: {losses}")
+            log("f32 loss over 11 steps on one batch: "
+                + ", ".join(f"{v:.2f}" for v in losses))
+        gdn_ms, dev_ms, wall_ms, top = _profile(step, state, batch, gen)
+        last = mets[-1]
+        log(f"train {TRAIN_ARCH} q{TRAIN_QUALITY} {mode} batch "
+            f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}: step ms "
+            f"{json.dumps([round(v, 2) for v in ms])} (median "
+            f"{np.median(ms):.2f}); loss {last['loss']:.3f} mse "
+            f"{last['mse_loss']:.6f} bpp {last['bpp_loss']:.4f} aux "
+            f"{last['aux_loss']:.1f}; peak memory {peak / 2**30:.2f} GiB; "
+            f"built + 2 warm-up steps {t_warm:.1f} s")
+        log(f"train {mode} profile ({3} steps): GDN kernels {gdn_ms:.2f} ms "
+            f"of {dev_ms:.2f} ms device time per step "
+            f"({100 * gdn_ms / dev_ms:.1f} %), wall {wall_ms:.2f} ms per "
+            f"step under the profiler (device busy "
+            f"{100 * dev_ms / wall_ms:.1f} %); device ms per step of the "
+            "largest kernels: "
+            + json.dumps({k: round(v, 3) for k, v in top.items()}))
+        if mode == "f32":
+            trained = state
+        else:
+            del module, state, opt
+    loss_err, grad_err = _train_cpu_agreement()
+    log(f"training step on the card vs the CPU (N=32, M=48, same noise): "
+        f"losses within {loss_err:.3g}, gradients within {grad_err:.3g}")
+    with tempfile.TemporaryDirectory() as tmp:
+        name, bpp, psnr = _finalize(trained, tmp)
+    log(f"trained {TRAIN_ARCH} q{TRAIN_QUALITY} saved, reloaded, finalized "
+        f"as {name}, round trip of a 512x768 image: {bpp:.4f} bpp, PSNR "
+        f"{psnr:.2f} dB")
+    return counts, steps
+
+
 def main():
     import torch
 
@@ -372,45 +665,70 @@ def main():
         print("chip_smoke: lmic_tpu_torch was imported from elsewhere",
               file=sys.stderr)
         return 2
+    from lmic_tpu_torch.ops import gdn
     from lmic_tpu_torch.utils.determinism import set_wire_determinism
 
     set_wire_determinism()
     smi = phase_environment()
     name = torch.cuda.get_device_name(0)
     cases = phase_kernel(_peaks(name))
-    for c in cases:
-        log(f"gdn_fwd {c['shape']} {c['dtype']} inverse={c['inverse']}: "
-            f"{c['us']:.1f} us (plain {c['plain_us']:.1f}, composite "
-            f"{c['library_us']:.1f}, bound {c['bound_us']:.1f} by "
-            f"{c['bound_by']}), rel err {c['max_rel_err']:.2e}")
-    launches = phase_serving()
+    for kernel, kcases in cases.items():
+        for c in kcases:
+            log(f"{kernel} {c['shape']} {c['dtype']} inverse={c['inverse']}: "
+                f"{c['us']:.1f} us (plain {c['plain_us']:.1f}, composite "
+                f"{c['library_us']:.1f}, bound {c['bound_us']:.1f} by "
+                f"{c['bound_by']}), rel err {c['max_rel_err']:.2e}")
+    serve_launches = phase_serving()
     phase_other_archs()
+    train_counts, train_steps = phase_training()
 
-    # the kernel's time for one q8 512x768 round trip: the main path's six
-    # f32 launches at C=192 (3 GDN in g_a, 3 IGDN in g_s)
-    main_path = [c for c in cases if c["dtype"] == "float32"
-                 and c["shape"][1] == 192 and c["shape"][0] % 64 == 0]
-    if len(main_path) != 6:
-        raise AssertionError(f"{len(main_path)} main-path kernel cases")
+    def totals(kernel, rows, dtype):
+        """Sums over one main-path pass (a q8 512x768 round trip or a
+        training step): the GDN and the IGDN at each of `rows`, C = 192."""
+        sel = [c for c in cases[kernel] if c["shape"][0] in rows
+               and c["shape"][1] == 192 and c["dtype"] == dtype]
+        if len(sel) != 2 * len(rows):
+            raise AssertionError(f"{len(sel)} {kernel} main-path cases")
+        t = {k: sum(c[k] for c in sel) / 1e3
+             for k in ("us", "plain_us", "library_us", "bound_us",
+                       "bytes_us", "operations_us")}
+        return {"ms": t["us"], "plain_ms": t["plain_us"],
+                "bound_ms": t["bound_us"],
+                "bound_by": ("operations" if t["operations_us"]
+                             >= t["bytes_us"] else "bytes"),
+                "library_ms": t["library_us"]}
 
-    def total(key):
-        return sum(c[key] for c in main_path) / 1e3
-
+    bwd_counts = {k: train_counts[k] for k in gdn.BWD_KERNELS}
+    if len(set(bwd_counts.values())) != 1:
+        raise AssertionError(f"backward kernels launched {bwd_counts}")
     kernels = [{
         "name": "gdn_fwd",
         "route": "cuda",
         "source": "lmic_tpu_torch/csrc/gdn_fwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": total("us"),
-        "plain_ms": total("plain_us"),
-        "bound_ms": total("bound_us"),
-        "bound_by": ("operations" if total("operations_us")
-                     >= total("bytes_us") else "bytes"),
-        "library_ms": total("library_us"),
+        "launches": serve_launches + train_counts["gdn_fwd"],
+        "launches_by_path": {"serving": serve_launches,
+                             "training": train_counts["gdn_fwd"]},
+        "launches_per_step": train_counts["gdn_fwd"] / train_steps,
+        "max_abs_err": max(c["max_abs_err"] for c in cases["gdn_fwd"]),
+        # one q8 512x768 round trip: 3 GDN in g_a, 3 IGDN in g_s, f32
+        **totals("gdn_fwd", SERVE_ROWS[:3], "float32"),
+        "training_step_f32": totals("gdn_fwd", TRAIN_ROWS[:3], "float32"),
+        "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
         "card": smi,
-        "cases": cases,
+    }, {
+        "name": "gdn_bwd",
+        "route": "cuda",
+        "source": "lmic_tpu_torch/csrc/gdn_bwd.cu",
+        "replaces": "lmic_tpu/ops/pallas_gdn.py:195",
+        "launches": next(iter(bwd_counts.values())),
+        "launches_by_kernel": bwd_counts,
+        "launches_per_step": bwd_counts[gdn.BWD_KERNELS[0]] / train_steps,
+        "max_abs_err": max(c["max_abs_err"] for c in cases["gdn_bwd"]),
+        # one f32 training step: 6 calls of the three kernels each
+        **totals("gdn_bwd", TRAIN_ROWS[:3], "float32"),
+        "training_step_bf16": totals("gdn_bwd", TRAIN_ROWS[:3], "bfloat16"),
+        "card": smi,
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

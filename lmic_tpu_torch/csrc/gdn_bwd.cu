@@ -1,0 +1,425 @@
+// GDN / IGDN backward for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel lmic_tpu/ops/pallas_gdn.py::_bwd_kernel
+// (launched by _gdn_bwd_pallas behind the custom VJP _gdn_bwd). For x and
+// the cotangent g of shape (n, C), row-major, it computes
+//
+//   norm[r, o] = beta[o] + sum_j x[r, j]^2 * gamma[o, j]   (recomputed, f32)
+//   GDN:  dn = -g x norm^(-3/2) / 2,   scale = norm^(-1/2)
+//   IGDN: dn =  g x norm^(-1/2) / 2,   scale = norm^(1/2)
+//   dx[r, i]     = g scale + 2 x[r, i] * sum_o dn[r, o] gamma[o, i]
+//   dbeta[o]     = sum_r dn[r, o]
+//   dgamma[o, i] = sum_r dn[r, o] x[r, i]^2
+//
+// What bounds it: three (n x C) . (C x C) products, 6*n*C^2 operations,
+// against x and g read and dx written, 3*n*C elements. At C = 192 in f32
+// that is 96 operations per byte, far above the H100's ~20 FP32 operations
+// per byte of HBM: bound by the FP32 CUDA cores (TF32 is off, as the JAX
+// kernel runs f32 at Precision.HIGHEST). In bf16 the same work on the
+// tensor cores would be bound by bytes; this kernel still uses FP32 FMAs.
+//
+// The hazard is the reduction over rows. The TPU kernel adds each tile's
+// dbeta/dgamma into an output block that every sequential grid step
+// revisits; CUDA blocks run in no order. So the design is three launches,
+// no atomics, and the same bytes on every run:
+//  1. gdn_bwd_dx: one CTA per 64-row tile. It stages x^2 transposed in
+//     shared memory and recomputes the norm with exactly the forward
+//     kernel's loop (csrc/gdn_fwd.cu: same tile, same summation order);
+//     forms dn and g*scale elementwise; writes dn in f32 to an (n, C)
+//     scratch; stages dn (rounded to the input type) transposed over the
+//     x^2 tile, and forms dx = g*scale + 2x (dn . gamma) with the same
+//     8-row register tile, gamma read through the read-only path.
+//  2. gdn_bwd_partials: one CTA per (1024-row chunk, 64x64 block of
+//     dgamma). A plain SGEMM tile: 32-row slices of dn and x^2 staged in
+//     shared memory, a 4x4 register tile per thread; the CTAs of the first
+//     column block also sum dbeta. Each writes its chunk's partial sums.
+//  3. gdn_bwd_reduce: one thread per dgamma/dbeta element sums the chunks'
+//     partials in chunk order and casts to the output type.
+// The number of partials is ceil(n / 1024): it depends on n, never on the
+// card. Ragged row counts are masked: rows past n are staged as zeros, so
+// they add exact zeros to dbeta/dgamma (what the JAX zero-padding relies
+// on), and are never stored.
+//
+// Precision follows _bwd_kernel: x^2 is rounded to the input type; the
+// products accumulate in f32; dn is rounded to the input type before both
+// the dn . gamma and the dn^T . x^2 products, while dbeta sums the f32 dn;
+// dx is rounded once at the store, dbeta/dgamma once after the final sum.
+// Tensor cores (wgmma), TMA and a fused single pass are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kRows = 64;          // rows per CTA of gdn_bwd_dx
+constexpr int kRowsPerThread = 8;  // register tile: 8 rows x 1 channel
+constexpr int kThreads = 256;
+constexpr int kStride = kRows + 4;  // floats per staged channel (float4
+                                    // alignment)
+constexpr int kChunkRows = 1024;   // rows per partial dbeta/dgamma
+constexpr int kTile = 64;          // dgamma block: 64 x 64 per CTA
+constexpr int kSub = 32;           // rows staged per step of the partials
+constexpr int kReduceThreads = 256;
+
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  static __device__ __forceinline__ float load(const float *p) {
+    return __ldg(p);
+  }
+  // the value as the input type holds it
+  static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ float store(float v) { return v; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16 *p) {
+    return __bfloat162float(__ldg(p));
+  }
+  static __device__ __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16(v));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
+    return __float2bfloat16(v);
+  }
+};
+
+// acc[k] += sum_j s[j][r0 + k] * w[j * C + o] for k < 8, j = 0..C-1 in
+// order; s is a transposed [C][kStride] tile in shared memory.
+template <typename T>
+__device__ __forceinline__ void rows_times_matrix(const float *s, int r0,
+                                                  const T *__restrict__ w,
+                                                  int o, int C,
+                                                  float (&acc)[8]) {
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) acc[k] = 0.f;
+  const float *xs = s + r0;
+  for (int j = 0; j < C; ++j) {
+    const float gm = Io<T>::load(w + static_cast<int64_t>(j) * C + o);
+    const float4 a = *reinterpret_cast<const float4 *>(xs + j * kStride);
+    const float4 b = *reinterpret_cast<const float4 *>(xs + j * kStride + 4);
+    acc[0] = fmaf(a.x, gm, acc[0]);
+    acc[1] = fmaf(a.y, gm, acc[1]);
+    acc[2] = fmaf(a.z, gm, acc[2]);
+    acc[3] = fmaf(a.w, gm, acc[3]);
+    acc[4] = fmaf(b.x, gm, acc[4]);
+    acc[5] = fmaf(b.y, gm, acc[5]);
+    acc[6] = fmaf(b.z, gm, acc[6]);
+    acc[7] = fmaf(b.w, gm, acc[7]);
+  }
+}
+
+template <typename T, bool kInverse>
+__global__ void __launch_bounds__(kThreads)
+    gdn_bwd_dx_kernel(const T *__restrict__ x, const T *__restrict__ g,
+                      const T *__restrict__ gamma_t,
+                      const T *__restrict__ gamma, const T *__restrict__ beta,
+                      T *__restrict__ dx, float *__restrict__ dn, int64_t n,
+                      int C) {
+  extern __shared__ float4 smem4[];
+  float *st = reinterpret_cast<float *>(smem4);  // [C][kStride]: x^2, then dn
+  float *tile = st + C * kStride;                // [kRows][C]: norm, then g*s
+
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int rows = static_cast<int>(
+      n - row0 < kRows ? n - row0 : static_cast<int64_t>(kRows));
+
+  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
+    const int r = i / C;
+    const int c = i - r * C;
+    float v = 0.f;
+    if (r < rows) {
+      v = Io<T>::load(x + (row0 + r) * C + c);
+      v = Io<T>::round(v * v);
+    }
+    st[c * kStride + r] = v;
+  }
+  __syncthreads();
+
+  // the norm, as the forward kernel sums it
+  constexpr int kGroups = kRows / kRowsPerThread;
+  for (int item = threadIdx.x; item < kGroups * C; item += kThreads) {
+    const int grp = item / C;
+    const int o = item - grp * C;
+    const int r0 = grp * kRowsPerThread;
+    if (r0 >= rows) continue;
+    float acc[kRowsPerThread];
+    rows_times_matrix<T>(st, r0, gamma_t, o, C, acc);
+    const float bo = Io<T>::load(beta + o);
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k)
+      if (r0 + k < rows) tile[(r0 + k) * C + o] = acc[k] + bo;
+  }
+  __syncthreads();
+
+  // elementwise: dn (f32 to the scratch, rounded over the x^2 tile) and
+  // g * scale (over the norm)
+  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
+    const int r = i / C;
+    const int c = i - r * C;
+    float d = 0.f;
+    if (r < rows) {
+      const int64_t at = (row0 + r) * C + c;
+      const float norm = tile[i];
+      const float xv = Io<T>::load(x + at);
+      const float gv = Io<T>::load(g + at);
+      const float rs = rsqrtf(norm);
+      float s;
+      if (kInverse) {
+        d = 0.5f * gv * xv * rs;
+        s = sqrtf(norm);
+      } else {
+        d = -0.5f * gv * xv * (rs * rs * rs);
+        s = rs;
+      }
+      dn[at] = d;
+      tile[i] = gv * s;
+      d = Io<T>::round(d);
+    }
+    st[c * kStride + r] = d;
+  }
+  __syncthreads();
+
+  // dx = g * scale + 2 x (dn . gamma)
+  for (int item = threadIdx.x; item < kGroups * C; item += kThreads) {
+    const int grp = item / C;
+    const int i = item - grp * C;
+    const int r0 = grp * kRowsPerThread;
+    if (r0 >= rows) continue;
+    float acc[kRowsPerThread];
+    rows_times_matrix<T>(st, r0, gamma, i, C, acc);
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      const int r = r0 + k;
+      if (r < rows) {
+        const int64_t at = (row0 + r) * C + i;
+        dx[at] = Io<T>::store(tile[r * C + i] +
+                              2.0f * Io<T>::load(x + at) * acc[k]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gdn_bwd_partials_kernel(const T *__restrict__ x,
+                            const float *__restrict__ dn,
+                            float *__restrict__ partials, int64_t n, int C) {
+  __shared__ __align__(16) float dns[kSub][kTile];  // dn rounded to T
+  __shared__ __align__(16) float x2s[kSub][kTile];
+  __shared__ float dbs[kThreads / kTile][kTile];
+
+  const int tiles = (C + kTile - 1) / kTile;
+  const int o0 = (blockIdx.x / tiles) * kTile;
+  const int i0 = (blockIdx.x % tiles) * kTile;
+  const int64_t start = static_cast<int64_t>(blockIdx.y) * kChunkRows;
+  const int64_t end = n - start < kChunkRows ? n : start + kChunkRows;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;  // outputs o0 + 4 ty .. + 3
+  const int tx = tid % 16;  // outputs i0 + 4 tx .. + 3
+  // staging: element e = tid + kThreads m is (row e / kTile, column
+  // tid % kTile), so a thread always stages the same column
+  const int col = tid % kTile;
+  const bool first_column_block = i0 == 0;
+
+  float acc[4][4] = {};
+  float db = 0.f;
+  for (int64_t s0 = start; s0 < end; s0 += kSub) {
+    for (int e = tid; e < kSub * kTile; e += kThreads) {
+      const int rr = e / kTile;
+      const int64_t row = s0 + rr;
+      const int o = o0 + col;
+      const int i = i0 + col;
+      float d = 0.f, v = 0.f;
+      if (row < end) {
+        if (o < C) d = dn[row * C + o];
+        if (i < C) {
+          v = Io<T>::load(x + row * C + i);
+          v = Io<T>::round(v * v);
+        }
+      }
+      db += d;  // rows in a fixed order per thread; zeros past the end
+      dns[rr][col] = Io<T>::round(d);
+      x2s[rr][col] = v;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int rr = 0; rr < kSub; ++rr) {
+      const float4 a = *reinterpret_cast<const float4 *>(&dns[rr][4 * ty]);
+      const float4 b = *reinterpret_cast<const float4 *>(&x2s[rr][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
+    }
+    __syncthreads();
+  }
+
+  float *out = partials + static_cast<int64_t>(blockIdx.y) * (C * C + C);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int o = o0 + 4 * ty + p;
+    if (o >= C) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + 4 * tx + q;
+      if (i < C) out[o * C + i] = acc[p][q];
+    }
+  }
+  if (first_column_block) {
+    dbs[tid / kTile][col] = db;
+    __syncthreads();
+    if (tid < kTile && o0 + tid < C) {
+      float s = 0.f;
+      for (int k = 0; k < kThreads / kTile; ++k) s += dbs[k][tid];
+      out[C * C + o0 + tid] = s;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+    gdn_bwd_reduce_kernel(const float *__restrict__ partials,
+                          T *__restrict__ dbeta, T *__restrict__ dgamma,
+                          int64_t chunks, int C) {
+  const int64_t elems = static_cast<int64_t>(C) * C + C;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kReduceThreads +
+                    threadIdx.x;
+  if (e >= elems) return;
+  float s = 0.f;
+  for (int64_t k = 0; k < chunks; ++k) s += partials[k * elems + e];
+  if (e < static_cast<int64_t>(C) * C)
+    dgamma[e] = Io<T>::store(s);
+  else
+    dbeta[e - static_cast<int64_t>(C) * C] = Io<T>::store(s);
+}
+
+size_t dx_smem(int C) {
+  return static_cast<size_t>(C) * (kStride + kRows) * sizeof(float);
+}
+
+template <typename T, bool kInverse>
+cudaError_t launch_dx(const void *x, const void *g, const void *gamma_t,
+                      const void *gamma, const void *beta, void *dx,
+                      void *dn, int64_t n, int C, cudaStream_t stream) {
+  const size_t smem = dx_smem(C);
+  auto kernel = gdn_bwd_dx_kernel<T, kInverse>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (n + kRows - 1) / kRows;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const T *>(x), static_cast<const T *>(g),
+      static_cast<const T *>(gamma_t), static_cast<const T *>(gamma),
+      static_cast<const T *>(beta), static_cast<T *>(dx),
+      static_cast<float *>(dn), n, C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_partials(const void *x, const void *dn, void *partials,
+                            int64_t n, int C, cudaStream_t stream) {
+  const int tiles = (C + kTile - 1) / kTile;
+  const dim3 grid(static_cast<unsigned>(tiles * tiles),
+                  static_cast<unsigned>((n + kChunkRows - 1) / kChunkRows));
+  gdn_bwd_partials_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T *>(x), static_cast<const float *>(dn),
+      static_cast<float *>(partials), n, C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_reduce(const void *partials, void *dbeta, void *dgamma,
+                          int64_t chunks, int C, cudaStream_t stream) {
+  const int64_t elems = static_cast<int64_t>(C) * C + C;
+  const int64_t blocks = (elems + kReduceThreads - 1) / kReduceThreads;
+  gdn_bwd_reduce_kernel<T>
+      <<<static_cast<unsigned>(blocks), kReduceThreads, 0, stream>>>(
+          static_cast<const float *>(partials), static_cast<T *>(dbeta),
+          static_cast<T *>(dgamma), chunks, C);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The largest C whose two staged tiles fit the 227 KB of shared memory a
+// CTA may use on Hopper.
+int lmic_gdn_bwd_max_channels() {
+  return static_cast<int>(232448 / ((kStride + kRows) * sizeof(float)));
+}
+
+// Rows per partial sum: gdn_bwd_partials writes ceil(n / this) partials of
+// C*C + C floats each.
+int lmic_gdn_bwd_chunk_rows() { return kChunkRows; }
+
+// x, g, dx: (n, C) contiguous; gamma_t: gamma transposed, (C_in, C_out);
+// gamma: (C_out, C_in); beta: (C,); all of one type (0 = float32,
+// 1 = bfloat16). dn: (n, C) float32 scratch. Each entry point launches on
+// `stream` without synchronising and returns cudaGetLastError() after the
+// launch (0 on success).
+int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
+                    const void *gamma, const void *beta, void *dx, void *dn,
+                    int64_t n, int C, int dtype, int inverse, void *stream) {
+  if (n <= 0) return 0;
+  if (C <= 0 || C > lmic_gdn_bwd_max_channels())
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = inverse ? launch_dx<float, true>(x, g, gamma_t, gamma, beta, dx, dn,
+                                           n, C, s)
+                  : launch_dx<float, false>(x, g, gamma_t, gamma, beta, dx,
+                                            dn, n, C, s);
+  } else if (dtype == 1) {
+    err = inverse ? launch_dx<__nv_bfloat16, true>(x, g, gamma_t, gamma, beta,
+                                                   dx, dn, n, C, s)
+                  : launch_dx<__nv_bfloat16, false>(x, g, gamma_t, gamma,
+                                                    beta, dx, dn, n, C, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// partials: (ceil(n / lmic_gdn_bwd_chunk_rows()), C*C + C) float32; row k
+// holds chunk k's dgamma (C*C, row-major) then its dbeta (C).
+int lmic_gdn_bwd_partials(const void *x, const void *dn, void *partials,
+                          int64_t n, int C, int dtype, void *stream) {
+  if (n <= 0) return 0;
+  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_partials<float>(x, dn, partials, n, C, s);
+  if (dtype == 1)
+    return launch_partials<__nv_bfloat16>(x, dn, partials, n, C, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dbeta (C,), dgamma (C, C) of the input type: the sum of `chunks` partials
+// in chunk order (zeros when chunks is 0).
+int lmic_gdn_bwd_reduce(const void *partials, void *dbeta, void *dgamma,
+                        int64_t chunks, int C, int dtype, void *stream) {
+  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_reduce<float>(partials, dbeta, dgamma, chunks, C, s);
+  if (dtype == 1)
+    return launch_reduce<__nv_bfloat16>(partials, dbeta, dgamma, chunks, C,
+                                        s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char *lmic_gdn_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

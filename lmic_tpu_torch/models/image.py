@@ -28,35 +28,44 @@ from lmic_tpu_torch.layers import GDN, Conv, Deconv
 from lmic_tpu_torch.ops.math import from_amp
 
 
-def _g_a(channel: int, N: int, M: int) -> nn.Sequential:
+def _g_a(channel: int, N: int, M: int, dt) -> nn.Sequential:
     return nn.Sequential(
-        Conv(channel, N), GDN(N),
-        Conv(N, N), GDN(N),
-        Conv(N, N), GDN(N),
-        Conv(N, M),
+        Conv(channel, N, dtype=dt), GDN(N, dtype=dt),
+        Conv(N, N, dtype=dt), GDN(N, dtype=dt),
+        Conv(N, N, dtype=dt), GDN(N, dtype=dt),
+        Conv(N, M, dtype=dt),
     )
 
 
-def _g_s(channel: int, N: int, M: int) -> nn.Sequential:
+def _g_s(channel: int, N: int, M: int, dt) -> nn.Sequential:
     return nn.Sequential(
-        Deconv(M, N), GDN(N, inverse=True),
-        Deconv(N, N), GDN(N, inverse=True),
-        Deconv(N, N), GDN(N, inverse=True),
-        Deconv(N, channel),
+        Deconv(M, N, dtype=dt), GDN(N, inverse=True, dtype=dt),
+        Deconv(N, N, dtype=dt), GDN(N, inverse=True, dtype=dt),
+        Deconv(N, N, dtype=dt), GDN(N, inverse=True, dtype=dt),
+        Deconv(N, channel, dtype=dt),
     )
 
 
 class FactorizedPrior(nn.Module):
-    """4x (conv s2 + GDN) analysis / mirrored synthesis, factorized prior."""
+    """4x (conv s2 + GDN) analysis / mirrored synthesis, factorized prior.
+
+    `dtype` is the activation compute dtype (torch.bfloat16 for AMP
+    training): convs and GDN run in it while the parameters and all
+    entropy/likelihood math stay f32, with `from_amp` casts at the entropy
+    and loss boundaries. Leave None (f32) for codec wires: the bitstream
+    formats assume f32 transforms.
+    """
 
     downsampling_factor = 2**4
 
     def __init__(self, N: int, M: int, channel: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.N, self.M, self.channel = int(N), int(M), int(channel)
-        self.g_a = _g_a(channel, N, M)
-        self.g_s = _g_s(channel, N, M)
+        self.dtype = dtype
+        self.g_a = _g_a(channel, N, M, dtype)
+        self.g_s = _g_s(channel, N, M, dtype)
         self.entropy_bottleneck = EntropyBottleneck(M, generator=generator)
 
     def forward(self, x, training: bool = True,
@@ -79,30 +88,32 @@ class ScaleHyperprior(nn.Module):
     downsampling_factor = 2**6
 
     def __init__(self, N: int, M: int, channel: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.N, self.M, self.channel = int(N), int(M), int(channel)
-        self.g_a = _g_a(channel, N, M)
-        self.g_s = _g_s(channel, N, M)
-        self.h_a = self._make_h_a(N, M)
-        self.h_s = self._make_h_s(N, M)
+        self.dtype = dtype  # see FactorizedPrior
+        self.g_a = _g_a(channel, N, M, dtype)
+        self.g_s = _g_s(channel, N, M, dtype)
+        self.h_a = self._make_h_a(N, M, dtype)
+        self.h_s = self._make_h_s(N, M, dtype)
         self.entropy_bottleneck = EntropyBottleneck(N, generator=generator)
         self.gaussian_conditional = GaussianConditional()
 
     @staticmethod
-    def _make_h_a(N, M):
+    def _make_h_a(N, M, dt):
         return nn.Sequential(
-            Conv(M, N, kernel_size=3, stride=1), nn.ReLU(),
-            Conv(N, N), nn.ReLU(),
-            Conv(N, N),
+            Conv(M, N, kernel_size=3, stride=1, dtype=dt), nn.ReLU(),
+            Conv(N, N, dtype=dt), nn.ReLU(),
+            Conv(N, N, dtype=dt),
         )
 
     @staticmethod
-    def _make_h_s(N, M):
+    def _make_h_s(N, M, dt):
         return nn.Sequential(
-            Deconv(N, N), nn.ReLU(),
-            Deconv(N, N), nn.ReLU(),
-            Conv(N, M, kernel_size=3, stride=1), nn.ReLU(),
+            Deconv(N, N, dtype=dt), nn.ReLU(),
+            Deconv(N, N, dtype=dt), nn.ReLU(),
+            Conv(N, M, kernel_size=3, stride=1, dtype=dt), nn.ReLU(),
         )
 
     def _hyper_input(self, y):
@@ -145,19 +156,19 @@ class MeanScaleHyperprior(ScaleHyperprior):
     Reference google.py:348-416."""
 
     @staticmethod
-    def _make_h_a(N, M):
+    def _make_h_a(N, M, dt):
         return nn.Sequential(
-            Conv(M, N, kernel_size=3, stride=1), nn.LeakyReLU(0.01),
-            Conv(N, N), nn.LeakyReLU(0.01),
-            Conv(N, N),
+            Conv(M, N, kernel_size=3, stride=1, dtype=dt), nn.LeakyReLU(0.01),
+            Conv(N, N, dtype=dt), nn.LeakyReLU(0.01),
+            Conv(N, N, dtype=dt),
         )
 
     @staticmethod
-    def _make_h_s(N, M):
+    def _make_h_s(N, M, dt):
         return nn.Sequential(
-            Deconv(N, M), nn.LeakyReLU(0.01),
-            Deconv(M, M * 3 // 2), nn.LeakyReLU(0.01),
-            Conv(M * 3 // 2, M * 2, kernel_size=3, stride=1),
+            Deconv(N, M, dtype=dt), nn.LeakyReLU(0.01),
+            Deconv(M, M * 3 // 2, dtype=dt), nn.LeakyReLU(0.01),
+            Conv(M * 3 // 2, M * 2, kernel_size=3, stride=1, dtype=dt),
         )
 
     def _hyper_input(self, y):

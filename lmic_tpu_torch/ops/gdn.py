@@ -1,16 +1,22 @@
-"""GDN/IGDN forward: the CUDA kernel (csrc/gdn_fwd.cu) and its plain version.
+"""GDN/IGDN forward and backward: the CUDA kernels and their plain versions.
 
-Counterpart of lmic_tpu/ops/pallas_gdn.py (`gdn_core`, `_gdn_jnp`,
-`_kernel`). `gdn_core(x, beta, gamma, inverse)` takes POST-reparametrization
-beta/gamma and channel-last activations `(..., C)`:
+Counterpart of lmic_tpu/ops/pallas_gdn.py (`gdn_core` with its custom VJP,
+`_gdn_jnp`, `_kernel`, `_gdn_bwd_jnp`, `_bwd_kernel`).
+`gdn_core(x, beta, gamma, inverse)` takes POST-reparametrization beta/gamma
+and channel-last activations `(..., C)`:
 
-- a CUDA tensor goes to the hand-written kernel, `gdn_fwd`; it never falls
-  back to the plain version, and it raises on a dtype or shape the kernel
-  does not take;
-- a CPU tensor goes to `gdn_reference`, the same formula in plain torch.
+- a CUDA tensor goes to the hand-written kernels: `gdn_fwd`
+  (csrc/gdn_fwd.cu) forward and `gdn_bwd` (csrc/gdn_bwd.cu) backward; they
+  never fall back to the plain versions, and they raise on a dtype or shape
+  the kernels do not take;
+- a CPU tensor goes to `gdn_reference` / `gdn_bwd_reference`, the same
+  formulas in plain torch.
 
-The fused backward (`pallas_gdn._bwd_kernel`) is ported with the training
-slice; until then the CUDA path refuses tensors that require a gradient.
+When a gradient is wanted, `gdn_core` runs `GDNCore`, the
+`torch.autograd.Function` counterpart of `gdn_core.defvjp(_gdn_fwd,
+_gdn_bwd)`: the forward saves `(x, beta, gamma)` and nothing else, and the
+backward recomputes the norm. Under `torch.no_grad()`/`inference_mode()`
+the forward runs alone, with no autograd bookkeeping.
 """
 
 from __future__ import annotations
@@ -19,34 +25,57 @@ import ctypes
 import threading
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from lmic_tpu_torch.ops import _build
 
 # Launches of each kernel of this module, counted where the wrapper launches
 # it and nowhere else; a caller resets and reads it to show which path ran.
-LAUNCHES = {"gdn_fwd": 0}
+# `gdn_bwd` launches three kernels, each counted under its own name.
+LAUNCHES = {"gdn_fwd": 0, "gdn_bwd_dx": 0, "gdn_bwd_partials": 0,
+            "gdn_bwd_reduce": 0}
+BWD_KERNELS = ("gdn_bwd_dx", "gdn_bwd_partials", "gdn_bwd_reduce")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOCK = threading.Lock()
-_lib = None
+_libs = {}
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    "gdn_fwd.cu": {
+        "lmic_gdn_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+        "lmic_gdn_fwd_max_channels": [],
+        "lmic_gdn_error_string": [_I],
+    },
+    "gdn_bwd.cu": {
+        "lmic_gdn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                            _P],
+        "lmic_gdn_bwd_partials": [_P, _P, _P, _I64, _I, _I, _P],
+        "lmic_gdn_bwd_reduce": [_P, _P, _P, _I64, _I, _I, _P],
+        "lmic_gdn_bwd_max_channels": [],
+        "lmic_gdn_bwd_chunk_rows": [],
+        "lmic_gdn_bwd_error_string": [_I],
+    },
+}
 
 
-def _load():
-    global _lib
+def _load(source: str):
     with _LOCK:
-        if _lib is None:
-            lib = _build.load("gdn_fwd.cu")
-            lib.lmic_gdn_fwd.restype = ctypes.c_int
-            lib.lmic_gdn_fwd.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.lmic_gdn_fwd_max_channels.restype = ctypes.c_int
-            lib.lmic_gdn_error_string.restype = ctypes.c_char_p
-            lib.lmic_gdn_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-    return _lib
+        lib = _libs.get(source)
+        if lib is None:
+            lib = _build.load(source)
+            for name, argtypes in _SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = (ctypes.c_char_p if name.endswith("string")
+                              else ctypes.c_int)
+            _libs[source] = lib
+    return lib
+
+
+def _acc(x):
+    """Accumulation dtype: f32 for f32/bf16 activations, f64 for f64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def gdn_reference(x, beta, gamma, inverse: bool = False):
@@ -56,38 +85,69 @@ def gdn_reference(x, beta, gamma, inverse: bool = False):
     norm in f32 (f64 for f64 inputs), the scale cast back to the input dtype
     before the multiply. x: (..., C); beta: (C,); gamma: (C_out, C_in).
     """
-    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    acc = _acc(x)
     norm = torch.matmul((x * x).to(acc), gamma.to(acc).t()) + beta.to(acc)
     scale = torch.sqrt(norm) if inverse else torch.rsqrt(norm)
     return x * scale.to(x.dtype)
 
 
-def gdn_fwd(x, beta, gamma, inverse: bool = False):
-    """Launch the CUDA kernel on CUDA tensors x (..., C), beta (C,) and
-    gamma (C, C) of one dtype, float32 or bfloat16."""
+def gdn_bwd_reference(x, beta, gamma, g, inverse: bool = False):
+    """(dx, dbeta, dgamma) of `gdn_reference` for the cotangent `g`, plain
+    torch.
+
+    Mirrors `_gdn_bwd_jnp`: the norm and dn accumulate in f32 (f64 for f64
+    inputs); dn is cast to the input dtype before the two channel products;
+    dx comes back in x's dtype, dbeta/dgamma in beta's/gamma's.
+    """
+    acc = _acc(x)
+    C = x.shape[-1]
+    x2 = x * x
+    norm = torch.matmul(x2.to(acc), gamma.to(acc).t()) + beta.to(acc)
+    g32, x32 = g.to(acc), x.to(acc)
+    if inverse:  # y = x n^(1/2): dL/dn = g x n^(-1/2) / 2
+        dn = 0.5 * g32 * x32 * torch.rsqrt(norm)
+        scale = torch.sqrt(norm)
+    else:  # y = x n^(-1/2): dL/dn = -g x n^(-3/2) / 2
+        dn = -0.5 * g32 * x32 * norm ** -1.5
+        scale = torch.rsqrt(norm)
+    dnx = dn.to(x.dtype).to(acc)
+    dx = g32 * scale + 2.0 * x32 * torch.matmul(dnx, gamma.to(acc))
+    dbeta = dn.reshape(-1, C).sum(0)
+    dgamma = torch.matmul(dnx.reshape(-1, C).t(), x2.reshape(-1, C).to(acc))
+    return dx.to(x.dtype), dbeta.to(beta.dtype), dgamma.to(gamma.dtype)
+
+
+def _check(fn, x, beta, gamma):
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"gdn_fwd takes float32 or bfloat16, got {x.dtype}")
+        raise TypeError(f"{fn} takes float32 or bfloat16, got {x.dtype}")
     C = x.shape[-1]
     if tuple(beta.shape) != (C,) or tuple(gamma.shape) != (C, C):
         raise ValueError(
-            f"gdn_fwd: beta {tuple(beta.shape)} / gamma "
+            f"{fn}: beta {tuple(beta.shape)} / gamma "
             f"{tuple(gamma.shape)} do not fit {C} channels"
         )
     for name, t in (("beta", beta), ("gamma", gamma)):
         if t.device != x.device or t.dtype != x.dtype:
             raise ValueError(
-                f"gdn_fwd: {name} is {t.dtype} on {t.device}, x is "
+                f"{fn}: {name} is {t.dtype} on {t.device}, x is "
                 f"{x.dtype} on {x.device}"
             )
-    if torch.is_grad_enabled() and (
-        x.requires_grad or beta.requires_grad or gamma.requires_grad
-    ):
-        raise NotImplementedError(
-            "the GDN backward kernel is ported with the training slice "
-            "(ROADMAP.md, queue B item 2); run the CUDA path under "
-            "torch.no_grad()"
+    return C
+
+
+def _raise_on(err, lib, what):
+    if err:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.lmic_gdn_bwd_error_string(err).decode()}"
         )
-    lib = _load()
+
+
+def gdn_fwd(x, beta, gamma, inverse: bool = False):
+    """Launch the forward kernel on CUDA tensors x (..., C), beta (C,) and
+    gamma (C, C) of one dtype, float32 or bfloat16."""
+    C = _check("gdn_fwd", x, beta, gamma)
+    lib = _load("gdn_fwd.cu")
     if C > lib.lmic_gdn_fwd_max_channels():
         raise ValueError(f"gdn_fwd: {C} channels exceed the kernel's tile")
     if not x.is_contiguous():
@@ -112,11 +172,101 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
     return y
 
 
-def gdn_core(x, beta, gamma, inverse: bool = False):
-    """GDN/IGDN forward on channel-last `x` (..., C): the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
+def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
+    """Launch the backward kernels on CUDA tensors: x and the cotangent g
+    (..., C), beta (C,), gamma (C, C), all of one dtype, float32 or
+    bfloat16. Returns (dx, dbeta, dgamma) in that dtype.
+
+    Three launches, each counted: `gdn_bwd_dx` (dx and the f32 dn scratch),
+    `gdn_bwd_partials` (per-chunk partial dbeta/dgamma) and
+    `gdn_bwd_reduce` (the fixed-order sum of the partials)."""
+    C = _check("gdn_bwd", x, beta, gamma)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(
+            f"gdn_bwd: cotangent {tuple(g.shape)} {g.dtype} on {g.device} "
+            f"does not match x {tuple(x.shape)} {x.dtype} on {x.device}"
+        )
+    lib = _load("gdn_bwd.cu")
+    if C > lib.lmic_gdn_bwd_max_channels():
+        raise ValueError(f"gdn_bwd: {C} channels exceed the kernel's tile")
+    # the kernels read (n, C) rows; a cotangent that comes back from cuDNN
+    # NCHW-contiguous is copied explicitly, never reinterpreted
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not g.is_contiguous():
+        g = g.contiguous()
+    gamma_t = gamma.t().contiguous()
+    gamma = gamma.contiguous()
+    beta = beta.contiguous()
+    dev, dt = x.device, x.dtype
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dbeta = torch.empty(C, dtype=dt, device=dev)
+    dgamma = torch.empty((C, C), dtype=dt, device=dev)
+    n = x.numel() // C if C else 0
+    chunks = -(-n // lib.lmic_gdn_bwd_chunk_rows())
+    dn = torch.empty((n, C), dtype=torch.float32, device=dev)
+    partials = torch.empty((chunks, C * C + C), dtype=torch.float32,
+                           device=dev)
+    code, inv = _DTYPE_CODES[dt], int(bool(inverse))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if n:
+            _raise_on(lib.lmic_gdn_bwd_dx(
+                x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(),
+                gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
+                dn.data_ptr(), n, C, code, inv, stream,
+            ), lib, "gdn_bwd_dx")
+            LAUNCHES["gdn_bwd_dx"] += 1
+            _raise_on(lib.lmic_gdn_bwd_partials(
+                x.data_ptr(), dn.data_ptr(), partials.data_ptr(), n, C,
+                code, stream,
+            ), lib, "gdn_bwd_partials")
+            LAUNCHES["gdn_bwd_partials"] += 1
+        # with no rows there are no partials, and the sum writes zeros
+        _raise_on(lib.lmic_gdn_bwd_reduce(
+            partials.data_ptr(), dbeta.data_ptr(), dgamma.data_ptr(),
+            chunks, C, code, stream,
+        ), lib, "gdn_bwd_reduce")
+        LAUNCHES["gdn_bwd_reduce"] += 1
+    return dx, dbeta, dgamma
+
+
+def _forward(x, beta, gamma, inverse):
     if x.device.type == "cuda":
         return gdn_fwd(x, beta, gamma, inverse)
     if x.device.type == "cpu":
         return gdn_reference(x, beta, gamma, inverse)
     raise ValueError(f"gdn_core: no GDN path for device {x.device}")
+
+
+class GDNCore(torch.autograd.Function):
+    """GDN/IGDN with the fused backward: the counterpart of lmic_tpu's
+    `gdn_core` custom VJP. Saves `(x, beta, gamma)`, the JAX residuals."""
+
+    @staticmethod
+    def forward(ctx, x, beta, gamma, inverse):
+        ctx.inverse = bool(inverse)
+        ctx.save_for_backward(x, beta, gamma)
+        return _forward(x, beta, gamma, inverse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, beta, gamma = ctx.saved_tensors
+        if x.device.type == "cuda":
+            dx, dbeta, dgamma = gdn_bwd(x, beta, gamma, g, ctx.inverse)
+        else:
+            dx, dbeta, dgamma = gdn_bwd_reference(x, beta, gamma, g,
+                                                  ctx.inverse)
+        return dx, dbeta, dgamma, None
+
+
+def gdn_core(x, beta, gamma, inverse: bool = False):
+    """GDN/IGDN on channel-last `x` (..., C): the CUDA kernels for a CUDA
+    tensor, the plain versions for a CPU tensor; through `GDNCore` when a
+    gradient is wanted."""
+    if torch.is_grad_enabled() and (
+        x.requires_grad or beta.requires_grad or gamma.requires_grad
+    ):
+        return GDNCore.apply(x, beta, gamma, bool(inverse))
+    return _forward(x, beta, gamma, inverse)

@@ -1,0 +1,86 @@
+"""One training step on two devices with the same quantization noise: the
+cross-device check of the training path that `chip_smoke.py` and the card
+tests (tests/test_torch_cuda.py) both run.
+
+`torch.rand` draws other numbers on the card than on the CPU, so
+`fixed_noise` swaps `entropy_models.quantize_noise` for one that adds a
+numpy-made U(-0.5, 0.5) noise, the same for a given shape on any device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from lmic_tpu_torch import zoo
+from lmic_tpu_torch.entropy import entropy_models
+from lmic_tpu_torch.ops import gdn
+from lmic_tpu_torch.utils.train import (
+    create_train_state,
+    make_optimizer,
+    make_train_step,
+)
+
+
+@contextlib.contextmanager
+def fixed_noise(seed: int = 0):
+    """Within the block, training noise is drawn from numpy (`seed`, and
+    the order in which shapes first appear), not from the generator."""
+    cache: Dict[tuple, torch.Tensor] = {}
+
+    def quantize_noise(x, generator=None):
+        key = tuple(x.shape)
+        if key not in cache:
+            rng = np.random.default_rng([seed, len(cache)])
+            cache[key] = torch.from_numpy(
+                rng.uniform(-0.5, 0.5, key).astype(np.float32))
+        return x + cache[key].to(x.device, x.dtype)
+
+    original = entropy_models.quantize_noise
+    entropy_models.quantize_noise = quantize_noise
+    try:
+        yield
+    finally:
+        entropy_models.quantize_noise = original
+
+
+def train_step_agreement(arch: str, quality: int, x: torch.Tensor,
+                         lmbda: float, devices: Sequence[str] = ("cuda",
+                                                                 "cpu"),
+                         **widths):
+    """One step of `arch` (weights from seed 0, `widths` as `N=`/`M=`) on
+    the NCHW batch `x` on each of two `devices`, under `fixed_noise`.
+
+    Returns (loss_err, grad_err, launched): the largest relative difference
+    of the step's losses, the largest difference of a clipped gradient
+    leaf relative to that leaf's largest value on the second device, and
+    the GDN kernel launches on the first device."""
+    results, launched = [], None
+    with fixed_noise():
+        for device in devices:
+            module = zoo.create_model(arch, quality, seed=0, device=device,
+                                      **widths).module
+            opt = make_optimizer()
+            state = create_train_state(module, opt)
+            before = dict(gdn.LAUNCHES)
+            _, metrics = make_train_step(module, opt, lmbda)(
+                state, x.to(device))
+            if launched is None:
+                if torch.device(device).type == "cuda":
+                    torch.cuda.synchronize()
+                launched = {k: gdn.LAUNCHES[k] - before[k]
+                            for k in before}
+            results.append((
+                {k: float(v) for k, v in metrics.items()},
+                {n: p.grad.detach().float().cpu()
+                 for n, p in module.named_parameters()},
+            ))
+    (m_a, g_a), (m_b, g_b) = results
+    loss_err = max(abs(m_a[k] - m_b[k]) / abs(m_b[k]) for k in m_b)
+    grad_err = max(((g_a[n] - g_b[n]).abs().max()
+                    / g_b[n].abs().max().clamp(min=1e-30)).item()
+                   for n in g_b)
+    return loss_err, grad_err, launched

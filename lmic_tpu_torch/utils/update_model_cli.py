@@ -1,0 +1,69 @@
+"""Finalize a training checkpoint for deployment.
+
+Counterpart of lmic_tpu/utils/update_model_cli.py, its plain path: load
+the params of a training checkpoint (utils/checkpoint.py), bake the
+integer coding tables (`codec.update(force=True)`, evaluated on the CPU
+whatever the device) and write `<arch>-q<q>-<sha256[:8]>.ckpt`.
+
+Usage:
+  python -m lmic_tpu_torch.utils.update_model_cli train.ckpt \\
+      -a mbt2018-mean -q 7 -d out/
+
+Not ported yet (each raises, see ROADMAP.md queue A, item 8):
+`--from-torch`, `--raw-params`, `--no-update` (bare params, which only
+`--raw-params` reads back), `--aot-shape`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from lmic_tpu_torch import zoo
+from lmic_tpu_torch.utils import checkpoint as ckpt
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(description="lmic_tpu_torch update_model")
+    p.add_argument("checkpoint", help="training checkpoint (.ckpt)")
+    p.add_argument("-a", "--arch", default="bmshj2018-factorized")
+    p.add_argument("-q", "--quality", type=int, default=1)
+    p.add_argument("--channel", type=int, default=3)
+    p.add_argument("-d", "--dir", dest="out_dir", default=".",
+                   help="output directory")
+    p.add_argument("-n", "--name", default=None,
+                   help="output stem (default: <arch>-q<quality>)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: CUDA; raises without a GPU "
+                        "unless 'cpu' is given)")
+    for flag in ("--raw-params", "--from-torch", "--no-update"):
+        p.add_argument(flag, action="store_true", help="not ported")
+    p.add_argument("--aot-shape", default=None, help="not ported")
+    return p.parse_args(argv)
+
+
+def run(argv=None):
+    args = parse_args(argv if argv is not None else sys.argv[1:])
+    for flag in ("raw_params", "from_torch", "no_update", "aot_shape"):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported; ROADMAP.md "
+                "queue A, item 8"
+            )
+    codec = zoo.create_model(args.arch, args.quality, channel=args.channel,
+                             device=args.device)
+    # params only: works whatever optimizer settings the run used
+    ckpt.load_train_params(args.checkpoint, codec.module)
+    name = args.name or f"{args.arch}-q{args.quality}"
+    out = ckpt.update_model_file(args.out_dir, codec, name)
+    print(out)
+    return out
+
+
+def main(argv=None):
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

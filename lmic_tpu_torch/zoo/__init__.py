@@ -51,9 +51,12 @@ model_architectures: Dict[str, Tuple[Any, Any]] = {
 
 
 def make_module(architecture: str, quality: int, channel: int = 3,
-                generator: Optional[torch.Generator] = None, **kwargs):
+                generator: Optional[torch.Generator] = None,
+                dtype: Optional[torch.dtype] = None, **kwargs):
     """Build the module for an architecture/quality; `N=`/`M=` override
-    the quality table's widths (parity tests use narrow models)."""
+    the quality table's widths (parity tests use narrow models); `dtype`
+    is the activation compute dtype (torch.bfloat16 for AMP training,
+    None for f32 and for every codec wire)."""
     if architecture not in model_architectures:
         raise ValueError(f'Invalid architecture name "{architecture}"')
     if quality not in cfgs[architecture]:
@@ -64,7 +67,8 @@ def make_module(architecture: str, quality: int, channel: int = 3,
     if kwargs:
         raise TypeError(f"unexpected arguments {sorted(kwargs)}")
     module_cls, _ = model_architectures[architecture]
-    return module_cls(N=N, M=M, channel=channel, generator=generator)
+    return module_cls(N=N, M=M, channel=channel, generator=generator,
+                      dtype=dtype)
 
 
 @torch.no_grad()
@@ -88,14 +92,16 @@ def _init_convs(module: nn.Module, generator: torch.Generator):
 
 def create_model(architecture: str, quality: int, seed: int = 0,
                  channel: int = 3, device=None, state_dict=None,
+                 dtype: Optional[torch.dtype] = None,
                  **kwargs) -> CompressionCodec:
     """Construct the module with weights drawn from `seed` (or loaded from
     a `state_dict` with CompressAI key names) and wrap it in its codec on
-    `device`. Raises without a GPU unless `device="cpu"` is given."""
+    `device`. Raises without a GPU unless `device="cpu"` is given. The
+    weights do not depend on `dtype`."""
     device = default_device(device)
     generator = torch.Generator().manual_seed(seed)
     module = make_module(architecture, quality, channel=channel,
-                         generator=generator, **kwargs)
+                         generator=generator, dtype=dtype, **kwargs)
     _, codec_cls = model_architectures[architecture]
     _init_convs(module, generator)
     if state_dict is not None:

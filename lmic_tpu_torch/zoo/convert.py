@@ -50,7 +50,8 @@ def _deconv_weight(kernel: np.ndarray) -> np.ndarray:
 def state_dict_from_jax(arch: str, params: Mapping[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """lmic_tpu `variables["params"]` (numpy leaves) -> this package's
-    `state_dict` for `arch`."""
+    `state_dict` for `arch`, in the leaves' dtype. The map is linear, so it
+    carries a gradient tree of the same structure across too."""
     if arch not in _DECONVS:
         raise ValueError(f"no converter for '{arch}'")
     out: Dict[str, np.ndarray] = {}
@@ -72,7 +73,7 @@ def state_dict_from_jax(arch: str, params: Mapping[str, Any]
             name = f"_{kind}{k}"
         out[f"entropy_bottleneck.{name}"] = np.asarray(v)
     return {
-        k: torch.from_numpy(np.array(v, dtype=np.float32))  # own copy
+        k: torch.from_numpy(np.array(v))  # own copy
         for k, v in out.items()
     }
 

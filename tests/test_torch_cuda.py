@@ -1,7 +1,7 @@
-"""The port on the card: the CUDA GDN kernel against its plain version,
-the layer and the codecs against the CPU path. Every test needs an NVIDIA
-GPU and skips elsewhere. This file imports no JAX, so it also runs where
-JAX is not installed:
+"""The port on the card: the CUDA GDN kernels (forward and backward)
+against their plain versions, the layer, the codecs and a training step
+against the CPU path. Every test needs an NVIDIA GPU and skips elsewhere.
+This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -64,8 +64,44 @@ def test_kernel_refuses_what_it_does_not_take():
         gdn.gdn_fwd(x, beta[:16], gamma)
     with pytest.raises(ValueError):
         gdn.gdn_fwd(x, beta.cpu(), gamma)
-    with pytest.raises(NotImplementedError):
-        gdn.gdn_fwd(x.requires_grad_(), beta, gamma)
+    with pytest.raises(TypeError):
+        gdn.gdn_bwd(x.double(), beta.double(), gamma.double(), x.double())
+    with pytest.raises(ValueError):
+        gdn.gdn_bwd(x, beta, gamma, x[:8])
+    with pytest.raises(ValueError):
+        gdn.gdn_bwd(x, beta, gamma.cpu(), x)
+    # a CUDA input that needs a gradient runs the forward kernel once and
+    # the three backward kernels once each on .backward()
+    before = dict(gdn.LAUNCHES)
+    y = gdn.gdn_core(x.requires_grad_(), beta, gamma)
+    assert gdn.LAUNCHES["gdn_fwd"] == before["gdn_fwd"] + 1
+    assert all(gdn.LAUNCHES[k] == before[k] for k in gdn.BWD_KERNELS)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert all(gdn.LAUNCHES[k] == before[k] + 1 for k in gdn.BWD_KERNELS)
+    assert gdn.LAUNCHES["gdn_fwd"] == before["gdn_fwd"] + 1
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", [(6151, 192), (6144, 128), (1, 16),
+                                    (130, 320)])
+def test_bwd_kernel_matches_reference(dtype, inverse, rows, C):
+    x, beta, gamma = _data(rows, C, dtype)
+    g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
+                    ).to("cuda", dtype)
+    before = dict(gdn.LAUNCHES)
+    got = gdn.gdn_bwd(x, beta, gamma, g, inverse)
+    torch.cuda.synchronize()
+    assert all(gdn.LAUNCHES[k] == before[k] + 1 for k in gdn.BWD_KERNELS)
+    want = gdn.gdn_bwd_reference(x, beta, gamma, g, inverse)
+    for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) < TOL[dtype], name
+    # partial sums in a fixed order, no atomics: the same bytes every time
+    again = gdn.gdn_bwd(x, beta, gamma, g, inverse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -83,6 +119,30 @@ def test_layer_on_card_matches_cpu(inverse):
         # an NCHW-contiguous input takes an explicit copy, same bytes
         assert torch.equal(got, layer(x.cuda().contiguous()))
     assert _rel_err(got.cpu(), want) < 1e-5
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_layer_grads_on_card_match_cpu(inverse):
+    """Gradients through the layer (x, and the stored beta/gamma through
+    the reparametrization), with an incoming gradient that is
+    NCHW-contiguous, so the NHWC view the kernel reads takes an explicit
+    copy."""
+    gen = torch.Generator().manual_seed(2)
+    layer = GDN(64, inverse=inverse)
+    with torch.no_grad():
+        layer.gamma.add_(torch.rand((64, 64), generator=gen) * 0.1)
+    x = torch.randn((2, 64, 9, 7), generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn((2, 64, 9, 7), generator=gen)  # NCHW-contiguous
+    grads = []
+    for device in ("cpu", "cuda"):
+        layer.zero_grad()
+        xd = x.detach().to(device).requires_grad_()  # a leaf on each
+        (layer.to(device)(xd) * w.to(device)).sum().backward()
+        grads.append([t.detach().cpu() for t in
+                      (xd.grad, layer.beta.grad, layer.gamma.grad)])
+    for name, want, got in zip(("x", "beta", "gamma"), *grads):
+        assert _rel_err(got, want) < 1e-5, name
 
 
 @pytest.mark.parametrize("arch", sorted(zoo.model_architectures))
@@ -106,3 +166,19 @@ def test_codec_on_card(arch):
         y_cpu = cpu.module.g_a(xt)
         y_cuda = cuda.module.g_a(xt.cuda()).cpu()
     assert _rel_err(y_cuda, y_cpu) < 1e-4
+
+
+@pytest.mark.parametrize("arch", sorted(zoo.model_architectures))
+def test_train_step_on_card_matches_cpu(arch):
+    """The same step, weights and noise on the card and on the CPU: f32
+    sums in another order on each device, so the losses agree to 1e-4
+    relative and each clipped gradient leaf to 1e-3 of its largest
+    value."""
+    from lmic_tpu_torch.utils.crosscheck import train_step_agreement
+
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 64, 128, 3), dtype=np.float32)).permute(0, 3, 1, 2)
+    loss_err, grad_err, launched = train_step_agreement(
+        arch, 1, x, 1024, N=32, M=48)
+    assert launched == {k: 6 for k in gdn.LAUNCHES}
+    assert loss_err <= 1e-4 and grad_err <= 1e-3, (loss_err, grad_err)

@@ -1,9 +1,11 @@
-"""GDN/IGDN forward of the port: the plain version `gdn_reference` against
-lmic_tpu's `_gdn_jnp` and against its Pallas kernel in interpret mode, the
-dispatch of `gdn_core`, and the `GDN` layer against lmic_tpu's. The CUDA
-kernel itself is held to `gdn_reference` on the card by
-tests/test_torch_cuda.py."""
+"""GDN/IGDN of the port: the plain versions `gdn_reference` and
+`gdn_bwd_reference` against lmic_tpu's `_gdn_jnp`/`_gdn_bwd_jnp` and
+against its Pallas kernels in interpret mode, the dispatch of `gdn_core`
+and its autograd Function, and the `GDN` layer (output and gradients)
+against lmic_tpu's. The CUDA kernels themselves are held to the plain
+versions on the card by tests/test_torch_cuda.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,3 +97,97 @@ def test_gdn_layer_matches_lmic_tpu(inverse):
                                np.asarray(want), rtol=1e-5, atol=1e-5)
     assert torch.equal(got, got_nchw)
 
+
+
+def _cotangent(seed, shape, dtype):
+    g = np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32)
+    return jnp.asarray(g).astype(dtype), torch.from_numpy(g).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("against", ["jnp", "interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("ragged", [0, 7])
+def test_bwd_reference_matches_lmic_tpu(against, dtype, inverse, ragged,
+                                        monkeypatch):
+    """The plain backward against `_gdn_bwd_jnp` and against the fused
+    Pallas backward run by the interpreter, at the bars of
+    `test_fused_backward_matches_jnp`, full and ragged tiles."""
+    shape = (2 * pallas_gdn.TILE_N + ragged, C)
+    (jx, jb, jg), (tx, tb, tg) = _data(4, shape, dtype)
+    jc, tc = _cotangent(5, shape, dtype)
+    if against == "jnp":
+        want = pallas_gdn._gdn_bwd_jnp(inverse, (jx, jb, jg), jc)
+    else:
+        monkeypatch.setenv("LMIC_PALLAS", "interpret")
+        want = pallas_gdn._gdn_bwd(inverse, (jx, jb, jg), jc)
+    got = tgdn.gdn_bwd_reference(tx, tb, tg, tc, inverse)
+    for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
+        assert str(a.dtype).removeprefix("torch.") == str(b.dtype), name
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) < TOL[dtype], name
+
+
+def test_core_records_a_gradient_only_when_asked():
+    _, (tx, tb, tg) = _data(6, (5, C), "float32")
+    tx.requires_grad_()
+    y = tgdn.gdn_core(tx, tb, tg)
+    assert isinstance(y.grad_fn, tgdn.GDNCore._backward_cls)
+    with torch.no_grad():
+        assert tgdn.gdn_core(tx, tb, tg).grad_fn is None
+    with torch.inference_mode():
+        assert tgdn.gdn_core(tx, tb, tg).grad_fn is None
+    # the Function's backward is the plain backward on the CPU
+    g = torch.ones_like(y)
+    (dx,) = torch.autograd.grad(y, tx, g)
+    assert torch.equal(dx, tgdn.gdn_bwd_reference(tx.detach(), tb, tg, g)[0])
+
+
+def _layer_grads(inverse, dtype):
+    """Gradients of sum(sin(GDN(x))) w.r.t. x and the stored beta/gamma
+    (through the reparametrization), in the port and in lmic_tpu."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(0, 1, (2, 9, 7, C))
+    layer = GDN(C, inverse=inverse).to(getattr(torch, dtype))
+    with torch.no_grad():  # reparametrized values off the init diagonal
+        layer.beta.add_(torch.from_numpy(rng.uniform(0, 0.5, C)))
+        layer.gamma.add_(torch.from_numpy(rng.uniform(0, 0.1, (C, C))))
+    params = {"beta": layer.beta.detach().numpy(),
+              "gamma": layer.gamma.detach().numpy()}
+    xt = torch.from_numpy(x.astype(dtype)).permute(0, 3, 1, 2)
+    xt.requires_grad_()
+    torch.sin(layer(xt)).sum().backward()
+    got = [xt.grad.permute(0, 2, 3, 1), layer.beta.grad, layer.gamma.grad]
+
+    def loss(xj, p):
+        return jnp.sum(jnp.sin(JGDN(inverse=inverse).apply({"params": p},
+                                                           xj)))
+
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    gx, gp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x.astype(dtype)), jp)
+    return got, [gx, gp["beta"], gp["gamma"]]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_layer_grads_match_lmic_tpu_f32(inverse):
+    got, want = _layer_grads(inverse, "float32")
+    for name, a, b in zip(("x", "beta", "gamma"), got, want):
+        assert _rel_err(a, b) < 1e-5, name
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_layer_grads_match_lmic_tpu_f64(inverse):
+    """The bar of `test_gradient_parity_f64`: in f64 only the algorithm
+    shows, not the summation order."""
+    enabled = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        got, want = _layer_grads(inverse, "float64")
+    finally:
+        jax.config.update("jax_enable_x64", enabled)
+    for name, a, b in zip(("x", "beta", "gamma"), got, want):
+        assert a.dtype == torch.float64, name
+        b = np.asarray(b)
+        err = np.abs(a.numpy() - b).max() / max(1.0, np.abs(b).max())
+        assert err < 1e-10, name
