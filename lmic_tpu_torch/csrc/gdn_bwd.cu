@@ -15,24 +15,37 @@
 // against x and g read and dx written, 3*n*C elements. At C = 192 in f32
 // that is 96 operations per byte, far above the H100's ~20 FP32 operations
 // per byte of HBM: bound by the FP32 CUDA cores (TF32 is off, as the JAX
-// kernel runs f32 at Precision.HIGHEST). In bf16 the same work on the
-// tensor cores would be bound by bytes; this kernel still uses FP32 FMAs.
+// kernel runs f32 at Precision.HIGHEST). In bf16 the products run on the
+// tensor cores (58 GFLOP at 262,144 x 192, 0.06 ms at 989 TFLOP/s), and
+// it is bound by bytes: x, g and dx (0.09 ms), plus the f32 dn scratch
+// that the structure below writes and reads back.
 //
 // The hazard is the reduction over rows. The TPU kernel adds each tile's
 // dbeta/dgamma into an output block that every sequential grid step
 // revisits; CUDA blocks run in no order. So the design is three launches,
 // no atomics, and the same bytes on every run:
-//  1. gdn_bwd_dx: one CTA per 64-row tile. It stages x^2 transposed in
-//     shared memory and recomputes the norm with exactly the forward
-//     kernel's loop (csrc/gdn_fwd.cu: same tile, same summation order);
-//     forms dn and g*scale elementwise; writes dn in f32 to an (n, C)
-//     scratch; stages dn (rounded to the input type) transposed over the
-//     x^2 tile, and forms dx = g*scale + 2x (dn . gamma) with the same
-//     8-row register tile, gamma read through the read-only path.
+//  1. gdn_bwd_dx: one CTA per 64-row tile. It recomputes the norm with
+//     the forward kernel's sums (csrc/gdn_fwd.cu: the same products, added
+//     in the same order); forms dn and g*scale elementwise; writes dn in f32
+//     to an (n, C) scratch; stages dn rounded to the input type, and forms
+//     dx = g*scale + 2x (dn . gamma).
+//     float32 (gdn_bwd_dx_kernel): x^2, then dn, staged transposed in
+//     shared memory, both products with an 8-row register tile of FP32
+//     FMAs, gamma read through the read-only path.
+//     bfloat16 (gdn_bwd_dx_mma_kernel): 8 warps on the tensor cores. x^2
+//     staged as bf16; product 1 runs panel by panel (gamma^T in 64-column
+//     panels, csrc/gdn_mma.cuh) into an f32 norm tile in shared memory;
+//     dn in bf16 is staged over x^2 and g*scale over the norm; product 2
+//     runs panel by panel (gamma), each panel's sums through shared memory
+//     to the dx epilogue. 103 KB of shared memory at C = 192.
 //  2. gdn_bwd_partials: one CTA per (1024-row chunk, 64x64 block of
-//     dgamma). A plain SGEMM tile: 32-row slices of dn and x^2 staged in
-//     shared memory, a 4x4 register tile per thread; the CTAs of the first
-//     column block also sum dbeta. Each writes its chunk's partial sums.
+//     dgamma); the CTAs of the first column block also sum dbeta. Each
+//     writes its chunk's partial sums.
+//     float32 (gdn_bwd_partials_kernel): a plain SGEMM tile, 32-row slices
+//     of dn and x^2 staged in shared memory, a 4x4 register tile a thread.
+//     bfloat16 (gdn_bwd_partials_mma_kernel): 64-row slices of dn (rounded
+//     to bf16) and x^2 staged as bf16, the block as a dn^T . x^2 product of
+//     wmma fragments (A = dn^T read column-major from the staged dn).
 //  3. gdn_bwd_reduce: one thread per dgamma/dbeta element sums the chunks'
 //     partials in chunk order and casts to the output type.
 // The number of partials is ceil(n / 1024): it depends on n, never on the
@@ -44,12 +57,13 @@
 // products accumulate in f32; dn is rounded to the input type before both
 // the dn . gamma and the dn^T . x^2 products, while dbeta sums the f32 dn;
 // dx is rounded once at the store, dbeta/dgamma once after the final sum.
-// Tensor cores (wgmma), TMA and a fused single pass are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "gdn_mma.cuh"
 
 namespace {
 
@@ -76,14 +90,9 @@ struct Io<float> {
   static __device__ __forceinline__ float store(float v) { return v; }
 };
 
+// bf16 runs only through the reduce; its products are the *_mma kernels
 template <>
 struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16 *p) {
-    return __bfloat162float(__ldg(p));
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
   static __device__ __forceinline__ __nv_bfloat16 store(float v) {
     return __float2bfloat16(v);
   }
@@ -301,6 +310,197 @@ __global__ void __launch_bounds__(kReduceThreads)
     dbeta[e - static_cast<int64_t>(C) * C] = Io<T>::store(s);
 }
 
+template <bool kInverse>
+__global__ void __launch_bounds__(gdn_mma::kMmaThreads, 2)
+    gdn_bwd_dx_mma_kernel(const __nv_bfloat16 *__restrict__ x,
+                          const __nv_bfloat16 *__restrict__ g,
+                          const __nv_bfloat16 *__restrict__ gamma_t,
+                          const __nv_bfloat16 *__restrict__ gamma,
+                          const __nv_bfloat16 *__restrict__ beta,
+                          __nv_bfloat16 *__restrict__ dx,
+                          float *__restrict__ dn, int64_t n, int C,
+                          bool vec) {
+  using namespace gdn_mma;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int Cp = padded(C);
+  const int lda = tile_ld(Cp);
+  const int ldt = Cp + 4;
+  bf16 *a = reinterpret_cast<bf16 *>(smem);  // [kTileRows][lda]: x^2, then dn
+  // [kTileRows][ldt]: the norm's sums, then g*scale
+  float *t = reinterpret_cast<float *>(a + kTileRows * lda);
+  // [Cp][kPanelLd]: a panel of gamma^T or gamma, then [kTileRows][kAccLd] f32:
+  // a panel's sums
+  bf16 *p = reinterpret_cast<bf16 *>(t + kTileRows * ldt);
+  float *sums = reinterpret_cast<float *>(p);
+
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTileRows;
+  const int rows = static_cast<int>(
+      n - row0 < kTileRows ? n - row0 : static_cast<int64_t>(kTileRows));
+
+  // product 1: the norm's sums, the same bf16 products as
+  // gdn_fwd_mma_kernel's, added over k = 0..Cp-1 in the same order
+  stage_squares(a, x, row0, rows, C, Cp, vec);
+  for (int o0 = 0; o0 < C; o0 += kPanel) {
+    __syncthreads();  // every warp is done reading the previous panel
+    stage_panel(p, gamma_t, o0, C, Cp, vec);
+    __syncthreads();
+    FragC acc[2];
+    panel_product(acc, a, p, Cp);
+    store_block(t, ldt, o0, Cp, acc);
+  }
+  __syncthreads();
+
+  // elementwise: dn (f32 to the scratch, bf16 over x^2) and g * scale
+  // (over the norm); padding and rows past n stage dn = 0
+  const int chunks = Cp / 8;
+  for (int e = threadIdx.x; e < kTileRows * chunks; e += kMmaThreads) {
+    const int r = e / chunks;
+    const int c = (e - r * chunks) * 8;
+    const int valid = r < rows ? C - c : 0;
+    float d[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (valid > 0) {
+      const int64_t at = (row0 + r) * C + c;
+      float xv[8], gv[8], bv[8];
+      load8(x + at, valid, vec, xv);
+      load8(g + at, valid, vec, gv);
+      load8(beta + c, valid, vec, bv);
+      float *tr = t + r * ldt + c;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k >= valid) continue;
+        const float norm = tr[k] + bv[k];
+        const float rs = rsqrtf(norm);
+        float s;
+        if (kInverse) {
+          d[k] = 0.5f * gv[k] * xv[k] * rs;
+          s = sqrtf(norm);
+        } else {
+          d[k] = -0.5f * gv[k] * xv[k] * (rs * rs * rs);
+          s = rs;
+        }
+        tr[k] = gv[k] * s;
+      }
+      store8(dn + at, valid, vec, d);
+    }
+    *reinterpret_cast<uint4 *>(a + r * lda + c) = pack8(d);
+  }
+
+  // product 2: dx = g * scale + 2 x (dn . gamma), panel by panel
+  for (int i0 = 0; i0 < C; i0 += kPanel) {
+    __syncthreads();  // dn is staged; the previous epilogue is done
+    stage_panel(p, gamma, i0, C, Cp, vec);
+    __syncthreads();
+    FragC acc[2];
+    panel_product(acc, a, p, Cp);
+    __syncthreads();  // every warp is done reading the panel
+    store_block(sums, kAccLd, 0, kPanel, acc);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTileRows * (kPanel / 8); e += kMmaThreads) {
+      const int r = e / (kPanel / 8);
+      const int c = (e % (kPanel / 8)) * 8;
+      const int valid = r < rows ? C - i0 - c : 0;
+      if (valid <= 0) continue;
+      const int64_t at = (row0 + r) * C + i0 + c;
+      float xv[8], out[8];
+      load8(x + at, valid, vec, xv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        out[k] = t[r * ldt + i0 + c + k] +
+                 2.0f * xv[k] * sums[r * kAccLd + c + k];
+      store8(dx + at, valid, vec, out);
+    }
+  }
+}
+
+constexpr int kSlice = 64;  // rows staged per step of the bf16 partials
+
+__global__ void __launch_bounds__(gdn_mma::kMmaThreads)
+    gdn_bwd_partials_mma_kernel(const __nv_bfloat16 *__restrict__ x,
+                                const float *__restrict__ dn,
+                                float *__restrict__ partials, int64_t n,
+                                int C, bool vec) {
+  using namespace gdn_mma;
+  // [kSlice][kPanelLd] dn rounded to bf16, then as many of x^2 in bf16;
+  // at the end the block's f32 sums, [kTileRows][kAccLd]
+  __shared__ __align__(128) unsigned char smem[2 * kSlice * kPanelLd * 2];
+  __shared__ float dbs[kMmaThreads / 8][kPanel];
+  static_assert(2 * kSlice * kPanelLd * 2 >= kTileRows * kAccLd * 4,
+                "the sums overlay the staged slices");
+  static_assert(kPanel == kTile && kTileRows == kTile, "64 x 64 dgamma blocks");
+  bf16 *dns = reinterpret_cast<bf16 *>(smem);
+  bf16 *x2s = dns + kSlice * kPanelLd;
+  float *sums = reinterpret_cast<float *>(smem);
+
+  const int tiles = (C + kTile - 1) / kTile;
+  const int o0 = (blockIdx.x / tiles) * kTile;
+  const int i0 = (blockIdx.x % tiles) * kTile;
+  const int64_t start = static_cast<int64_t>(blockIdx.y) * kChunkRows;
+  const int64_t end = n - start < kChunkRows ? n : start + kChunkRows;
+  // a thread stages the same 8 columns of every slice, rows tid / 8 + 32 m
+  const int c = (threadIdx.x % 8) * 8;
+  const int warp = threadIdx.x / 32;
+  const int m0 = (warp % 4) * 16;  // this warp's dgamma rows o0 + m0 ..
+  const int n0 = (warp / 4) * 32;  // and columns i0 + n0 ..
+
+  FragC acc[2];
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+  float db[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int64_t s0 = start; s0 < end; s0 += kSlice) {
+    for (int e = threadIdx.x; e < kSlice * 8; e += kMmaThreads) {
+      const int rr = e / 8;
+      const int64_t row = s0 + rr;
+      float d[8], v[8];
+      load8(dn + row * C + o0 + c, row < end ? C - o0 - c : 0, vec, d);
+      load8(x + row * C + i0 + c, row < end ? C - i0 - c : 0, vec, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        db[k] += d[k];  // the unrounded dn, rows in a fixed order
+        v[k] *= v[k];
+      }
+      *reinterpret_cast<uint4 *>(dns + rr * kPanelLd + c) = pack8(d);
+      *reinterpret_cast<uint4 *>(x2s + rr * kPanelLd + c) = pack8(v);
+    }
+    __syncthreads();
+    for (int k = 0; k < kSlice; k += 16) {
+      // A = dn^T: element (o, r) at dns[r][o], i.e. column-major
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
+      wmma::load_matrix_sync(fa, dns + k * kPanelLd + m0, kPanelLd);
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        FragB fb;
+        wmma::load_matrix_sync(fb, x2s + k * kPanelLd + n0 + 16 * f,
+                               kPanelLd);
+        wmma::mma_sync(acc[f], fa, fb, acc[f]);
+      }
+    }
+    __syncthreads();
+  }
+
+  store_block(sums, kAccLd, 0, kPanel, acc);
+  if (i0 == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dbs[threadIdx.x / 8][c + k] = db[k];
+  }
+  __syncthreads();
+  float *out = partials + static_cast<int64_t>(blockIdx.y) * (C * C + C);
+  for (int e = threadIdx.x; e < kTileRows * (kPanel / 8); e += kMmaThreads) {
+    const int r = e / (kPanel / 8);
+    const int cc = (e % (kPanel / 8)) * 8;
+    if (o0 + r >= C) continue;
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = sums[r * kAccLd + cc + k];
+    store8(out + static_cast<int64_t>(o0 + r) * C + i0 + cc, C - i0 - cc, vec,
+           v);
+  }
+  if (i0 == 0 && threadIdx.x < kPanel && o0 + threadIdx.x < C) {
+    float s = 0.f;
+    for (int k = 0; k < kMmaThreads / 8; ++k) s += dbs[k][threadIdx.x];
+    out[C * C + o0 + threadIdx.x] = s;
+  }
+}
+
 size_t dx_smem(int C) {
   return static_cast<size_t>(C) * (kStride + kRows) * sizeof(float);
 }
@@ -336,6 +536,52 @@ cudaError_t launch_partials(const void *x, const void *dn, void *partials,
   return cudaGetLastError();
 }
 
+size_t dx_mma_smem(int C) {
+  const int Cp = gdn_mma::padded(C);
+  return static_cast<size_t>(gdn_mma::kTileRows) *
+             (gdn_mma::tile_ld(Cp) * 2 + (Cp + 4) * sizeof(float)) +
+         gdn_mma::panel_bytes(Cp);
+}
+
+template <bool kInverse>
+cudaError_t launch_dx_mma(const void *x, const void *g, const void *gamma_t,
+                          const void *gamma, const void *beta, void *dx,
+                          void *dn, int64_t n, int C, cudaStream_t stream) {
+  const size_t smem = dx_mma_smem(C);
+  auto kernel = gdn_bwd_dx_mma_kernel<kInverse>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // 16-byte vectors need whole rows of 8 elements and aligned bases
+  const bool vec = C % 8 == 0 && gdn_mma::aligned16(x) &&
+                   gdn_mma::aligned16(g) && gdn_mma::aligned16(gamma_t) &&
+                   gdn_mma::aligned16(gamma) && gdn_mma::aligned16(beta) &&
+                   gdn_mma::aligned16(dx) && gdn_mma::aligned16(dn);
+  using T = __nv_bfloat16;
+  const int64_t blocks = (n + gdn_mma::kTileRows - 1) / gdn_mma::kTileRows;
+  kernel<<<static_cast<unsigned>(blocks), gdn_mma::kMmaThreads, smem, stream>>>(
+      static_cast<const T *>(x), static_cast<const T *>(g),
+      static_cast<const T *>(gamma_t), static_cast<const T *>(gamma),
+      static_cast<const T *>(beta), static_cast<T *>(dx),
+      static_cast<float *>(dn), n, C, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_partials_mma(const void *x, const void *dn,
+                                void *partials, int64_t n, int C,
+                                cudaStream_t stream) {
+  const int tiles = (C + kTile - 1) / kTile;
+  const dim3 grid(static_cast<unsigned>(tiles * tiles),
+                  static_cast<unsigned>((n + kChunkRows - 1) / kChunkRows));
+  const bool vec = C % 8 == 0 && gdn_mma::aligned16(x) &&
+                   gdn_mma::aligned16(dn) && gdn_mma::aligned16(partials);
+  gdn_bwd_partials_mma_kernel<<<grid, gdn_mma::kMmaThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16 *>(x), static_cast<const float *>(dn),
+      static_cast<float *>(partials), n, C, vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_reduce(const void *partials, void *dbeta, void *dgamma,
                           int64_t chunks, int C, cudaStream_t stream) {
@@ -352,10 +598,16 @@ cudaError_t launch_reduce(const void *partials, void *dbeta, void *dgamma,
 
 extern "C" {
 
-// The largest C whose two staged tiles fit the 227 KB of shared memory a
-// CTA may use on Hopper.
-int lmic_gdn_bwd_max_channels() {
-  return static_cast<int>(232448 / ((kStride + kRows) * sizeof(float)));
+// The largest C whose staged tiles fit the 227 KB of shared memory a CTA
+// may use on Hopper, for dtype 0 = float32 or 1 = bfloat16 (0 for others).
+int lmic_gdn_bwd_max_channels(int dtype) {
+  if (dtype == 0)
+    return static_cast<int>(232448 / ((kStride + kRows) * sizeof(float)));
+  if (dtype != 1) return 0;
+  int C = 16;
+  while (dx_mma_smem(C + 16) <= static_cast<size_t>(gdn_mma::kSmemLimit))
+    C += 16;
+  return C;
 }
 
 // Rows per partial sum: gdn_bwd_partials writes ceil(n / this) partials of
@@ -371,7 +623,7 @@ int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
                     const void *gamma, const void *beta, void *dx, void *dn,
                     int64_t n, int C, int dtype, int inverse, void *stream) {
   if (n <= 0) return 0;
-  if (C <= 0 || C > lmic_gdn_bwd_max_channels())
+  if (C <= 0 || C > lmic_gdn_bwd_max_channels(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -380,13 +632,11 @@ int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
                                            n, C, s)
                   : launch_dx<float, false>(x, g, gamma_t, gamma, beta, dx,
                                             dn, n, C, s);
-  } else if (dtype == 1) {
-    err = inverse ? launch_dx<__nv_bfloat16, true>(x, g, gamma_t, gamma, beta,
-                                                   dx, dn, n, C, s)
-                  : launch_dx<__nv_bfloat16, false>(x, g, gamma_t, gamma,
-                                                    beta, dx, dn, n, C, s);
   } else {
-    err = cudaErrorInvalidValue;
+    err = inverse ? launch_dx_mma<true>(x, g, gamma_t, gamma, beta, dx, dn, n,
+                                        C, s)
+                  : launch_dx_mma<false>(x, g, gamma_t, gamma, beta, dx, dn,
+                                         n, C, s);
   }
   return static_cast<int>(err);
 }
@@ -399,8 +649,7 @@ int lmic_gdn_bwd_partials(const void *x, const void *dn, void *partials,
   if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_partials<float>(x, dn, partials, n, C, s);
-  if (dtype == 1)
-    return launch_partials<__nv_bfloat16>(x, dn, partials, n, C, s);
+  if (dtype == 1) return launch_partials_mma(x, dn, partials, n, C, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

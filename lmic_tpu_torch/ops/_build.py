@@ -2,7 +2,8 @@
 
 Each source under `lmic_tpu_torch/csrc/` compiles to its own library in
 `lmic_tpu_torch/_build/` (listed in .gitignore), named after a hash of the
-source and the command, so an edited source never loads a stale library.
+source, the shared CUDA headers (`csrc/*.cuh`) for a `.cu` source, and the
+command, so an edited source or header never loads a stale library.
 The compiler writes to a temporary file that is then `os.replace`d into
 place: concurrent processes (pytest-xdist workers, a server and a test)
 may each build, and none ever loads a half-written file. A failed build
@@ -15,6 +16,7 @@ compiles them in seconds without PyTorch's headers or ninja.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -60,10 +62,21 @@ def _command(source: str, out: str):
     return ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", out, src]
 
 
+def _inputs(source: str):
+    """The files `source`'s library is built from: the source and, for a
+    CUDA source, every shared header it may include."""
+    paths = [os.path.join(CSRC, source)]
+    if source.endswith(".cu"):
+        paths += sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    return paths
+
+
 def library_path(source: str) -> str:
     """Where `source`'s library lives once built (it may not exist yet)."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    for path in _inputs(source):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(_command(source, "")[1:]).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")

@@ -6,9 +6,10 @@ Counterpart of lmic_tpu/ops/pallas_gdn.py (`gdn_core` with its custom VJP,
 and channel-last activations `(..., C)`:
 
 - a CUDA tensor goes to the hand-written kernels: `gdn_fwd`
-  (csrc/gdn_fwd.cu) forward and `gdn_bwd` (csrc/gdn_bwd.cu) backward; they
-  never fall back to the plain versions, and they raise on a dtype or shape
-  the kernels do not take;
+  (csrc/gdn_fwd.cu) forward and `gdn_bwd` (csrc/gdn_bwd.cu) backward, f32
+  on the FP32 cores and bf16 (AMP) on the tensor cores; they never fall
+  back to the plain versions, and they raise on a dtype or shape the
+  kernels do not take (`max_channels` gives the widest C of each);
 - a CPU tensor goes to `gdn_reference` / `gdn_bwd_reference`, the same
   formulas in plain torch.
 
@@ -44,7 +45,7 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "gdn_fwd.cu": {
         "lmic_gdn_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
-        "lmic_gdn_fwd_max_channels": [],
+        "lmic_gdn_fwd_max_channels": [_I],
         "lmic_gdn_error_string": [_I],
     },
     "gdn_bwd.cu": {
@@ -52,7 +53,7 @@ _SIGNATURES = {
                             _P],
         "lmic_gdn_bwd_partials": [_P, _P, _P, _I64, _I, _I, _P],
         "lmic_gdn_bwd_reduce": [_P, _P, _P, _I64, _I, _I, _P],
-        "lmic_gdn_bwd_max_channels": [],
+        "lmic_gdn_bwd_max_channels": [_I],
         "lmic_gdn_bwd_chunk_rows": [],
         "lmic_gdn_bwd_error_string": [_I],
     },
@@ -117,6 +118,19 @@ def gdn_bwd_reference(x, beta, gamma, g, inverse: bool = False):
     return dx.to(x.dtype), dbeta.to(beta.dtype), dgamma.to(gamma.dtype)
 
 
+def max_channels(kernel: str, dtype: torch.dtype) -> int:
+    """The widest C that `kernel` ("gdn_fwd" or "gdn_bwd") takes in
+    `dtype`: its staged tiles must fit a CTA's shared memory. Builds the
+    kernel on first use."""
+    if kernel == "gdn_fwd":
+        return _load("gdn_fwd.cu").lmic_gdn_fwd_max_channels(
+            _DTYPE_CODES[dtype])
+    if kernel == "gdn_bwd":
+        return _load("gdn_bwd.cu").lmic_gdn_bwd_max_channels(
+            _DTYPE_CODES[dtype])
+    raise ValueError(f"no GDN kernel {kernel!r}")
+
+
 def _check(fn, x, beta, gamma):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{fn} takes float32 or bfloat16, got {x.dtype}")
@@ -148,11 +162,12 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
     gamma (C, C) of one dtype, float32 or bfloat16."""
     C = _check("gdn_fwd", x, beta, gamma)
     lib = _load("gdn_fwd.cu")
-    if C > lib.lmic_gdn_fwd_max_channels():
+    if C > max_channels("gdn_fwd", x.dtype):
         raise ValueError(f"gdn_fwd: {C} channels exceed the kernel's tile")
     if not x.is_contiguous():
         x = x.contiguous()  # explicit copy: the kernel reads (n, C) rows
-    gamma_t = gamma.t().contiguous()
+    # the f32 kernel reads gamma^T, the bf16 kernel gamma's rows
+    w = (gamma.t() if x.dtype == torch.float32 else gamma).contiguous()
     beta = beta.contiguous()
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     n = x.numel() // C if C else 0
@@ -160,7 +175,7 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
         return y
     with torch.cuda.device(x.device):
         err = lib.lmic_gdn_fwd(
-            x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            x.data_ptr(), w.data_ptr(), beta.data_ptr(), y.data_ptr(),
             n, C, _DTYPE_CODES[x.dtype], int(bool(inverse)),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -187,7 +202,7 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
             f"does not match x {tuple(x.shape)} {x.dtype} on {x.device}"
         )
     lib = _load("gdn_bwd.cu")
-    if C > lib.lmic_gdn_bwd_max_channels():
+    if C > max_channels("gdn_bwd", x.dtype):
         raise ValueError(f"gdn_bwd: {C} channels exceed the kernel's tile")
     # the kernels read (n, C) rows; a cotangent that comes back from cuDNN
     # NCHW-contiguous is copied explicitly, never reinterpreted

@@ -26,11 +26,15 @@ def _card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
 
 
-def _data(rows, C, dtype, seed=0):
+def _data(rows, C, dtype, seed=0, skew=False):
+    """x, beta, gamma; with `skew` gamma is upper-triangular, so a kernel
+    that reads gamma^T for gamma is caught."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((rows, C), generator=g)
     beta = torch.rand(C, generator=g) + 0.5
     gamma = torch.rand((C, C), generator=g) * 0.02 + 0.1 * torch.eye(C)
+    if skew:
+        gamma = gamma.triu() * (200.0 / C)
     return [t.to("cuda", dtype) for t in (x, beta, gamma)]
 
 
@@ -102,6 +106,59 @@ def test_bwd_kernel_matches_reference(dtype, inverse, rows, C):
     # partial sums in a fixed order, no atomics: the same bytes every time
     again = gdn.gdn_bwd(x, beta, gamma, g, inverse)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the bf16 (AMP) paths run on the tensor cores: ragged row counts around
+# the 16-row fragments, and C that is not a multiple of 16 (zero-padded in
+# shared memory) up to the widest GDN of the zoo
+BF16_SHAPES = [(rows, C) for rows in (1, 15, 17, 16391)
+               for C in (16, 40, 200, 320)]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", BF16_SHAPES)
+def test_bf16_kernel_matches_reference(inverse, rows, C):
+    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=rows + C, skew=True)
+    n0 = gdn.LAUNCHES["gdn_fwd"]
+    got = gdn.gdn_fwd(x, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    assert gdn.LAUNCHES["gdn_fwd"] == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _rel_err(got, gdn.gdn_reference(x, beta, gamma, inverse)) \
+        < TOL[torch.bfloat16]
+    assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", BF16_SHAPES)
+def test_bf16_bwd_kernel_matches_reference(inverse, rows, C):
+    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=rows + C, skew=True)
+    g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
+                    ).to("cuda", torch.bfloat16)
+    before = dict(gdn.LAUNCHES)
+    got = gdn.gdn_bwd(x, beta, gamma, g, inverse)
+    torch.cuda.synchronize()
+    assert all(gdn.LAUNCHES[k] == before[k] + 1 for k in gdn.BWD_KERNELS)
+    want = gdn.gdn_bwd_reference(x, beta, gamma, g, inverse)
+    for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) < TOL[torch.bfloat16], name
+    again = gdn.gdn_bwd(x, beta, gamma, g, inverse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bf16_kernels_refuse_channels_past_their_tile():
+    for kernel in ("gdn_fwd", "gdn_bwd"):
+        widest = gdn.max_channels(kernel, torch.bfloat16)
+        assert widest >= 320, kernel  # every GDN width of the zoo
+        x, beta, gamma = _data(4, widest + 1, torch.bfloat16)
+        before = dict(gdn.LAUNCHES)
+        with pytest.raises(ValueError, match="exceed"):
+            if kernel == "gdn_fwd":
+                gdn.gdn_fwd(x, beta, gamma)
+            else:
+                gdn.gdn_bwd(x, beta, gamma, x)
+        assert gdn.LAUNCHES == before  # refused, never sent elsewhere
 
 
 @pytest.mark.parametrize("inverse", [False, True])

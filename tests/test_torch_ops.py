@@ -97,3 +97,25 @@ def test_quantized_cdf_equals_lmic_tpu(seed):
     np.testing.assert_array_equal(
         tcdf.pmf_to_quantized_cdf(pmf[0]), jcdf.pmf_to_quantized_cdf(pmf[0])
     )
+
+
+def test_build_key_hashes_the_shared_cuda_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh gives every CUDA source a new library path, so a
+    library built from the old header is never loaded; a C++ source's path
+    does not depend on the CUDA headers."""
+    import os
+
+    from lmic_tpu_torch.ops import _build
+
+    assert os.path.join(_build.CSRC, "gdn_mma.cuh") in _build._inputs(
+        "gdn_fwd.cu")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    (tmp_path / "r.cc").write_text("int f() { return 0; }\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")  # none on the CPU
+    cu, cc = _build.library_path("k.cu"), _build.library_path("r.cc")
+    assert cu.startswith(_build.BUILD_DIR) and cu != cc
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k.cu") != cu
+    assert _build.library_path("r.cc") == cc
