@@ -7,10 +7,11 @@
 Phases, each of which raises (exit code != 0) on any failure:
 
 1. environment: the card's name and power limit, the torch/CUDA/nvcc
-   versions; the port's native sources are built, all at once; the count
-   of tensor-core (HMMA) instructions in each GDN kernel, from
-   `cuobjdump -sass`: every bf16 product kernel must have some, and no f32
-   kernel any (that would be TF32);
+   versions; the port's native sources are built, all at once; each GDN
+   kernel's registers and spills from ptxas (a register-tiled f32 kernel
+   must not spill); the count of tensor-core (HMMA) instructions in each
+   GDN kernel, from `cuobjdump -sass`: every bf16 product kernel must have
+   some, and no f32 kernel any (that would be TF32);
 2. kernels: the CUDA GDN forward (`gdn_fwd`) and backward (`gdn_bwd`,
    three launches) against their plain versions on the card at the main
    paths' shapes (serving: 98,304 / 24,576 / 6,144 / 6,151 rows; training:
@@ -18,7 +19,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    both directions, each deterministic (f32 `gdn_fwd` exactly equal to its
    plain version), with CUDA-event timings of the kernel, the plain version
    and a cuBLAS composite of the same math, beside the least time the card
-   could take;
+   could take; then each of the backward's launches (`gdn_bwd_dx`,
+   `gdn_bwd_partials`, `gdn_bwd_reduce`) on its own, against its own plain
+   version and bound;
 3. serving: mbt2018-mean at quality 8 (N=192, M=320) from a seed, served by
    the port's HTTP server; three seeded 512x768 uint8 images go through
    POST /compress and /decompress with the launch counts set to 0 just
@@ -112,10 +115,7 @@ def phase_environment():
     for source, lib in zip(sources, libs):
         if not source.endswith(".cu"):
             continue
-        with open(lib + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log(f"ptxas {source}:", line.strip())
+        _check_registers(source, lib + ".log")
         _check_tensor_cores(source, lib)
     return smi
 
@@ -126,6 +126,42 @@ MMA_KERNELS = ("gdn_fwd_mma_kernel", "gdn_bwd_dx_mma_kernel",
                "gdn_bwd_partials_mma_kernel")
 FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                 "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
+
+
+# The f32 kernels built on the register tiles of csrc/gdn_f32.cuh: their
+# accumulators must stay in registers.
+TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel")
+
+
+def _check_registers(source, log_path):
+    """Log each kernel's registers and spills from the build's ptxas
+    output (-Xptxas -v); raise if a register-tiled f32 kernel spills."""
+    kernel, seen = None, {}
+    with open(log_path) as f:
+        for line in f:
+            # the name with its template arguments (direction, width)
+            m = re.search(r"(?:entry function '|Function properties for )"
+                          r"\S*?(gdn_[a-z_]+?_kernel(?:I\w+?EE)?)", line)
+            if m:
+                kernel = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and kernel:
+                seen.setdefault(kernel, {})["spill"] = (int(m.group(1)),
+                                                        int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                seen.setdefault(kernel, {})["registers"] = int(m.group(1))
+    for kernel, info in sorted(seen.items()):
+        log(f"ptxas {source} {kernel}: {info.get('registers')} registers, "
+            f"spill stores/loads {info.get('spill')} bytes")
+        if kernel.startswith(TILED_FP32_KERNELS) and any(
+                info.get("spill", (1, 1))):
+            raise AssertionError(f"{kernel} spills: {info}")
+    if not any(k.startswith(TILED_FP32_KERNELS) for k in seen):
+        raise AssertionError(f"no ptxas report of the f32 kernels in "
+                             f"{log_path}")
 
 
 def _check_tensor_cores(source, lib):
@@ -214,20 +250,112 @@ def _errors(got, want):
     return abs_err, rel
 
 
-def _bwd_composite(x, beta, gamma, gamma_t, g, inverse):
-    """The backward's math in a few cuBLAS/elementwise calls, in the input
-    dtype (bf16 products on the tensor cores): the yardstick."""
+def _dx_composite(x, beta, gamma, gamma_t, g, inverse):
+    """(dx, dn) in a few cuBLAS/elementwise calls, in the input dtype (bf16
+    products on the tensor cores)."""
     import torch
 
-    x2 = x * x
-    norm = torch.addmm(beta, x2, gamma_t)
+    norm = torch.addmm(beta, x * x, gamma_t)
     r = torch.rsqrt(norm)
     if inverse:
         dn, scale = 0.5 * g * x * r, norm * r
     else:
         dn, scale = -0.5 * g * x * (r * r * r), r
-    dx = torch.addcmul(g * scale, 2 * x, dn @ gamma)
-    return dx, dn.sum(0), dn.t() @ x2
+    return torch.addcmul(g * scale, 2 * x, dn @ gamma), dn
+
+
+def _bwd_composite(x, beta, gamma, gamma_t, g, inverse):
+    """The backward's math in a few cuBLAS/elementwise calls: the
+    yardstick."""
+    dx, dn = _dx_composite(x, beta, gamma, gamma_t, g, inverse)
+    return dx, dn.sum(0), dn.t() @ (x * x)
+
+
+def _bwd_launches(x, beta, gamma, gamma_t, g, inverse):
+    """The three launches of `gdn.gdn_bwd`, each on its own, through the
+    same C ABI on buffers of their own: they compare and time each kernel
+    and count no launch. Returns {name: call returning its outputs}."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    lib = gdn._load("gdn_bwd.cu")
+    n, C = x.shape
+    chunks = -(-n // lib.lmic_gdn_bwd_chunk_rows())
+    dx = torch.empty_like(x)
+    dn = torch.empty((n, C), dtype=torch.float32, device="cuda")
+    partials = torch.empty((chunks, C * C + C), dtype=torch.float32,
+                           device="cuda")
+    dbeta = torch.empty(C, dtype=x.dtype, device="cuda")
+    dgamma = torch.empty((C, C), dtype=x.dtype, device="cuda")
+    code = gdn._DTYPE_CODES[x.dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what}: "
+                               f"{lib.lmic_gdn_bwd_error_string(err).decode()}")
+
+    def run_dx():
+        check(lib.lmic_gdn_bwd_dx(
+            x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), dx.data_ptr(), dn.data_ptr(), n, C, code,
+            int(inverse), stream), "gdn_bwd_dx")
+        return dx, dn
+
+    def run_partials():
+        check(lib.lmic_gdn_bwd_partials(x.data_ptr(), dn.data_ptr(),
+                                        partials.data_ptr(), n, C, code,
+                                        stream), "gdn_bwd_partials")
+        return (partials,)
+
+    def run_reduce():
+        check(lib.lmic_gdn_bwd_reduce(partials.data_ptr(), dbeta.data_ptr(),
+                                      dgamma.data_ptr(), chunks, C, code,
+                                      stream), "gdn_bwd_reduce")
+        return dbeta, dgamma
+
+    return {"gdn_bwd_dx": run_dx, "gdn_bwd_partials": run_partials,
+            "gdn_bwd_reduce": run_reduce}
+
+
+def _dx_plain(x, beta, gamma, g, inverse):
+    """gdn_bwd_dx's outputs (dx, the f32 dn) in plain torch, as
+    gdn_bwd_reference forms them."""
+    import torch
+
+    x32, g32 = x.float(), g.float()
+    norm = torch.matmul((x * x).float(), gamma.float().t()) + beta.float()
+    if inverse:
+        dn, scale = 0.5 * g32 * x32 * torch.rsqrt(norm), torch.sqrt(norm)
+    else:
+        dn, scale = -0.5 * g32 * x32 * norm ** -1.5, torch.rsqrt(norm)
+    dnx = dn.to(x.dtype).float()
+    dx = g32 * scale + 2.0 * x32 * torch.matmul(dnx, gamma.float())
+    return dx.to(x.dtype), dn
+
+
+def _partials_plain(x, dn, rows):
+    """gdn_bwd_partials' output in plain torch: per chunk of `rows` rows,
+    dn (rounded to x's type) transposed times x^2, then the sum of dn."""
+    import torch
+
+    n, C = x.shape
+    chunks = -(-n // rows)
+    pad = torch.zeros((chunks * rows - n, C), device=x.device)
+    d = torch.cat([dn, pad]).view(chunks, rows, C)
+    x2 = torch.cat([(x * x).float(), pad]).view(chunks, rows, C)
+    dgamma = torch.bmm(d.to(x.dtype).float().transpose(1, 2), x2)
+    return (torch.cat([dgamma.reshape(chunks, C * C), d.sum(1)], 1),)
+
+
+def _reduce_plain(partials, C, dt):
+    """gdn_bwd_reduce's outputs in plain torch: the partials added in chunk
+    order, one f32 add each, then cast once."""
+    total = partials[0].clone()
+    for k in range(1, partials.shape[0]):
+        total += partials[k]
+    return total[C * C:].to(dt), total[:C * C].view(C, C).to(dt)
 
 
 def phase_kernel(peaks):
@@ -239,7 +367,7 @@ def phase_kernel(peaks):
 
     mem_bw, fp32, bf16 = peaks
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {"gdn_fwd": [], "gdn_bwd": []}
+    cases = {k: [] for k in ("gdn_fwd", "gdn_bwd") + gdn.BWD_KERNELS}
     shapes = [(n, C) for C in (128, 192) for n in SERVE_ROWS + TRAIN_ROWS]
     for n, C in shapes:
         for dtype in ("float32", "bfloat16"):
@@ -276,6 +404,9 @@ def phase_kernel(peaks):
                         work.items():
                     if name == "gdn_bwd" and n in SERVE_ROWS:
                         continue  # serving runs no backward
+                    if name == "gdn_bwd":
+                        _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
+                                          inverse, peak, mem_bw, fp32)
                     got = run()
                     want = plain()
                     torch.cuda.synchronize()
@@ -305,6 +436,65 @@ def phase_kernel(peaks):
                     })
             del x, beta, gamma, g, gamma_t
     return cases
+
+
+def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
+                      mem_bw, fp32):
+    """Each of gdn_bwd's three launches against its plain version on the
+    same inputs (the kernel's own dn and partials feed the next two), timed
+    on its own, with its own bound."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    n, C = x.shape
+    es, dt = x.element_size(), x.dtype
+    launch = _bwd_launches(x, beta, gamma, gamma_t, g, inverse)
+    dn = launch["gdn_bwd_dx"]()[1]
+    partials = launch["gdn_bwd_partials"]()[0]
+    rows = gdn._load("gdn_bwd.cu").lmic_gdn_bwd_chunk_rows()
+    chunks = partials.shape[0]
+    ccc = C * C + C
+    work = {  # plain, library call or None, bytes, operations, peak
+        "gdn_bwd_dx": (
+            lambda: _dx_plain(x, beta, gamma, g, inverse),
+            lambda: _dx_composite(x, beta, gamma, gamma_t, g, inverse),
+            # x, g read; dx, dn (f32) written; gamma, beta read
+            3 * n * C * es + 4 * n * C + ccc * es,
+            4 * n * C * C + 12 * n * C, peak),
+        "gdn_bwd_partials": (
+            lambda: _partials_plain(x, dn, rows), None,
+            # x, dn read; the partials written
+            n * C * es + 4 * n * C + 4 * chunks * ccc,
+            2 * n * C * C + 2 * n * C, peak),
+        "gdn_bwd_reduce": (
+            lambda: _reduce_plain(partials, C, dt),
+            lambda: partials.sum(0),
+            4 * chunks * ccc + ccc * es, chunks * ccc, fp32),
+    }
+    for name, (plain, library, nbytes, ops, pk) in work.items():
+        run = launch[name]
+        got = run()
+        want = plain()
+        torch.cuda.synchronize()
+        err, rel = _errors(got, want)
+        if not rel < TOL[str(dt).split(".")[-1]]:
+            raise AssertionError(f"{name} {n}x{C} {dt} inverse={inverse}: "
+                                 f"error {rel:.3g}")
+        if not all(torch.equal(a, b) for a, b in zip(
+                [t.clone() for t in got], run())):
+            raise AssertionError(f"{name} is not deterministic")
+        t_mem, t_ops = nbytes / mem_bw, ops / pk
+        cases[name].append({
+            "shape": [n, C], "dtype": str(dt).split(".")[-1],
+            "inverse": inverse, "max_abs_err": err, "max_rel_err": rel,
+            "us": 1e3 * _time_ms(run),
+            "plain_us": 1e3 * _time_ms(plain),
+            "library_us": (1e3 * _time_ms(library) if library else None),
+            "bound_us": 1e6 * max(t_mem, t_ops),
+            "bound_by": "operations" if t_ops > t_mem else "bytes",
+            "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
+        })
 
 
 def _reset_counts():
@@ -719,13 +909,15 @@ def _totals(cases, kernel, rows, dtype):
     if len(sel) != 2 * len(rows):
         raise AssertionError(f"{len(sel)} {kernel} main-path cases")
     t = {k: sum(c[k] for c in sel) / 1e3
-         for k in ("us", "plain_us", "library_us", "bound_us", "bytes_us",
+         for k in ("us", "plain_us", "bound_us", "bytes_us",
                    "operations_us")}
+    library = [c["library_us"] for c in sel]
     return {"ms": t["us"], "plain_ms": t["plain_us"],
             "bound_ms": t["bound_us"],
             "bound_by": ("operations" if t["operations_us"] >= t["bytes_us"]
                          else "bytes"),
-            "library_ms": t["library_us"]}
+            "library_ms": (None if None in library
+                           else sum(library) / 1e3)}
 
 
 def _max_abs_err_by_dtype(kcases):
@@ -767,9 +959,11 @@ def main():
     cases = phase_kernel(_peaks(name))
     for kernel, kcases in cases.items():
         for c in kcases:
+            library = ("none" if c["library_us"] is None
+                       else f"{c['library_us']:.1f}")
             log(f"{kernel} {c['shape']} {c['dtype']} inverse={c['inverse']}: "
-                f"{c['us']:.1f} us (plain {c['plain_us']:.1f}, composite "
-                f"{c['library_us']:.1f}, bound {c['bound_us']:.1f} by "
+                f"{c['us']:.1f} us (plain {c['plain_us']:.1f}, library "
+                f"{library}, bound {c['bound_us']:.1f} by "
                 f"{c['bound_by']}), rel err {c['max_rel_err']:.2e}, abs err "
                 f"{c['max_abs_err']:.3g}")
     if args.kernels_only:
@@ -820,7 +1014,20 @@ def main():
         **totals("gdn_bwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_bwd", TRAIN_ROWS[:3], "bfloat16"),
         "card": smi,
-    }]
+    }] + [{
+        # gdn_bwd's three launches, each timed on its own
+        "name": name,
+        "route": "cuda",
+        "source": "lmic_tpu_torch/csrc/gdn_bwd.cu",
+        "replaces": "lmic_tpu/ops/pallas_gdn.py:195",
+        "launches": train_counts[name],
+        "launches_per_step": train_counts[name] / train_steps,
+        "max_abs_err": max(errors[name].values()),
+        "max_abs_err_by_dtype": errors[name],
+        **totals(name, TRAIN_ROWS[:3], "float32"),
+        "training_step_bf16": totals(name, TRAIN_ROWS[:3], "bfloat16"),
+        "card": smi,
+    } for name in gdn.BWD_KERNELS]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -29,9 +29,16 @@
 //     in the same order); forms dn and g*scale elementwise; writes dn in f32
 //     to an (n, C) scratch; stages dn rounded to the input type, and forms
 //     dx = g*scale + 2x (dn . gamma).
-//     float32 (gdn_bwd_dx_kernel): x^2, then dn, staged transposed in
-//     shared memory, both products with an 8-row register tile of FP32
-//     FMAs, gamma read through the read-only path.
+//     float32 (gdn_bwd_dx_kernel): bound by the FP32 operations of its
+//     two products, 4*n*C^2 (577 us at 262,144 x 192 at 67 TFLOP/s). Both
+//     run the register-tiled main loop of csrc/gdn_f32.cuh (x^2, then dn,
+//     staged transposed once; gamma^T, then gamma, in cp.async k-slices;
+//     8-row x 4-channel register tiles), and a thread owns the same tile
+//     in both, so norm, dn and g*scale never leave its registers: dn goes
+//     to the scratch and over x^2, g*scale waits for the epilogue. x and g
+//     come to shared memory by cp.async with the first slice (101 KB of
+//     shared memory at C = 192). C = 192 and 128 run instances compiled
+//     for that width.
 //     bfloat16 (gdn_bwd_dx_mma_kernel): 8 warps on the tensor cores. x^2
 //     staged as bf16; product 1 runs panel by panel (gamma^T in 64-column
 //     panels, csrc/gdn_mma.cuh) into an f32 norm tile in shared memory;
@@ -63,15 +70,12 @@
 
 #include <cstdint>
 
+#include "gdn_f32.cuh"
 #include "gdn_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;          // rows per CTA of gdn_bwd_dx
-constexpr int kRowsPerThread = 8;  // register tile: 8 rows x 1 channel
-constexpr int kThreads = 256;
-constexpr int kStride = kRows + 4;  // floats per staged channel (float4
-                                    // alignment)
+constexpr int kThreads = 256;      // threads of gdn_bwd_partials
 constexpr int kChunkRows = 1024;   // rows per partial dbeta/dgamma
 constexpr int kTile = 64;          // dgamma block: 64 x 64 per CTA
 constexpr int kSub = 32;           // rows staged per step of the partials
@@ -98,120 +102,108 @@ struct Io<__nv_bfloat16> {
   }
 };
 
-// acc[k] += sum_j s[j][r0 + k] * w[j * C + o] for k < 8, j = 0..C-1 in
-// order; s is a transposed [C][kStride] tile in shared memory.
-template <typename T>
-__device__ __forceinline__ void rows_times_matrix(const float *s, int r0,
-                                                  const T *__restrict__ w,
-                                                  int o, int C,
-                                                  float (&acc)[8]) {
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) acc[k] = 0.f;
-  const float *xs = s + r0;
-  for (int j = 0; j < C; ++j) {
-    const float gm = Io<T>::load(w + static_cast<int64_t>(j) * C + o);
-    const float4 a = *reinterpret_cast<const float4 *>(xs + j * kStride);
-    const float4 b = *reinterpret_cast<const float4 *>(xs + j * kStride + 4);
-    acc[0] = fmaf(a.x, gm, acc[0]);
-    acc[1] = fmaf(a.y, gm, acc[1]);
-    acc[2] = fmaf(a.z, gm, acc[2]);
-    acc[3] = fmaf(a.w, gm, acc[3]);
-    acc[4] = fmaf(b.x, gm, acc[4]);
-    acc[5] = fmaf(b.y, gm, acc[5]);
-    acc[6] = fmaf(b.z, gm, acc[6]);
-    acc[7] = fmaf(b.w, gm, acc[7]);
-  }
-}
+namespace f32 = gdn_f32;
 
-template <typename T, bool kInverse>
-__global__ void __launch_bounds__(kThreads)
-    gdn_bwd_dx_kernel(const T *__restrict__ x, const T *__restrict__ g,
-                      const T *__restrict__ gamma_t,
-                      const T *__restrict__ gamma, const T *__restrict__ beta,
-                      T *__restrict__ dx, float *__restrict__ dn, int64_t n,
-                      int C) {
+// The f32 dx pass: bound by the FP32 operations of its two products. Both
+// are the shared main loop (gdn_f32::product: 8 x 4 register tiles fed by
+// 16-byte shared loads, the weight in cp.async k-slices), and a thread owns
+// the same (rows, channels) tile in both: after product 1 it forms norm,
+// dn and g*scale for its tile in registers, writes dn to the f32 scratch,
+// stages it over x^2 for product 2 and keeps g*scale for the epilogue.
+// The CTA's rows of x and g are copied to shared memory with cp.async at
+// the start, so that neither the elementwise pass nor the epilogue waits
+// on device memory.
+// kWidth > 0 compiles it for C = kWidth; kWidth = 0 takes any C.
+template <bool kInverse, int kWidth>
+__global__ void __launch_bounds__(f32::kMaxThreads)
+    gdn_bwd_dx_kernel(const float *__restrict__ x, const float *__restrict__ g,
+                      const float *__restrict__ gamma_t,
+                      const float *__restrict__ gamma,
+                      const float *__restrict__ beta, float *__restrict__ dx,
+                      float *__restrict__ dn, int64_t n, int channels,
+                      bool vec) {
+  const int C = kWidth ? kWidth : channels;
   extern __shared__ float4 smem4[];
-  float *st = reinterpret_cast<float *>(smem4);  // [C][kStride]: x^2, then dn
-  float *tile = st + C * kStride;                // [kRows][C]: norm, then g*s
+  const f32::Shape s = f32::shape_of(C);
+  float *at = reinterpret_cast<float *>(smem4);  // [Cp][lda]: x^2, then dn
+  float *wbuf = at + s.Cp * s.lda;  // k-slices of gamma^T, then gamma
+  float *xs = wbuf + 2 * f32::kSlice * s.Cp;  // [rows][Cp]: x
+  float *gsm = xs + s.rows * s.Cp;             // [rows][Cp]: g
 
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int rows = static_cast<int>(
-      n - row0 < kRows ? n - row0 : static_cast<int64_t>(kRows));
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * s.rows;
+  const int valid = static_cast<int>(
+      n - row0 < s.rows ? n - row0 : static_cast<int64_t>(s.rows));
+  // x, g and gamma^T's first slice land while x^2 stages; product 1 waits
+  // for all of them before its first slice
+  f32::issue_rows(xs, x, row0, s.rows, valid, C, s, vec);
+  f32::issue_rows(gsm, g, row0, s.rows, valid, C, s, vec);
+  f32::issue_slice(wbuf, gamma_t, 0, C, s, vec);
+  f32::stage_squares(at, x, row0, valid, C, s, vec);
+  int r0, c0;
+  f32::tile_of(s, &r0, &c0);
+  constexpr int kR = f32::kTileRows, kC = f32::kTileCols;
 
-  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
-    const int r = i / C;
-    const int c = i - r * C;
-    float v = 0.f;
-    if (r < rows) {
-      v = Io<T>::load(x + (row0 + r) * C + c);
-      v = Io<T>::round(v * v);
-    }
-    st[c * kStride + r] = v;
-  }
-  __syncthreads();
+  // product 1: the norm's sums, as the forward kernel sums them
+  float acc[kR][kC];
+  f32::product(acc, at, wbuf, gamma_t, C, s, r0, c0, vec);
+  __syncthreads();  // every warp is done with x^2 and gamma^T
+  f32::issue_slice(wbuf, gamma, 0, C, s, vec);  // lands while dn is formed
 
-  // the norm, as the forward kernel sums it
-  constexpr int kGroups = kRows / kRowsPerThread;
-  for (int item = threadIdx.x; item < kGroups * C; item += kThreads) {
-    const int grp = item / C;
-    const int o = item - grp * C;
-    const int r0 = grp * kRowsPerThread;
-    if (r0 >= rows) continue;
-    float acc[kRowsPerThread];
-    rows_times_matrix<T>(st, r0, gamma_t, o, C, acc);
-    const float bo = Io<T>::load(beta + o);
+  // elementwise, in registers: dn (over acc) and g * scale from the
+  // staged x and g; zeros past row n and channel C
+  float bo[kC], gs[kR][kC];
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k)
-      if (r0 + k < rows) tile[(r0 + k) * C + o] = acc[k] + bo;
-  }
-  __syncthreads();
-
-  // elementwise: dn (f32 to the scratch, rounded over the x^2 tile) and
-  // g * scale (over the norm)
-  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
-    const int r = i / C;
-    const int c = i - r * C;
-    float d = 0.f;
-    if (r < rows) {
-      const int64_t at = (row0 + r) * C + c;
-      const float norm = tile[i];
-      const float xv = Io<T>::load(x + at);
-      const float gv = Io<T>::load(g + at);
-      const float rs = rsqrtf(norm);
-      float s;
-      if (kInverse) {
-        d = 0.5f * gv * xv * rs;
-        s = sqrtf(norm);
-      } else {
-        d = -0.5f * gv * xv * (rs * rs * rs);
-        s = rs;
-      }
-      dn[at] = d;
-      tile[i] = gv * s;
-      d = Io<T>::round(d);
-    }
-    st[c * kStride + r] = d;
-  }
-  __syncthreads();
-
-  // dx = g * scale + 2 x (dn . gamma)
-  for (int item = threadIdx.x; item < kGroups * C; item += kThreads) {
-    const int grp = item / C;
-    const int i = item - grp * C;
-    const int r0 = grp * kRowsPerThread;
-    if (r0 >= rows) continue;
-    float acc[kRowsPerThread];
-    rows_times_matrix<T>(st, r0, gamma, i, C, acc);
+  for (int q = 0; q < kC; ++q) bo[q] = c0 + q < C ? beta[c0 + q] : 0.f;
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      const int r = r0 + k;
-      if (r < rows) {
-        const int64_t at = (row0 + r) * C + i;
-        dx[at] = Io<T>::store(tile[r * C + i] +
-                              2.0f * Io<T>::load(x + at) * acc[k]);
+  for (int k = 0; k < kR; ++k) {
+    const float4 x4 =
+        *reinterpret_cast<const float4 *>(xs + (r0 + k) * s.Cp + c0);
+    const float4 g4 =
+        *reinterpret_cast<const float4 *>(gsm + (r0 + k) * s.Cp + c0);
+    const float xv[kC] = {x4.x, x4.y, x4.z, x4.w};
+    const float gv[kC] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+    for (int q = 0; q < kC; ++q) {
+      float d = 0.f, sg = 0.f;
+      if (r0 + k < valid && c0 + q < C) {
+        const float norm = acc[k][q] + bo[q];
+        const float rs = rsqrtf(norm);
+        if (kInverse) {
+          d = 0.5f * gv[q] * xv[q] * rs;
+          sg = gv[q] * sqrtf(norm);
+        } else {
+          d = -0.5f * gv[q] * xv[q] * (rs * rs * rs);
+          sg = gv[q] * rs;
+        }
       }
+      acc[k][q] = d;
+      gs[k][q] = sg;
     }
   }
+  f32::store_rows(dn, acc, row0 + r0, valid - r0, c0, C, vec);  // f32 dn
+  // dn rounded to the input type (f32: as it is) over x^2, transposed
+#pragma unroll
+  for (int q = 0; q < kC; ++q) {
+    float *to = at + (c0 + q) * s.lda + r0;
+    *reinterpret_cast<float4 *>(to) =
+        make_float4(acc[0][q], acc[1][q], acc[2][q], acc[3][q]);
+    *reinterpret_cast<float4 *>(to + 4) =
+        make_float4(acc[4][q], acc[5][q], acc[6][q], acc[7][q]);
+  }
+
+  // product 2 and the epilogue: dx = g * scale + 2 x (dn . gamma)
+  f32::product(acc, at, wbuf, gamma, C, s, r0, c0, vec);
+  if (c0 >= C) return;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const float4 x4 =
+        *reinterpret_cast<const float4 *>(xs + (r0 + k) * s.Cp + c0);
+    const float xv[kC] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int q = 0; q < kC; ++q)
+      acc[k][q] = gs[k][q] + 2.0f * xv[q] * acc[k][q];
+  }
+  f32::store_rows(dx, acc, row0 + r0, valid - r0, c0, C, vec);
 }
 
 template <typename T>
@@ -501,27 +493,44 @@ __global__ void __launch_bounds__(gdn_mma::kMmaThreads)
   }
 }
 
-size_t dx_smem(int C) {
-  return static_cast<size_t>(C) * (kStride + kRows) * sizeof(float);
-}
-
-template <typename T, bool kInverse>
-cudaError_t launch_dx(const void *x, const void *g, const void *gamma_t,
-                      const void *gamma, const void *beta, void *dx,
-                      void *dn, int64_t n, int C, cudaStream_t stream) {
-  const size_t smem = dx_smem(C);
-  auto kernel = gdn_bwd_dx_kernel<T, kInverse>;
+template <bool kInverse, int kWidth>
+cudaError_t launch_dx_as(const void *x, const void *g, const void *gamma_t,
+                         const void *gamma, const void *beta, void *dx,
+                         void *dn, int64_t n, int C, cudaStream_t stream) {
+  const f32::Shape s = f32::shape_of(C);
+  const size_t smem = f32::smem_floats(s, 2) * sizeof(float);
+  auto kernel = gdn_bwd_dx_kernel<kInverse, kWidth>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int64_t blocks = (n + kRows - 1) / kRows;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T *>(x), static_cast<const T *>(g),
-      static_cast<const T *>(gamma_t), static_cast<const T *>(gamma),
-      static_cast<const T *>(beta), static_cast<T *>(dx),
-      static_cast<float *>(dn), n, C);
+  // 16-byte copies and accesses need whole rows of 4 and aligned bases
+  const bool vec = C % 4 == 0 && gdn_mma::aligned16(x) &&
+                   gdn_mma::aligned16(g) && gdn_mma::aligned16(gamma_t) &&
+                   gdn_mma::aligned16(gamma) && gdn_mma::aligned16(dx) &&
+                   gdn_mma::aligned16(dn);
+  const int64_t blocks = (n + s.rows - 1) / s.rows;
+  kernel<<<static_cast<unsigned>(blocks), s.threads, smem, stream>>>(
+      static_cast<const float *>(x), static_cast<const float *>(g),
+      static_cast<const float *>(gamma_t), static_cast<const float *>(gamma),
+      static_cast<const float *>(beta), static_cast<float *>(dx),
+      static_cast<float *>(dn), n, C, vec);
   return cudaGetLastError();
+}
+
+// The main path's widths run kernels compiled for them (as the forward's)
+template <bool kInverse>
+cudaError_t launch_dx(const void *x, const void *g, const void *gamma_t,
+                      const void *gamma, const void *beta, void *dx,
+                      void *dn, int64_t n, int C, cudaStream_t stream) {
+  if (C == 192)
+    return launch_dx_as<kInverse, 192>(x, g, gamma_t, gamma, beta, dx, dn, n,
+                                       C, stream);
+  if (C == 128)
+    return launch_dx_as<kInverse, 128>(x, g, gamma_t, gamma, beta, dx, dn, n,
+                                       C, stream);
+  return launch_dx_as<kInverse, 0>(x, g, gamma_t, gamma, beta, dx, dn, n, C,
+                                   stream);
 }
 
 template <typename T>
@@ -598,11 +607,11 @@ cudaError_t launch_reduce(const void *partials, void *dbeta, void *dgamma,
 
 extern "C" {
 
-// The largest C whose staged tiles fit the 227 KB of shared memory a CTA
-// may use on Hopper, for dtype 0 = float32 or 1 = bfloat16 (0 for others).
+// The widest C the kernels take, for dtype 0 = float32 (the warp grid of
+// gdn_f32.cuh: 384) or 1 = bfloat16 (the staged tiles fit the 227 KB of
+// shared memory a CTA may use on Hopper); 0 for others.
 int lmic_gdn_bwd_max_channels(int dtype) {
-  if (dtype == 0)
-    return static_cast<int>(232448 / ((kStride + kRows) * sizeof(float)));
+  if (dtype == 0) return gdn_f32::max_channels(2);
   if (dtype != 1) return 0;
   int C = 16;
   while (dx_mma_smem(C + 16) <= static_cast<size_t>(gdn_mma::kSmemLimit))
@@ -628,10 +637,10 @@ int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = inverse ? launch_dx<float, true>(x, g, gamma_t, gamma, beta, dx, dn,
-                                           n, C, s)
-                  : launch_dx<float, false>(x, g, gamma_t, gamma, beta, dx,
-                                            dn, n, C, s);
+    err = inverse ? launch_dx<true>(x, g, gamma_t, gamma, beta, dx, dn, n, C,
+                                    s)
+                  : launch_dx<false>(x, g, gamma_t, gamma, beta, dx, dn, n,
+                                     C, s);
   } else {
     err = inverse ? launch_dx_mma<true>(x, g, gamma_t, gamma, beta, dx, dn, n,
                                         C, s)

@@ -108,33 +108,39 @@ def test_bwd_kernel_matches_reference(dtype, inverse, rows, C):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-# the bf16 (AMP) paths run on the tensor cores: ragged row counts around
-# the 16-row fragments, and C that is not a multiple of 16 (zero-padded in
-# shared memory) up to the widest GDN of the zoo
-BF16_SHAPES = [(rows, C) for rows in (1, 15, 17, 16391)
-               for C in (16, 40, 200, 320)]
+# the tiled paths: ragged row counts around the tiles (16-row fragments in
+# bf16, 8-row thread tiles and 32-row warps in f32) and C that is not a
+# multiple of the tile (zero-padded in shared memory) up to the widest GDN
+# of the zoo. bf16 runs on the tensor cores; f32 on the FP32 register
+# tiles of csrc/gdn_f32.cuh, where C = 37 takes the element copies. Exact
+# equality with the plain version is chip_smoke.py's check at the main
+# path's shapes: at a few rows cuBLAS may sum in another order.
+TILED = ([(torch.bfloat16, rows, C) for rows in (1, 15, 17, 16391)
+          for C in (16, 40, 200, 320)]
+         + [(torch.float32, rows, C) for rows in (1, 15, 17, 16391)
+            for C in (16, 37, 40, 200, 320)])
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("rows,C", BF16_SHAPES)
-def test_bf16_kernel_matches_reference(inverse, rows, C):
-    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=rows + C, skew=True)
+@pytest.mark.parametrize("dtype,rows,C", TILED)
+def test_tiled_kernel_matches_reference(dtype, inverse, rows, C):
+    x, beta, gamma = _data(rows, C, dtype, seed=rows + C, skew=True)
     n0 = gdn.LAUNCHES["gdn_fwd"]
     got = gdn.gdn_fwd(x, beta, gamma, inverse)
     torch.cuda.synchronize()
     assert gdn.LAUNCHES["gdn_fwd"] == n0 + 1
-    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert got.dtype == dtype and got.shape == x.shape
     assert _rel_err(got, gdn.gdn_reference(x, beta, gamma, inverse)) \
-        < TOL[torch.bfloat16]
+        < TOL[dtype]
     assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("rows,C", BF16_SHAPES)
-def test_bf16_bwd_kernel_matches_reference(inverse, rows, C):
-    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=rows + C, skew=True)
+@pytest.mark.parametrize("dtype,rows,C", TILED)
+def test_tiled_bwd_kernel_matches_reference(dtype, inverse, rows, C):
+    x, beta, gamma = _data(rows, C, dtype, seed=rows + C, skew=True)
     g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
-                    ).to("cuda", torch.bfloat16)
+                    ).to("cuda", dtype)
     before = dict(gdn.LAUNCHES)
     got = gdn.gdn_bwd(x, beta, gamma, g, inverse)
     torch.cuda.synchronize()
@@ -142,16 +148,17 @@ def test_bf16_bwd_kernel_matches_reference(inverse, rows, C):
     want = gdn.gdn_bwd_reference(x, beta, gamma, g, inverse)
     for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
-        assert _rel_err(a, b) < TOL[torch.bfloat16], name
+        assert _rel_err(a, b) < TOL[dtype], name
     again = gdn.gdn_bwd(x, beta, gamma, g, inverse)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-def test_bf16_kernels_refuse_channels_past_their_tile():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_refuse_channels_past_their_tile(dtype):
     for kernel in ("gdn_fwd", "gdn_bwd"):
-        widest = gdn.max_channels(kernel, torch.bfloat16)
+        widest = gdn.max_channels(kernel, dtype)
         assert widest >= 320, kernel  # every GDN width of the zoo
-        x, beta, gamma = _data(4, widest + 1, torch.bfloat16)
+        x, beta, gamma = _data(4, widest + 1, dtype)
         before = dict(gdn.LAUNCHES)
         with pytest.raises(ValueError, match="exceed"):
             if kernel == "gdn_fwd":
