@@ -21,7 +21,8 @@ Phases, each of which raises (exit code != 0) on any failure:
    and a cuBLAS composite of the same math, beside the least time the card
    could take; then each of the backward's launches (`gdn_bwd_dx`,
    `gdn_bwd_partials`, `gdn_bwd_reduce`) on its own, against its own plain
-   version and bound;
+   version, bound and library call (the dx composite, one cuBLAS `bmm` of
+   the partials' chunked product, `sum(0)` of the partials);
 3. serving: mbt2018-mean at quality 8 (N=192, M=320) from a seed, served by
    the port's HTTP server; three seeded 512x768 uint8 images go through
    POST /compress and /decompress with the launch counts set to 0 just
@@ -128,9 +129,11 @@ FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                 "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
 
 
-# The f32 kernels built on the register tiles of csrc/gdn_f32.cuh: their
-# accumulators must stay in registers.
-TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel")
+# The register-tiled f32 kernels (8 x 4 accumulators a thread): the two on
+# the shared loop of csrc/gdn_f32.cuh and the partials. Their accumulators
+# must stay in registers.
+TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
+                      "gdn_bwd_partials_kernel")
 
 
 def _check_registers(source, log_path):
@@ -349,6 +352,20 @@ def _partials_plain(x, dn, rows):
     return (torch.cat([dgamma.reshape(chunks, C * C), d.sum(1)], 1),)
 
 
+def _partials_library(x, dn, rows):
+    """One cuBLAS call of the partials' chunked product, dn^T . x^2 per
+    chunk, on padded, squared operands built here (outside the timed call)
+    in the kernel's operand type; TF32 is off. It leaves out x^2 and dbeta."""
+    import torch
+
+    n, C = x.shape
+    chunks = -(-n // rows)
+    pad = torch.zeros((chunks * rows - n, C), device=x.device, dtype=x.dtype)
+    d = torch.cat([dn.to(x.dtype), pad]).view(chunks, rows, C)
+    x2 = torch.cat([x * x, pad]).view(chunks, rows, C)
+    return lambda: torch.bmm(d.transpose(1, 2), x2)
+
+
 def _reduce_plain(partials, C, dt):
     """gdn_bwd_reduce's outputs in plain torch: the partials added in chunk
     order, one f32 add each, then cast once."""
@@ -455,7 +472,7 @@ def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
     rows = gdn._load("gdn_bwd.cu").lmic_gdn_bwd_chunk_rows()
     chunks = partials.shape[0]
     ccc = C * C + C
-    work = {  # plain, library call or None, bytes, operations, peak
+    work = {  # plain, library call, bytes, operations, peak
         "gdn_bwd_dx": (
             lambda: _dx_plain(x, beta, gamma, g, inverse),
             lambda: _dx_composite(x, beta, gamma, gamma_t, g, inverse),
@@ -463,7 +480,8 @@ def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
             3 * n * C * es + 4 * n * C + ccc * es,
             4 * n * C * C + 12 * n * C, peak),
         "gdn_bwd_partials": (
-            lambda: _partials_plain(x, dn, rows), None,
+            lambda: _partials_plain(x, dn, rows),
+            _partials_library(x, dn, rows),
             # x, dn read; the partials written
             n * C * es + 4 * n * C + 4 * chunks * ccc,
             2 * n * C * C + 2 * n * C, peak),
@@ -490,7 +508,7 @@ def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
             "inverse": inverse, "max_abs_err": err, "max_rel_err": rel,
             "us": 1e3 * _time_ms(run),
             "plain_us": 1e3 * _time_ms(plain),
-            "library_us": (1e3 * _time_ms(library) if library else None),
+            "library_us": 1e3 * _time_ms(library),
             "bound_us": 1e6 * max(t_mem, t_ops),
             "bound_by": "operations" if t_ops > t_mem else "bytes",
             "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
@@ -911,13 +929,11 @@ def _totals(cases, kernel, rows, dtype):
     t = {k: sum(c[k] for c in sel) / 1e3
          for k in ("us", "plain_us", "bound_us", "bytes_us",
                    "operations_us")}
-    library = [c["library_us"] for c in sel]
     return {"ms": t["us"], "plain_ms": t["plain_us"],
             "bound_ms": t["bound_us"],
             "bound_by": ("operations" if t["operations_us"] >= t["bytes_us"]
                          else "bytes"),
-            "library_ms": (None if None in library
-                           else sum(library) / 1e3)}
+            "library_ms": sum(c["library_us"] for c in sel) / 1e3}
 
 
 def _max_abs_err_by_dtype(kcases):
@@ -959,11 +975,9 @@ def main():
     cases = phase_kernel(_peaks(name))
     for kernel, kcases in cases.items():
         for c in kcases:
-            library = ("none" if c["library_us"] is None
-                       else f"{c['library_us']:.1f}")
             log(f"{kernel} {c['shape']} {c['dtype']} inverse={c['inverse']}: "
                 f"{c['us']:.1f} us (plain {c['plain_us']:.1f}, library "
-                f"{library}, bound {c['bound_us']:.1f} by "
+                f"{c['library_us']:.1f}, bound {c['bound_us']:.1f} by "
                 f"{c['bound_by']}), rel err {c['max_rel_err']:.2e}, abs err "
                 f"{c['max_abs_err']:.3g}")
     if args.kernels_only:

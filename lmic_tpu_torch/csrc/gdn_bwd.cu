@@ -48,13 +48,18 @@
 //  2. gdn_bwd_partials: one CTA per (1024-row chunk, 64x64 block of
 //     dgamma); the CTAs of the first column block also sum dbeta. Each
 //     writes its chunk's partial sums.
-//     float32 (gdn_bwd_partials_kernel): a plain SGEMM tile, 32-row slices
-//     of dn and x^2 staged in shared memory, a 4x4 register tile a thread.
+//     float32 (gdn_bwd_partials_kernel): bound by the FP32 operations of
+//     dn^T . x^2, 2*n*C^2 (288 us at 262,144 x 192 at 67 TFLOP/s). 4 warps,
+//     an 8 x 4 register tile a thread; 32-row slices of dn and x stream
+//     through a ring of three with cp.async, x squared in place; C = 192
+//     and 128 run instances compiled for that width.
 //     bfloat16 (gdn_bwd_partials_mma_kernel): 64-row slices of dn (rounded
 //     to bf16) and x^2 staged as bf16, the block as a dn^T . x^2 product of
 //     wmma fragments (A = dn^T read column-major from the staged dn).
-//  3. gdn_bwd_reduce: one thread per dgamma/dbeta element sums the chunks'
-//     partials in chunk order and casts to the output type.
+//  3. gdn_bwd_reduce: bound by the bytes of the partials. A thread sums 4
+//     neighbouring elements over the chunks in chunk order, copying them
+//     itself with cp.async through a ring in shared memory (64 chunks in
+//     flight), and casts to the output type.
 // The number of partials is ceil(n / 1024): it depends on n, never on the
 // card. Ragged row counts are masked: rows past n are staged as zeros, so
 // they add exact zeros to dbeta/dgamma (what the JAX zero-padding relies
@@ -75,26 +80,18 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // threads of gdn_bwd_partials
-constexpr int kChunkRows = 1024;   // rows per partial dbeta/dgamma
-constexpr int kTile = 64;          // dgamma block: 64 x 64 per CTA
-constexpr int kSub = 32;           // rows staged per step of the partials
-constexpr int kReduceThreads = 256;
+constexpr int kChunkRows = 1024;  // rows per partial dbeta/dgamma
+constexpr int kTile = 64;         // dgamma block: 64 x 64 per CTA
 
+// the output type of the reduce
 template <typename T>
 struct Io;
 
 template <>
 struct Io<float> {
-  static __device__ __forceinline__ float load(const float *p) {
-    return __ldg(p);
-  }
-  // the value as the input type holds it
-  static __device__ __forceinline__ float round(float v) { return v; }
   static __device__ __forceinline__ float store(float v) { return v; }
 };
 
-// bf16 runs only through the reduce; its products are the *_mma kernels
 template <>
 struct Io<__nv_bfloat16> {
   static __device__ __forceinline__ __nv_bfloat16 store(float v) {
@@ -206,100 +203,265 @@ __global__ void __launch_bounds__(f32::kMaxThreads)
   f32::store_rows(dx, acc, row0 + r0, valid - r0, c0, C, vec);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gdn_bwd_partials_kernel(const T *__restrict__ x,
+// The f32 partials: one CTA per (1024-row chunk, 64 x 64 block of dgamma),
+// bound by the FP32 operations of dn^T . x^2 (2*n*C^2). Here the product's
+// depth is the chunk's rows and both operands are row-major, so the block
+// streams through shared memory in 32-row slices of dn and x ([32][64]
+// each), copied with 16-byte cp.async into a ring of kStages slices: two
+// slices are in flight while one is summed, one barrier per slice. Each
+// thread squares the x it copied itself once its copy has landed. The 4
+// warps each own a 32 x 32 quarter of the block, a thread an 8-row (o) x
+// 4-column (i) register tile, and for a chunk row r its 8 dn and 4 x^2
+// values are contiguous in the slice: two 16-byte shared loads of dn and
+// one of x^2 per 32 FMAs, with no transpose. The sums keep the order the
+// partials have always had, so their bytes never change: dgamma is one
+// fmaf chain from 0.f per element over the chunk's rows in row order, x^2
+// rounded before the fmaf, and the zero rows a ragged last slice stages
+// come only after the last real row (fmaf(0, 0, acc) == acc: a chain from
+// +0 is never -0). dbeta is four interleaved sums: sum h adds the f32 dn
+// of rows r with (r - start) % 4 == h in row order from 0.f; a lane of the
+// first column block keeps two of them for one column, read from the
+// staged dn, and they are added as 0.f + s0 + s1 + s2 + s3.
+// kWidth > 0 compiles it for C = kWidth; kWidth = 0 takes any C, with
+// element copies when rows are not 16-byte aligned (vec false).
+constexpr int kPartialsThreads = 128;
+constexpr int kSliceRows = 32;  // rows of dn and x per staged slice
+constexpr int kStages = 3;      // slices in the ring
+constexpr int kSliceFloats = kSliceRows * kTile;  // one operand's slice
+
+// waits until at most N of this thread's newest cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts copying rows row0 .. row0+31 of dn (columns o0 ..) and x (columns
+// i0 ..) into buf ([32][64] dn, then [32][64] x): zeros from row `live` on
+// and past column C. Commits the copies as one group.
+__device__ __forceinline__ void issue_partials_slice(
+    float *buf, const float *__restrict__ dn, const float *__restrict__ x,
+    int64_t row0, int live, int o0, int i0, int C, bool vec) {
+  if (vec) {  // C % 4 == 0: a quad is all live or all padding
+    for (int e = threadIdx.x; e < kSliceFloats / 4; e += kPartialsThreads) {
+      const int r = e / (kTile / 4);
+      const int c = (e % (kTile / 4)) * 4;
+      const bool ld = r < live && o0 + c < C;
+      const bool lx = r < live && i0 + c < C;
+      f32::cp_async16(buf + r * kTile + c,
+                      ld ? dn + (row0 + r) * C + o0 + c : dn, ld ? 16 : 0);
+      f32::cp_async16(buf + kSliceFloats + r * kTile + c,
+                      lx ? x + (row0 + r) * C + i0 + c : x, lx ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kSliceFloats; e += kPartialsThreads) {
+      const int r = e / kTile;
+      const int c = e % kTile;
+      const bool ld = r < live && o0 + c < C;
+      const bool lx = r < live && i0 + c < C;
+      f32::cp_async4(buf + e, ld ? dn + (row0 + r) * C + o0 + c : dn,
+                     ld ? 4 : 0);
+      f32::cp_async4(buf + kSliceFloats + e,
+                     lx ? x + (row0 + r) * C + i0 + c : x, lx ? 4 : 0);
+    }
+  }
+  f32::cp_async_commit();
+}
+
+// x^2 over the x this thread copied into xs (the elements of
+// issue_partials_slice's loop), once its copies have landed.
+__device__ __forceinline__ void square_own(float *xs, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int e = threadIdx.x; e < kSliceFloats / 4; e += kPartialsThreads) {
+      float4 *p = reinterpret_cast<float4 *>(xs) + e;
+      float4 v = *p;
+      v.x = v.x * v.x, v.y = v.y * v.y, v.z = v.z * v.z, v.w = v.w * v.w;
+      *p = v;
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < kSliceFloats; e += kPartialsThreads)
+      xs[e] = xs[e] * xs[e];
+  }
+}
+
+template <int kWidth>
+__global__ void __launch_bounds__(kPartialsThreads, 4)
+    gdn_bwd_partials_kernel(const float *__restrict__ x,
                             const float *__restrict__ dn,
-                            float *__restrict__ partials, int64_t n, int C) {
-  __shared__ __align__(16) float dns[kSub][kTile];  // dn rounded to T
-  __shared__ __align__(16) float x2s[kSub][kTile];
-  __shared__ float dbs[kThreads / kTile][kTile];
+                            float *__restrict__ partials, int64_t n,
+                            int channels, bool vec) {
+  const int C = kWidth ? kWidth : channels;
+  extern __shared__ float4 smem4[];
+  float *ring = reinterpret_cast<float *>(smem4);  // kStages x {dn, x}
+  __shared__ float dbs[4][kTile];
 
   const int tiles = (C + kTile - 1) / kTile;
   const int o0 = (blockIdx.x / tiles) * kTile;
   const int i0 = (blockIdx.x % tiles) * kTile;
   const int64_t start = static_cast<int64_t>(blockIdx.y) * kChunkRows;
-  const int64_t end = n - start < kChunkRows ? n : start + kChunkRows;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;  // outputs o0 + 4 ty .. + 3
-  const int tx = tid % 16;  // outputs i0 + 4 tx .. + 3
-  // staging: element e = tid + kThreads m is (row e / kTile, column
-  // tid % kTile), so a thread always stages the same column
-  const int col = tid % kTile;
-  const bool first_column_block = i0 == 0;
+  const int valid = static_cast<int>(
+      n - start < kChunkRows ? n - start : static_cast<int64_t>(kChunkRows));
+  const int slices = (valid + kSliceRows - 1) / kSliceRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wo = (warp / 2) * 32;         // the warp's 32 x 32 quarter
+  const int ro = wo + (lane / 8) * 8;     // this thread's rows o0 + ro ..
+  const int ci = (warp % 2) * 32 + (lane % 8) * 4;  // columns i0 + ci ..
+  const int hb = (warp % 2) * 2;  // dbeta: sums hb, hb + 1 of column wo + lane
+  const bool beta_block = i0 == 0;
 
-  float acc[4][4] = {};
-  float db = 0.f;
-  for (int64_t s0 = start; s0 < end; s0 += kSub) {
-    for (int e = tid; e < kSub * kTile; e += kThreads) {
-      const int rr = e / kTile;
-      const int64_t row = s0 + rr;
-      const int o = o0 + col;
-      const int i = i0 + col;
-      float d = 0.f, v = 0.f;
-      if (row < end) {
-        if (o < C) d = dn[row * C + o];
-        if (i < C) {
-          v = Io<T>::load(x + row * C + i);
-          v = Io<T>::round(v * v);
-        }
-      }
-      db += d;  // rows in a fixed order per thread; zeros past the end
-      dns[rr][col] = Io<T>::round(d);
-      x2s[rr][col] = v;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < kSub; ++rr) {
-      const float4 a = *reinterpret_cast<const float4 *>(&dns[rr][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4 *>(&x2s[rr][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+  auto issue = [&](int k) {
+    if (k < slices)
+      issue_partials_slice(ring + (k % kStages) * 2 * kSliceFloats, dn, x,
+                           start + k * kSliceRows, valid - k * kSliceRows, o0,
+                           i0, C, vec);
+    else
+      f32::cp_async_commit();  // an empty group keeps the count
+  };
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+
+  float acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+  float db0 = 0.f, db1 = 0.f;
+  for (int k = 0; k < slices; ++k) {
+    float *buf = ring + (k % kStages) * 2 * kSliceFloats;
+    cp_async_wait<kStages - 2>();  // this thread's copies of slice k landed
+    square_own(buf + kSliceFloats, vec);
+    __syncthreads();  // slice k is whole; every warp is done with k - 1
+    issue(k + kStages - 1);  // over slice k - 1
+    const float *ds = buf + ro;
+    const float *xs = buf + kSliceFloats + ci;
+#pragma unroll
+    for (int r = 0; r < kSliceRows; ++r) {
+      const float4 a0 = *reinterpret_cast<const float4 *>(ds + r * kTile);
+      const float4 a1 = *reinterpret_cast<const float4 *>(ds + r * kTile + 4);
+      const float4 b = *reinterpret_cast<const float4 *>(xs + r * kTile);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+      for (int p = 0; p < 8; ++p)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
     }
-    __syncthreads();
+    if (beta_block) {
+      const float *dc = buf + wo + lane;
+#pragma unroll
+      for (int r = 0; r < kSliceRows; r += 4) {
+        db0 += dc[(r + hb) * kTile];
+        db1 += dc[(r + hb + 1) * kTile];
+      }
+    }
   }
 
   float *out = partials + static_cast<int64_t>(blockIdx.y) * (C * C + C);
+  const int i = i0 + ci;
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int o = o0 + 4 * ty + p;
-    if (o >= C) continue;
+  for (int p = 0; p < 8; ++p) {
+    const int o = o0 + ro + p;
+    if (o >= C || i >= C) break;
+    float *dst = out + o * C + i;
+    if (vec) {  // C % 4 == 0: all 4 columns live
+      *reinterpret_cast<float4 *>(dst) =
+          make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+    } else {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = i0 + 4 * tx + q;
-      if (i < C) out[o * C + i] = acc[p][q];
+      for (int q = 0; q < 4; ++q)
+        if (i + q < C) dst[q] = acc[p][q];
     }
   }
-  if (first_column_block) {
-    dbs[tid / kTile][col] = db;
+  if (beta_block) {
+    dbs[hb][wo + lane] = db0;
+    dbs[hb + 1][wo + lane] = db1;
     __syncthreads();
-    if (tid < kTile && o0 + tid < C) {
+    const int t = threadIdx.x;
+    if (t < kTile && o0 + t < C) {
       float s = 0.f;
-      for (int k = 0; k < kThreads / kTile; ++k) s += dbs[k][tid];
-      out[C * C + o0 + tid] = s;
+      for (int h = 0; h < 4; ++h) s += dbs[h][t];
+      out[C * C + o0 + t] = s;
     }
   }
 }
 
-template <typename T>
+// The reduce: bound by the bytes of the partials (chunks x (C*C + C) f32,
+// read once), with C*C + C elements to spread over the card and nothing to
+// share between them, since each element's sum must run over the chunks in
+// order: s = 0.f; s += partials[k] for k = 0 .. chunks-1, then one cast. A
+// thread sums kVec neighbouring elements (16-byte copies when C % 4 == 0)
+// and copies them itself, chunk after chunk, with cp.async into a ring of
+// kReduceStages slices of kReduceChunks chunks in its CTA's shared memory:
+// two slices are in flight while it adds the third, so each thread keeps
+// up to 64 loads in flight without holding them in registers, and no
+// thread reads what another copied, so there is no barrier. The launch
+// sizes its CTAs (64 threads at C = 192, 32 at C = 128) to cover the SMs.
+constexpr int kReduceChunks = 32;  // chunks per staged slice
+constexpr int kReduceStages = 3;
+constexpr int kReduceThreads = 64;  // at most; see launch_reduce
+
+template <typename T, int kVec>
 __global__ void __launch_bounds__(kReduceThreads)
     gdn_bwd_reduce_kernel(const float *__restrict__ partials,
                           T *__restrict__ dbeta, T *__restrict__ dgamma,
                           int64_t chunks, int C) {
-  const int64_t elems = static_cast<int64_t>(C) * C + C;
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kReduceThreads +
-                    threadIdx.x;
+  extern __shared__ float4 smem4[];
+  const int64_t cc = static_cast<int64_t>(C) * C;
+  const int64_t elems = cc + C;
+  const int64_t e =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * kVec;
   if (e >= elems) return;
-  float s = 0.f;
-  for (int64_t k = 0; k < chunks; ++k) s += partials[k * elems + e];
-  if (e < static_cast<int64_t>(C) * C)
-    dgamma[e] = Io<T>::store(s);
-  else
-    dbeta[e - static_cast<int64_t>(C) * C] = Io<T>::store(s);
+  // this thread's column of the ring: [kReduceStages][kReduceChunks]
+  // slots of kVec floats, a slot's threads side by side
+  float *col = reinterpret_cast<float *>(smem4) + threadIdx.x * kVec;
+  const int stride = blockDim.x * kVec;  // floats from one chunk to the next
+  const int64_t slices = (chunks + kReduceChunks - 1) / kReduceChunks;
+  auto rows_of = [&](int64_t k) {
+    const int64_t left = chunks - k * kReduceChunks;
+    return static_cast<int>(left < kReduceChunks ? left : kReduceChunks);
+  };
+  auto issue = [&](int64_t k) {
+    if (k < slices) {
+      float *buf = col + (k % kReduceStages) * kReduceChunks * stride;
+      const float *src = partials + k * kReduceChunks * elems + e;
+      const int rows = rows_of(k);
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r) {
+        if constexpr (kVec == 4)
+          f32::cp_async16(buf + r * stride, src + r * elems, 16);
+        else
+          f32::cp_async4(buf + r * stride, src + r * elems, 4);
+      }
+    }
+    f32::cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int k = 0; k < kReduceStages - 1; ++k) issue(k);
+  float s[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) s[j] = 0.f;
+  for (int64_t k = 0; k < slices; ++k) {
+    cp_async_wait<kReduceStages - 2>();  // slice k has landed
+    issue(k + kReduceStages - 1);  // over slice k - 1, which it has added
+    const float *buf = col + (k % kReduceStages) * kReduceChunks * stride;
+    const int rows = rows_of(k);
+#pragma unroll 8
+    for (int r = 0; r < rows; ++r) {
+      if constexpr (kVec == 4) {
+        const float4 v = *reinterpret_cast<const float4 *>(buf + r * stride);
+        s[0] += v.x, s[1] += v.y, s[2] += v.z, s[3] += v.w;
+      } else {
+        s[0] += buf[r * stride];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    if (e + j < cc)
+      dgamma[e + j] = Io<T>::store(s[j]);
+    else if (e + j < elems)
+      dbeta[e + j - cc] = Io<T>::store(s[j]);
+  }
 }
 
 template <bool kInverse>
@@ -533,16 +695,31 @@ cudaError_t launch_dx(const void *x, const void *g, const void *gamma_t,
                                    stream);
 }
 
-template <typename T>
-cudaError_t launch_partials(const void *x, const void *dn, void *partials,
-                            int64_t n, int C, cudaStream_t stream) {
+template <int kWidth>
+cudaError_t launch_partials_as(const void *x, const void *dn, void *partials,
+                               int64_t n, int C, cudaStream_t stream) {
+  constexpr int smem = kStages * 2 * kSliceFloats * sizeof(float);
+  auto kernel = gdn_bwd_partials_kernel<kWidth>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // 16-byte copies and stores need whole rows of 4 and aligned bases
+  const bool vec = C % 4 == 0 && gdn_mma::aligned16(x) &&
+                   gdn_mma::aligned16(dn) && gdn_mma::aligned16(partials);
   const int tiles = (C + kTile - 1) / kTile;
   const dim3 grid(static_cast<unsigned>(tiles * tiles),
                   static_cast<unsigned>((n + kChunkRows - 1) / kChunkRows));
-  gdn_bwd_partials_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T *>(x), static_cast<const float *>(dn),
-      static_cast<float *>(partials), n, C);
+  kernel<<<grid, kPartialsThreads, smem, stream>>>(
+      static_cast<const float *>(x), static_cast<const float *>(dn),
+      static_cast<float *>(partials), n, C, vec);
   return cudaGetLastError();
+}
+
+cudaError_t launch_partials(const void *x, const void *dn, void *partials,
+                            int64_t n, int C, cudaStream_t stream) {
+  if (C == 192) return launch_partials_as<192>(x, dn, partials, n, C, stream);
+  if (C == 128) return launch_partials_as<128>(x, dn, partials, n, C, stream);
+  return launch_partials_as<0>(x, dn, partials, n, C, stream);
 }
 
 size_t dx_mma_smem(int C) {
@@ -591,16 +768,39 @@ cudaError_t launch_partials_mma(const void *x, const void *dn,
   return cudaGetLastError();
 }
 
+template <typename T, int kVec>
+cudaError_t launch_reduce_as(const void *partials, void *dbeta, void *dgamma,
+                             int64_t chunks, int C, cudaStream_t stream) {
+  const int64_t threads = (static_cast<int64_t>(C) * C + C + kVec - 1) / kVec;
+  // the widest CTAs that still give every SM one (the copies in flight are
+  // what bounds the sum, and an idle SM issues none)
+  int sms = 132, device;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int block = kReduceThreads;
+  while (block > 32 && (threads + block - 1) / block < sms) block /= 2;
+  const int64_t blocks = (threads + block - 1) / block;
+  auto kernel = gdn_bwd_reduce_kernel<T, kVec>;
+  constexpr int most =
+      kReduceStages * kReduceChunks * kReduceThreads * kVec * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err != cudaSuccess) return err;
+  const size_t smem = static_cast<size_t>(kReduceStages) * kReduceChunks *
+                      block * kVec * sizeof(float);
+  kernel<<<static_cast<unsigned>(blocks), block, smem, stream>>>(
+      static_cast<const float *>(partials), static_cast<T *>(dbeta),
+      static_cast<T *>(dgamma), chunks, C);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_reduce(const void *partials, void *dbeta, void *dgamma,
                           int64_t chunks, int C, cudaStream_t stream) {
-  const int64_t elems = static_cast<int64_t>(C) * C + C;
-  const int64_t blocks = (elems + kReduceThreads - 1) / kReduceThreads;
-  gdn_bwd_reduce_kernel<T>
-      <<<static_cast<unsigned>(blocks), kReduceThreads, 0, stream>>>(
-          static_cast<const float *>(partials), static_cast<T *>(dbeta),
-          static_cast<T *>(dgamma), chunks, C);
-  return cudaGetLastError();
+  // 4 neighbouring elements lie in one output when C % 4 == 0
+  if (C % 4 == 0 && gdn_mma::aligned16(partials))
+    return launch_reduce_as<T, 4>(partials, dbeta, dgamma, chunks, C, stream);
+  return launch_reduce_as<T, 1>(partials, dbeta, dgamma, chunks, C, stream);
 }
 
 }  // namespace
@@ -657,7 +857,7 @@ int lmic_gdn_bwd_partials(const void *x, const void *dn, void *partials,
   if (n <= 0) return 0;
   if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_partials<float>(x, dn, partials, n, C, s);
+  if (dtype == 0) return launch_partials(x, dn, partials, n, C, s);
   if (dtype == 1) return launch_partials_mma(x, dn, partials, n, C, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -135,8 +135,16 @@ def test_tiled_kernel_matches_reference(dtype, inverse, rows, C):
     assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
 
 
+# gdn_bwd's partials and reduce at the edges of their 1024-row chunks: one
+# row short of a chunk, a whole chunk, one row into the next, and one row
+# into the third; C = 37 takes the element copies, 128 and 192 the kernels
+# compiled for that width.
+CHUNK_EDGES = [(dtype, rows, C) for dtype in (torch.float32, torch.bfloat16)
+               for rows in (1023, 1024, 1025, 2049) for C in (37, 128, 192)]
+
+
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("dtype,rows,C", TILED)
+@pytest.mark.parametrize("dtype,rows,C", TILED + CHUNK_EDGES)
 def test_tiled_bwd_kernel_matches_reference(dtype, inverse, rows, C):
     x, beta, gamma = _data(rows, C, dtype, seed=rows + C, skew=True)
     g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
