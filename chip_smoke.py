@@ -40,7 +40,23 @@ Phases, each of which raises (exit code != 0) on any failure:
    steps in f32, 6 in AMP), a
    profile of the GDN kernels' share, one step's gradients on the card
    against the CPU on a narrow model with the same noise, and the trained
-   model saved, reloaded, finalized and round-tripped through the codec.
+   model saved, reloaded, finalized and round-tripped through the codec;
+6. AR serving: mbt2018 at quality 8 (N=192, M=320) from a seed, served
+   by the port's HTTP server, three seeded 512x768 images through POST
+   /compress and /decompress with the launch counts set to 0 just before
+   and read just after (6 forward launches a round trip, no backward); the
+   bodies held to the direct codec calls, encoding to be deterministic,
+   the decoder to recover exactly the encoder's latents, the CUDA
+   transforms and one image's wavefront scales and means to the CPU
+   plain path on a small input; the stages of `codec.stats` logged (the
+   decode loop split into device work and host rANS); then one direct
+   512x768 round trip each of cheng2020-anchor at quality 3 (N=128) and
+   cheng2020-attn at quality 6 (N=192), with the same checks, each
+   round trip's profile, and cuDNN against the conv route of
+   `layers.Conv` on cheng2020's 192-channel 3x3 conv. It runs last, so
+   that training is measured in the process state it had before the
+   phase existed (run before it, the phase raised training's f32 peak
+   memory by 0.10 GiB).
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -83,6 +99,9 @@ TRAIN_ROWS = (262_144, 65_536, 16_384, 16_391)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # as tests/test_pallas_gdn.py
 IMAGE = (1, 512, 768, 3)  # Kodak geometry
 SERVE_ARCH, QUALITY = "mbt2018-mean", 8
+# the autoregressive family: mbt2018 served over HTTP, cheng2020 direct
+AR_SERVE_ARCH, AR_QUALITY = "mbt2018", 8
+AR_DIRECT = (("cheng2020-anchor", 3), ("cheng2020-attn", 6))
 # lmic_tpu's trainer: batch 16, 256x256 patches (utils/train_cli.py), lambda
 # table of 7 entries, so quality 7 is the widest trainable model
 TRAIN_ARCH, TRAIN_QUALITY, TRAIN_LAMBDA = "mbt2018-mean", 7, 10240
@@ -579,15 +598,19 @@ def _roundtrip_checks(codec, x, strings, shape):
         raise AssertionError("decode did not recover the encoded latents")
 
 
-def _cpu_agreement(arch, codec):
+def _cpu_agreement(arch, codec, quality=QUALITY):
     """The CUDA transforms (GDN kernel, cuDNN without TF32) against the CPU
     plain-version transforms, same seed, on a small input: f32 sums in
-    another order, so within 1e-4 of the largest value."""
+    another order, so within 1e-4 of the largest value; for an AR codec
+    also every wavefront step's scales and means on the same latents.
+    Returns {"transforms": error} (and "step", "index_flips", "indexes")."""
     import torch
 
     from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.models.joint import JointARCodec
+    from lmic_tpu_torch.utils.crosscheck import wavefront_step_agreement
 
-    cpu = zoo.create_model(arch, QUALITY, seed=0, device="cpu")
+    cpu = zoo.create_model(arch, quality, seed=0, device="cpu")
     x = _images(1, (1, 64, 128, 3), seed=7)[0]
     with torch.inference_mode():
         xs = [c._pixels(x) for c in (codec, cpu)]
@@ -608,7 +631,14 @@ def _cpu_agreement(arch, codec):
         a, b = getattr(codec, state), getattr(cpu, state)
         if a is not None and not np.array_equal(a.table.cdf, b.table.cdf):
             raise AssertionError(f"{arch}: {state} tables differ")
-    return worst
+    out = {"transforms": worst}
+    if isinstance(codec, JointARCodec):
+        err, flips, n = wavefront_step_agreement(codec, cpu, x)
+        if not err < 1e-4:
+            raise AssertionError(f"{arch}: CUDA vs CPU wavefront step "
+                                 f"{err:.3g}")
+        out.update(step=err, index_flips=flips, indexes=n)
+    return out
 
 
 def phase_serving():
@@ -683,7 +713,7 @@ def phase_serving():
             f"/compress {tc:.1f} ms (direct call {t_direct:.1f} ms), "
             f"/decompress {td:.1f} ms; stages ms "
             + json.dumps({k: round(v, 2) for k, v in st.items()}))
-    worst = _cpu_agreement(SERVE_ARCH, codec)
+    worst = _cpu_agreement(SERVE_ARCH, codec)["transforms"]
     log(f"{SERVE_ARCH}: CUDA vs CPU transforms within {worst:.3g}")
     return launches
 
@@ -706,11 +736,202 @@ def phase_other_archs():
         if rec["x_hat"].shape != x.shape or rec["x_hat"].dtype != np.uint8:
             raise AssertionError(f"{arch}: bad decode {rec['x_hat'].shape}")
         _roundtrip_checks(codec, x, out["strings"], out["shape"])
-        worst = _cpu_agreement(arch, codec)
+        worst = _cpu_agreement(arch, codec)["transforms"]
         nbytes = sum(len(s) for g in out["strings"] for s in g)
         log(f"{arch} q{QUALITY}: {nbytes} bytes, compress "
             f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms, "
             f"CUDA vs CPU transforms within {worst:.3g}")
+
+
+def _ar_roundtrip_checks(codec, x, strings):
+    """Encoding is deterministic and the AR decoder recovers exactly the
+    encoder's latents (the wavefront loops agree bit for bit)."""
+    import torch
+
+    with torch.inference_mode():
+        ys, z_sym = codec._analyze(x)
+        enc = codec._code_y_z(ys, z_sym, keep_y_hat=True)
+        dec = codec._decode_y_hat(enc["strings"], enc["shape"])
+    if enc["strings"] != strings:
+        raise AssertionError("AR encoding is not deterministic")
+    if not torch.equal(dec, enc["y_hat_latent"]):
+        raise AssertionError("AR decode did not recover the encoded latents")
+
+
+def _ar_stages(stats, T):
+    """codec.stats of one round trip, with the decode loop per wavefront."""
+    out = {k: round(v, 3) for k, v in stats.items()}
+    for k in ("dec_loop_ms", "dec_loop_device_ms", "dec_loop_rans_ms"):
+        out[k.replace("_ms", "_per_wavefront_us")] = round(
+            1e3 * stats[k] / T, 1)
+    return out
+
+
+def _ar_round_trip(codec, x):
+    """One timed direct round trip: (out, rec, compress ms, decompress ms,
+    stats of both)."""
+    t0 = time.perf_counter()
+    out = codec.compress(x)
+    t1 = time.perf_counter()
+    stats = dict(codec.stats)
+    rec = codec.decompress(out["strings"], out["shape"], u8=True)
+    t2 = time.perf_counter()
+    return out, rec, 1e3 * (t1 - t0), 1e3 * (t2 - t1), {**stats,
+                                                         **codec.stats}
+
+
+def _log_ar_profile(arch, codec, x):
+    """Where one AR round trip's time goes on the card: for compress and
+    for decompress, the device time of one call (torch.profiler) against
+    the wall time of one call without the profiler (its busy share), the
+    device operations, and the largest kernels."""
+    out = codec.compress(x)
+    for what, run in (("compress", lambda: codec.compress(x)),
+                      ("decompress", lambda: codec.decompress(
+                          out["strings"], out["shape"], u8=True))):
+        t0 = time.perf_counter()
+        run()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        gdn_ms, dev_ms, _, top, ops = _profile(run, n=1)
+        log(f"AR profile {arch} {what}: device {dev_ms:.2f} ms of wall "
+            f"{wall_ms:.2f} ms (busy {100 * dev_ms / wall_ms:.1f} %), "
+            f"{ops:.0f} device operations, GDN {gdn_ms:.3f} ms; device ms "
+            "of the largest kernels: "
+            + json.dumps({k: round(v, 3) for k, v in top.items()}))
+
+
+def _log_conv_route():
+    """Why the codecs' stride-1 convs skip cuDNN on the card (layers.py
+    `Conv`): cheng2020's 192 -> 192 3x3 conv at 128x192 (N = 192, a
+    512x768 image) through cuDNN and through the im2col + GEMM route,
+    device time and device operations of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from lmic_tpu_torch.layers.layers import _conv_gemm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 192, 128, 192), generator=gen, device="cuda")
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randn((192, 192, 3, 3), generator=gen, device="cuda") / 40
+    b = torch.zeros(192, device="cuda")
+    runs = {"cudnn": lambda: F.conv2d(x, w, b, padding=1),
+            "gemm_route": lambda: _conv_gemm(x, w, b, (1, 1))}
+    out = {}
+    with torch.inference_mode():
+        err, _ = _errors([runs["gemm_route"]()], [runs["cudnn"]()])
+        for name, run in runs.items():
+            ops = _profile(run, n=1)[4]
+            out[name] = {"ms": round(_time_ms(run, runs=3, warmup=1), 3),
+                         "device_operations": ops}
+    log("conv3x3 192->192 at 128x192, f32, TF32 off: " + json.dumps(out)
+        + f", max |route - cudnn| {err:.3g}")
+
+
+def _check_launches(what, counts, n):
+    """n round trips: 6 gdn_fwd launches each (3 GDN in g_a, 3 IGDN in
+    g_s) and no backward kernel."""
+    rest = {k: v for k, v in counts.items() if k != "gdn_fwd"}
+    if counts["gdn_fwd"] != 6 * n or any(rest.values()):
+        raise AssertionError(f"{what}: launches {counts} in {n} round trips")
+
+
+def phase_ar_serving():
+    """The AR family's serving path; returns (gdn_fwd launches, seconds)."""
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.models.joint import _wavefront_positions
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.codec_cli import read_body
+    from lmic_tpu_torch.utils.serve import (
+        _read_pixels,
+        _write_pixels,
+        make_server,
+    )
+
+    t_phase = time.perf_counter()
+    T = _wavefront_positions(IMAGE[1] // 16, IMAGE[2] // 16)
+    codec = zoo.create_model(AR_SERVE_ARCH, AR_QUALITY, seed=0,
+                             device="cuda")
+    codec.update()
+    log(f"{AR_SERVE_ARCH} q{AR_QUALITY} (N={codec.module.N}, "
+        f"M={codec.module.M}): {T} wavefronts an image of "
+        f"{IMAGE[1]}x{IMAGE[2]}")
+    images = _images(3, seed=21)
+    codec.decompress(**codec.compress(images[0]), u8=True)  # warm-up
+    server = make_server(codec, {"family": "image", "arch": AR_SERVE_ARCH,
+                                 "quality": AR_QUALITY,
+                                 "input_shape": list(IMAGE)})
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        runs = []
+        _reset_counts()
+        for x in images:
+            f = io.BytesIO()
+            _write_pixels(f, x)
+            t1 = time.perf_counter()
+            body = _post(port, "/compress", f.getvalue())
+            t2 = time.perf_counter()
+            enc_stats = dict(codec.stats)
+            rec = _post(port, "/decompress", body)
+            t3 = time.perf_counter()
+            runs.append((body, rec, 1e3 * (t2 - t1), 1e3 * (t3 - t2),
+                         {**enc_stats, **codec.stats}))
+        counts = dict(gdn.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    launches = counts["gdn_fwd"]
+    _check_launches(f"{AR_SERVE_ARCH} served", counts, len(images))
+    for i, (x, (body, rec, tc, td, st)) in enumerate(zip(images, runs)):
+        shape, groups = read_body(io.BytesIO(body))
+        direct = codec.compress(x)
+        if [list(g) for g in direct["strings"]] != groups \
+                or tuple(direct["shape"]) != tuple(shape):
+            raise AssertionError(f"{AR_SERVE_ARCH}: /compress differs from "
+                                 "the codec")
+        want = codec.decompress(direct["strings"], direct["shape"], u8=True)
+        got = _read_pixels(io.BytesIO(rec))
+        if got.shape != x.shape or not np.array_equal(got, want["x_hat"]):
+            raise AssertionError(f"{AR_SERVE_ARCH}: /decompress differs "
+                                 "from the codec")
+        _ar_roundtrip_checks(codec, x, direct["strings"])
+        nbytes = sum(len(s) for g in groups for s in g)
+        log(f"AR serve {AR_SERVE_ARCH} image {i}: {nbytes} bytes, "
+            f"{8 * nbytes / (x.shape[1] * x.shape[2]):.4f} bpp, /compress "
+            f"{tc:.1f} ms, /decompress {td:.1f} ms; stages "
+            + json.dumps(_ar_stages(st, T)))
+    agree = _cpu_agreement(AR_SERVE_ARCH, codec, AR_QUALITY)
+    log(f"{AR_SERVE_ARCH}: CUDA vs CPU " + json.dumps(agree))
+    _log_ar_profile(AR_SERVE_ARCH, codec, images[0])
+    del codec
+    for arch, q in AR_DIRECT:
+        codec = zoo.create_model(arch, q, seed=0, device="cuda")
+        codec.update()
+        x = _images(1, seed=22)[0]
+        codec.compress(x)  # warm-up
+        _reset_counts()
+        out, rec, tc, td, st = _ar_round_trip(codec, x)
+        counts = dict(gdn.LAUNCHES)
+        launches += counts["gdn_fwd"]
+        _check_launches(arch, counts, 1)
+        if rec["x_hat"].shape != x.shape or rec["x_hat"].dtype != np.uint8:
+            raise AssertionError(f"{arch}: bad decode {rec['x_hat'].shape}")
+        _ar_roundtrip_checks(codec, x, out["strings"])
+        agree = _cpu_agreement(arch, codec, q)
+        nbytes = sum(len(s) for g in out["strings"] for s in g)
+        log(f"AR {arch} q{q} (N={codec.module.N}): {nbytes} bytes, compress "
+            f"{tc:.1f} ms, decompress {td:.1f} ms; stages "
+            + json.dumps(_ar_stages(st, T)) + "; CUDA vs CPU "
+            + json.dumps(agree))
+        _log_ar_profile(arch, codec, x)
+        del codec
+    _log_conv_route()
+    seconds = time.perf_counter() - t_phase
+    log(f"AR serving phase: {seconds:.1f} s")
+    return launches, seconds
 
 
 def _train_batch(shape, seed):
@@ -742,11 +963,11 @@ def _steps(step, state, batch, gen, n):
 GDN_KERNELS = MMA_KERNELS + FP32_KERNELS
 
 
-def _profile(step, state, batch, gen, n=3):
-    """Device time per step of the GDN kernels and of all kernels, the
-    wall time per step, and the device ms per step of each GDN kernel and
-    of the other kernels that take the most, from a torch.profiler trace
-    of n steps."""
+def _profile(run, n=3):
+    """Device time per call of `run` of the GDN kernels and of all
+    kernels, the wall time per call, the device ms per call of each GDN
+    kernel and of the other kernels that take the most, and the device
+    operations per call, from a torch.profiler trace of n calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -756,11 +977,11 @@ def _profile(step, state, batch, gen, n=3):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            step(state, batch, gen)
+            run()
         torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0) / n
     gdn_us = total_us = 0.0
-    by_kernel = {}
+    by_kernel, ops = {}, 0
     for evt in prof.key_averages():
         # a record_function range seen on the device (Adam's step) spans
         # kernels that are counted on their own
@@ -768,6 +989,7 @@ def _profile(step, state, batch, gen, n=3):
             continue
         us = evt.self_device_time_total
         total_us += us
+        ops += evt.count
         name = next((k for k in GDN_KERNELS if k in evt.key), None)
         if name:
             gdn_us += us
@@ -776,7 +998,7 @@ def _profile(step, state, batch, gen, n=3):
     if total_us <= 0:
         raise AssertionError("the profiler recorded no device time")
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    return gdn_us / 1e3 / n, total_us / 1e3 / n, wall, top
+    return gdn_us / 1e3 / n, total_us / 1e3 / n, wall, top, ops / n
 
 
 def _train_cpu_agreement():
@@ -888,7 +1110,8 @@ def phase_training():
             raise AssertionError(f"{mode}: loss did not fall: {losses}")
         log(f"{mode} loss over {len(losses)} steps on one batch: "
             + ", ".join(f"{v:.2f}" for v in losses))
-        gdn_ms, dev_ms, wall_ms, top = _profile(step, state, batch, gen)
+        gdn_ms, dev_ms, wall_ms, top, _ = _profile(
+            lambda: step(state, batch, gen))
         last = mets[-1]
         log(f"train {TRAIN_ARCH} q{TRAIN_QUALITY} {mode} batch "
             f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}: step ms "
@@ -919,11 +1142,11 @@ def phase_training():
     return counts, steps
 
 
-def _totals(cases, kernel, rows, dtype):
-    """Sums over one main-path pass (a q8 512x768 round trip or a training
-    step): the GDN and the IGDN at each of `rows`, C = 192."""
+def _totals(cases, kernel, rows, dtype, C=192):
+    """Sums over one main-path pass (a 512x768 round trip or a training
+    step): the GDN and the IGDN at each of `rows`, at width C."""
     sel = [c for c in cases[kernel] if c["shape"][0] in rows
-           and c["shape"][1] == 192 and c["dtype"] == dtype]
+           and c["shape"][1] == C and c["dtype"] == dtype]
     if len(sel) != 2 * len(rows):
         raise AssertionError(f"{len(sel)} {kernel} main-path cases")
     t = {k: sum(c[k] for c in sel) / 1e3
@@ -990,9 +1213,10 @@ def main():
     serve_launches = phase_serving()
     phase_other_archs()
     train_counts, train_steps = phase_training()
+    ar_launches, _ = phase_ar_serving()
 
-    def totals(kernel, rows, dtype):
-        return _totals(cases, kernel, rows, dtype)
+    def totals(kernel, rows, dtype, C=192):
+        return _totals(cases, kernel, rows, dtype, C)
 
     errors = {k: _max_abs_err_by_dtype(v) for k, v in cases.items()}
     bwd_counts = {k: train_counts[k] for k in gdn.BWD_KERNELS}
@@ -1003,14 +1227,18 @@ def main():
         "route": "cuda",
         "source": "lmic_tpu_torch/csrc/gdn_fwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
-        "launches": serve_launches + train_counts["gdn_fwd"],
+        "launches": serve_launches + ar_launches + train_counts["gdn_fwd"],
         "launches_by_path": {"serving": serve_launches,
+                             "ar_serving": ar_launches,
                              "training": train_counts["gdn_fwd"]},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
         "max_abs_err": max(errors["gdn_fwd"].values()),
         "max_abs_err_by_dtype": errors["gdn_fwd"],
         # one q8 512x768 round trip: 3 GDN in g_a, 3 IGDN in g_s, f32
         **totals("gdn_fwd", SERVE_ROWS[:3], "float32"),
+        # the same at C = 128 (cheng2020-anchor q3)
+        "round_trip_c128": totals("gdn_fwd", SERVE_ROWS[:3], "float32",
+                                  128),
         "training_step_f32": totals("gdn_fwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
         "card": smi,

@@ -38,6 +38,18 @@ def _load():
             _i32p, _i32p, ctypes.c_int64, _i32p, ctypes.c_int64, _i32p, _i32p,
             _u8p, ctypes.c_int64,
         ]
+        lib.lmic_rans_encoder_new.restype = ctypes.c_void_p
+        lib.lmic_rans_encoder_new.argtypes = []
+        lib.lmic_rans_encoder_append.restype = None
+        lib.lmic_rans_encoder_append.argtypes = [
+            ctypes.c_void_p, _i32p, _i32p, ctypes.c_int64, _i32p,
+            ctypes.c_int64, _i32p, _i32p,
+        ]
+        lib.lmic_rans_encoder_flush.restype = ctypes.c_int64
+        lib.lmic_rans_encoder_flush.argtypes = [
+            ctypes.c_void_p, _u8p, ctypes.c_int64,
+        ]
+        lib.lmic_rans_encoder_free.argtypes = [ctypes.c_void_p]
         lib.lmic_rans_decoder_new.restype = ctypes.c_void_p
         lib.lmic_rans_decoder_new.argtypes = [_u8p, ctypes.c_int64]
         lib.lmic_rans_decoder_free.argtypes = [ctypes.c_void_p]
@@ -142,6 +154,44 @@ def decode_with_indexes(stream: bytes, indexes, table: CdfTable) -> np.ndarray:
         table.lut().ctypes.data_as(_u16p), out.ctypes.data_as(_i32p),
     )
     return out
+
+
+class BufferedRansEncoder:
+    """Chunked encoder: append symbol chunks in forward order, then
+    `flush()` the whole stream (emitted in reverse, as rANS requires).
+    Counterpart of lmic_tpu/entropy/coder.py:200."""
+
+    def __init__(self):
+        self._lib = _load()
+        self._handle = self._lib.lmic_rans_encoder_new()
+        self._n = 0
+
+    def encode_with_indexes(self, symbols, indexes, table: CdfTable):
+        symbols = _as_i32(symbols)
+        indexes = _as_i32(indexes)
+        if symbols.shape != indexes.shape:
+            raise ValueError("symbols and indexes must have the same size")
+        self._n += symbols.size
+        self._lib.lmic_rans_encoder_append(
+            self._handle, _i32_ptr(symbols), _i32_ptr(indexes), symbols.size,
+            _i32_ptr(table.cdf), table.stride,
+            _i32_ptr(table.cdf_length), _i32_ptr(table.offset),
+        )
+
+    def flush(self) -> bytes:
+        out = np.empty(self._n * 48 + 16, dtype=np.uint8)
+        nbytes = self._lib.lmic_rans_encoder_flush(
+            self._handle, out.ctypes.data_as(_u8p), out.size
+        )
+        if nbytes < 0:
+            raise RuntimeError("rANS encode buffer overflow")
+        self._n = 0
+        return out[:nbytes].tobytes()
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.lmic_rans_encoder_free(self._handle)
+            self._handle = None
 
 
 class RansDecoder:

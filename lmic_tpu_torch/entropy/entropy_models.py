@@ -252,8 +252,12 @@ class GaussianConditional:
     def build_indexes(self, scale_table, scales):
         """Map each sigma to its scale-table bucket, the reference's counting
         rule (entropy_models.py:735-740):
-        index = (L-1) - #{s in table[:-1] : sigma <= s}. int32."""
-        scales = lower_bound(scales, self.scale_bound)
+        index = (L-1) - #{s in table[:-1] : sigma <= s}. int32.
+
+        Given `scale_table` as a tensor on the scales' device, it makes no
+        host round trip (the AR codecs call it once per wavefront)."""
+        # lower_bound's forward, without a bound tensor made on the host
+        scales = torch.clamp_min(scales, self.scale_bound)
         table = torch.as_tensor(scale_table, dtype=scales.dtype,
                                 device=scales.device)
         counts = (scales[..., None] <= table[:-1]).sum(-1, dtype=torch.int32)

@@ -1,13 +1,19 @@
-"""Layers of the image codecs' main path: Conv, Deconv and GDN/IGDN.
+"""Layers of the image codecs: Conv, Deconv, GDN/IGDN, and the sub-pixel,
+masked-context, residual and attention blocks of the AR family.
 
-Counterpart of lmic_tpu/layers/layers.py:32-168. Activations are NCHW in
-`torch.channels_last` memory format. Padding follows the reference:
+Counterpart of lmic_tpu/layers/layers.py:32-168, 207-345. Activations are
+NCHW in `torch.channels_last` memory format. Padding follows the reference:
 
 - Conv(k, s):   nn.Conv2d(padding=k//2)                       -> ceil(H/s)
 - Deconv(k, s): nn.ConvTranspose2d(padding=k//2,
                 output_padding=s-1)                           -> H*s
 - GDN/IGDN:     y = x / sqrt(beta + x^2 @ gamma^T) (inverse: * sqrt), the
                 channel product in the CUDA kernels of ops/gdn.py on the GPU.
+- MaskedConv2d: PixelCNN mask A/B multiplied into the kernel at call time.
+- The residual and attention blocks keep CompressAI's submodule names
+  (`conv1`, `conv2`, `gdn`, `skip`, `subpel_conv`, `conv`, `igdn`,
+  `upsample`, `conv_a`, `conv_b`; compressai/layers/layers.py:98-244), so
+  their `state_dict()` keys are CompressAI's.
 
 `dtype` is the counterpart of flax's `dtype=`: the compute dtype (e.g.
 torch.bfloat16 for AMP training). Parameters stay f32; input, weight and
@@ -35,8 +41,26 @@ def _cast(dtype, *tensors):
     return [t if dtype is None else t.to(dtype) for t in tensors]
 
 
+def _conv_gemm(x, weight, bias, padding):
+    """A stride-1 convolution as im2col and one cuBLAS product (the
+    computation of torch's own non-cuDNN path), NCHW out."""
+    B, _, H, W = x.shape
+    cols = F.unfold(x, weight.shape[2:], padding=padding)  # (B, C*k*k, H*W)
+    out = weight.flatten(1) @ cols + bias[:, None]
+    return out.view(B, -1, H, W)
+
+
 class Conv(nn.Conv2d):
-    """Strided conv with torch-style symmetric padding (p = k//2)."""
+    """Strided conv with torch-style symmetric padding (p = k//2).
+
+    Without autograd on the card, a stride-1 k x k (k > 1) conv runs as
+    im2col + GEMM (`_conv_gemm`) instead of cuDNN: with TF32 off, cuDNN's
+    heuristics pick an FFT engine of tens of thousands of small launches
+    for the 192 -> 192 channel convs at 128x192 (cheng2020 at N = 192 on
+    a 512x768 image), some hundred times slower than this route
+    (`chip_smoke.py` logs both). The route is deterministic, and its cost
+    follows the size of its product. On the CPU and under autograd the
+    conv is the CPU's or cuDNN's."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, stride: int = 2,
@@ -44,10 +68,13 @@ class Conv(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, padding=kernel_size // 2)
         self.dtype = dtype  # compute dtype; the parameters stay f32
+        self._gemm_route = stride == 1 and kernel_size > 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*_cast(self.dtype, x, self.weight,
-                                         self.bias))
+        x, weight, bias = _cast(self.dtype, x, self.weight, self.bias)
+        if self._gemm_route and x.is_cuda and not torch.is_grad_enabled():
+            return _conv_gemm(x, weight, bias, self.padding)
+        return self._conv_forward(x, weight, bias)
 
 
 class Deconv(nn.ConvTranspose2d):
@@ -105,3 +132,162 @@ class GDN(nn.Module):
             x = x.contiguous(memory_format=torch.channels_last)
         y = gdn_core(x.permute(0, 2, 3, 1), beta, gamma, self.inverse)
         return y.permute(0, 3, 1, 2)
+
+
+def conv3x3(in_channels: int, out_channels: int, stride: int = 1,
+            dtype: Optional[torch.dtype] = None) -> Conv:
+    return Conv(in_channels, out_channels, 3, stride, dtype=dtype)
+
+
+def conv1x1(in_channels: int, out_channels: int, stride: int = 1,
+            dtype: Optional[torch.dtype] = None) -> Conv:
+    return Conv(in_channels, out_channels, 1, stride, dtype=dtype)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, C*r^2, H, W) -> (B, C, H*r, W*r), nn.PixelShuffle's channel
+    order (c-major, then row offset, then column offset), as lmic_tpu's
+    NHWC `pixel_shuffle` documents it."""
+    return F.pixel_shuffle(x, r)
+
+
+class SubpelConv3x3(nn.Sequential):
+    """3x3 conv + PixelShuffle upsampling (reference layers.py:86-91: a
+    Sequential, so the conv's keys are `{prefix}.0.*`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, r: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(conv3x3(in_channels, out_channels * r * r,
+                                 dtype=dtype), nn.PixelShuffle(r))
+
+
+def make_causal_mask(kh: int, kw: int, mask_type: str = "A") -> torch.Tensor:
+    """PixelCNN raster-order kernel mask (reference layers.py:64-73):
+    (kh, kw) float, rows below the centre zero, the centre row zero from
+    the centre pixel (type A) or right of it (type B)."""
+    if mask_type not in ("A", "B"):
+        raise ValueError(f'Invalid "mask_type" value "{mask_type}"')
+    mask = torch.ones((kh, kw))
+    mask[kh // 2, kw // 2 + (mask_type == "B"):] = 0
+    mask[kh // 2 + 1:] = 0
+    return mask
+
+
+class MaskedConv2d(nn.Conv2d):
+    """Causal (PixelCNN) convolution of the context model. The mask
+    multiplies the kernel at call time; the weight is never changed in
+    place (unlike the reference's layers.py:75-78). The mask is a buffer
+    outside the `state_dict`: it is a function of the shape and type."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 5, mask_type: str = "A",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         padding=kernel_size // 2)
+        self.dtype = dtype  # compute dtype; the parameters stay f32
+        self.register_buffer(
+            "mask", make_causal_mask(kernel_size, kernel_size, mask_type),
+            persistent=False,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*_cast(self.dtype, x,
+                                         self.weight * self.mask,
+                                         self.bias))
+
+
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.01)
+
+
+class ResidualBlockWithStride(nn.Module):
+    """conv3x3(s) -> leaky ReLU -> conv3x3 -> GDN, plus a conv1x1(s) skip
+    when the shape changes (reference layers.py:98-129)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 2,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = conv3x3(in_channels, out_channels, stride, dtype=dtype)
+        self.conv2 = conv3x3(out_channels, out_channels, dtype=dtype)
+        self.gdn = GDN(out_channels, dtype=dtype)
+        self.skip = None
+        if stride != 1 or in_channels != out_channels:
+            self.skip = conv1x1(in_channels, out_channels, stride,
+                                dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.gdn(self.conv2(_leaky(self.conv1(x))))
+        identity = x if self.skip is None else self.skip(x)
+        return out + identity.to(out.dtype)
+
+
+class ResidualBlockUpsample(nn.Module):
+    """Sub-pixel conv up -> leaky ReLU -> conv3x3 -> IGDN, plus a sub-pixel
+    skip (reference layers.py:132-157)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 upsample: int = 2, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.subpel_conv = SubpelConv3x3(in_channels, out_channels,
+                                         upsample, dtype=dtype)
+        self.conv = conv3x3(out_channels, out_channels, dtype=dtype)
+        self.igdn = GDN(out_channels, inverse=True, dtype=dtype)
+        self.upsample = SubpelConv3x3(in_channels, out_channels, upsample,
+                                      dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.igdn(self.conv(_leaky(self.subpel_conv(x))))
+        return out + self.upsample(x)
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs with leaky ReLUs, plus a conv1x1 skip when the width
+    changes (reference layers.py:160-190)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = conv3x3(in_channels, out_channels, dtype=dtype)
+        self.conv2 = conv3x3(out_channels, out_channels, dtype=dtype)
+        self.skip = None
+        if in_channels != out_channels:
+            self.skip = conv1x1(in_channels, out_channels, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = _leaky(self.conv2(_leaky(self.conv1(x))))
+        identity = x if self.skip is None else self.skip(x)
+        return out + identity.to(out.dtype)
+
+
+class _ResidualUnit(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck of AttentionBlock, ReLU after the
+    sum."""
+
+    def __init__(self, N: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv = nn.Sequential(
+            conv1x1(N, N // 2, dtype=dtype), nn.ReLU(),
+            conv3x3(N // 2, N // 2, dtype=dtype), nn.ReLU(),
+            conv1x1(N // 2, N, dtype=dtype),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv(x)
+        return F.relu(out + x.to(out.dtype))
+
+
+class AttentionBlock(nn.Module):
+    """Cheng2020's sigmoid-gated trunk/mask attention
+    (reference layers.py:193-244): x + conv_a(x) * sigmoid(conv_b(x))."""
+
+    def __init__(self, N: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv_a = nn.Sequential(*(_ResidualUnit(N, dtype)
+                                      for _ in range(3)))
+        self.conv_b = nn.Sequential(*(_ResidualUnit(N, dtype)
+                                      for _ in range(3)),
+                                    conv1x1(N, N, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.conv_a(x), self.conv_b(x)
+        return x + (a * torch.sigmoid(b)).to(x.dtype)

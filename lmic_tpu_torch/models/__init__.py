@@ -1,3 +1,7 @@
+from lmic_tpu_torch.models.cheng import (  # noqa: F401
+    Cheng2020Anchor,
+    Cheng2020Attention,
+)
 from lmic_tpu_torch.models.codec import (  # noqa: F401
     CompressionCodec,
     FactorizedPriorCodec,
@@ -7,4 +11,8 @@ from lmic_tpu_torch.models.image import (  # noqa: F401
     FactorizedPrior,
     MeanScaleHyperprior,
     ScaleHyperprior,
+)
+from lmic_tpu_torch.models.joint import (  # noqa: F401
+    JointARCodec,
+    JointAutoregressiveHierarchicalPriors,
 )

@@ -212,6 +212,27 @@ class HyperpriorCodec(CompressionCodec):
         idx = torch.cat(idx).cpu().numpy().astype(np.int32)
         return idx, (None if means[0] is None else torch.cat(means))
 
+    def _analyze(self, x: np.ndarray):
+        """The encoder's transforms, one image at a time: (list of B
+        latents y (1, M, H, W) on the device, wire z symbols int32
+        (B, C, h, w) on the host)."""
+        z_med = self._medians(self.eb_state)
+        ys, z_syms = [], []
+        for i in range(x.shape[0]):
+            y, z = self.module.analyze(self._pixels(x[i:i + 1]))
+            ys.append(y)
+            z_syms.append(_symbols_to_host(torch.round(z - z_med)))
+        return ys, np.concatenate(z_syms)
+
+    def _encode_z(self, z_sym: np.ndarray):
+        """Wire z symbols -> the bottleneck's strings, channel-major."""
+        B, Cz, h, w = z_sym.shape
+        return rans.encode_batch(
+            z_sym.reshape(B, -1),
+            np.repeat(np.arange(Cz, dtype=np.int32), h * w),
+            self.eb_state.table,
+        )
+
     @torch.inference_mode()
     def compress(self, x):
         """x: (B, H, W, C) float in [0, 1] or uint8; H, W multiples of 64."""
@@ -220,25 +241,15 @@ class HyperpriorCodec(CompressionCodec):
         self._check_dims(x)
         set_wire_determinism()
         t0 = time.perf_counter()
-        z_med = self._medians(self.eb_state)
-        ys, z_syms = [], []
-        for i in range(x.shape[0]):
-            y, z = self.module.analyze(self._pixels(x[i:i + 1]))
-            ys.append(y)
-            z_syms.append(_symbols_to_host(torch.round(z - z_med)))
-        z_sym = np.concatenate(z_syms)
+        ys, z_sym = self._analyze(x)
         idx, means = self._params_from_zsym(z_sym)
         y = torch.cat(ys)
         y_sym = _symbols_to_host(
             torch.round(y - means if means is not None else y)
         )
         t0 = self._stat("enc_device_ms", t0)
-        B, Cz, h, w = z_sym.shape
-        z_strings = rans.encode_batch(
-            z_sym.reshape(B, -1),
-            np.repeat(np.arange(Cz, dtype=np.int32), h * w),
-            self.eb_state.table,
-        )
+        B, _, h, w = z_sym.shape
+        z_strings = self._encode_z(z_sym)
         y_strings = rans.encode_batch(
             y_sym.reshape(B, -1), idx.reshape(B, -1), self.gc_state.table
         )

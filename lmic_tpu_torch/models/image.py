@@ -93,12 +93,16 @@ class ScaleHyperprior(nn.Module):
         super().__init__()
         self.N, self.M, self.channel = int(N), int(M), int(channel)
         self.dtype = dtype  # see FactorizedPrior
-        self.g_a = _g_a(channel, N, M, dtype)
-        self.g_s = _g_s(channel, N, M, dtype)
+        self.g_a = self._make_g_a(channel, N, M, dtype)
+        self.g_s = self._make_g_s(channel, N, M, dtype)
         self.h_a = self._make_h_a(N, M, dtype)
         self.h_s = self._make_h_s(N, M, dtype)
         self.entropy_bottleneck = EntropyBottleneck(N, generator=generator)
         self.gaussian_conditional = GaussianConditional()
+
+    # the four transform stacks; the AR family's subclasses replace them
+    _make_g_a = staticmethod(_g_a)
+    _make_g_s = staticmethod(_g_s)
 
     @staticmethod
     def _make_h_a(N, M, dt):

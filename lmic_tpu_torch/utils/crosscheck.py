@@ -1,6 +1,7 @@
-"""One training step on two devices with the same quantization noise: the
-cross-device check of the training path that `chip_smoke.py` and the card
-tests (tests/test_torch_cuda.py) both run.
+"""Cross-device checks that `chip_smoke.py` and the card tests
+(tests/test_torch_cuda.py) both run: one training step on two devices with
+the same quantization noise, and the AR codecs' wavefront step on two
+devices on the same coded latents.
 
 `torch.rand` draws other numbers on the card than on the CPU, so
 `fixed_noise` swaps `entropy_models.quantize_noise` for one that adds a
@@ -14,6 +15,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lmic_tpu_torch import zoo
 from lmic_tpu_torch.entropy import entropy_models
@@ -84,3 +86,40 @@ def train_step_agreement(arch: str, quality: int, x: torch.Tensor,
                     / g_b[n].abs().max().clamp(min=1e-30)).item()
                    for n in g_b)
     return loss_err, grad_err, launched
+
+
+def wavefront_step_agreement(codec, ref, x):
+    """The wavefront step of the AR `codec` against that of `ref` (the
+    same weights and tables on another device, the plain path on the CPU)
+    for the one image `x` (1, H, W, 3): both run every step on the
+    latents and wire z symbols that `ref` encodes, each with its own hyper
+    transform.
+
+    Returns (err, flips, n): the largest difference of scales or means
+    relative to max(1, max|ref's|) over all steps, and how many of the n
+    scale indexes differ."""
+    from lmic_tpu_torch.models.joint import PAD
+
+    with torch.inference_mode():
+        ys, z_sym = ref._analyze(x)
+        y_hat = ref._code_y_z(ys, z_sym, keep_y_hat=True)["y_hat_latent"]
+        M, H, W = y_hat.shape[1:]
+        # the padded HWC buffer of the wavefront loop, fully coded: step t
+        # reads only what was coded before it
+        buf = F.pad(y_hat[0].permute(1, 2, 0),
+                    (0, 0, PAD, PAD, PAD, PAD)).reshape(-1, M)
+        outs = []
+        for c in (codec, ref):
+            sched, prepare, step = c._step_for(H, W)
+            pre1 = prepare(c._hyper_params(z_sym))
+            b = buf.to(c.device)
+            outs.append([[v.cpu() for v in step(t, b, pre1)]
+                         for t in range(sched.T)])
+    err, flips, n = 0.0, 0, 0
+    for (s_a, m_a, i_a), (s_b, m_b, i_b) in zip(*outs):
+        for a, b in ((s_a, s_b), (m_a, m_b)):
+            err = max(err, ((a - b).abs().max()
+                            / b.abs().max().clamp(min=1.0)).item())
+        flips += int((i_a != i_b).sum())
+        n += i_b.numel()
+    return err, flips, n

@@ -12,7 +12,8 @@ Usage:
   python -m lmic_tpu_torch.utils.train_cli --arch mbt2018-mean -q 7 \\
       -d /path/dataset --epochs 100 --batch-size 16
 
-Not ported yet (each raises, see ROADMAP.md): master training and the `_D`
+Not ported yet (each raises, see ROADMAP.md): the autoregressive archs
+mbt2018 and cheng2020-* (queue A, item 10c), master training and the `_D`
 archs (queue A, item 12), `--bf16`, `--remat` and `--devices` (queue A,
 item 8), single-channel datasets (`--channel 1`, item 12).
 """
@@ -42,6 +43,8 @@ from lmic_tpu_torch.utils.train import (
 
 # the archs of lmic_tpu's AMP_ARCHS that the port has
 AMP_ARCHS = {"bmshj2018-factorized", "bmshj2018-hyperprior", "mbt2018-mean"}
+# the port serves these but does not train them yet
+AR_ARCHS = {"mbt2018", "cheng2020-anchor", "cheng2020-attn"}
 
 # flags of lmic_tpu's CLI that the port does not take yet
 _NOT_PORTED = {
@@ -117,6 +120,11 @@ def train_single(args):
                 "plumb an activation dtype through its transforms yet"
             )
         dtype = torch.bfloat16
+    if args.arch in AR_ARCHS:
+        raise SystemExit(
+            f"{args.arch}: training the autoregressive codecs is not "
+            "ported; ROADMAP.md queue A, item 10c"
+        )
     codec = zoo.create_model(args.arch, args.quality, seed=args.seed,
                              channel=args.channel, device=device,
                              dtype=dtype)

@@ -2,7 +2,8 @@
 
 Counterpart of lmic_tpu/zoo/__init__.py:48-189 (reference
 compressai/zoo/image.py:189-246) for the three non-autoregressive
-architectures of the serving path. `create_model` builds the module on the
+architectures and the autoregressive family (mbt2018, cheng2020-anchor,
+cheng2020-attn). `create_model` builds the module on the
 CPU from a seed, so the same seed gives the same weights on every device,
 then hands it to the codec wrapper on `device` (CUDA unless told otherwise).
 """
@@ -20,14 +21,20 @@ from lmic_tpu_torch.models.codec import (
     FactorizedPriorCodec,
     HyperpriorCodec,
 )
+from lmic_tpu_torch.models.cheng import Cheng2020Anchor, Cheng2020Attention
 from lmic_tpu_torch.models.image import (
     FactorizedPrior,
     MeanScaleHyperprior,
     ScaleHyperprior,
 )
+from lmic_tpu_torch.models.joint import (
+    JointARCodec,
+    JointAutoregressiveHierarchicalPriors,
+)
 
-# quality -> (N, M) (reference zoo/image.py:189-246)
-cfgs: Dict[str, Dict[int, Tuple[int, int]]] = {
+# quality -> (N, M), or (N,) for the families with M = N (reference
+# zoo/image.py:189-246)
+cfgs: Dict[str, Dict[int, Tuple[int, ...]]] = {
     "bmshj2018-factorized": {
         **{q: (128, 192) for q in range(1, 6)},
         **{q: (192, 320) for q in range(6, 9)},
@@ -40,6 +47,18 @@ cfgs: Dict[str, Dict[int, Tuple[int, int]]] = {
         **{q: (128, 192) for q in range(1, 5)},
         **{q: (192, 320) for q in range(5, 9)},
     },
+    "mbt2018": {
+        **{q: (192, 192) for q in range(1, 5)},
+        **{q: (192, 320) for q in range(5, 9)},
+    },
+    "cheng2020-anchor": {
+        **{q: (128,) for q in range(1, 4)},
+        **{q: (192,) for q in range(4, 7)},
+    },
+    "cheng2020-attn": {
+        **{q: (128,) for q in range(1, 4)},
+        **{q: (192,) for q in range(4, 7)},
+    },
 }
 
 # architecture -> (module class, codec wrapper class)
@@ -47,6 +66,9 @@ model_architectures: Dict[str, Tuple[Any, Any]] = {
     "bmshj2018-factorized": (FactorizedPrior, FactorizedPriorCodec),
     "bmshj2018-hyperprior": (ScaleHyperprior, HyperpriorCodec),
     "mbt2018-mean": (MeanScaleHyperprior, HyperpriorCodec),
+    "mbt2018": (JointAutoregressiveHierarchicalPriors, JointARCodec),
+    "cheng2020-anchor": (Cheng2020Anchor, JointARCodec),
+    "cheng2020-attn": (Cheng2020Attention, JointARCodec),
 }
 
 
@@ -61,9 +83,10 @@ def make_module(architecture: str, quality: int, channel: int = 3,
         raise ValueError(f'Invalid architecture name "{architecture}"')
     if quality not in cfgs[architecture]:
         raise ValueError(f'Invalid quality value "{quality}"')
-    N, M = cfgs[architecture][quality]
-    N = kwargs.pop("N", N)
-    M = kwargs.pop("M", M)
+    widths = cfgs[architecture][quality]
+    N = kwargs.pop("N", widths[0])
+    # the single-width families (cheng2020) take M = N (waseda.py:63)
+    M = kwargs.pop("M", widths[1] if len(widths) == 2 else N)
     if kwargs:
         raise TypeError(f"unexpected arguments {sorted(kwargs)}")
     module_cls, _ = model_architectures[architecture]

@@ -10,7 +10,14 @@ numpy arrays, and returns this package's `state_dict` (CompressAI keys):
   (kh, kw, I, O), spatially flipped, -> ConvTranspose2d (I, O, kh, kw);
 - `layers_{i}` of a flax Sequential -> `{prefix}.{i}`;
 - entropy bottleneck `matrix_{k}/bias_{k}/factor_{k}` ->
-  `_matrix{k}/_bias{k}/_factor{k}`; `quantiles` as is.
+  `_matrix{k}/_bias{k}/_factor{k}`; `quantiles` as is;
+- mbt2018's `entropy_parameters_net` -> `entropy_parameters`, and
+  `context_prediction` (the raw kernel; both sides mask it at call time);
+- cheng2020's residual and attention blocks: flax's auto-named subtrees
+  (`ResidualBlockWithStride_0/Conv_0/Conv_0/kernel`, ...) -> CompressAI's
+  submodule names (`g_a.0.conv1.weight`, ...), the inverse of lmic_tpu's
+  `_import_cheng` (lmic_tpu/zoo/pretrained.py:169-316; `block_state_dict`
+  converts one block).
 
 `coding_state_from_numpy(codec, eb=..., gc=...)` installs carried integer
 CDF tables, medians and the scale table, so both packages code with the
@@ -35,6 +42,45 @@ _DECONVS = {
                              "h_a": (), "h_s": (0, 2)},
 }
 _DECONVS["mbt2018-mean"] = _DECONVS["bmshj2018-hyperprior"]
+_DECONVS["mbt2018"] = dict(_DECONVS["bmshj2018-hyperprior"],
+                           entropy_parameters=())
+
+# cheng2020 block kinds: flax path of each conv ("kernel"/"bias") or GDN
+# ("beta"/"gamma") subtree -> CompressAI submodule name ("" for the layer
+# itself); a `skip` is there only when the block changes shape
+_CHENG_BLOCKS = {
+    "rbs": {"Conv_0/Conv_0": "conv1", "Conv_1/Conv_0": "conv2",
+            "GDN_0": "gdn", "Conv_2/Conv_0": "skip"},
+    "rb": {"Conv_0/Conv_0": "conv1", "Conv_1/Conv_0": "conv2",
+           "Conv_2/Conv_0": "skip"},
+    "rbu": {"SubpelConv3x3_0/Conv_0/Conv_0": "subpel_conv.0",
+            "Conv_0/Conv_0": "conv", "GDN_0": "igdn",
+            "SubpelConv3x3_1/Conv_0/Conv_0": "upsample.0"},
+    "attn": {
+        **{f"_ResidualUnit_{3 * b + j}/Conv_{k}/Conv_0":
+           f"conv_{'ab'[b]}.{j}.conv.{2 * k}"
+           for b in (0, 1) for j in range(3) for k in range(3)},
+        "Conv_0/Conv_0": "conv_b.3",
+    },
+    "conv": {"Conv_0": ""},
+    "subpel": {"Conv_0/Conv_0": "0"},
+}
+_CHENG_HYPER = {
+    "h_a": {0: "conv", 2: "conv", 4: "conv", 6: "conv", 8: "conv"},
+    "h_s": {0: "conv", 2: "subpel", 4: "conv", 6: "subpel", 8: "conv"},
+}
+_CHENG = {
+    "cheng2020-anchor": {
+        "g_a": ("rbs", "rb", "rbs", "rb", "rbs", "rb", "conv"),
+        "g_s": ("rb", "rbu", "rb", "rbu", "rb", "rbu", "rb", "subpel"),
+    },
+    "cheng2020-attn": {
+        "g_a": ("rbs", "rb", "rbs", "attn", "rb", "rbs", "rb", "conv",
+                "attn"),
+        "g_s": ("attn", "rb", "rbu", "rb", "rbu", "attn", "rb", "rbu", "rb",
+                "subpel"),
+    },
+}
 
 
 def _conv_weight(kernel: np.ndarray) -> np.ndarray:
@@ -47,15 +93,56 @@ def _deconv_weight(kernel: np.ndarray) -> np.ndarray:
     return kernel[::-1, ::-1].transpose(2, 3, 0, 1)
 
 
-def state_dict_from_jax(arch: str, params: Mapping[str, Any]
-                        ) -> Dict[str, torch.Tensor]:
-    """lmic_tpu `variables["params"]` (numpy leaves) -> this package's
-    `state_dict` for `arch`, in the leaves' dtype. The map is linear, so it
-    carries a gradient tree of the same structure across too."""
-    if arch not in _DECONVS:
-        raise ValueError(f"no converter for '{arch}'")
+def block_state_dict(kind: str, tree: Mapping[str, Any], prefix: str = ""
+                     ) -> Dict[str, np.ndarray]:
+    """One cheng2020 block's flax params -> its CompressAI keys under
+    `prefix` (numpy leaves). Raises if a leaf of `tree` is left over."""
     out: Dict[str, np.ndarray] = {}
-    for seq, deconvs in _DECONVS[arch].items():
+    seen = 0
+    for path, name in _CHENG_BLOCKS[kind].items():
+        node = tree
+        for part in path.split("/"):
+            node = node.get(part) if isinstance(node, Mapping) else None
+        if node is None:
+            continue  # an absent skip
+        for leaf, value in node.items():
+            if leaf == "kernel":
+                leaf, value = "weight", _conv_weight(np.asarray(value))
+            key = ".".join(p for p in (prefix, name, leaf) if p)
+            out[key] = np.asarray(value)
+            seen += 1
+    if seen != _count_leaves(tree):
+        raise ValueError(f"unconverted params in a '{kind}' block")
+    return out
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1
+
+
+def _cheng_state(arch: str, params: Mapping[str, Any]
+                 ) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    schedules = {seq: dict(enumerate(kinds))
+                 for seq, kinds in _CHENG[arch].items()}
+    for seq, schedule in {**schedules, **_CHENG_HYPER}.items():
+        layers = params[f"{seq}_net"]
+        if set(layers) != {f"layers_{i}" for i in schedule}:
+            raise ValueError(f"{seq}: layers {sorted(layers)}")
+        for i, kind in schedule.items():
+            out.update(block_state_dict(kind, layers[f"layers_{i}"],
+                                        f"{seq}.{i}"))
+    return out
+
+
+def _sequence_state(sequences: Mapping[str, tuple],
+                    params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax Sequentials of convs, deconvs (at the given indices) and GDNs
+    -> `{seq}.{i}.*` keys."""
+    out: Dict[str, np.ndarray] = {}
+    for seq, deconvs in sequences.items():
         for name, layer in params[f"{seq}_net"].items():
             i = int(name[len("layers_"):])
             if "Conv_0" in layer:
@@ -67,6 +154,26 @@ def state_dict_from_jax(arch: str, params: Mapping[str, Any]
             else:
                 out[f"{seq}.{i}.beta"] = np.asarray(layer["beta"])
                 out[f"{seq}.{i}.gamma"] = np.asarray(layer["gamma"])
+    return out
+
+
+def state_dict_from_jax(arch: str, params: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """lmic_tpu `variables["params"]` (numpy leaves) -> this package's
+    `state_dict` for `arch`, in the leaves' dtype. The map is linear, so it
+    carries a gradient tree of the same structure across too."""
+    if arch in _CHENG:
+        out = _cheng_state(arch, params)
+        out.update(_sequence_state({"entropy_parameters": ()}, params))
+    elif arch in _DECONVS:
+        out = _sequence_state(_DECONVS[arch], params)
+    else:
+        raise ValueError(f"no converter for '{arch}'")
+    if "context_prediction" in params:
+        cp = params["context_prediction"]
+        out["context_prediction.weight"] = _conv_weight(
+            np.asarray(cp["kernel"]))
+        out["context_prediction.bias"] = np.asarray(cp["bias"])
     for name, v in params["entropy_bottleneck"].items():
         if name != "quantiles":
             kind, k = name.rsplit("_", 1)
@@ -88,7 +195,7 @@ def coding_state_from_numpy(codec, eb: Mapping[str, np.ndarray],
     """
     codec.eb_state = EBState(
         table=CdfTable(eb["cdf"], eb["cdf_length"], eb["offset"]),
-        medians=np.asarray(eb["medians"], np.float32).reshape(-1),
+        medians=np.array(eb["medians"], np.float32).reshape(-1),  # own copy
     )
     if gc is not None:
         codec.gc_state = GCState(

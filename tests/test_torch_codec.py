@@ -179,4 +179,4 @@ def test_errors():
     with pytest.raises(ValueError, match="multiples of 64"):
         codec.compress(pixels((1, 48, 64, 3)))
     with pytest.raises(ValueError, match="Invalid architecture"):
-        tzoo.create_model("mbt2018", 1, device="cpu")
+        tzoo.create_model("mbt2018_R", 1, device="cpu")

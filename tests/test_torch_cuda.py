@@ -16,6 +16,9 @@ from lmic_tpu_torch.ops import gdn
 
 pytestmark = pytest.mark.cuda
 
+NON_AR = ("bmshj2018-factorized", "bmshj2018-hyperprior", "mbt2018-mean")
+AR_ARCHS = ("mbt2018", "cheng2020-anchor", "cheng2020-attn")
+
 # the bars of tests/test_pallas_gdn.py: max|a-b| / max(1, max|b|)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -217,7 +220,7 @@ def test_layer_grads_on_card_match_cpu(inverse):
         assert _rel_err(got, want) < 1e-5, name
 
 
-@pytest.mark.parametrize("arch", sorted(zoo.model_architectures))
+@pytest.mark.parametrize("arch", NON_AR)
 def test_codec_on_card(arch):
     cuda = zoo.create_model(arch, 1, seed=0, device="cuda", N=32, M=48)
     cpu = zoo.create_model(arch, 1, seed=0, device="cpu", N=32, M=48)
@@ -240,7 +243,7 @@ def test_codec_on_card(arch):
     assert _rel_err(y_cuda, y_cpu) < 1e-4
 
 
-@pytest.mark.parametrize("arch", sorted(zoo.model_architectures))
+@pytest.mark.parametrize("arch", NON_AR)
 def test_train_step_on_card_matches_cpu(arch):
     """The same step, weights and noise on the card and on the CPU: f32
     sums in another order on each device, so the losses agree to 1e-4
@@ -254,3 +257,63 @@ def test_train_step_on_card_matches_cpu(arch):
         arch, 1, x, 1024, N=32, M=48)
     assert launched == {k: 6 for k in gdn.LAUNCHES}
     assert loss_err <= 1e-4 and grad_err <= 1e-3, (loss_err, grad_err)
+
+
+def _ar_widths(arch):
+    return {"N": 32} if arch.startswith("cheng") else {"N": 32, "M": 48}
+
+
+@pytest.mark.parametrize("arch", AR_ARCHS)
+def test_ar_codec_on_card(arch):
+    """An AR round trip on the card: the decoder recovers exactly the
+    encoder's latents, encoding is deterministic, and gdn_fwd runs 3 times
+    in g_a for each image and 3 times in g_s for the batch, with no
+    backward kernel."""
+    codec = zoo.create_model(arch, 1, seed=0, device="cuda",
+                             **_ar_widths(arch))
+    codec.update()
+    x = (np.random.default_rng(0).random((2, 64, 128, 3)) * 255).astype(
+        np.uint8)
+    with torch.inference_mode():
+        ys, z_sym = codec._analyze(x)
+        enc = codec._code_y_z(ys, z_sym, keep_y_hat=True)
+        dec = codec._decode_y_hat(enc["strings"], enc["shape"])
+    assert torch.equal(dec, enc["y_hat_latent"])
+    before = dict(gdn.LAUNCHES)
+    out = codec.compress(x)
+    rec = codec.decompress(out["strings"], out["shape"], u8=True)["x_hat"]
+    torch.cuda.synchronize()
+    launched = {k: gdn.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: 3 * x.shape[0] + 3 if k == "gdn_fwd" else 0
+                        for k in before}
+    assert out["strings"] == enc["strings"]
+    assert rec.shape == x.shape and rec.dtype == np.uint8
+
+
+@pytest.mark.parametrize("arch", AR_ARCHS)
+def test_ar_wavefront_step_on_card_matches_cpu(arch):
+    """The CUDA wavefront step against the CPU's on the same latents:
+    scales and means within 1e-4 of the largest value (f32 sums in another
+    order, and each device's own hyper transform); a scale index may flip
+    only where a scale sits that close to a bucket edge."""
+    from lmic_tpu_torch.utils.crosscheck import wavefront_step_agreement
+
+    cuda, cpu = (zoo.create_model(arch, 1, seed=0, device=d,
+                                  **_ar_widths(arch)) for d in ("cuda", "cpu"))
+    for c in (cuda, cpu):
+        c.update()
+    np.testing.assert_array_equal(cuda.gc_state.table.cdf,
+                                  cpu.gc_state.table.cdf)
+    x = (np.random.default_rng(1).random((1, 64, 128, 3)) * 255).astype(
+        np.uint8)
+    err, flips, n = wavefront_step_agreement(cuda, cpu, x)
+    assert err < 1e-4 and flips <= n * 1e-3, (err, flips, n)
+
+
+@pytest.mark.parametrize("arch", AR_ARCHS)
+def test_ar_create_model_needs_cuda_or_explicit_cpu(arch, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        zoo.create_model(arch, 1, **_ar_widths(arch))
+    codec = zoo.create_model(arch, 1, device="cpu", **_ar_widths(arch))
+    assert codec.device.type == "cpu"

@@ -1,5 +1,6 @@
 """The port's HTTP server speaks lmic_tpu's wire: on the same weights and
-tables both servers return identical /compress bodies, and the port's
+tables both servers return identical /compress bodies (mbt2018-mean, and
+the autoregressive mbt2018), and the port's
 /decompress round-trips to its direct codec call; bad requests are 400s."""
 
 import http.client
@@ -94,6 +95,32 @@ def test_meta_and_bad_requests(servers):
     x = pixels((1, 48, 64, 3))  # not a multiple of 64: the codec refuses
     status, body = _post(ours, "/compress", _pixel_payload(x))
     assert status == 400 and b"multiples of 64" in body
+
+
+@pytest.fixture(scope="module")
+def ar_servers():
+    """An mbt2018 (autoregressive) codec behind both servers, N = M = 16."""
+    params = jax_params("mbt2018", n=16, m=16)
+    jc = jax_codec("mbt2018", params, 16, 16)
+    pc = carry_tables(jc, port_codec("mbt2018", params, 16, 16))
+    ours, theirs = _serve(make_server, pc), _serve(jax_make_server, jc)
+    yield pc, ours.server_address[1], theirs.server_address[1]
+    for s in (ours, theirs):
+        s.shutdown()
+        s.server_close()
+
+
+def test_ar_codec_same_bodies_as_lmic_tpu_and_round_trip(ar_servers):
+    pc, ours, theirs = ar_servers
+    x = pixels((2, 64, 128, 3), seed=3)
+    status, body = _post(ours, "/compress", _pixel_payload(x))
+    assert status == 200
+    assert _post(theirs, "/compress", _pixel_payload(x)) == (200, body)
+    status, rec = _post(ours, "/decompress", body)
+    assert status == 200
+    shape, groups = read_body(io.BytesIO(body))
+    want = pc.decompress(groups, shape, u8=True)["x_hat"]
+    np.testing.assert_array_equal(_read_pixels(io.BytesIO(rec)), want)
 
 
 @pytest.mark.parametrize("family", ["video", "rgbt"])

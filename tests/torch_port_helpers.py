@@ -21,34 +21,44 @@ def pixels(shape=IMAGE, seed=0):
     return (np.random.default_rng(seed).random(shape) * 255).astype(np.uint8)
 
 
-def jax_params(arch, seed=0):
-    """lmic_tpu init for `arch` at N/M, as numpy, with GDN gammas pushed
+def _perturb_gammas(tree, rng):
+    """Push every GDN gamma in `tree` off the diagonal, also those nested
+    in blocks (cheng2020), in the tree's order."""
+    for node in tree.values():
+        if not isinstance(node, dict):
+            continue
+        if "gamma" in node:
+            node["gamma"] = (node["gamma"] + rng.uniform(
+                0, 0.05, node["gamma"].shape)).astype(np.float32)
+        else:
+            _perturb_gammas(node, rng)
+
+
+def jax_params(arch, seed=0, n=N, m=M):
+    """lmic_tpu init for `arch` at n/m, as numpy, with GDN gammas pushed
     off the diagonal (so the channel mixing is exercised) and the
     bottleneck medians moved off zero (so they matter in the symbols)."""
     codec = jzoo.create_model(arch, 1, key=jax.random.key(seed),
-                              input_size=IMAGE[1:3], N=N, M=M)
+                              input_size=IMAGE[1:3], N=n, M=m)
     params = jax.tree.map(np.asarray, codec.variables["params"])
     rng = np.random.default_rng(seed)
     for seq in ("g_a_net", "g_s_net"):
-        for layer in params[seq].values():
-            if "gamma" in layer:
-                layer["gamma"] = (layer["gamma"] + rng.uniform(
-                    0, 0.05, layer["gamma"].shape)).astype(np.float32)
+        _perturb_gammas(params[seq], rng)
     q = params["entropy_bottleneck"]["quantiles"].copy()
     q[:, :, 1] += rng.uniform(-0.3, 0.3, q.shape[0])[:, None]
     params["entropy_bottleneck"]["quantiles"] = q.astype(np.float32)
     return params
 
 
-def jax_codec(arch, params):
+def jax_codec(arch, params, n=N, m=M):
     codec = jzoo.create_model(arch, 1, variables={"params": params},
-                              N=N, M=M)
+                              N=n, M=m)
     codec.update(force=True)
     return codec
 
 
-def port_codec(arch, params):
-    return tzoo.create_model(arch, 1, device="cpu", N=N, M=M,
+def port_codec(arch, params, n=N, m=M):
+    return tzoo.create_model(arch, 1, device="cpu", N=n, M=m,
                              state_dict=state_dict_from_jax(arch, params))
 
 
