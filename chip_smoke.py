@@ -16,13 +16,15 @@ Phases, each of which raises (exit code != 0) on any failure:
    three launches) against their plain versions on the card at the main
    paths' shapes (serving: 98,304 / 24,576 / 6,144 / 6,151 rows; training:
    262,144 / 65,536 / 16,384 / 16,391 rows), C in {128, 192}, f32 and bf16,
-   both directions, each deterministic (f32 `gdn_fwd` exactly equal to its
-   plain version), with CUDA-event timings of the kernel, the plain version
-   and a cuBLAS composite of the same math, beside the least time the card
-   could take; then each of the backward's launches (`gdn_bwd_dx`,
-   `gdn_bwd_partials`, `gdn_bwd_reduce`) on its own, against its own plain
-   version, bound and library call (the dx composite, one cuBLAS `bmm` of
-   the partials' chunked product, `sum(0)` of the partials);
+   and the RGB-T pair's f32 rows at C = 192 (327,680 / 327,687 / 81,920 /
+   20,480 / 5,120), both directions, each deterministic (f32 `gdn_fwd`
+   exactly equal to its plain version), with CUDA-event timings of the
+   kernel, the plain version and a cuBLAS composite of the same math,
+   beside the least time the card could take; then each of the backward's
+   launches (`gdn_bwd_dx`, `gdn_bwd_partials`, `gdn_bwd_reduce`) on its
+   own, against its own plain version, bound and library call (the dx
+   composite, one cuBLAS `bmm` of the partials' chunked product, `sum(0)`
+   of the partials);
 3. serving: mbt2018-mean at quality 8 (N=192, M=320) from a seed, served by
    the port's HTTP server; three seeded 512x768 uint8 images go through
    POST /compress and /decompress with the launch counts set to 0 just
@@ -56,7 +58,20 @@ Phases, each of which raises (exit code != 0) on any failure:
    `layers.Conv` on cheng2020's 192-channel 3x3 conv. It runs last, so
    that training is measured in the process state it had before the
    phase existed (run before it, the phase raised training's f32 peak
-   memory by 0.10 GiB).
+   memory by 0.10 GiB);
+7. RGB-T serving: the paper's guided/master pair at quality 7 (N = M =
+   192) from a seed, channel 1, served by the port's HTTP server: three
+   seeded pairs of a 512x640 thermal master and a 1024x1280 RGB guide
+   through POST /compress (9 `gdn_fwd` launches: the guide's g_a and its
+   one-pass reconstruct, the master's g_a) and POST /decompress with the
+   guide cached (3: the master's g_s), the launch counts set to 0 just
+   before and read just after; the bodies held to the direct calls,
+   encoding to be deterministic, the master's decoder to recover exactly
+   the encoder's latents, the guide's reconstruct to equal its decompress
+   bit for bit, the CUDA transforms to the CPU's on a small input; the
+   stages, peak memory and each leg's largest kernels logged; then one
+   direct channel-3 round trip (a 1024x1280 RGB master, a 512x640 thermal
+   guide) with the same checks.
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -96,6 +111,16 @@ PEAKS = {
 # and a training step (batch 16 of 256x256); the fourth of each is ragged
 SERVE_ROWS = (98_304, 24_576, 6_144, 6_151)
 TRAIN_ROWS = (262_144, 65_536, 16_384, 16_391)
+# the RGB-T pair (channel 1, a 512x640 master and a 1024x1280 guide), f32,
+# C = 192: the guide's first GDN at 327,680 rows (and a ragged count near
+# it), and per round trip each of these rows in GDN and in IGDN this many
+# times: compress = the guide's g_a and reconstruct, the master's g_a;
+# decompress (guide cached) = the master's g_s
+RGBT_ROWS = (327_680, 327_687, 81_920, 20_480, 5_120)
+RGBT_ROUND_TRIP = {327_680: 1, 81_920: 2, 20_480: 2, 5_120: 1}
+RGBT_QUALITY = 7
+RGBT_MASTER = (1, 512, 640, 1)  # the reference's 512x640 thermal geometry
+RGBT_GUIDE = (1, 1024, 1280, 3)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # as tests/test_pallas_gdn.py
 IMAGE = (1, 512, 768, 3)  # Kodak geometry
 SERVE_ARCH, QUALITY = "mbt2018-mean", 8
@@ -405,8 +430,10 @@ def phase_kernel(peaks):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {k: [] for k in ("gdn_fwd", "gdn_bwd") + gdn.BWD_KERNELS}
     shapes = [(n, C) for C in (128, 192) for n in SERVE_ROWS + TRAIN_ROWS]
+    shapes += [(n, 192) for n in RGBT_ROWS]  # f32 only: the pair's wire
     for n, C in shapes:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in (("float32",) if n in RGBT_ROWS
+                      else ("float32", "bfloat16")):
             dt = getattr(torch, dtype)
             x, beta, gamma, g = _gdn_inputs(gen, n, C, dt)
             gamma_t = gamma.t().contiguous()
@@ -438,7 +465,7 @@ def phase_kernel(peaks):
                 }
                 for name, (run, plain, composite, nbytes, ops) in \
                         work.items():
-                    if name == "gdn_bwd" and n in SERVE_ROWS:
+                    if name == "gdn_bwd" and n in SERVE_ROWS + RGBT_ROWS:
                         continue  # serving runs no backward
                     if name == "gdn_bwd":
                         _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
@@ -934,6 +961,237 @@ def phase_ar_serving():
     return launches, seconds
 
 
+def _rgbt_checks(guided, master, x, guide, body_strings=None):
+    """One pair, direct calls: the guide's one-pass reconstruct equals its
+    decompress bit for bit (x_hat and the gs* maps); encoding is
+    deterministic (and equals `body_strings`, a server's, when given); the
+    master's decoder recovers exactly the encoder's latents, and its
+    alignment from the transmitted beta/gamma is the encoder's. Returns
+    (the master's compress output, the guide's decoded output)."""
+    import torch
+
+    from lmic_tpu_torch.models.codec import _symbols_to_host
+
+    g_out = guided.compress(guide, hidden=False, reconstruct=True)
+    g_dec = guided.decompress(g_out["strings"], g_out["shape"])
+    if not torch.equal(g_out["x_hat"], g_dec["x_hat"]) or not all(
+            torch.equal(g_out["hidden_dec"][k], v)
+            for k, v in g_dec["hidden"].items()):
+        raise AssertionError("the guide's reconstruct differs from its "
+                             "decompress")
+    out = master.compress(x, g_out["x_hat"])
+    if body_strings is not None and out["strings"] != body_strings:
+        raise AssertionError("RGB-T /compress differs from the codec")
+    with torch.inference_mode():
+        g = g_out["x_hat"]
+        feat, align, beta, gamma = master.module.features(
+            master._pixels(x), g)
+        y, z = master.module.analyze_features(feat, align)
+        z_sym = _symbols_to_host(
+            torch.round(z - master._medians(master.eb_state)))
+        enc = master._code_y_z([y], z_sym, keep_y_hat=True)
+        dec = master._decode_y_hat(enc["strings"], enc["shape"])
+        align_dec = master.module.guided_align_from(g, beta, gamma)
+    if enc["strings"] != out["strings"]:
+        raise AssertionError("RGB-T master encoding is not deterministic")
+    if not torch.equal(dec, enc["y_hat_latent"]):
+        raise AssertionError("the master's decode did not recover the "
+                             "encoded latents")
+    if not torch.equal(align_dec, align):
+        raise AssertionError("the master's decoder alignment differs")
+    return out, g_dec
+
+
+def _rgbt_cpu_agreement(guided, master, channel):
+    """The pair's CUDA transforms against the CPU's, same seed, on a small
+    input (the smallest master of each role), stage by stage on the same
+    inputs (`utils/crosscheck.py::rgbt_agreement`): within 1e-4 of the
+    largest value (f32 sums in another order), and equal coding tables."""
+    from lmic_tpu_torch.utils.crosscheck import rgbt_agreement
+    from lmic_tpu_torch.utils.serve import load_rgbt_codecs
+
+    cpu, _ = load_rgbt_codecs(RGBT_QUALITY, channel, seed=0, device="cpu")
+    factor = master.module.downsampling_factor
+    gH, gW = master.expected_guide_hw(factor, factor)
+    worst = rgbt_agreement(
+        (guided, master), cpu,
+        _images(1, (1, factor, factor, channel), seed=41)[0],
+        _images(1, (1, gH, gW, 4 - channel), seed=42)[0])
+    if not worst < 1e-4:
+        raise AssertionError(f"RGB-T channel {channel}: CUDA vs CPU "
+                             f"transforms {worst:.3g}")
+    for cuda, ref in zip((guided, master), cpu):
+        for state in ("eb_state", "gc_state"):
+            if not np.array_equal(getattr(cuda, state).table.cdf,
+                                  getattr(ref, state).table.cdf):
+                raise AssertionError(f"RGB-T {state} tables differ")
+    return worst
+
+
+def _leg_stats(codec, prefix):
+    """The stages of a codec's last compress ("enc_") or decompress
+    ("dec_"), ms."""
+    return {k: round(v, 2) for k, v in codec.stats.items()
+            if k.startswith(prefix)}
+
+
+def _log_rgbt_profile(what, run):
+    """One leg's device time (torch.profiler) against its wall time without
+    the profiler, its device operations, GDN time and largest kernels."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    gdn_ms, dev_ms, _, top, ops = _profile(run, n=1)
+    log(f"RGB-T profile {what}: device {dev_ms:.2f} ms of wall "
+        f"{wall_ms:.2f} ms (busy {100 * dev_ms / wall_ms:.1f} %), "
+        f"{ops:.0f} device operations, GDN {gdn_ms:.3f} ms; device ms of "
+        "the largest kernels: "
+        + json.dumps({k: round(v, 3) for k, v in top.items()}))
+    return gdn_ms
+
+
+def phase_rgbt_serving():
+    """The RGB-T pair's serving path; returns the gdn_fwd launches of the
+    served requests and of the channel-3 round trip."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.codec_cli import read_body, read_floats
+    from lmic_tpu_torch.utils.serve import (
+        _read_pixels,
+        _write_pixels,
+        load_rgbt_codecs,
+        make_server,
+    )
+
+    t_phase = time.perf_counter()
+    (guided, master), meta = load_rgbt_codecs(RGBT_QUALITY, 1, seed=0,
+                                              device="cuda")
+    log(f"RGB-T q{RGBT_QUALITY} (N={master.module.N}, M={master.module.M}), "
+        f"channel 1: master {RGBT_MASTER[1]}x{RGBT_MASTER[2]}, guide "
+        f"{RGBT_GUIDE[1]}x{RGBT_GUIDE[2]}; built and updated in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    masters = _images(3, RGBT_MASTER, seed=31)
+    guides = _images(3, RGBT_GUIDE, seed=32)
+    # warm-up: a whole round trip
+    master.decompress(*_rgbt_checks(guided, master, masters[0], guides[0]))
+    server = make_server((guided, master), meta)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        runs, legs = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        for x, guide in zip(masters, guides):
+            fx, fg = io.BytesIO(), io.BytesIO()
+            _write_pixels(fx, x)
+            _write_pixels(fg, guide)
+            before = gdn.LAUNCHES["gdn_fwd"]
+            t1 = time.perf_counter()
+            body = _post(port, "/compress", fx.getvalue() + fg.getvalue())
+            t2 = time.perf_counter()
+            mid = gdn.LAUNCHES["gdn_fwd"]
+            stats = {"guide": _leg_stats(guided, "enc_"),
+                     "master": _leg_stats(master, "enc_")}
+            rec = _post(port, "/decompress", body + fg.getvalue())
+            t3 = time.perf_counter()
+            legs.append((mid - before, gdn.LAUNCHES["gdn_fwd"] - mid))
+            stats["master"].update(_leg_stats(master, "dec_"))
+            runs.append((body, rec, 1e3 * (t2 - t1), 1e3 * (t3 - t2), stats))
+        counts = dict(gdn.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    launches = counts.pop("gdn_fwd")
+    if launches != 12 * len(masters) or any(counts.values()) \
+            or set(legs) != {(9, 3)}:
+        raise AssertionError(f"RGB-T served: gdn_fwd {launches} in "
+                             f"{len(masters)} round trips, per leg {legs}, "
+                             f"others {counts}")
+    for i, (x, guide, (body, rec, tc, td, st)) in enumerate(
+            zip(masters, guides, runs)):
+        f = io.BytesIO(body)
+        shape, groups = read_body(f)
+        beta, gamma = (np.asarray(read_floats(f, 64), np.float32)
+                       for _ in range(2))
+        out, g_dec = _rgbt_checks(guided, master, x, guide, groups)
+        if tuple(out["shape"]) != tuple(shape) or not (
+                np.array_equal(out["beta"].reshape(-1), beta)
+                and np.array_equal(out["gamma"].reshape(-1), gamma)):
+            raise AssertionError("RGB-T /compress side info differs")
+        want = master.decompress(out, g_dec, u8=True)["x_hat"]
+        got = _read_pixels(io.BytesIO(rec))
+        if got.shape != x.shape or not np.array_equal(got, want):
+            raise AssertionError("RGB-T /decompress differs from the codec")
+        nbytes = sum(len(s) for g in groups for s in g)
+        log(f"RGB-T serve pair {i}: master {nbytes} bytes + 512 of "
+            f"beta/gamma, {8 * nbytes / (x.shape[1] * x.shape[2]):.4f} bpp; "
+            f"/compress {tc:.1f} ms, /decompress {td:.1f} ms (guide "
+            f"cached); stages ms " + json.dumps(st))
+    log(f"RGB-T served: peak device memory {peak / 2**30:.2f} GiB over "
+        f"{len(masters)} round trips")
+    worst = _rgbt_cpu_agreement(guided, master, 1)
+    log(f"RGB-T channel 1: CUDA vs CPU transforms within {worst:.3g}")
+    x, guide = masters[0], guides[0]
+    g_out = guided.compress(guide, hidden=False, reconstruct=True)
+    out = master.compress(x, g_out["x_hat"])
+    g_dec = {"x_hat": g_out["x_hat"], "hidden": g_out["hidden_dec"]}
+    gdn_ms = _log_rgbt_profile("channel 1 /compress work", lambda: (
+        master.compress(x, guided.compress(
+            guide, hidden=False, reconstruct=True)["x_hat"])))
+    gdn_ms += _log_rgbt_profile(
+        "channel 1 /decompress work (guide cached)",
+        lambda: master.decompress(out, g_dec, u8=True))
+    log(f"RGB-T channel 1: GDN kernels {gdn_ms:.3f} ms a round trip "
+        "(profiler)")
+    del guided, master, g_out, g_dec, out
+
+    # channel 3: an RGB master at 1024x1280, a thermal guide at 512x640
+    (guided, master), _ = load_rgbt_codecs(RGBT_QUALITY, 3, seed=0,
+                                           device="cuda")
+    x = _images(1, RGBT_GUIDE, seed=33)[0]
+    guide = _images(1, RGBT_MASTER, seed=34)[0]
+    master.decompress(*_rgbt_checks(guided, master, x, guide))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    g_out = guided.compress(guide, hidden=False, reconstruct=True)
+    out = master.compress(x, g_out["x_hat"])
+    t1 = time.perf_counter()
+    rec = master.decompress(
+        out, {"x_hat": g_out["x_hat"], "hidden": g_out["hidden_dec"]},
+        u8=True)["x_hat"]
+    t2 = time.perf_counter()
+    counts = dict(gdn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # the guide's g_a and reconstruct, the master's g_a and g_s
+    if counts.pop("gdn_fwd") != 12 or any(counts.values()):
+        raise AssertionError(f"RGB-T channel 3: launches {gdn.LAUNCHES}")
+    if rec.shape != x.shape or rec.dtype != np.uint8:
+        raise AssertionError(f"RGB-T channel 3: bad decode {rec.shape}")
+    _rgbt_checks(guided, master, x, guide, out["strings"])
+    worst = _rgbt_cpu_agreement(guided, master, 3)
+    nbytes = sum(len(s) for g in out["strings"] for s in g)
+    log(f"RGB-T channel 3 (master {x.shape[1]}x{x.shape[2]}, guide "
+        f"{guide.shape[1]}x{guide.shape[2]}): master {nbytes} bytes; "
+        f"compress {1e3 * (t1 - t0):.1f} ms, decompress "
+        f"{1e3 * (t2 - t1):.1f} ms; peak device memory "
+        f"{peak / 2**30:.2f} GiB; CUDA vs CPU transforms within "
+        f"{worst:.3g}")
+    launches += 12
+    log(f"RGB-T serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _train_batch(shape, seed):
     """Seeded images as a (B, C, H, W) float32 batch in [0, 1] on the card,
     channels_last."""
@@ -1143,20 +1401,25 @@ def phase_training():
 
 
 def _totals(cases, kernel, rows, dtype, C=192):
-    """Sums over one main-path pass (a 512x768 round trip or a training
-    step): the GDN and the IGDN at each of `rows`, at width C."""
-    sel = [c for c in cases[kernel] if c["shape"][0] in rows
+    """Sums over one main-path pass (a round trip or a training step): the
+    GDN and the IGDN at each of `rows`, at width C; `rows` may map each
+    count to the times the pass runs it in each direction."""
+    times = rows if isinstance(rows, dict) else dict.fromkeys(rows, 1)
+    sel = [c for c in cases[kernel] if c["shape"][0] in times
            and c["shape"][1] == C and c["dtype"] == dtype]
-    if len(sel) != 2 * len(rows):
+    if len(sel) != 2 * len(times):
         raise AssertionError(f"{len(sel)} {kernel} main-path cases")
-    t = {k: sum(c[k] for c in sel) / 1e3
-         for k in ("us", "plain_us", "bound_us", "bytes_us",
-                   "operations_us")}
+
+    def total(key):
+        return sum(c[key] * times[c["shape"][0]] for c in sel) / 1e3
+
+    t = {k: total(k) for k in ("us", "plain_us", "bound_us", "bytes_us",
+                               "operations_us", "library_us")}
     return {"ms": t["us"], "plain_ms": t["plain_us"],
             "bound_ms": t["bound_us"],
             "bound_by": ("operations" if t["operations_us"] >= t["bytes_us"]
                          else "bytes"),
-            "library_ms": sum(c["library_us"] for c in sel) / 1e3}
+            "library_ms": t["library_us"]}
 
 
 def _max_abs_err_by_dtype(kcases):
@@ -1214,6 +1477,7 @@ def main():
     phase_other_archs()
     train_counts, train_steps = phase_training()
     ar_launches, _ = phase_ar_serving()
+    rgbt_launches = phase_rgbt_serving()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
@@ -1227,9 +1491,11 @@ def main():
         "route": "cuda",
         "source": "lmic_tpu_torch/csrc/gdn_fwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
-        "launches": serve_launches + ar_launches + train_counts["gdn_fwd"],
+        "launches": (serve_launches + ar_launches + rgbt_launches
+                     + train_counts["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
+                             "rgbt_serving": rgbt_launches,
                              "training": train_counts["gdn_fwd"]},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
         "max_abs_err": max(errors["gdn_fwd"].values()),
@@ -1239,6 +1505,9 @@ def main():
         # the same at C = 128 (cheng2020-anchor q3)
         "round_trip_c128": totals("gdn_fwd", SERVE_ROWS[:3], "float32",
                                   128),
+        # one RGB-T round trip (channel 1, 512x640 + 1024x1280, guide
+        # cached on the decompress leg): 12 launches, 1,075,200 rows
+        "round_trip_rgbt": totals("gdn_fwd", RGBT_ROUND_TRIP, "float32"),
         "training_step_f32": totals("gdn_fwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
         "card": smi,

@@ -1,10 +1,12 @@
 """lmic_tpu_torch — the PyTorch/CUDA port of lmic_tpu.
 
-A second package beside the JAX one, written for an NVIDIA H100: the
-serving path of the non-autoregressive image codecs (bmshj2018-factorized,
-bmshj2018-hyperprior, mbt2018-mean) with its own host rANS coder, its own
-HTTP server, and the GDN/IGDN forward as a hand-written CUDA kernel
-(`csrc/gdn_fwd.cu`, the counterpart of `lmic_tpu/ops/pallas_gdn.py`).
+A second package beside the JAX one, written for an NVIDIA H100: serving
+and training of the non-autoregressive image codecs (bmshj2018-factorized,
+bmshj2018-hyperprior, mbt2018-mean), serving of the autoregressive ones
+(mbt2018, cheng2020-anchor, cheng2020-attn) and of the RGB-T guided/master
+pair, with its own host rANS coder, its own HTTP server, and the GDN/IGDN
+forward and backward as hand-written CUDA kernels (`csrc/gdn_fwd.cu`,
+`csrc/gdn_bwd.cu`, the counterparts of `lmic_tpu/ops/pallas_gdn.py`).
 
 Layout: activations are NCHW tensors in `torch.channels_last` memory
 format, so the GDN kernel sees a contiguous `(N*H*W, C)` view. Entry

@@ -16,3 +16,9 @@ from lmic_tpu_torch.models.joint import (  # noqa: F401
     JointARCodec,
     JointAutoregressiveHierarchicalPriors,
 )
+from lmic_tpu_torch.models.rgbt import (  # noqa: F401
+    GuidedCodec,
+    GuidedCompresser,
+    MasterCodec,
+    MasterCompresser,
+)

@@ -60,6 +60,15 @@ def _narrowest_int(sym: np.ndarray):
     return np.int32
 
 
+def _image_out(x: torch.Tensor, u8: bool) -> Dict[str, Any]:
+    """A synthesis output (B, C, H, W) -> {"x_hat": NHWC numpy}, clipped to
+    [0, 1] (uint8 levels when `u8`)."""
+    x = torch.clamp(x, 0.0, 1.0)
+    if u8:
+        x = torch.round(x * 255.0).to(torch.uint8)
+    return {"x_hat": np.ascontiguousarray(x.permute(0, 2, 3, 1).cpu().numpy())}
+
+
 class CompressionCodec:
     """Base wrapper: module + coding state + the device it runs on."""
 
@@ -97,12 +106,7 @@ class CompressionCodec:
         """g_s on dequantized latents -> {"x_hat": NHWC numpy}, clipped to
         [0, 1] (uint8 levels when `u8`)."""
         y_hat = y_hat.contiguous(memory_format=torch.channels_last)
-        x = torch.clamp(self.module.g_s(y_hat), 0.0, 1.0)
-        if u8:
-            x = torch.round(x * 255.0).to(torch.uint8)
-        return {"x_hat": np.ascontiguousarray(
-            x.permute(0, 2, 3, 1).cpu().numpy()
-        )}
+        return _image_out(self.module.g_s(y_hat), u8)
 
     def _medians(self, state: EBState) -> torch.Tensor:
         return torch.from_numpy(state.medians).to(self.device).view(

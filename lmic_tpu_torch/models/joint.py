@@ -80,9 +80,11 @@ class JointAutoregressiveHierarchicalPriors(MeanScaleHyperprior):
         scales, means = gaussian_params.chunk(2, dim=1)
         return scales, means
 
-    def forward(self, x, training: bool = True,
-                generator: Optional[torch.Generator] = None):
-        y = from_amp(self.g_a(x))
+    def _entropy_forward(self, y, training: bool,
+                         generator: Optional[torch.Generator]):
+        """The latent y -> {"y_hat": the context's (and g_s's) input,
+        "likelihoods"}: hyperprior, context model and entropy parameters,
+        shared by the forwards of this model and the RGB-T pair."""
         z = from_amp(self.h_a(y))
         z_hat, z_likelihoods = self.entropy_bottleneck(
             z, training=training, generator=generator
@@ -100,11 +102,15 @@ class JointAutoregressiveHierarchicalPriors(MeanScaleHyperprior):
             y, scales_hat, means=means_hat, training=training,
             generator=generator,
         )
-        x_hat = from_amp(self.g_s(y_hat))
-        return {
-            "x_hat": x_hat,
-            "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
-        }
+        return {"y_hat": y_hat,
+                "likelihoods": {"y": y_likelihoods, "z": z_likelihoods}}
+
+    def forward(self, x, training: bool = True,
+                generator: Optional[torch.Generator] = None):
+        out = self._entropy_forward(from_amp(self.g_a(x)), training,
+                                    generator)
+        return {"x_hat": from_amp(self.g_s(out.pop("y_hat"))),
+                "likelihoods": out["likelihoods"]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Cross-device checks that `chip_smoke.py` and the card tests
 (tests/test_torch_cuda.py) both run: one training step on two devices with
-the same quantization noise, and the AR codecs' wavefront step on two
-devices on the same coded latents.
+the same quantization noise, the AR codecs' wavefront step on two devices
+on the same coded latents, and the RGB-T pair's transforms stage by stage.
 
 `torch.rand` draws other numbers on the card than on the CPU, so
 `fixed_noise` swaps `entropy_models.quantize_noise` for one that adds a
@@ -123,3 +123,45 @@ def wavefront_step_agreement(codec, ref, x):
         flips += int((i_a != i_b).sum())
         n += i_b.numel()
     return err, flips, n
+
+
+def rgbt_agreement(pair, ref, x, guide) -> float:
+    """The RGB-T pair `pair` = (guided, master) codecs against `ref`, the
+    same pair on another device, on a master image `x` and its `guide`
+    ((1, H, W, C) numpy): each stage (the guide's g_a and g_s with their
+    maps, the master's features, analysis and synthesis) runs on `pair`'s
+    outputs of the stage before, copied to each device, so a rounding of
+    the latents cannot flip on one side only. Returns the largest error of
+    any output, max|a - b| / max(1, max|b|)."""
+    worst = 0.0
+
+    def both(stage, *args):
+        nonlocal worst
+        flat = []
+        for (guided, master), dev in ((pair, pair[1].device),
+                                      (ref, ref[1].device)):
+            a = [{k: v.to(dev) for k, v in t.items()} if isinstance(t, dict)
+                 else t.to(dev) for t in args]
+            out = []
+            for t in stage(guided.module, master.module, *a):
+                out += list(t.values()) if isinstance(t, dict) else [t]
+            flat.append(out)
+        for a, b in zip(*flat):
+            a, b = a.float().cpu(), b.float().cpu()
+            worst = max(worst, ((a - b).abs().max()
+                                / b.abs().max().clamp(min=1.0)).item())
+        return flat[0]
+
+    guided, master = pair
+    with torch.inference_mode():
+        y = both(lambda g, m, t: g.g_a_hidden(t),
+                 guided._pixels(guide))[0]
+        g_hat, *gs = both(lambda g, m, t: g.g_s_hidden(t), torch.round(y))
+        gs = dict(zip(("gs1", "gs2", "gs3"), gs))
+        feat, align, _, _ = both(lambda g, m, a, b: m.features(a, b),
+                                 master._pixels(x),
+                                 torch.clamp(g_hat, 0.0, 1.0))
+        ym, _ = both(lambda g, m, a, b: m.analyze_features(a, b), feat,
+                     align)
+        both(lambda g, m, *a: [m.synthesize(*a)], torch.round(ym), gs, align)
+    return worst

@@ -1,7 +1,7 @@
-"""HTTP serving of an image codec's uint8 path.
+"""HTTP serving of an image codec's uint8 path, and of the RGB-T pair.
 
-Counterpart of lmic_tpu/utils/serve.py:62-134, 247-304, with the same wire
-format (big-endian, framed by utils/codec_cli.py):
+Counterpart of lmic_tpu/utils/serve.py:62-245, 247-304, 370-386, with the
+same wire format (big-endian, framed by utils/codec_cli.py):
 
   POST /compress   request : u8 ndim, ndim x u32 dims, raw uint8 pixels
                    response: write_body (u32 h, w; u8 n_groups; per group
@@ -10,16 +10,28 @@ format (big-endian, framed by utils/codec_cli.py):
                    response: u8 ndim, ndim x u32 dims, raw uint8 pixels
   GET  /meta       response: JSON meta
 
+The RGB-T pair (family "rgbt", `codec` a (guided, master) pair, one image
+a request): /compress takes two pixel blocks, the master then the guide,
+and returns the master's body + 64 f32 beta + 64 f32 gamma (the guide's
+stream is not sent: the decoder codes the guide from its own source);
+/decompress takes that payload with the guide's pixel block appended and
+returns the master's pixels. Both legs code the guide with its one-pass
+reconstruct; a content-keyed LRU of `LMIC_SERVE_GUIDE_CACHE` guides
+(default 2, 0 turns it off) skips the second.
+
 Any failure of a request maps to a 400 with the error's text. Requests are
 serialized through one lock around the codec work (socket reads and
-writes stay outside it). The video and RGB-T families, and the
-`--bundle`/`--checkpoint` command line, are ported with later slices.
+writes stay outside it). The video family and the `--bundle`/
+`--checkpoint` command line are ported with later slices.
 """
 
 from __future__ import annotations
 
+import collections
+import hashlib
 import io
 import json
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -27,14 +39,16 @@ import numpy as np
 
 from lmic_tpu_torch.utils.codec_cli import (
     read_body,
+    read_floats,
     read_uchars,
     read_uints,
     write_body,
+    write_floats,
     write_uchars,
     write_uints,
 )
 
-__all__ = ["make_server"]
+__all__ = ["make_server", "load_rgbt_codecs"]
 
 _LATER = ("is ported with a later slice of lmic_tpu_torch "
           "(ROADMAP.md, queue A)")
@@ -75,13 +89,116 @@ def _codec_handlers(codec):
     return compress, decompress
 
 
+def _rgbt_handlers(guided_codec, master_codec):
+    """compress/decompress closures for the RGB-T pair."""
+    SIDE = 64  # beta and gamma: the channel aligner's width
+
+    def one_image(pix):
+        if pix.shape[0] != 1:
+            raise ValueError(
+                f"RGBT serving is single-image (B=1); got B={pix.shape[0]}"
+            )
+        return pix
+
+    # The decompress leg codes the same guide the compress leg just coded;
+    # the entries hold device tensors (x_hat and the gs* maps), hence few.
+    # Handlers run under the server lock.
+    cache_n = int(os.environ.get("LMIC_SERVE_GUIDE_CACHE", "2"))
+    guide_cache = collections.OrderedDict()
+
+    def run_guide(guide_u8):
+        # keyed on the wire's uint8 pixels by SHA-256: request pixels come
+        # from outside, and a collision would reconstruct against the
+        # wrong guide
+        key = None
+        if cache_n > 0:
+            key = (guide_u8.shape,
+                   hashlib.sha256(guide_u8.tobytes()).hexdigest())
+            hit = guide_cache.get(key)
+            if hit is not None:
+                guide_cache.move_to_end(key)
+                return hit
+        g_out = guided_codec.compress(one_image(guide_u8), hidden=False,
+                                      reconstruct=True)
+        g_dec = {"x_hat": g_out["x_hat"], "hidden": g_out["hidden_dec"]}
+        if key is not None:
+            guide_cache[key] = g_dec
+            while len(guide_cache) > cache_n:
+                guide_cache.popitem(last=False)
+        return g_dec
+
+    def compress(f):
+        x = one_image(_read_pixels(f))
+        guide_u8 = _read_pixels(f)
+        # validate before the guide's coding runs under the server lock
+        master_codec.check_geometry(
+            int(x.shape[1]), int(x.shape[2]),
+            tuple(map(int, guide_u8.shape[1:3])), guide_what="guide image",
+        )
+        m_out = master_codec.compress(x, run_guide(guide_u8)["x_hat"])
+        beta = np.asarray(m_out["beta"], np.float32).reshape(-1)
+        gamma = np.asarray(m_out["gamma"], np.float32).reshape(-1)
+        if beta.size != SIDE or gamma.size != SIDE:
+            raise ValueError(f"expected {SIDE}+{SIDE} beta/gamma floats, "
+                             f"got {beta.size}+{gamma.size}")
+        out = io.BytesIO()
+        write_body(out, m_out["shape"], m_out["strings"])
+        write_floats(out, beta.tolist())
+        write_floats(out, gamma.tolist())
+        return out.getvalue()
+
+    def decompress(f):
+        shape, strings = read_body(f)
+        beta = np.asarray(read_floats(f, SIDE), np.float32)
+        gamma = np.asarray(read_floats(f, SIDE), np.float32)
+        guide_u8 = _read_pixels(f)
+        # the body's z shape pins the master's geometry (H = z * factor)
+        factor = master_codec.module.downsampling_factor
+        master_codec.check_geometry(
+            int(shape[0]) * factor, int(shape[1]) * factor,
+            tuple(map(int, guide_u8.shape[1:3])), guide_what="guide image",
+        )
+        rec = master_codec.decompress(
+            {"strings": strings, "shape": shape, "beta": beta,
+             "gamma": gamma},
+            run_guide(guide_u8), u8=True,
+        )
+        out = io.BytesIO()
+        _write_pixels(out, rec["x_hat"])
+        return out.getvalue()
+
+    return compress, decompress
+
+
+def load_rgbt_codecs(quality, channel=1, seed=0, device=None, **widths):
+    """The (guided, master) pair for RGB-T serving, with weights drawn from
+    `seed` (the port reads no checkpoint yet) and fresh coding tables: the
+    master takes `channel` channels, the guide the complementary
+    4 - channel. `widths` (N=, M=) override the quality table's."""
+    from lmic_tpu_torch import zoo
+
+    guided = zoo.create_model("guided", quality, seed=seed,
+                              channel=4 - channel, device=device, **widths)
+    master = zoo.create_model("master", quality, seed=seed, channel=channel,
+                              device=device, **widths)
+    guided.update()
+    master.update()
+    meta = {"family": "rgbt", "input_shape": None, "channel": channel,
+            "quality": quality}
+    return (guided, master), meta
+
+
 def make_server(codec, meta, host="127.0.0.1", port=0):
-    """Build a ThreadingHTTPServer serving the image `codec`. `meta` is a
-    {"family", "input_shape", ...} dict returned by GET /meta."""
+    """Build a ThreadingHTTPServer serving `codec`. `meta` is a {"family",
+    "input_shape", ...} dict returned by GET /meta; family "rgbt" takes
+    `codec` as a (guided, master) pair."""
     family = meta.get("family")
-    if family in ("video", "rgbt"):
+    if family == "video":
         raise NotImplementedError(f"serving the {family} family {_LATER}")
-    compress_fn, decompress_fn = _codec_handlers(codec)
+    if family == "rgbt":
+        compress_fn, decompress_fn = _rgbt_handlers(*codec)
+    else:
+        compress_fn, decompress_fn = _codec_handlers(codec)
     lock = threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):

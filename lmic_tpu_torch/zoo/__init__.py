@@ -2,10 +2,11 @@
 
 Counterpart of lmic_tpu/zoo/__init__.py:48-189 (reference
 compressai/zoo/image.py:189-246) for the three non-autoregressive
-architectures and the autoregressive family (mbt2018, cheng2020-anchor,
-cheng2020-attn). `create_model` builds the module on the
-CPU from a seed, so the same seed gives the same weights on every device,
-then hands it to the codec wrapper on `device` (CUDA unless told otherwise).
+architectures, the autoregressive family (mbt2018, cheng2020-anchor,
+cheng2020-attn) and the RGB-T pair (`guided`, `master`). `create_model`
+builds the module on the CPU from a seed, so the same seed gives the same
+weights on every device, then hands it to the codec wrapper on `device`
+(CUDA unless told otherwise).
 """
 
 from __future__ import annotations
@@ -31,10 +32,21 @@ from lmic_tpu_torch.models.joint import (
     JointARCodec,
     JointAutoregressiveHierarchicalPriors,
 )
+from lmic_tpu_torch.models.rgbt import (
+    GuidedCodec,
+    GuidedCompresser,
+    MasterCodec,
+    MasterCompresser,
+    WindowCrossAttention,
+)
 
 # quality -> (N, M), or (N,) for the families with M = N (reference
 # zoo/image.py:189-246)
 cfgs: Dict[str, Dict[int, Tuple[int, ...]]] = {
+    # the RGB-T pair: N = M = 192 at every quality of the fork's lambda
+    # table (lmic_tpu/zoo/__init__.py:50-53)
+    "guided": {q: (192, 192) for q in range(1, 8)},
+    "master": {q: (192, 192) for q in range(1, 8)},
     "bmshj2018-factorized": {
         **{q: (128, 192) for q in range(1, 6)},
         **{q: (192, 320) for q in range(6, 9)},
@@ -69,6 +81,8 @@ model_architectures: Dict[str, Tuple[Any, Any]] = {
     "mbt2018": (JointAutoregressiveHierarchicalPriors, JointARCodec),
     "cheng2020-anchor": (Cheng2020Anchor, JointARCodec),
     "cheng2020-attn": (Cheng2020Attention, JointARCodec),
+    "guided": (GuidedCompresser, GuidedCodec),
+    "master": (MasterCompresser, MasterCodec),
 }
 
 
@@ -78,7 +92,10 @@ def make_module(architecture: str, quality: int, channel: int = 3,
     """Build the module for an architecture/quality; `N=`/`M=` override
     the quality table's widths (parity tests use narrow models); `dtype`
     is the activation compute dtype (torch.bfloat16 for AMP training,
-    None for f32 and for every codec wire)."""
+    None for f32 and for every codec wire). `channel` is the image's
+    channel count, for the master its modality (1: a thermal master with a
+    3-channel guide at 2x; 3: the roles swapped); the guided arch also
+    takes `first_stride=` (default 2), its first conv's stride."""
     if architecture not in model_architectures:
         raise ValueError(f'Invalid architecture name "{architecture}"')
     if quality not in cfgs[architecture]:
@@ -87,23 +104,30 @@ def make_module(architecture: str, quality: int, channel: int = 3,
     N = kwargs.pop("N", widths[0])
     # the single-width families (cheng2020) take M = N (waseda.py:63)
     M = kwargs.pop("M", widths[1] if len(widths) == 2 else N)
+    extra = {}
+    if architecture == "guided" and "first_stride" in kwargs:
+        extra["first_stride"] = kwargs.pop("first_stride")
     if kwargs:
         raise TypeError(f"unexpected arguments {sorted(kwargs)}")
     module_cls, _ = model_architectures[architecture]
     return module_cls(N=N, M=M, channel=channel, generator=generator,
-                      dtype=dtype)
+                      dtype=dtype, **extra)
 
 
 @torch.no_grad()
-def _init_convs(module: nn.Module, generator: torch.Generator):
-    """lmic_tpu's (flax's) conv initialisation, drawn from `generator`:
-    LeCun-normal kernels (variance 1/fan_in, truncated at two standard
-    deviations) and zero biases. It keeps activations at unit scale, so
-    random-weight codecs code non-trivial latents."""
+def _init_params(module: nn.Module, generator: torch.Generator):
+    """lmic_tpu's (flax's) initialisation, drawn from `generator`:
+    LeCun-normal conv and dense kernels (variance 1/fan_in, truncated at
+    two standard deviations) and zero biases, and the attention bias
+    tables truncated normal at 0.02. It keeps activations at unit scale,
+    so random-weight codecs code non-trivial latents."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, WindowCrossAttention):
+            nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
+                                  a=-0.04, b=0.04, generator=generator)
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
-            fan_in = w[0].numel()  # (O, I, kh, kw): I*kh*kw
+            fan_in = w[0].numel()  # (O, I, kh, kw): I*kh*kw; (O, I): I
             if isinstance(m, nn.ConvTranspose2d):  # (I, O, kh, kw)
                 fan_in = w.shape[0] * w[0, 0].numel()
             # flax divides by the truncated normal's std at [-2, 2]
@@ -126,7 +150,7 @@ def create_model(architecture: str, quality: int, seed: int = 0,
     module = make_module(architecture, quality, channel=channel,
                          generator=generator, dtype=dtype, **kwargs)
     _, codec_cls = model_architectures[architecture]
-    _init_convs(module, generator)
+    _init_params(module, generator)
     if state_dict is not None:
         module.load_state_dict(state_dict)
     return codec_cls(module, device)

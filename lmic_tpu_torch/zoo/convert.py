@@ -17,7 +17,15 @@ numpy arrays, and returns this package's `state_dict` (CompressAI keys):
   (`ResidualBlockWithStride_0/Conv_0/Conv_0/kernel`, ...) -> CompressAI's
   submodule names (`g_a.0.conv1.weight`, ...), the inverse of lmic_tpu's
   `_import_cheng` (lmic_tpu/zoo/pretrained.py:169-316; `block_state_dict`
-  converts one block).
+  converts one block);
+- the RGB-T pair (`guided`, `master`): flax's auto-names (`GDN_i`,
+  `Conv_i`, `Deconv_i`, `_ResBlock64_i`, `block_i`,
+  `WindowCrossAttention_0`, `Dense_i`) -> CompressAI's (`enc1.g_a_gdn1`,
+  `decoder.downsample1`, `ch_aligner.conv5`,
+  `decoder.sp_aligner1.blocks.0.attn.qkv1`, `...mlp.fc1`, ...), the
+  inverse of lmic_tpu's `_import_guided`/`_import_master`
+  (lmic_tpu/zoo/pretrained.py:567-737); dense kernels (in, out) -> Linear
+  weights (out, in), LayerNorm `scale` -> `weight`.
 
 `coding_state_from_numpy(codec, eb=..., gc=...)` installs carried integer
 CDF tables, medians and the scale table, so both packages code with the
@@ -157,12 +165,115 @@ def _sequence_state(sequences: Mapping[str, tuple],
     return out
 
 
+# RGB-T: (flax path, CompressAI name, kind) of each converted subtree; a
+# kind says how its leaves map (see _rgbt_leaves)
+_SWIN_BLOCK = (
+    ("norm1", "norm1", "ln"), ("norm2", "norm2", "ln"),
+    ("WindowCrossAttention_0/qkv1", "attn.qkv1", "dense"),
+    ("WindowCrossAttention_0/qkv2", "attn.qkv2", "dense"),
+    ("WindowCrossAttention_0/proj", "attn.proj", "dense"),
+    ("WindowCrossAttention_0", "attn", "table"),
+    ("Dense_0", "mlp.fc1", "dense"), ("Dense_1", "mlp.fc2", "dense"),
+)
+
+
+def _resblock64(path, name):
+    return [(f"{path}/{sub}", f"{name}.{conv}", "conv")
+            for sub, conv in _CHENG_BLOCKS["rb"].items()]
+
+
+def _rgbt_table(arch: str):
+    if arch == "guided":
+        return (
+            [(f"g_a_net/Conv_{i}/Conv_0", f"enc1.g_a_conv{i + 1}", "conv")
+             for i in range(4)]
+            + [(f"g_a_net/GDN_{i}", f"enc1.g_a_gdn{i + 1}", "gdn")
+               for i in range(3)]
+            + [(f"g_s_net/Deconv_{i}/Conv_0", f"dec1.g_s_conv{i + 1}",
+                "deconv") for i in range(4)]
+            + [(f"g_s_net/GDN_{i}", f"dec1.g_s_gdn{i + 1}", "gdn")
+               for i in range(3)])
+    table = []
+    for i in range(3):
+        sa, name = f"g_s_net/sp_aligner{i + 1}", f"decoder.sp_aligner{i + 1}"
+        table += [
+            (f"g_s_net/Deconv_{i}/Conv_0", f"decoder.g_s_conv{i + 1}",
+             "deconv"),
+            (f"g_s_net/GDN_{i}", f"decoder.g_s_gdn{i + 1}", "gdn"),
+            # only with a 1-channel master (the guide at 2x)
+            (f"g_s_net/Conv_{i}/Conv_0", f"decoder.downsample{i + 1}",
+             "conv"),
+            (f"{sa}/patch_embed1", f"{name}.patch_embeding1.proj", "conv"),
+            (f"{sa}/patch_embed2", f"{name}.patch_embeding2.proj", "conv"),
+            (f"{sa}/recovery/Conv_0", f"{name}.recovery", "deconv"),
+        ] + [(f"{sa}/block_{b}/{path}", f"{name}.blocks.{b}.{sub}", kind)
+             for b in range(2) for path, sub, kind in _SWIN_BLOCK]
+    table.append(("g_s_net/Deconv_3/Conv_0", "decoder.g_s_conv4", "deconv"))
+    for j in (1, 2):
+        table.append((f"fencoder{j}/Conv_0/Conv_0", f"fencoder{j}.conv1",
+                      "conv"))
+        for i in range(3):
+            table += _resblock64(f"fencoder{j}/_ResBlock64_{i}",
+                                 f"fencoder{j}.resblock{i + 1}")
+    for i in range(3):
+        table += _resblock64(f"fdecoder/_ResBlock64_{i}",
+                             f"fdecoder.resblock{i + 1}")
+    table += [("fdecoder/Conv_0/Conv_0", "fdecoder.conv", "conv"),
+              ("fdecoder/Deconv_0/Conv_0", "fdecoder.deconv1", "deconv")]
+    table += [(f"ch_aligner/Conv_{i}/Conv_0", f"ch_aligner.conv{i + 1}",
+               "conv") for i in range(6)]
+    return table
+
+
+def _rgbt_leaves(node, kind):
+    """One subtree's leaves -> {CompressAI leaf name: array}."""
+    if kind == "gdn":
+        return {"beta": node["beta"], "gamma": node["gamma"]}
+    if kind == "ln":
+        return {"weight": node["scale"], "bias": node["bias"]}
+    if kind == "table":
+        return {"relative_position_bias_table":
+                node["relative_position_bias_table"]}
+    k = np.asarray(node["kernel"])
+    weight = {"conv": _conv_weight, "deconv": _deconv_weight,
+              "dense": np.transpose}[kind](k)
+    return {"weight": weight, "bias": node["bias"]}
+
+
+def _rgbt_state(arch: str, params: Mapping[str, Any]
+                ) -> Dict[str, np.ndarray]:
+    """The RGB-T transforms' leaves, and the mbt2018 machinery both
+    compressers inherit. Raises if a leaf of `params` is left over."""
+    out: Dict[str, np.ndarray] = {}
+    for path, name, kind in _rgbt_table(arch):
+        node = params
+        for part in path.split("/"):
+            node = node.get(part) if isinstance(node, Mapping) else None
+        if node is None:
+            continue  # an absent skip or downsample
+        for leaf, value in _rgbt_leaves(node, kind).items():
+            out[f"{name}.{leaf}"] = np.asarray(value)
+    seqs = dict(_DECONVS["mbt2018"])
+    if arch == "guided":
+        del seqs["g_a"], seqs["g_s"]
+    else:
+        del seqs["g_s"]
+    out.update(_sequence_state(seqs, params))
+    want = _count_leaves({k: v for k, v in params.items() if k not in (
+        "entropy_bottleneck", "context_prediction")})
+    if len(out) != want:
+        raise ValueError(f"{arch}: converted {len(out)} of {want} params")
+    return out
+
+
 def state_dict_from_jax(arch: str, params: Mapping[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """lmic_tpu `variables["params"]` (numpy leaves) -> this package's
     `state_dict` for `arch`, in the leaves' dtype. The map is linear, so it
     carries a gradient tree of the same structure across too."""
-    if arch in _CHENG:
+    if arch in ("guided", "master"):
+        out = _rgbt_state(arch, params)
+    elif arch in _CHENG:
         out = _cheng_state(arch, params)
         out.update(_sequence_state({"entropy_parameters": ()}, params))
     elif arch in _DECONVS:

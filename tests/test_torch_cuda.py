@@ -317,3 +317,73 @@ def test_ar_create_model_needs_cuda_or_explicit_cpu(arch, monkeypatch):
         zoo.create_model(arch, 1, **_ar_widths(arch))
     codec = zoo.create_model(arch, 1, device="cpu", **_ar_widths(arch))
     assert codec.device.type == "cpu"
+
+
+# the RGB-T pair at N = 32, M = 48: master role -> (master, guide) (H, W)
+RGBT_ROLES = {1: ((64, 128), (128, 256)), 3: ((128, 128), (64, 64))}
+
+
+def _rgbt(role, device):
+    from lmic_tpu_torch.utils.serve import load_rgbt_codecs
+
+    pair, _ = load_rgbt_codecs(1, role, seed=0, device=device, N=32, M=48)
+    (mH, mW), (gH, gW) = RGBT_ROLES[role]
+    rng = np.random.default_rng(role)
+    x = (rng.random((1, mH, mW, role)) * 255).astype(np.uint8)
+    guide = (rng.random((1, gH, gW, 4 - role)) * 255).astype(np.uint8)
+    return pair, x, guide
+
+
+@pytest.mark.parametrize("role", [1, 3])
+def test_rgbt_round_trip_on_card(role):
+    """A served round trip of the pair on the card runs gdn_fwd 12 times
+    (the guide's g_a and one-pass reconstruct, the master's g_a and g_s)
+    and no backward kernel; the guide's reconstruct equals its decompress
+    and the master's decoder recovers the encoder's latents, bit for bit;
+    encoding is deterministic."""
+    from lmic_tpu_torch.models.codec import _symbols_to_host
+
+    (guided, master), x, guide = _rgbt(role, "cuda")
+    before = dict(gdn.LAUNCHES)
+    g_out = guided.compress(guide, hidden=False, reconstruct=True)
+    out = master.compress(x, g_out["x_hat"])
+    rec = master.decompress(
+        out, {"x_hat": g_out["x_hat"], "hidden": g_out["hidden_dec"]},
+        u8=True)["x_hat"]
+    torch.cuda.synchronize()
+    launched = {k: gdn.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: 12 if k == "gdn_fwd" else 0 for k in before}
+    assert rec.shape == x.shape and rec.dtype == np.uint8
+    g_dec = guided.decompress(g_out["strings"], g_out["shape"])
+    assert torch.equal(g_dec["x_hat"], g_out["x_hat"])
+    for k, v in g_dec["hidden"].items():
+        assert torch.equal(g_out["hidden_dec"][k], v)
+    with torch.inference_mode():
+        g = g_out["x_hat"]
+        feat, align, beta, gamma = master.module.features(
+            master._pixels(x), g)
+        y, z = master.module.analyze_features(feat, align)
+        z_sym = _symbols_to_host(
+            torch.round(z - master._medians(master.eb_state)))
+        enc = master._code_y_z([y], z_sym, keep_y_hat=True)
+        dec = master._decode_y_hat(enc["strings"], enc["shape"])
+        assert torch.equal(master.module.guided_align_from(g, beta, gamma),
+                           align)
+    assert torch.equal(dec, enc["y_hat_latent"])
+    assert enc["strings"] == out["strings"]
+    assert master.compress(x, g_out["x_hat"])["strings"] == out["strings"]
+
+
+@pytest.mark.parametrize("role", [1, 3])
+def test_rgbt_transforms_on_card_match_cpu(role):
+    """The pair's transforms stage by stage on the card and on the CPU, on
+    the same inputs: f32 sums in another order, within 1e-4 of the largest
+    value; the coding tables equal."""
+    from lmic_tpu_torch.utils.crosscheck import rgbt_agreement
+
+    pair, x, guide = _rgbt(role, "cuda")
+    ref, _, _ = _rgbt(role, "cpu")
+    assert rgbt_agreement(pair, ref, x, guide) < 1e-4
+    for a, b in zip(pair, ref):
+        np.testing.assert_array_equal(a.gc_state.table.cdf,
+                                      b.gc_state.table.cdf)

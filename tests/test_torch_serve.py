@@ -1,7 +1,8 @@
 """The port's HTTP server speaks lmic_tpu's wire: on the same weights and
-tables both servers return identical /compress bodies (mbt2018-mean, and
-the autoregressive mbt2018), and the port's
-/decompress round-trips to its direct codec call; bad requests are 400s."""
+tables both servers return identical /compress bodies (mbt2018-mean, the
+autoregressive mbt2018, and the RGB-T pair's master streams with beta and
+gamma), and the port's /decompress round-trips to its direct codec call;
+bad requests are 400s."""
 
 import http.client
 import io
@@ -13,19 +14,22 @@ import pytest
 import torch
 
 from lmic_tpu.utils.serve import make_server as jax_make_server
-from lmic_tpu_torch.utils.codec_cli import read_body
+from lmic_tpu_torch.utils.codec_cli import read_body, read_floats
 from lmic_tpu_torch.utils.serve import (
     _read_pixels,
     _write_pixels,
+    load_rgbt_codecs,
     main,
     make_server,
 )
 from torch_port_helpers import (
+    RGBT_GEOMETRY,
     carry_tables,
     jax_codec,
     jax_params,
     pixels,
     port_codec,
+    rgbt_pair,
 )
 
 torch.set_num_threads(2)
@@ -33,8 +37,8 @@ torch.set_num_threads(2)
 ARCH = "mbt2018-mean"
 
 
-def _serve(make, codec):
-    server = make(codec, {"family": "image", "input_shape": None})
+def _serve(make, codec, family="image"):
+    server = make(codec, {"family": family, "input_shape": None})
     threading.Thread(target=server.serve_forever, daemon=True).start()
     return server
 
@@ -123,7 +127,112 @@ def test_ar_codec_same_bodies_as_lmic_tpu_and_round_trip(ar_servers):
     np.testing.assert_array_equal(_read_pixels(io.BytesIO(rec)), want)
 
 
-@pytest.mark.parametrize("family", ["video", "rgbt"])
+@pytest.fixture(scope="module")
+def rgbt_servers():
+    """The RGB-T pair (a 64x64 thermal master, a 128x128 RGB guide) behind
+    both servers, on the same weights and tables."""
+    (jg, pg, _), (jm, pm, _) = rgbt_pair(1)
+    ours = _serve(make_server, (pg, pm), "rgbt")
+    theirs = _serve(jax_make_server, (jg, jm), "rgbt")
+    yield (pg, pm), ours.server_address[1], theirs.server_address[1]
+    for s in (ours, theirs):
+        s.shutdown()
+        s.server_close()
+
+
+def _rgbt_payload(seed, B=1):
+    (mH, mW), (gH, gW) = RGBT_GEOMETRY[1]
+    return (pixels((B, mH, mW, 1), seed=seed),
+            pixels((B, gH, gW, 3), seed=seed + 100))
+
+
+def _parse_rgbt(body):
+    f = io.BytesIO(body)
+    shape, groups = read_body(f)
+    beta, gamma = (np.asarray(read_floats(f, 64)) for _ in range(2))
+    assert f.read() == b""
+    return shape, groups, beta, gamma
+
+
+def test_rgbt_same_master_streams_as_lmic_tpu_and_round_trip(rgbt_servers):
+    """/compress: the master's strings equal lmic_tpu's, beta/gamma within
+    1e-5; both legs equal the direct calls."""
+    (pg, pm), ours, theirs = rgbt_servers
+    x, guide = _rgbt_payload(5)
+    payload = _pixel_payload(x) + _pixel_payload(guide)
+    status, body = _post(ours, "/compress", payload)
+    assert status == 200
+    status, want = _post(theirs, "/compress", payload)
+    assert status == 200
+    got, want = _parse_rgbt(body), _parse_rgbt(want)
+    assert tuple(got[0]) == tuple(want[0]) and got[1] == want[1]
+    for a, b in zip(got[2:], want[2:]):
+        assert np.abs(a - b).max() / max(1.0, np.abs(b).max()) < 1e-5
+    g_out = pg.compress(guide, hidden=False, reconstruct=True)
+    direct = pm.compress(x, g_out["x_hat"])
+    assert direct["strings"] == got[1]
+    np.testing.assert_array_equal(direct["beta"].reshape(-1), got[2])
+    np.testing.assert_array_equal(direct["gamma"].reshape(-1), got[3])
+    status, rec = _post(ours, "/decompress", body + _pixel_payload(guide))
+    assert status == 200
+    g_dec = pg.decompress(g_out["strings"], g_out["shape"])
+    want_px = pm.decompress(direct, g_dec, u8=True)["x_hat"]
+    got_px = _read_pixels(io.BytesIO(rec))
+    assert got_px.shape == x.shape
+    np.testing.assert_array_equal(got_px, want_px)
+
+
+def test_rgbt_bad_requests_are_400(rgbt_servers):
+    _, ours, _ = rgbt_servers
+    x, guide = _rgbt_payload(6)
+    status, msg = _post(ours, "/compress", _pixel_payload(x)
+                        + _pixel_payload(guide[:, :64]))
+    assert status == 400 and b"guide image must be 128x128" in msg
+    status, msg = _post(ours, "/compress", _pixel_payload(x[:, :32])
+                        + _pixel_payload(guide))
+    assert status == 400 and b"multiples of 64" in msg
+    x2, guide2 = _rgbt_payload(6, B=2)
+    status, msg = _post(ours, "/compress", _pixel_payload(x2)
+                        + _pixel_payload(guide2))
+    assert status == 400 and b"B=1" in msg
+    status, body = _post(ours, "/compress", _pixel_payload(x)
+                         + _pixel_payload(guide))
+    status, msg = _post(ours, "/decompress",
+                        body + _pixel_payload(guide[:, :64, :64]))
+    assert status == 400 and b"guide image must be" in msg
+
+
+@pytest.mark.parametrize("cache", ["2", "0"])
+def test_rgbt_guide_cache(monkeypatch, cache):
+    """With the LRU on, the decompress leg reuses the compress leg's guide;
+    with LMIC_SERVE_GUIDE_CACHE=0 it codes the guide again."""
+    monkeypatch.setenv("LMIC_SERVE_GUIDE_CACHE", cache)
+    (pg, pm), meta = load_rgbt_codecs(1, channel=1, device="cpu", N=16,
+                                      M=16)
+    assert meta["family"] == "rgbt" and pm.module.channel == 1
+    assert pg.module.channel == 3
+    calls = []
+    compress = pg.compress
+    monkeypatch.setattr(pg, "compress",
+                        lambda *a, **k: calls.append(1) or compress(*a, **k))
+    server = _serve(make_server, (pg, pm), "rgbt")
+    try:
+        x, guide = _rgbt_payload(7)
+        port = server.server_address[1]
+        status, body = _post(port, "/compress", _pixel_payload(x)
+                             + _pixel_payload(guide))
+        assert status == 200 and len(calls) == 1
+        status, rec = _post(port, "/decompress", body
+                            + _pixel_payload(guide))
+        assert status == 200 and _read_pixels(io.BytesIO(rec)).shape == \
+            x.shape
+        assert len(calls) == (1 if cache == "2" else 2)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+@pytest.mark.parametrize("family", ["video"])
 def test_later_families_not_implemented(family):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_server(None, {"family": family})

@@ -1,6 +1,8 @@
 """Shared set-up of the lmic_tpu_torch parity tests: the same weights and
 coding tables in the JAX package and in the port, made from a seed."""
 
+import functools
+
 import jax
 import numpy as np
 import torch
@@ -34,12 +36,15 @@ def _perturb_gammas(tree, rng):
             _perturb_gammas(node, rng)
 
 
-def jax_params(arch, seed=0, n=N, m=M):
+def jax_params(arch, seed=0, n=N, m=M, channel=3, input_size=IMAGE[1:3]):
     """lmic_tpu init for `arch` at n/m, as numpy, with GDN gammas pushed
     off the diagonal (so the channel mixing is exercised) and the
-    bottleneck medians moved off zero (so they matter in the symbols)."""
+    bottleneck medians moved off zero (so they matter in the symbols).
+    `channel` is the image's channel count (the master's modality for
+    the RGB-T master, whose init also traces its guide at `input_size`)."""
     codec = jzoo.create_model(arch, 1, key=jax.random.key(seed),
-                              input_size=IMAGE[1:3], N=n, M=m)
+                              input_size=input_size, N=n, M=m,
+                              channel=channel)
     params = jax.tree.map(np.asarray, codec.variables["params"])
     rng = np.random.default_rng(seed)
     for seq in ("g_a_net", "g_s_net"):
@@ -50,16 +55,56 @@ def jax_params(arch, seed=0, n=N, m=M):
     return params
 
 
-def jax_codec(arch, params, n=N, m=M):
+def jax_codec(arch, params, n=N, m=M, channel=3):
     codec = jzoo.create_model(arch, 1, variables={"params": params},
-                              N=n, M=m)
+                              N=n, M=m, channel=channel)
     codec.update(force=True)
     return codec
 
 
-def port_codec(arch, params, n=N, m=M):
+def port_codec(arch, params, n=N, m=M, channel=3):
     return tzoo.create_model(arch, 1, device="cpu", N=n, M=m,
+                             channel=channel,
                              state_dict=state_dict_from_jax(arch, params))
+
+
+# the RGB-T pair at test widths; the master's role -> (master (H, W), guide
+# (H, W)): channel 1 codes a thermal master with an RGB guide at 2x, channel
+# 3 an RGB master with a thermal guide at half (its factor is 128)
+RGBT_N, RGBT_M = 32, 48
+RGBT_GEOMETRY = {1: ((64, 64), (128, 128)), 3: ((128, 128), (64, 64))}
+# the subtrees of the pair's own modules, whose biases and LayerNorm scales
+# init to constants: perturbed, so a swapped or dropped leaf shows
+_RGBT_OWN = ("sp_aligner", "ch_aligner", "fencoder", "fdecoder")
+
+
+def _perturb_leaves(tree, rng, own=False):
+    for k, node in tree.items():
+        if isinstance(node, dict):
+            _perturb_leaves(node, rng, own or k.startswith(_RGBT_OWN))
+        elif own and k in ("bias", "scale"):
+            tree[k] = (node + rng.uniform(-0.1, 0.1, node.shape)).astype(
+                np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def rgbt_pair(role):
+    """lmic_tpu's guided and master codecs for a master of `role` channels
+    at RGBT_N/RGBT_M from seeds, their params, and the port's codecs on the
+    converted weights with the tables carried across:
+    (guided (jc, pc, params), master (jc, pc, params)). Shared by the
+    tests; do not change them."""
+    out = []
+    for arch, channel, size, seed in (("guided", 4 - role, (64, 64), 0),
+                                      ("master", role,
+                                       RGBT_GEOMETRY[role][0], 1)):
+        params = jax_params(arch, seed, RGBT_N, RGBT_M, channel, size)
+        _perturb_leaves(params, np.random.default_rng(seed + 10))
+        jc = jax_codec(arch, params, RGBT_N, RGBT_M, channel)
+        pc = carry_tables(jc, port_codec(arch, params, RGBT_N, RGBT_M,
+                                         channel))
+        out.append((jc, pc, params))
+    return tuple(out)
 
 
 def carry_tables(jc, pc):
