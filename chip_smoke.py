@@ -17,7 +17,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    paths' shapes (serving: 98,304 / 24,576 / 6,144 / 6,151 rows; training:
    262,144 / 65,536 / 16,384 / 16,391 rows), C in {128, 192}, f32 and bf16,
    and the RGB-T pair's f32 rows at C = 192 (327,680 / 327,687 / 81,920 /
-   20,480 / 5,120), both directions, each deterministic (f32 `gdn_fwd`
+   20,480 / 5,120; `gdn_bwd` too at the master step's 327,680 / 327,687 /
+   81,920 / 20,480; `gdn_fwd` too at the master step's frozen guide,
+   1,310,720 / 1,310,727), both directions, each deterministic (f32 `gdn_fwd`
    exactly equal to its plain version), with CUDA-event timings of the
    kernel, the plain version and a cuBLAS composite of the same math,
    beside the least time the card could take; then each of the backward's
@@ -71,7 +73,22 @@ Phases, each of which raises (exit code != 0) on any failure:
    bit for bit, the CUDA transforms to the CPU's on a small input; the
    stages, peak memory and each leg's largest kernels logged; then one
    direct channel-3 round trip (a 1024x1280 RGB master, a 512x640 thermal
-   guide) with the same checks.
+   guide) with the same checks;
+8. AR and RGB-T training, last, so the earlier phases keep the process
+   state they were measured in: a 3x3 conv forward and backward through
+   cuDNN, as the step runs it, at the training shapes at risk of its FFT
+   engine (192 -> 192 at 128x128, batch 16; 256 -> 256 at 512x640, batch
+   4), logged; mbt2018 q7,
+   cheng2020-anchor q3, cheng2020-attn q6 and guided q7 (first conv at
+   stride 2) from seeds at batch 16 of 256x256, f32 and AMP, then the
+   channel-1 master q7 against its frozen guide (f32, batch 4 of 512x640
+   thermal masters with 1024x1280 RGB guides; lmic_tpu's batch of 16 does
+   not fit): each 2 warm-up and 4 timed steps with the launch counts set
+   to 0 just before and read just after (6 `gdn_fwd` and 6 of each
+   backward kernel a step; the master 12 and 6), the loss falling on one
+   batch, step ms, peak memory and a profile of one step logged; then a
+   narrow cheng2020-attn step and a narrow master step on the card
+   against the CPU with the same noise.
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -131,6 +148,28 @@ AR_DIRECT = (("cheng2020-anchor", 3), ("cheng2020-attn", 6))
 # table of 7 entries, so quality 7 is the widest trainable model
 TRAIN_ARCH, TRAIN_QUALITY, TRAIN_LAMBDA = "mbt2018-mean", 7, 10240
 TRAIN_BATCH = (16, 256, 256, 3)
+# phase 8: the AR family and the RGB-T guide at lmic_tpu's trainer
+# defaults (batch 16 of 256x256), f32 and AMP; quality -> lambda from the
+# fork's table (lmic_tpu/utils/train.py)
+AR_TRAIN = (("mbt2018", 7), ("cheng2020-anchor", 3), ("cheng2020-attn", 6),
+            ("guided", 7))
+LAMBDAS = (256, 512, 1024, 2048, 4096, 8192, 10240)
+# the master (channel 1) against its frozen guide, f32: the reference's
+# whole frames, a 512x640 thermal master with its 1024x1280 RGB guide;
+# batch 4, cut from lmic_tpu's 16 (batch 16 does not fit in 80 GB)
+MASTER_BATCH = (4, 512, 640, 1)
+MASTER_GUIDE = (4, 1024, 1280, 3)
+# f32 gdn_bwd at the master step's rows (C = 192): 327,680 / 81,920 /
+# 20,480, and a ragged count beside the largest
+MASTER_STEP_ROWS = (327_680, 81_920, 20_480)
+MASTER_TRAIN_ROWS = MASTER_STEP_ROWS + (327_687,)
+# f32 gdn_fwd in the master step's frozen guide (first conv at stride 2 on
+# 1024x1280): its first GDN and last IGDN at 1,310,720 rows, and a ragged
+# count beside it; per master step each of these rows runs in GDN and in
+# IGDN this many times (the guide at 1,310,720 / 327,680 / 81,920, the
+# master at 327,680 / 81,920 / 20,480)
+MASTER_GUIDE_ROWS = (1_310_720, 1_310_727)
+MASTER_STEP_FWD = {1_310_720: 1, 327_680: 2, 81_920: 2, 20_480: 1}
 
 
 def log(*a):
@@ -253,7 +292,7 @@ def _peaks(name):
     raise RuntimeError(f"no published peaks for {name!r}")
 
 
-def _time_ms(fn, runs=20, warmup=3):
+def _time_ms(fn, runs=10, warmup=3):
     """Median device time of one call of `fn` over `runs` calls, after
     warm-up, from CUDA events. A ~1 ms spin kernel is queued before each
     timed call, so the call's host work (Python, checks, launch) overlaps
@@ -421,7 +460,8 @@ def _reduce_plain(partials, C, dt):
 
 def phase_kernel(peaks):
     """Both GDN kernels against their plain versions at every main-path
-    shape; returns the per-shape cases of each."""
+    shape (serving, training, the RGB-T pair's wire and its training
+    step); returns the per-shape cases of each."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -430,9 +470,14 @@ def phase_kernel(peaks):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {k: [] for k in ("gdn_fwd", "gdn_bwd") + gdn.BWD_KERNELS}
     shapes = [(n, C) for C in (128, 192) for n in SERVE_ROWS + TRAIN_ROWS]
-    shapes += [(n, 192) for n in RGBT_ROWS]  # f32 only: the pair's wire
+    # f32 only: the pair's wire and the master step's frozen guide
+    f32_only = RGBT_ROWS + MASTER_GUIDE_ROWS
+    shapes += [(n, 192) for n in f32_only]
+    # no backward: serving, and the frozen guide
+    fwd_only = tuple(n for n in SERVE_ROWS + f32_only
+                     if n not in MASTER_TRAIN_ROWS)
     for n, C in shapes:
-        for dtype in (("float32",) if n in RGBT_ROWS
+        for dtype in (("float32",) if n in f32_only
                       else ("float32", "bfloat16")):
             dt = getattr(torch, dtype)
             x, beta, gamma, g = _gdn_inputs(gen, n, C, dt)
@@ -465,8 +510,8 @@ def phase_kernel(peaks):
                 }
                 for name, (run, plain, composite, nbytes, ops) in \
                         work.items():
-                    if name == "gdn_bwd" and n in SERVE_ROWS + RGBT_ROWS:
-                        continue  # serving runs no backward
+                    if name == "gdn_bwd" and n in fwd_only:
+                        continue
                     if name == "gdn_bwd":
                         _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
                                           inverse, peak, mem_bw, fp32)
@@ -1221,11 +1266,12 @@ def _steps(step, state, batch, gen, n):
 GDN_KERNELS = MMA_KERNELS + FP32_KERNELS
 
 
-def _profile(run, n=3):
+def _profile(run, n=3, keep=12):
     """Device time per call of `run` of the GDN kernels and of all
     kernels, the wall time per call, the device ms per call of each GDN
-    kernel and of the other kernels that take the most, and the device
-    operations per call, from a torch.profiler trace of n calls."""
+    kernel and of the other kernels that take the most (`keep` of them;
+    None: all), and the device operations per call, from a
+    torch.profiler trace of n calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1255,7 +1301,7 @@ def _profile(run, n=3):
         by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
     if total_us <= 0:
         raise AssertionError("the profiler recorded no device time")
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:keep])
     return gdn_us / 1e3 / n, total_us / 1e3 / n, wall, top, ops / n
 
 
@@ -1400,6 +1446,215 @@ def phase_training():
     return counts, steps
 
 
+def _fft_kernels(kernels):
+    return sorted(k for k in kernels if "fft" in k.lower())
+
+
+def _log_train_convs():
+    """The training shapes at risk of cuDNN's FFT engine (on an NVIDIA
+    H100, without autograd, it took 166-204 ms for one 192 -> 192 3x3
+    conv at 128x192, TF32 off; see `_log_conv_route`): a 3x3 conv forward
+    and backward under autograd, as the training step runs it (cuDNN's
+    heuristic pick, deterministic, TF32 off), at cheng2020's 192 -> 192 at
+    128x128 (q6, batch 16 of 256x256) and the channel aligner's 256 -> 256
+    at 512x640 (the master step, batch 4): device ms, device operations
+    and FFT kernels. Returns {shape: (ms, operations, FFT kernels)}."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for B, C, H, W in ((16, 192, 128, 128), (4, 256, 512, 640)):
+        x = torch.randn((B, C, H, W), generator=gen, device="cuda")
+        x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+        w = (torch.randn((C, C, 3, 3), generator=gen, device="cuda")
+             / (3 * C ** 0.5)).requires_grad_()
+        b = torch.zeros(C, device="cuda", requires_grad=True)
+        g = torch.randn((B, C, H, W), generator=gen, device="cuda")
+
+        def run():
+            torch.autograd.backward(F.conv2d(x, w, b, padding=1), g)
+
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            ms = _time_ms(run, runs=3, warmup=1)
+            _, _, _, kernels, ops = _profile(run, n=1, keep=None)
+        key = f"{B}x{C}x{H}x{W}"
+        out[key] = (ms, ops, _fft_kernels(kernels))
+        log(f"train conv3x3 {C}->{C} at {H}x{W}, batch {B}, forward + "
+            f"backward, f32, TF32 off, cuDNN's pick: {ms:.2f} ms, {ops} "
+            f"device operations, {len(out[key][2])} FFT kernels")
+        del x, w, b, g
+    return out
+
+
+def _train_case(what, step, state, batches, gen, timed, per_step):
+    """A warm-up step, a second one under the profiler, then `timed`
+    steps with the launch counts set to 0 just before and read just
+    after, which must be `per_step` of each kernel a step; the loss must
+    stay finite and fall on the one batch. Logs the step ms, peak memory
+    and the profiled step. Returns the launch counts of the timed
+    steps."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    t0 = time.perf_counter()
+    metrics = []
+
+    def one():
+        _, m = step(state, *batches, gen)
+        metrics.append({k: float(v) for k, v in m.items()})
+
+    one()
+    gdn_ms, dev_ms, wall_ms, top, ops = _profile(one, n=1, keep=None)
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ms = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+    launched = dict(gdn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: per_step[k] * timed for k in launched}
+    if launched != want:
+        raise AssertionError(f"{what}: launches {launched} in {timed} "
+                             f"steps, expected {want}")
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: loss did not fall: {losses}")
+    last = metrics[-1]
+    log(f"train {what}: step ms {json.dumps([round(v, 2) for v in ms])} "
+        f"(median {np.median(ms):.2f}); loss over {len(losses)} steps "
+        + ", ".join(f"{v:.2f}" for v in losses)
+        + f"; mse {last['mse_loss']:.6f} bpp {last['bpp_loss']:.4f} aux "
+        f"{last['aux_loss']:.1f}; peak memory {peak / 2**30:.2f} GiB; "
+        f"built, a warm-up and a profiled step {t_warm:.1f} s, the case "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"train {what} profile (the second step): GDN kernels {gdn_ms:.2f} "
+        f"ms of {dev_ms:.2f} ms device time ({100 * gdn_ms / dev_ms:.1f} %), "
+        f"wall {wall_ms:.2f} ms under the profiler (device busy "
+        f"{100 * dev_ms / wall_ms:.1f} %), {ops:.0f} device operations, FFT "
+        f"kernels {len(_fft_kernels(top))}; device ms of the largest "
+        "kernels: " + json.dumps({k: round(v, 3) for k, v in
+                                  list(top.items())[:10]}))
+    return launched
+
+
+def _train_agreement_ar_rgbt():
+    """One narrow step of cheng2020-attn (N = 32) and of the channel-1
+    master against its guide (the pair at N = 32, M = 48: a 64x64 thermal
+    master, a 128x128 RGB guide) on the card and on the CPU, same weights
+    and noise: losses within 1e-4, every clipped gradient leaf within 1e-3
+    of its largest value."""
+    from lmic_tpu_torch.utils.crosscheck import (
+        master_step_agreement,
+        train_step_agreement,
+    )
+
+    x = _train_batch((2, 64, 128, 3), seed=12).cpu()
+    xm = _train_batch((2, 64, 64, 1), seed=13).cpu()
+    xg = _train_batch((2, 128, 128, 3), seed=14).cpu()
+    out = {
+        "cheng2020-attn": train_step_agreement("cheng2020-attn", 6, x, 8192,
+                                               N=32)[:2],
+        "master": master_step_agreement(7, 1, xm, xg, 10240, N=32,
+                                        M=48)[:2],
+    }
+    for what, (loss_err, grad_err) in out.items():
+        if not (loss_err < 1e-4 and grad_err < 1e-3):
+            raise AssertionError(f"{what} training step on the card vs the "
+                                 f"CPU: loss {loss_err:.3g}, gradients "
+                                 f"{grad_err:.3g}")
+    return out
+
+
+def phase_ar_rgbt_training():
+    """The AR family's and the RGB-T pair's training paths: each of
+    mbt2018 q7, cheng2020-anchor q3, cheng2020-attn q6 and guided q7 at
+    batch 16 of 256x256 in f32 and AMP, then the channel-1 master q7
+    against its frozen guide (batch 4, f32). Returns the launch counts of
+    the timed steps, by path."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from lmic_tpu_torch.utils.train_cli import make_master_train_step
+
+    t_phase = time.perf_counter()
+    convs = _log_train_convs()
+    counts = {p: {k: 0 for k in gdn.LAUNCHES}
+              for p in ("ar_training", "rgbt_training")}
+    batch = _train_batch(TRAIN_BATCH, seed=2)
+    six = {k: 6 for k in gdn.LAUNCHES}
+    for arch, q in AR_TRAIN:
+        extra = {"first_stride": 2} if arch == "guided" else {}
+        for mode, dtype in (("f32", None), ("amp", torch.bfloat16)):
+            module = zoo.create_model(arch, q, seed=0, device="cuda",
+                                      dtype=dtype, **extra).module
+            opt = make_optimizer()
+            state = create_train_state(module, opt)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            launched = _train_case(
+                f"{arch} q{q} (N={module.N}, M={module.M}) {mode} batch "
+                f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}",
+                make_train_step(module, opt, LAMBDAS[q - 1]), state,
+                (batch,), gen, 4, six)
+            path = "rgbt_training" if arch == "guided" else "ar_training"
+            for k, v in launched.items():
+                counts[path][k] += v
+            del module, state, opt
+    del batch
+    torch.cuda.empty_cache()
+    # the master: 6 gdn_fwd in the frozen guide (no backward), 6 of each
+    # kernel in the master
+    q = RGBT_QUALITY
+    guided = zoo.create_model("guided", q, seed=0, channel=3,
+                              first_stride=2, device="cuda").module
+    guided.eval().requires_grad_(False)
+    master = zoo.create_model("master", q, seed=1, channel=1,
+                              device="cuda").module
+    opt = make_optimizer()
+    state = create_train_state(master, opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xm = _train_batch(MASTER_BATCH, seed=3)
+    xg = _train_batch(MASTER_GUIDE, seed=4)
+    launched = _train_case(
+        f"master q{q} (N={master.N}, M={master.M}) channel 1 f32 batch "
+        f"{MASTER_BATCH[0]} of {MASTER_BATCH[1]}x{MASTER_BATCH[2]} with "
+        f"{MASTER_GUIDE[1]}x{MASTER_GUIDE[2]} guides",
+        make_master_train_step(master, guided, opt, LAMBDAS[q - 1]), state,
+        (xm, xg), gen, 4, {k: 12 if k == "gdn_fwd" else 6
+                           for k in gdn.LAUNCHES})
+    for k, v in launched.items():
+        counts["rgbt_training"][k] += v
+    del guided, master, state, opt, xm, xg
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    agree = _train_agreement_ar_rgbt()
+    log(f"card vs CPU steps: {time.perf_counter() - t0:.1f} s")
+    log("AR and RGB-T training steps on the card vs the CPU (same noise): "
+        + json.dumps({k: {"loss": f"{a:.3g}", "gradients": f"{b:.3g}"}
+                      for k, (a, b) in agree.items()}))
+    fft = [k for k, (_, _, kernels) in convs.items() if kernels]
+    log(f"cuDNN's pick for the training convs runs FFT kernels at "
+        f"{fft or 'no shape'}")
+    log(f"AR and RGB-T training phase: {time.perf_counter() - t_phase:.1f} "
+        "s")
+    return counts
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -1456,9 +1711,12 @@ def main():
     from lmic_tpu_torch.utils.determinism import set_wire_determinism
 
     set_wire_determinism()
+    t_start = time.perf_counter()
     smi = phase_environment()
     name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
     cases = phase_kernel(_peaks(name))
+    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     for kernel, kcases in cases.items():
         for c in kcases:
             log(f"{kernel} {c['shape']} {c['dtype']} inverse={c['inverse']}: "
@@ -1473,17 +1731,26 @@ def main():
                      for d in ("float32", "bfloat16")}
             for kernel in cases}}))
         return 0
+    t0 = time.perf_counter()
     serve_launches = phase_serving()
     phase_other_archs()
+    log(f"serving phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     train_counts, train_steps = phase_training()
+    log(f"training phase: {time.perf_counter() - t0:.1f} s")
     ar_launches, _ = phase_ar_serving()
     rgbt_launches = phase_rgbt_serving()
+    more_training = phase_ar_rgbt_training()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
 
     errors = {k: _max_abs_err_by_dtype(v) for k, v in cases.items()}
-    bwd_counts = {k: train_counts[k] for k in gdn.BWD_KERNELS}
+    # every training path: mbt2018-mean (phase 5), the AR family and the
+    # RGB-T pair (phase 8)
+    training = {"training": train_counts, **more_training}
+    launched = {k: sum(c[k] for c in training.values()) for k in gdn.LAUNCHES}
+    bwd_counts = {k: launched[k] for k in gdn.BWD_KERNELS}
     if len(set(bwd_counts.values())) != 1:
         raise AssertionError(f"backward kernels launched {bwd_counts}")
     kernels = [{
@@ -1492,11 +1759,12 @@ def main():
         "source": "lmic_tpu_torch/csrc/gdn_fwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
         "launches": (serve_launches + ar_launches + rgbt_launches
-                     + train_counts["gdn_fwd"]),
+                     + launched["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
                              "rgbt_serving": rgbt_launches,
-                             "training": train_counts["gdn_fwd"]},
+                             **{p: c["gdn_fwd"]
+                                for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
         "max_abs_err": max(errors["gdn_fwd"].values()),
         "max_abs_err_by_dtype": errors["gdn_fwd"],
@@ -1510,6 +1778,10 @@ def main():
         "round_trip_rgbt": totals("gdn_fwd", RGBT_ROUND_TRIP, "float32"),
         "training_step_f32": totals("gdn_fwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
+        # the master's step (batch 4): 12 launches, the frozen guide's six
+        # at 1,310,720 / 327,680 / 81,920 rows and the master's six
+        "training_step_master": totals("gdn_fwd", MASTER_STEP_FWD,
+                                       "float32"),
         "card": smi,
     }, {
         "name": "gdn_bwd",
@@ -1518,12 +1790,17 @@ def main():
         "replaces": "lmic_tpu/ops/pallas_gdn.py:195",
         "launches": next(iter(bwd_counts.values())),
         "launches_by_kernel": bwd_counts,
-        "launches_per_step": bwd_counts[gdn.BWD_KERNELS[0]] / train_steps,
+        "launches_by_path": {p: c[gdn.BWD_KERNELS[0]]
+                             for p, c in training.items()},
+        "launches_per_step": train_counts[gdn.BWD_KERNELS[0]] / train_steps,
         "max_abs_err": max(errors["gdn_bwd"].values()),
         "max_abs_err_by_dtype": errors["gdn_bwd"],
         # one f32 training step: 6 calls of the three kernels each
         **totals("gdn_bwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_bwd", TRAIN_ROWS[:3], "bfloat16"),
+        # the master's step (batch 4 of 512x640): 327,680 / 81,920 / 20,480
+        "training_step_master": totals("gdn_bwd", MASTER_STEP_ROWS,
+                                       "float32"),
         "card": smi,
     }] + [{
         # gdn_bwd's three launches, each timed on its own
@@ -1531,14 +1808,16 @@ def main():
         "route": "cuda",
         "source": "lmic_tpu_torch/csrc/gdn_bwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:195",
-        "launches": train_counts[name],
+        "launches": launched[name],
         "launches_per_step": train_counts[name] / train_steps,
         "max_abs_err": max(errors[name].values()),
         "max_abs_err_by_dtype": errors[name],
         **totals(name, TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals(name, TRAIN_ROWS[:3], "bfloat16"),
+        "training_step_master": totals(name, MASTER_STEP_ROWS, "float32"),
         "card": smi,
     } for name in gdn.BWD_KERNELS]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,8 +2,11 @@
 part of lmic_tpu/datasets/)."""
 
 from lmic_tpu_torch.datasets.image import (  # noqa: F401
+    TRAIN_SCALE_ARRAY,
     DataLoader,
     ImageFolder,
+    ImageFolderRGB,
+    ImageFolderT,
     center_crop,
     random_crop,
 )
@@ -54,5 +57,6 @@ def prefetch(iterable, size: int = 2):
         stop.set()
 
 
-__all__ = ["DataLoader", "ImageFolder", "center_crop", "prefetch",
+__all__ = ["TRAIN_SCALE_ARRAY", "DataLoader", "ImageFolder",
+           "ImageFolderRGB", "ImageFolderT", "center_crop", "prefetch",
            "random_crop"]

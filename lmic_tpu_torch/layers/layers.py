@@ -60,7 +60,14 @@ class Conv(nn.Conv2d):
     a 512x768 image), some hundred times slower than this route
     (`chip_smoke.py` logs both). The route is deterministic, and its cost
     follows the size of its product. On the CPU and under autograd the
-    conv is the CPU's or cuDNN's."""
+    conv is the CPU's or cuDNN's.
+
+    A 1x1 conv at stride s > 1 (cheng2020's skip paths) reads every s-th
+    pixel only: it runs as a stride-1 1x1 conv of that subsampled view,
+    the same sums. torch's CPU weight gradient of the strided 1x1 conv
+    on a channels_last input of 2 to 4 channels writes past its buffer
+    (heap corruption, torch 2.13 CPU; the first skip of cheng2020's g_a
+    takes the 3-channel image)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, stride: int = 2,
@@ -69,11 +76,15 @@ class Conv(nn.Conv2d):
                          stride=stride, padding=kernel_size // 2)
         self.dtype = dtype  # compute dtype; the parameters stay f32
         self._gemm_route = stride == 1 and kernel_size > 1
+        self._subsample = stride if kernel_size == 1 and stride > 1 else 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, weight, bias = _cast(self.dtype, x, self.weight, self.bias)
         if self._gemm_route and x.is_cuda and not torch.is_grad_enabled():
             return _conv_gemm(x, weight, bias, self.padding)
+        if self._subsample:
+            s = self._subsample
+            return F.conv2d(x[:, :, ::s, ::s], weight, bias)
         return self._conv_forward(x, weight, bias)
 
 

@@ -1,7 +1,8 @@
 """Cross-device checks that `chip_smoke.py` and the card tests
 (tests/test_torch_cuda.py) both run: one training step on two devices with
-the same quantization noise, the AR codecs' wavefront step on two devices
-on the same coded latents, and the RGB-T pair's transforms stage by stage.
+the same quantization noise (any trained arch, and the RGB-T master's step
+against its frozen guide), the AR codecs' wavefront step on two devices on
+the same coded latents, and the RGB-T pair's transforms stage by stage.
 
 `torch.rand` draws other numbers on the card than on the CPU, so
 `fixed_noise` swaps `entropy_models.quantize_noise` for one that adds a
@@ -49,27 +50,18 @@ def fixed_noise(seed: int = 0):
         entropy_models.quantize_noise = original
 
 
-def train_step_agreement(arch: str, quality: int, x: torch.Tensor,
-                         lmbda: float, devices: Sequence[str] = ("cuda",
-                                                                 "cpu"),
-                         **widths):
-    """One step of `arch` (weights from seed 0, `widths` as `N=`/`M=`) on
-    the NCHW batch `x` on each of two `devices`, under `fixed_noise`.
-
-    Returns (loss_err, grad_err, launched): the largest relative difference
-    of the step's losses, the largest difference of a clipped gradient
-    leaf relative to that leaf's largest value on the second device, and
-    the GDN kernel launches on the first device."""
+def _step_agreement(devices, step_on):
+    """`step_on(device)` -> (metrics, module) for each of two `devices`
+    under `fixed_noise`. Returns (loss_err, grad_err, launched): the
+    largest relative difference of the step's losses, the largest
+    difference of a clipped gradient leaf relative to that leaf's largest
+    value on the second device, and the GDN kernel launches on the first
+    device."""
     results, launched = [], None
     with fixed_noise():
         for device in devices:
-            module = zoo.create_model(arch, quality, seed=0, device=device,
-                                      **widths).module
-            opt = make_optimizer()
-            state = create_train_state(module, opt)
             before = dict(gdn.LAUNCHES)
-            _, metrics = make_train_step(module, opt, lmbda)(
-                state, x.to(device))
+            metrics, module = step_on(device)
             if launched is None:
                 if torch.device(device).type == "cuda":
                     torch.cuda.synchronize()
@@ -86,6 +78,54 @@ def train_step_agreement(arch: str, quality: int, x: torch.Tensor,
                     / g_b[n].abs().max().clamp(min=1e-30)).item()
                    for n in g_b)
     return loss_err, grad_err, launched
+
+
+def train_step_agreement(arch: str, quality: int, x: torch.Tensor,
+                         lmbda: float, devices: Sequence[str] = ("cuda",
+                                                                 "cpu"),
+                         **widths):
+    """One step of `arch` (any arch `train_cli` trains alone, the AR
+    family and the RGB-T guide included; weights from seed 0, `widths` as
+    `N=`/`M=`) on the NCHW batch `x` on each of two `devices`, under
+    `fixed_noise`: (loss_err, grad_err, launched) of `_step_agreement`."""
+
+    def step_on(device):
+        module = zoo.create_model(arch, quality, seed=0, device=device,
+                                  **widths).module
+        opt = make_optimizer()
+        _, metrics = make_train_step(module, opt, lmbda)(
+            create_train_state(module, opt), x.to(device))
+        return metrics, module
+
+    return _step_agreement(devices, step_on)
+
+
+def master_step_agreement(quality: int, channel: int, x: torch.Tensor,
+                          guide: torch.Tensor, lmbda: float,
+                          devices: Sequence[str] = ("cuda", "cpu"),
+                          **widths):
+    """One master step (`train_cli.make_master_train_step`) of a master
+    of `channel` channels against its frozen guide (seed 0, first conv at
+    stride 2; the master from seed 1) on the NCHW master batch `x` and
+    guide batch `guide`, on each of two `devices`, under `fixed_noise`:
+    (loss_err, grad_err, launched) of `_step_agreement`."""
+    from lmic_tpu_torch.utils.train_cli import make_master_train_step
+
+    def step_on(device):
+        guided = zoo.create_model("guided", quality, seed=0,
+                                  channel=4 - channel, first_stride=2,
+                                  device=device, **widths).module
+        guided.eval().requires_grad_(False)
+        master = zoo.create_model("master", quality, seed=1,
+                                  channel=channel, device=device,
+                                  **widths).module
+        opt = make_optimizer()
+        _, metrics = make_master_train_step(master, guided, opt, lmbda)(
+            create_train_state(master, opt), x.to(device),
+            guide.to(device))
+        return metrics, master
+
+    return _step_agreement(devices, step_on)
 
 
 def wavefront_step_agreement(codec, ref, x):

@@ -133,6 +133,39 @@ def create_train_state(module: nn.Module,
     )
 
 
+def rd_aux_loss(module: nn.Module, out, target: torch.Tensor,
+                lmbda: float):
+    """The step's objective: (RD loss + `module`'s aux loss, metrics)."""
+    rd = rate_distortion_loss(out, target, lmbda)
+    aux = module.aux_loss()
+    metrics = {k: v.detach() for k, v in rd.items()}
+    metrics["aux_loss"] = aux.detach()
+    return rd["loss"] + aux, metrics
+
+
+def train_update(state: TrainState, optimizer: DualOptimizer,
+                 loss_fn: Callable):
+    """One update of `state`: the scheduled learning rate, `loss_fn()` ->
+    (loss, metrics), one backward, the global-norm clip of the main
+    gradients, both Adams. Returns (state, metrics)."""
+    for group in state.main.param_groups:
+        group["lr"] = optimizer.lr(state.step)
+    state.main.zero_grad(set_to_none=True)
+    state.aux.zero_grad(set_to_none=True)
+    loss, metrics = loss_fn()
+    loss.backward()
+    if optimizer.clip_grad_norm is not None:
+        clip_by_global_norm(
+            (p.grad for group in state.main.param_groups
+             for p in group["params"]),
+            optimizer.clip_grad_norm,
+        )
+    state.main.step()
+    state.aux.step()
+    state.step += 1
+    return state, metrics
+
+
 def make_train_step(module: nn.Module, optimizer: DualOptimizer,
                     lmbda: float) -> Callable:
     """Build the train step.
@@ -147,26 +180,9 @@ def make_train_step(module: nn.Module, optimizer: DualOptimizer,
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    generator: Optional[torch.Generator] = None):
-        for group in state.main.param_groups:
-            group["lr"] = optimizer.lr(state.step)
-        state.main.zero_grad(set_to_none=True)
-        state.aux.zero_grad(set_to_none=True)
-        out = module(batch, training=True, generator=generator)
-        rd = rate_distortion_loss(out, batch, lmbda)
-        aux = module.aux_loss()
-        (rd["loss"] + aux).backward()
-        if optimizer.clip_grad_norm is not None:
-            clip_by_global_norm(
-                (p.grad for group in state.main.param_groups
-                 for p in group["params"]),
-                optimizer.clip_grad_norm,
-            )
-        state.main.step()
-        state.aux.step()
-        state.step += 1
-        metrics = {k: v.detach() for k, v in rd.items()}
-        metrics["aux_loss"] = aux.detach()
-        return state, metrics
+        return train_update(state, optimizer, lambda: rd_aux_loss(
+            module, module(batch, training=True, generator=generator),
+            batch, lmbda))
 
     return train_step
 

@@ -1,21 +1,31 @@
-"""Training CLI: the examples/train.py recipe for the port's image codecs.
+"""Training CLI: the examples/train.py recipes for the port's image codecs.
 
-Counterpart of lmic_tpu/utils/train_cli.py (`parse_args`, `train_single`,
-`main`): single-model training of bmshj2018-factorized,
-bmshj2018-hyperprior and mbt2018-mean with the RD loss
-`lambda[q] * MSE + bpp`, dual Adam optimizers, StepLR(40 epochs, 0.5),
-best-checkpoint selection on a test split when the dataset has one, and
-resume from a checkpoint. `--amp` runs the transforms in bf16 (params and
-likelihoods stay f32). On one device: CUDA unless `--device cpu`.
+Counterpart of lmic_tpu/utils/train_cli.py (`make_master_train_step`,
+`parse_args`, `train_single`, `train_master`, `main`), on one device: CUDA
+unless `--device cpu`. Its two recipes:
+
+- single-model training of any zoo arch the port has (the image codecs,
+  the AR codecs mbt2018 and cheng2020-*, and the RGB-T guide `guided`)
+  with the RD loss `lambda[q] * MSE + bpp`, dual Adam optimizers,
+  StepLR(40 epochs, 0.5), best-checkpoint selection on a test split when
+  the dataset has one, and resume from a checkpoint; `--channel 1` trains
+  on one 8-bit grayscale (thermal) channel;
+- master training (`--arch master`, f32): a frozen guide, loaded from a
+  `--guided-checkpoint` of this CLI, runs in eval mode without gradients,
+  and its reconstruction and decoder maps condition the master's step.
+
+`--amp` runs the transforms in bf16 (params, quantization noise and
+likelihoods stay f32) for the archs in AMP_ARCHS.
 
 Usage:
   python -m lmic_tpu_torch.utils.train_cli --arch mbt2018-mean -q 7 \\
       -d /path/dataset --epochs 100 --batch-size 16
+  python -m lmic_tpu_torch.utils.train_cli --arch master -q 3 --channel 1 \\
+      -d /path/FLIR/train/thermal_8_bit --guided-checkpoint guided.ckpt
 
-Not ported yet (each raises, see ROADMAP.md): the autoregressive archs
-mbt2018 and cheng2020-* (queue A, item 10c), master training and the `_D`
-archs (queue A, item 12), `--bf16`, `--remat` and `--devices` (queue A,
-item 8), single-channel datasets (`--channel 1`, item 12).
+Not ported yet (each raises, see ROADMAP.md): the paired RGB-T archs
+(`*_R`, queue A item 12; the `*_D` archs have no training recipe, as in
+lmic_tpu), `--bf16`, `--remat` and `--devices` (queue A, item 8).
 """
 
 from __future__ import annotations
@@ -38,13 +48,21 @@ from lmic_tpu_torch.utils.train import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    rd_aux_loss,
     step_lr,
+    train_update,
 )
 
-# the archs of lmic_tpu's AMP_ARCHS that the port has
-AMP_ARCHS = {"bmshj2018-factorized", "bmshj2018-hyperprior", "mbt2018-mean"}
-# the port serves these but does not train them yet
-AR_ARCHS = {"mbt2018", "cheng2020-anchor", "cheng2020-attn"}
+# lmic_tpu's AMP_ARCHS: the archs whose transforms take a compute dtype
+AMP_ARCHS = {
+    "bmshj2018-factorized",
+    "bmshj2018-hyperprior",
+    "mbt2018-mean",
+    "mbt2018",
+    "cheng2020-anchor",
+    "cheng2020-attn",
+    "guided",
+}
 
 # flags of lmic_tpu's CLI that the port does not take yet
 _NOT_PORTED = {
@@ -55,6 +73,32 @@ _NOT_PORTED = {
     "devices": "--devices (data parallel over local devices) is not "
                "ported; ROADMAP.md queue A, item 8",
 }
+
+
+def make_master_train_step(master_module, guided_module, optimizer,
+                           lmbda: float):
+    """The master step (reference train.py:208-274): the frozen guide's
+    eval forward without gradients feeds the master's training forward,
+    then RD + aux, one backward, the clip and both Adams.
+
+    step(state, master_batch, guided_batch, generator) -> (state,
+    metrics); the batches are NCHW in [0, 1] on the modules' device."""
+
+    def step(state, master_batch, guided_batch, generator=None):
+        with torch.no_grad():
+            g_out = guided_module(guided_batch, training=False)
+        guided_hat = g_out["x_hat"]
+        # the master reads the decoder's maps only; drop the encoder's
+        # before the master's activations are allocated
+        hidden = {k: g_out["hidden"][k] for k in ("gs1", "gs2", "gs3")}
+        del g_out
+        return train_update(state, optimizer, lambda: rd_aux_loss(
+            master_module,
+            master_module(master_batch, guided_hat, hidden, training=True,
+                          generator=generator),
+            master_batch, lmbda))
+
+    return step
 
 
 def parse_args(argv):
@@ -69,9 +113,14 @@ def parse_args(argv):
     p.add_argument("--aux-learning-rate", type=float, default=1e-3)
     p.add_argument("-n", "--batch-size", type=int, default=16)
     p.add_argument("--patch-size", type=int, nargs=2, default=(256, 256))
+    p.add_argument("--crop-size", type=int, nargs=2, default=(512, 640),
+                   help="guide crop for master training")
     p.add_argument("--seed", type=int, default=1926)
     p.add_argument("--clip-max-norm", type=float, default=1.0)
     p.add_argument("--checkpoint", default=None, help="resume path")
+    p.add_argument("--guided-checkpoint", default=None,
+                   help="frozen guide params for master training (a "
+                        "training checkpoint of --arch guided)")
     p.add_argument("--save-path", default="checkpoint.ckpt")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--amp", action="store_true",
@@ -107,43 +156,10 @@ def _to_device(batch: np.ndarray, device) -> torch.Tensor:
         0, 3, 1, 2).to(device)
 
 
-def train_single(args):
-    from lmic_tpu_torch.datasets import DataLoader, ImageFolder
-
-    device = default_device(args.device)
-    lmbda = LAMBDA_TABLE[args.quality - 1]
-    dtype = None
-    if args.amp:
-        if args.arch not in AMP_ARCHS:
-            raise SystemExit(
-                f"--amp supports {sorted(AMP_ARCHS)}; {args.arch} does not "
-                "plumb an activation dtype through its transforms yet"
-            )
-        dtype = torch.bfloat16
-    if args.arch in AR_ARCHS:
-        raise SystemExit(
-            f"{args.arch}: training the autoregressive codecs is not "
-            "ported; ROADMAP.md queue A, item 10c"
-        )
-    codec = zoo.create_model(args.arch, args.quality, seed=args.seed,
-                             channel=args.channel, device=device,
-                             dtype=dtype)
-    module = codec.module
-
-    ds = ImageFolder(args.dataset, "train",
-                     patch_size=tuple(args.patch_size), seed=args.seed)
-    dl = DataLoader(ds, args.batch_size, seed=args.seed)
-    # held-out test epoch for best-checkpoint selection when the dataset
-    # has a test split (the reference recipe, examples/train.py test_epoch)
-    test_dl = None
-    if (Path(args.dataset) / "test").is_dir():
-        test_ds = ImageFolder(args.dataset, "test", train=False,
-                              patch_size=tuple(args.patch_size))
-        test_dl = DataLoader(test_ds, args.batch_size, shuffle=False,
-                             seed=0)
-
-    steps_per_epoch = args.steps_per_epoch or max(1, len(dl))
-    # StepLR(40 epochs, 0.5) on the main optimizer (reference train.py:395)
+def _train_state(args, module, steps_per_epoch):
+    """The optimizer (StepLR(40 epochs, 0.5) on the main one, reference
+    train.py:395), the train state, resumed from `--checkpoint` when
+    given, and the epoch to start from and the best loss so far."""
     optimizer = make_optimizer(
         step_lr(args.learning_rate, steps_per_epoch),
         args.aux_learning_rate, args.clip_max_norm,
@@ -154,19 +170,22 @@ def train_single(args):
         state, extra = ckpt.load_checkpoint(args.checkpoint, state)
         start_epoch = extra.get("epoch", 0) + 1
         best_loss = extra.get("best_loss", float("inf"))
+    return optimizer, state, start_epoch, best_loss
 
-    step_fn = make_train_step(module, optimizer, lmbda)
-    eval_fn = make_eval_step(module, lmbda) if test_dl else None
-    generator = torch.Generator(device=device).manual_seed(args.seed)
 
+def _epochs(args, arch, state, dl, run_step, start_epoch, best_loss,
+            eval_loss=None):
+    """The epoch loop: `run_step(batch)` -> metrics for each batch of `dl`,
+    a log line every `--log-every` steps, the epoch's loss (`eval_loss()`
+    when given and not None, else the mean of the logged losses), and a
+    checkpoint (with its best copy) after each epoch."""
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         running = []
         for i, batch in enumerate(_batches(dl, args.prefetch)):
             if args.steps_per_epoch and i >= args.steps_per_epoch:
                 break
-            state, metrics = step_fn(state, _to_device(batch, device),
-                                     generator)
+            metrics = run_step(batch)
             if i % args.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 running.append(m["loss"])
@@ -177,23 +196,16 @@ def train_single(args):
                     f"aux={m['aux_loss']:.1f}",
                     flush=True,
                 )
-        if test_dl is not None:
-            test_losses = [float(eval_fn(_to_device(b, device))["loss"])
-                           for b in test_dl]
-            if test_losses:
-                epoch_loss = float(np.mean(test_losses))
-                print(f"epoch {epoch} test loss={epoch_loss:.4f}",
-                      flush=True)
-            else:  # test split smaller than one batch: fall back
-                epoch_loss = (float(np.mean(running)) if running
-                              else float("inf"))
-        else:
+        epoch_loss = eval_loss() if eval_loss is not None else None
+        if epoch_loss is not None:
+            print(f"epoch {epoch} test loss={epoch_loss:.4f}", flush=True)
+        else:  # no test split, or one smaller than a batch
             epoch_loss = float(np.mean(running)) if running else float("inf")
         is_best = epoch_loss < best_loss
         best_loss = min(epoch_loss, best_loss)
         ckpt.save_checkpoint(
             args.save_path, state,
-            {"epoch": epoch, "best_loss": best_loss, "arch": args.arch,
+            {"epoch": epoch, "best_loss": best_loss, "arch": arch,
              "quality": args.quality},
             is_best=is_best,
         )
@@ -203,23 +215,123 @@ def train_single(args):
     return state
 
 
+def train_single(args):
+    from lmic_tpu_torch.datasets import DataLoader, ImageFolder, ImageFolderT
+
+    device = default_device(args.device)
+    lmbda = LAMBDA_TABLE[args.quality - 1]
+    dtype = torch.bfloat16 if args.amp else None
+    codec = zoo.create_model(args.arch, args.quality, seed=args.seed,
+                             channel=args.channel, device=device,
+                             dtype=dtype)
+    module = codec.module
+
+    if args.channel == 3:
+        loader, kwargs = ImageFolder, {}
+    else:
+        # grayscale modalities stay single-channel (reference
+        # image_rgbt_t.py)
+        loader, kwargs = ImageFolderT, {"channel": args.channel}
+    ds = loader(args.dataset, "train", patch_size=tuple(args.patch_size),
+                seed=args.seed, **kwargs)
+    dl = DataLoader(ds, args.batch_size, seed=args.seed)
+    # held-out test epoch for best-checkpoint selection when the dataset
+    # has a test split (the reference recipe, examples/train.py test_epoch)
+    eval_loss = None
+    if (Path(args.dataset) / "test").is_dir():
+        test_ds = loader(args.dataset, "test", train=False,
+                         patch_size=tuple(args.patch_size), **kwargs)
+        test_dl = DataLoader(test_ds, args.batch_size, shuffle=False,
+                             seed=0)
+        eval_fn = make_eval_step(module, lmbda)
+
+        def eval_loss():
+            losses = [float(eval_fn(_to_device(b, device))["loss"])
+                      for b in test_dl]
+            return float(np.mean(losses)) if losses else None
+
+    optimizer, state, start_epoch, best_loss = _train_state(
+        args, module, args.steps_per_epoch or max(1, len(dl)))
+    step_fn = make_train_step(module, optimizer, lmbda)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    def run_step(batch):
+        nonlocal state
+        state, metrics = step_fn(state, _to_device(batch, device), generator)
+        return metrics
+
+    return _epochs(args, args.arch, state, dl, run_step, start_epoch,
+                   best_loss, eval_loss)
+
+
+def train_master(args):
+    """The master against a frozen guide (lmic_tpu train_cli.py:264-374):
+    the guide is the complementary modality (`guided`, first conv at
+    stride 2) with the params of `--guided-checkpoint`."""
+    from lmic_tpu_torch.datasets import DataLoader, ImageFolderRGB
+
+    device = default_device(args.device)
+    lmbda = LAMBDA_TABLE[args.quality - 1]
+    guided = zoo.create_model(
+        "guided", args.quality, seed=args.seed,
+        channel=1 if args.channel == 3 else 3, first_stride=2,
+        device=device,
+    ).module
+    if args.guided_checkpoint:
+        ckpt.load_train_params(args.guided_checkpoint, guided)
+    else:
+        print("WARNING: training master against a randomly initialized "
+              "guide (pass --guided-checkpoint)", flush=True)
+    guided.eval().requires_grad_(False)
+    master = zoo.create_model("master", args.quality, seed=args.seed,
+                              channel=args.channel, device=device).module
+
+    ds = ImageFolderRGB(args.dataset, crop_size=tuple(args.crop_size),
+                        channel=args.channel, seed=args.seed)
+    dl = DataLoader(ds, args.batch_size, seed=args.seed)
+    optimizer, state, start_epoch, best_loss = _train_state(
+        args, master, args.steps_per_epoch or max(1, len(dl)))
+    step_fn = make_master_train_step(master, guided, optimizer, lmbda)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    def run_step(batch):
+        nonlocal state
+        x, guide = (_to_device(b, device) for b in batch)
+        state, metrics = step_fn(state, x, guide, generator)
+        return metrics
+
+    return _epochs(args, "master", state, dl, run_step, start_epoch,
+                   best_loss)
+
+
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.arch == "master" or args.arch.endswith("_D"):
+    if args.arch.endswith("_D"):
         raise SystemExit(
-            f"{args.arch}: the RGB-T recipes (master training, the paired "
-            "'_D' models) are not ported; ROADMAP.md queue A, item 12"
+            f"{args.arch} is a paired dependent-modality model: its forward "
+            "consumes the matching '_R' model's hidden maps per batch and "
+            "has no standalone training recipe (the reference provides "
+            "none either) — train the '_R' model instead (the '_R' models "
+            "are not ported yet; ROADMAP.md queue A, item 12)"
+        )
+    if args.arch.endswith("_R"):
+        raise SystemExit(
+            f"{args.arch}: the paired RGB-T models (lmic_tpu/models/"
+            "rgbt_joint.py) are not ported; ROADMAP.md queue A, item 12"
         )
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(why)
-    if args.channel != 3:
-        raise NotImplementedError(
-            "single-channel (thermal) datasets are not ported; ROADMAP.md "
-            "queue A, item 12"
+    if args.amp and args.arch not in AMP_ARCHS:
+        raise SystemExit(
+            f"--amp supports {sorted(AMP_ARCHS)}; {args.arch} trains in "
+            "f32 only"
         )
     try:
-        train_single(args)
+        if args.arch == "master":
+            train_master(args)
+        else:
+            train_single(args)
     except Exception:
         # long training runs leave a postmortem trail beside the checkpoint
         # (reference examples/train.py:481-491)

@@ -111,6 +111,31 @@ def test_bwd_kernel_matches_reference(dtype, inverse, rows, C):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows", [327_680, 327_687])
+def test_bwd_kernel_at_the_master_steps_rows(inverse, rows):
+    """f32 gdn_bwd at the RGB-T master step's largest GDN (a batch of 4
+    512x640 thermal masters: 327,680 rows at C = 192), and a ragged count
+    beside it."""
+    _check_bwd(torch.float32, inverse, rows, 192)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows", [1_310_720, 1_310_727])
+def test_kernel_at_the_master_steps_guide_rows(inverse, rows):
+    """f32 gdn_fwd at the RGB-T master step's frozen guide (a batch of 4
+    1024x1280 RGB guides after a stride-2 first conv: 1,310,720 rows at
+    C = 192), and a ragged count beside it: equal to the plain version,
+    the same bytes on every launch."""
+    x, beta, gamma = _data(rows, 192, torch.float32, seed=rows, skew=True)
+    n0 = gdn.LAUNCHES["gdn_fwd"]
+    got = gdn.gdn_fwd(x, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    assert gdn.LAUNCHES["gdn_fwd"] == n0 + 1
+    assert torch.equal(got, gdn.gdn_reference(x, beta, gamma, inverse))
+    assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
+
+
 # the tiled paths: ragged row counts around the tiles (16-row fragments in
 # bf16, 8-row thread tiles and 32-row warps in f32) and C that is not a
 # multiple of the tile (zero-padded in shared memory) up to the widest GDN
@@ -149,6 +174,11 @@ CHUNK_EDGES = [(dtype, rows, C) for dtype in (torch.float32, torch.bfloat16)
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("dtype,rows,C", TILED + CHUNK_EDGES)
 def test_tiled_bwd_kernel_matches_reference(dtype, inverse, rows, C):
+    _check_bwd(dtype, inverse, rows, C)
+
+
+def _check_bwd(dtype, inverse, rows, C):
+    """gdn_bwd's three launches against the plain version, deterministic."""
     x, beta, gamma = _data(rows, C, dtype, seed=rows + C, skew=True)
     g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
                     ).to("cuda", dtype)
@@ -255,6 +285,22 @@ def test_train_step_on_card_matches_cpu(arch):
         (2, 64, 128, 3), dtype=np.float32)).permute(0, 3, 1, 2)
     loss_err, grad_err, launched = train_step_agreement(
         arch, 1, x, 1024, N=32, M=48)
+    assert launched == {k: 6 for k in gdn.LAUNCHES}
+    assert loss_err <= 1e-4 and grad_err <= 1e-3, (loss_err, grad_err)
+
+
+@pytest.mark.parametrize("arch", AR_ARCHS)
+def test_ar_train_step_on_card_matches_cpu(arch):
+    """An AR arch's training step on the card against the CPU, the same
+    weights and noise (the context's too): the losses to 1e-4 relative,
+    each clipped gradient leaf to 1e-3 of its largest value; 6 launches of
+    each GDN kernel."""
+    from lmic_tpu_torch.utils.crosscheck import train_step_agreement
+
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 64, 128, 3), dtype=np.float32)).permute(0, 3, 1, 2)
+    loss_err, grad_err, launched = train_step_agreement(
+        arch, 1, x, 1024, **_ar_widths(arch))
     assert launched == {k: 6 for k in gdn.LAUNCHES}
     assert loss_err <= 1e-4 and grad_err <= 1e-3, (loss_err, grad_err)
 
@@ -387,3 +433,25 @@ def test_rgbt_transforms_on_card_match_cpu(role):
     for a, b in zip(pair, ref):
         np.testing.assert_array_equal(a.gc_state.table.cdf,
                                       b.gc_state.table.cdf)
+
+
+@pytest.mark.parametrize("role", [1, 3])
+def test_master_train_step_on_card_matches_cpu(role):
+    """The master's step against its frozen guide on the card and on the
+    CPU, the same weights and noise: the losses to 1e-4 relative, each
+    clipped gradient leaf to 1e-3 of its largest value; gdn_fwd 12 times
+    (6 in the guide, which has no backward, 6 in the master), each
+    backward kernel 6 times."""
+    from lmic_tpu_torch.utils.crosscheck import master_step_agreement
+
+    (mH, mW), (gH, gW) = RGBT_ROLES[role]
+    rng = np.random.default_rng(role)
+    x = torch.from_numpy(rng.random((2, mH, mW, role), dtype=np.float32))
+    guide = torch.from_numpy(rng.random((2, gH, gW, 4 - role),
+                                        dtype=np.float32))
+    loss_err, grad_err, launched = master_step_agreement(
+        1, role, x.permute(0, 3, 1, 2), guide.permute(0, 3, 1, 2), 1024,
+        N=32, M=48)
+    assert launched == {k: 12 if k == "gdn_fwd" else 6
+                        for k in gdn.LAUNCHES}
+    assert loss_err <= 1e-4 and grad_err <= 1e-3, (loss_err, grad_err)

@@ -1,4 +1,5 @@
-"""lmic_tpu_torch and chip_smoke.py stand alone: no module imports jax,
+"""lmic_tpu_torch and its scripts for the card (chip_smoke.py,
+chip_probes.py) stand alone: no module imports jax,
 flax or lmic_tpu, and importing every port module loads no JAX."""
 
 import ast
@@ -11,7 +12,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "lmic_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lmic_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "chip_probes.py"]
 
 
 def _imports(path):

@@ -455,11 +455,15 @@ def test_clis_refuse_what_is_not_ported(tmp_path):
             train_cli.main(base + [flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(base + ["--devices", "2"])
-    for arch in ("master", "guided_D"):
+    # the '_D' archs have no training recipe, in lmic_tpu either
+    with pytest.raises(SystemExit, match="no standalone training recipe"):
+        train_cli.main(base + ["--arch", "guided_D"])
+    for arch in ("mbt2018_R", "cheng2020-anchor_R", "cheng2020-attn_R"):
         with pytest.raises(SystemExit, match="ROADMAP"):
             train_cli.main(base + ["--arch", arch])
+    # the master trains in f32 only (lmic_tpu ignores the flag there)
     with pytest.raises(SystemExit, match="--amp supports"):
-        train_cli.main(base + ["--amp", "--arch", "mbt2018"])
+        train_cli.main(base + ["--amp", "--arch", "master"])
     for flag in (["--raw-params"], ["--from-torch"], ["--no-update"],
                  ["--aot-shape", "1x64x64"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -4,11 +4,14 @@ coding tables in the JAX package and in the port, made from a seed."""
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from lmic_tpu import zoo as jzoo
+from lmic_tpu.entropy import entropy_models as jem
 from lmic_tpu_torch import zoo as tzoo
+from lmic_tpu_torch.entropy import entropy_models as tem
 from lmic_tpu_torch.zoo.convert import (
     coding_state_from_numpy,
     state_dict_from_jax,
@@ -16,6 +19,10 @@ from lmic_tpu_torch.zoo.convert import (
 
 ARCHS = ("bmshj2018-factorized", "bmshj2018-hyperprior", "mbt2018-mean")
 N, M = 16, 24
+# the autoregressive family at these widths, (arch, N, M): cheng2020 has
+# M = N
+AR_TRAIN = (("mbt2018", N, M), ("cheng2020-anchor", N, N),
+            ("cheng2020-attn", N, N))
 IMAGE = (2, 64, 128, 3)  # H, W multiples of 64 (the hyperprior factor)
 
 
@@ -105,6 +112,57 @@ def rgbt_pair(role):
                                          channel))
         out.append((jc, pc, params))
     return tuple(out)
+
+
+def write_images(d, n, size, seed=0, channels=3):
+    """`n` seeded PNGs of `size` (H, W) in `d`: RGB, or 8-bit grayscale
+    for channels=1."""
+    from PIL import Image
+
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        arr = (rng.random((*size, channels)) * 255).astype(np.uint8)
+        Image.fromarray(arr[..., 0] if channels == 1 else arr).save(
+            d / f"img_{i:03d}.png")
+
+
+def noise(nchw_shape):
+    """U(-0.5, 0.5) noise for a port-layout shape, from the shape alone."""
+    rng = np.random.default_rng([11, *nchw_shape])
+    return rng.uniform(-0.5, 0.5, nchw_shape)
+
+
+def _jax_layout_noise(shape):
+    """`noise` for a shape of lmic_tpu's: NHWC transposed from the port's
+    NCHW; the entropy bottleneck's (C, 1, B*H*W) the same in both."""
+    if len(shape) == 4:
+        n = noise((shape[0], shape[3], shape[1], shape[2]))
+        return n.transpose(0, 2, 3, 1)
+    return noise(shape)
+
+
+def patch_same_noise(monkeypatch):
+    """Within a test, both packages add the same numpy noise of a given
+    shape wherever training quantizes: `quantize_noise` in both entropy
+    modules, and lmic_tpu's inline `jax.random.uniform(key, shape, dtype,
+    -0.5, 0.5)` draw of the AR context's input (models/joint.py,
+    models/rgbt.py), which the port draws through `quantize_noise`.
+    Keyed by shape, so the context's noise equals the Gaussian
+    conditional's (y's shape) in both packages: the same draw on both
+    sides, which is what parity needs."""
+    uniform = jax.random.uniform
+
+    def jax_uniform(key, shape=(), dtype=float, minval=0.0, maxval=1.0):
+        if len(shape) == 4 and (minval, maxval) == (-0.5, 0.5):
+            return jnp.asarray(_jax_layout_noise(tuple(shape)), dtype)
+        return uniform(key, shape, dtype, minval, maxval)
+
+    monkeypatch.setattr(jax.random, "uniform", jax_uniform)
+    monkeypatch.setattr(jem, "quantize_noise", lambda x, key: x + jnp.asarray(
+        _jax_layout_noise(tuple(x.shape)), x.dtype))
+    monkeypatch.setattr(tem, "quantize_noise", lambda x, generator=None: (
+        x + torch.from_numpy(noise(tuple(x.shape))).to(x.dtype)))
 
 
 def carry_tables(jc, pc):
