@@ -88,7 +88,22 @@ Phases, each of which raises (exit code != 0) on any failure:
    backward kernel a step; the master 12 and 6), the loss falling on one
    batch, step ms, peak memory and a profile of one step logged; then a
    narrow cheng2020-attn step and a narrow master step on the card
-   against the CPU with the same noise.
+   against the CPU with the same noise;
+9. the paired RGB-T archs, last, so every earlier phase keeps the process
+   state it was measured in: one direct round trip of each `_R` -> `_D`
+   pair (mbt2018, cheng2020-anchor, cheng2020-attn) at quality 7 (N = M =
+   192), seed 0 for the guide and 1 for the thermal codec, a 512x640 RGB
+   guide and a 512x640 thermal image (lmic_tpu's paired-eval geometry),
+   with the launch counts set to 0 just before and read just after (15
+   `gdn_fwd` a pair: 6 for the `_R` compress, whose ga* maps take a second
+   analysis pass, then 3 for each other leg; no backward); encoding
+   deterministic, each decoder recovering exactly its encoder's latents,
+   the CUDA transforms within 1e-4 of the CPU's on a small input with
+   equal tables; each leg's stages, ms and peak memory logged, with a
+   profile of each leg of the first pair and of the others' round trips,
+   and the first fusion conv on the GEMM route; then cheng2020-attn_R q7
+   trained in f32 at batch 16 of 256x256 (2 warm-up and 4 timed steps, 6
+   `gdn_fwd` and 6 of each backward kernel a step, the loss falling).
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -170,6 +185,22 @@ MASTER_TRAIN_ROWS = MASTER_STEP_ROWS + (327_687,)
 # master at 327,680 / 81,920 / 20,480)
 MASTER_GUIDE_ROWS = (1_310_720, 1_310_727)
 MASTER_STEP_FWD = {1_310_720: 1, 327_680: 2, 81_920: 2, 20_480: 1}
+# phase 9: the paired RGB-T archs at quality 7 (N = M = 192), a same-size
+# pair at lmic_tpu's paired-eval geometry (eval_model.py's --crop-size,
+# 512x640): an RGB guide through the `_R` codec (first conv at stride 2),
+# a thermal image through the `_D` codec
+PAIRED = ("mbt2018", "cheng2020-anchor", "cheng2020-attn")
+PAIRED_QUALITY = 7
+PAIRED_GUIDE = (1, 512, 640, 3)
+PAIRED_IMAGE = (1, 512, 640, 1)
+# gdn_fwd launches a pair round trip, by leg: the `_R` compress (its
+# analysis, then the ga* maps' second pass), the `_R` decompress, the `_D`
+# compress and decompress; every one at 81,920 / 20,480 / 5,120 rows
+PAIRED_LEGS = (6, 3, 3, 3)
+PAIRED_ROUND_TRIP = {81_920: (3, 2), 20_480: (3, 2), 5_120: (3, 2)}
+# one `_R` arch trained at lmic_tpu's trainer defaults, f32 (lmic_tpu's
+# AMP_ARCHS leaves the `_R` archs out)
+PAIRED_TRAIN = ("cheng2020-attn_R", 7)
 
 
 def log(*a):
@@ -1655,18 +1686,245 @@ def phase_ar_rgbt_training():
     return counts
 
 
+def _paired_codecs(family, device):
+    """The `_R` guide codec (seed 0, RGB) and the `_D` codec (seed 1,
+    thermal) of one family at PAIRED_QUALITY, tables built."""
+    from lmic_tpu_torch import zoo
+
+    out = []
+    for suffix, channel, seed in (("_R", 3, 0), ("_D", 1, 1)):
+        codec = zoo.create_model(family + suffix, PAIRED_QUALITY, seed=seed,
+                                 channel=channel, device=device)
+        codec.update()
+        out.append(codec)
+    return tuple(out)
+
+
+def _paired_legs(guide_codec, codec, x, guide):
+    """One direct round trip of a pair, leg by leg: the `_R` compress
+    (strings and the ga* maps) and decompress (x_hat and the gs* maps),
+    the `_D` compress on the ga* maps and decompress on the gs* maps.
+    Returns the legs' outputs and, per leg, (name, ms, gdn_fwd launches,
+    peak device memory, the codec's stats)."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    outs, legs = {}, []
+
+    def leg(name, codec_, run, prefix):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = gdn.LAUNCHES["gdn_fwd"]
+        t0 = time.perf_counter()
+        outs[name] = run()
+        torch.cuda.synchronize()
+        legs.append((name, 1e3 * (time.perf_counter() - t0),
+                     gdn.LAUNCHES["gdn_fwd"] - before,
+                     torch.cuda.max_memory_allocated(),
+                     _leg_stats(codec_, prefix)))
+
+    leg("R compress", guide_codec, lambda: guide_codec.compress(guide),
+        "enc_")
+    g = outs["R compress"]
+    leg("R decompress", guide_codec,
+        lambda: guide_codec.decompress(g["strings"], g["shape"]), "dec_")
+    leg("D compress", codec, lambda: codec.compress(x, g["hidden"]), "enc_")
+    out = outs["D compress"]
+    leg("D decompress", codec, lambda: codec.decompress(
+        out["strings"], out["shape"], outs["R decompress"]["hidden"],
+        u8=True), "dec_")
+    return outs, legs
+
+
+def _paired_checks(guide_codec, codec, x, guide, outs):
+    """Encoding is deterministic on both codecs; each decoder recovers
+    exactly its encoder's latents (`_code_y_z(..., keep_y_hat=True)`
+    against `_decode_y_hat`), with the strings of its codec."""
+    import torch
+
+    from lmic_tpu_torch.models.codec import _symbols_to_host
+
+    g, out = outs["R compress"], outs["D compress"]
+    if guide_codec.compress(guide, hidden=False)["strings"] != g["strings"] \
+            or codec.compress(x, g["hidden"])["strings"] != out["strings"]:
+        raise AssertionError("paired encoding is not deterministic")
+    with torch.inference_mode():
+        ys, z_sym = guide_codec._analyze(guide)
+        y, z = codec.module.analyze_fused(codec._pixels(x), g["hidden"])
+        z_d = _symbols_to_host(torch.round(
+            z - codec._medians(codec.eb_state)))
+        for c, ys_, zs, want in ((guide_codec, ys, z_sym, g),
+                                 (codec, [y], z_d, out)):
+            enc = c._code_y_z(ys_, zs, keep_y_hat=True)
+            dec = c._decode_y_hat(enc["strings"], enc["shape"])
+            if enc["strings"] != want["strings"]:
+                raise AssertionError("paired strings differ from the codec")
+            if not torch.equal(dec, enc["y_hat_latent"]):
+                raise AssertionError("a paired decoder did not recover the "
+                                     "encoded latents")
+
+
+def _paired_cpu_agreement(family, pair):
+    """The pair's CUDA transforms (`g_a_hidden`, `g_s_hidden`,
+    `analyze_fused`, `g_s_fused`) against the CPU's, same seeds, stage by
+    stage on a small input (`utils/crosscheck.py::paired_agreement`):
+    within 1e-4 of the largest value, and equal coding tables."""
+    from lmic_tpu_torch.utils.crosscheck import paired_agreement
+
+    cpu = _paired_codecs(family, "cpu")
+    # the smallest side whose deepest fusion level (1/8) still holds ESA's
+    # 15 pixels: twice the downsampling factor
+    side = 2 * pair[1].module.downsampling_factor
+    worst = paired_agreement(
+        pair, cpu, _images(1, (1, side, side, 1), seed=53)[0],
+        _images(1, (1, side, side, 3), seed=54)[0])
+    if not worst < 1e-4:
+        raise AssertionError(f"{family} pair: CUDA vs CPU transforms "
+                             f"{worst:.3g}")
+    for cuda, ref in zip(pair, cpu):
+        for state in ("eb_state", "gc_state"):
+            if not np.array_equal(getattr(cuda, state).table.cdf,
+                                  getattr(ref, state).table.cdf):
+                raise AssertionError(f"{family} pair: {state} tables differ")
+    return worst
+
+
+def _log_fuse_conv(codec):
+    """The first fusion level's 5x5 conv (2N -> N at the `_D` g_a's first
+    level) on the GEMM route, as the wire runs it: device ms (CUDA events)
+    and the peak memory of one call above what was allocated before it."""
+    import torch
+
+    conv = codec.module.tran_conv1
+    N = codec.module.N
+    H, W = PAIRED_IMAGE[1] // 2, PAIRED_IMAGE[2] // 2
+    with torch.inference_mode():
+        x = torch.randn(1, 2 * N, H, W, device=codec.device).contiguous(
+            memory_format=torch.channels_last)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        conv(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = _time_ms(lambda: conv(x))
+    log(f"paired fusion conv tran_conv1 ({2 * N} -> {N}, 5x5, {H}x{W}, "
+        f"GEMM route): {ms:.3f} ms a call, peak {peak / 2**30:.2f} GiB "
+        "above its input")
+
+
+def phase_paired():
+    """The paired RGB-T archs: one direct round trip of each `_R` -> `_D`
+    pair at 512x640, then a cheng2020-attn_R f32 training path. Returns
+    (the gdn_fwd launches of the timed round trips, the launch counts of
+    the timed training steps)."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    serve_launches = 0
+    guide = _images(1, PAIRED_GUIDE, seed=51)[0]
+    x = _images(1, PAIRED_IMAGE, seed=52)[0]
+    for family in PAIRED:
+        t_family = time.perf_counter()
+        pair = _paired_codecs(family, "cuda")
+        t_built = time.perf_counter() - t_family
+        _paired_legs(*pair, x, guide)  # warm-up
+        _reset_counts()
+        outs, legs = _paired_legs(*pair, x, guide)
+        counts = dict(gdn.LAUNCHES)
+        launches = counts.pop("gdn_fwd")
+        if launches != sum(PAIRED_LEGS) or any(counts.values()) or tuple(
+                n for _, _, n, _, _ in legs) != PAIRED_LEGS:
+            raise AssertionError(f"{family} pair: gdn_fwd {launches}, per "
+                                 f"leg {[leg[2] for leg in legs]}, others "
+                                 f"{counts}")
+        serve_launches += launches
+        rec = outs["D decompress"]["x_hat"]
+        if rec.shape != x.shape or rec.dtype != np.uint8:
+            raise AssertionError(f"{family} pair: bad decode {rec.shape}")
+        _paired_checks(*pair, x, guide, outs)
+        t0 = time.perf_counter()
+        worst = _paired_cpu_agreement(family, pair)
+        t_cpu = time.perf_counter() - t0
+        nbytes = [sum(len(s) for g in outs[k]["strings"] for s in g)
+                  for k in ("R compress", "D compress")]
+        log(f"paired {family} q{PAIRED_QUALITY} (N={pair[1].module.N}, "
+            f"M={pair[1].module.M}), guide {guide.shape[1]}x"
+            f"{guide.shape[2]}, thermal {x.shape[1]}x{x.shape[2]}: guide "
+            f"{nbytes[0]} bytes, thermal {nbytes[1]} bytes "
+            f"({8 * nbytes[1] / (x.shape[1] * x.shape[2]):.4f} bpp); built "
+            f"and updated in {t_built:.1f} s; CUDA vs CPU transforms within "
+            f"{worst:.3g} ({t_cpu:.1f} s); legs " + json.dumps({
+                name: {"ms": round(ms, 2), "gdn_fwd": n,
+                       "peak_GiB": round(peak / 2**30, 2), "stages": st}
+                for name, ms, n, peak, st in legs}))
+        r_out, d_out = outs["R compress"], outs["D compress"]
+        r_dec = outs["R decompress"]
+        runs = {
+            "R compress": lambda: pair[0].compress(guide),
+            "R decompress": lambda: pair[0].decompress(
+                r_out["strings"], r_out["shape"]),
+            "D compress": lambda: pair[1].compress(x, r_out["hidden"]),
+            "D decompress": lambda: pair[1].decompress(
+                d_out["strings"], d_out["shape"], r_dec["hidden"],
+                u8=True),
+        }
+        # a profiler session costs seconds: each leg of the first pair is
+        # profiled, each other pair's round trip as one
+        if family == PAIRED[0]:
+            for name, run in runs.items():
+                _log_rgbt_profile(f"paired {family} {name}", run)
+            _log_fuse_conv(pair[1])
+        else:
+            _log_rgbt_profile(f"paired {family} round trip", lambda: [
+                run() for run in runs.values()])
+        log(f"paired {family}: {time.perf_counter() - t_family:.1f} s")
+        del pair, outs, r_out, d_out, r_dec
+        torch.cuda.empty_cache()
+
+    arch, q = PAIRED_TRAIN
+    module = zoo.create_model(arch, q, seed=0, device="cuda").module
+    opt = make_optimizer()
+    state = create_train_state(module, opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = _train_batch(TRAIN_BATCH, seed=5)
+    train = _train_case(
+        f"{arch} q{q} (N={module.N}, M={module.M}) f32 batch "
+        f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}",
+        make_train_step(module, opt, LAMBDAS[q - 1]), state, (batch,), gen,
+        4, {k: 6 for k in gdn.LAUNCHES})
+    del module, state, opt, batch
+    torch.cuda.empty_cache()
+    log(f"paired phase: {time.perf_counter() - t_phase:.1f} s")
+    return serve_launches, train
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
-    count to the times the pass runs it in each direction."""
+    count to the times the pass runs it in each direction, or to a pair
+    (GDN times, IGDN times)."""
     times = rows if isinstance(rows, dict) else dict.fromkeys(rows, 1)
     sel = [c for c in cases[kernel] if c["shape"][0] in times
            and c["shape"][1] == C and c["dtype"] == dtype]
     if len(sel) != 2 * len(times):
         raise AssertionError(f"{len(sel)} {kernel} main-path cases")
 
+    def n(c):
+        t = times[c["shape"][0]]
+        return t[c["inverse"]] if isinstance(t, tuple) else t
+
     def total(key):
-        return sum(c[key] * times[c["shape"][0]] for c in sel) / 1e3
+        return sum(c[key] * n(c) for c in sel) / 1e3
 
     t = {k: total(k) for k in ("us", "plain_us", "bound_us", "bytes_us",
                                "operations_us", "library_us")}
@@ -1741,13 +1999,14 @@ def main():
     ar_launches, _ = phase_ar_serving()
     rgbt_launches = phase_rgbt_serving()
     more_training = phase_ar_rgbt_training()
+    paired_launches, more_training["paired_training"] = phase_paired()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
 
     errors = {k: _max_abs_err_by_dtype(v) for k, v in cases.items()}
     # every training path: mbt2018-mean (phase 5), the AR family and the
-    # RGB-T pair (phase 8)
+    # RGB-T pair (phase 8), the paired `_R` arch (phase 9)
     training = {"training": train_counts, **more_training}
     launched = {k: sum(c[k] for c in training.values()) for k in gdn.LAUNCHES}
     bwd_counts = {k: launched[k] for k in gdn.BWD_KERNELS}
@@ -1759,10 +2018,11 @@ def main():
         "source": "lmic_tpu_torch/csrc/gdn_fwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
         "launches": (serve_launches + ar_launches + rgbt_launches
-                     + launched["gdn_fwd"]),
+                     + paired_launches + launched["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
                              "rgbt_serving": rgbt_launches,
+                             "paired_serving": paired_launches,
                              **{p: c["gdn_fwd"]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
@@ -1776,6 +2036,10 @@ def main():
         # one RGB-T round trip (channel 1, 512x640 + 1024x1280, guide
         # cached on the decompress leg): 12 launches, 1,075,200 rows
         "round_trip_rgbt": totals("gdn_fwd", RGBT_ROUND_TRIP, "float32"),
+        # one paired round trip (an `_R` -> `_D` pair at 512x640): 15
+        # launches, 9 GDN and 6 IGDN
+        "round_trip_paired": totals("gdn_fwd", PAIRED_ROUND_TRIP,
+                                    "float32"),
         "training_step_f32": totals("gdn_fwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
         # the master's step (batch 4): 12 launches, the frozen guide's six

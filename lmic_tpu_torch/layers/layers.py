@@ -1,7 +1,8 @@
 """Layers of the image codecs: Conv, Deconv, GDN/IGDN, and the sub-pixel,
 masked-context, residual and attention blocks of the AR family.
 
-Counterpart of lmic_tpu/layers/layers.py:32-168, 207-345. Activations are
+Counterpart of lmic_tpu/layers/layers.py:32-168, 207-345, 374-414 (ESA,
+SELayer). Activations are
 NCHW in `torch.channels_last` memory format. Padding follows the reference:
 
 - Conv(k, s):   nn.Conv2d(padding=k//2)                       -> ceil(H/s)
@@ -302,3 +303,53 @@ class AttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, b = self.conv_a(x), self.conv_b(x)
         return x + (a * torch.sigmoid(b)).to(x.dtype)
+
+
+class ESA(nn.Module):
+    """Enhanced spatial attention (reference google.py:1432-1459): a
+    strided conv and a max pool make a low-resolution saliency field,
+    resized back bilinearly and sigmoid-gated onto the input.
+
+    `conv2` is a raw 3x3 conv at stride 2 without padding (VALID), and
+    lmic_tpu's 7x7, stride-3 VALID `reduce_window` max is `max_pool2d`;
+    `jax.image.resize(..., "bilinear")` of an upsampling is
+    `F.interpolate(align_corners=False)` (half-pixel centres, the edge
+    pixel repeated). The input needs 15 or more pixels a side."""
+
+    def __init__(self, N: int):
+        super().__init__()
+        f = N // 4
+        self.conv1 = Conv(N, f, 1, 1)
+        self.conv2 = nn.Conv2d(f, f, 3, stride=2, padding=0)
+        self.conv_max = conv3x3(f, f)
+        self.conv3 = conv3x3(f, f)
+        self.conv3_ = conv3x3(f, f)
+        self.conv_f = Conv(f, f, 1, 1)
+        self.conv4 = Conv(f, N, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c1_ = self.conv1(x)
+        v_max = F.max_pool2d(self.conv2(c1_), kernel_size=7, stride=3)
+        v_range = F.relu(self.conv_max(v_max))
+        c3 = self.conv3_(F.relu(self.conv3(v_range)))
+        c3 = F.interpolate(c3, size=x.shape[2:], mode="bilinear",
+                           align_corners=False)
+        c4 = self.conv4(c3 + self.conv_f(c1_))
+        return x * torch.sigmoid(c4)
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation channel gate (reference google.py:1462-1477):
+    the mean over H and W, two bias-free dense layers with a ReLU between,
+    a sigmoid. No model of the zoo uses it."""
+
+    def __init__(self, channel: int, reduction: int = 16):
+        super().__init__()
+        self.fc = nn.Sequential(
+            nn.Linear(channel, channel // reduction, bias=False), nn.ReLU(),
+            nn.Linear(channel // reduction, channel, bias=False),
+            nn.Sigmoid(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.fc(x.mean(dim=(2, 3)))[:, :, None, None]

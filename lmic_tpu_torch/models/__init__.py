@@ -22,3 +22,12 @@ from lmic_tpu_torch.models.rgbt import (  # noqa: F401
     MasterCodec,
     MasterCompresser,
 )
+from lmic_tpu_torch.models.rgbt_joint import (  # noqa: F401
+    Cheng2020Anchor_D,
+    Cheng2020Anchor_R,
+    Cheng2020Attention_D,
+    Cheng2020Attention_R,
+    FusedARCodec,
+    JointAutoregressiveHierarchicalPriors_D,
+    JointAutoregressiveHierarchicalPriors_R,
+)

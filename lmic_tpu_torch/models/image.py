@@ -93,9 +93,9 @@ class ScaleHyperprior(nn.Module):
         super().__init__()
         self.N, self.M, self.channel = int(N), int(M), int(channel)
         self.dtype = dtype  # see FactorizedPrior
-        g_a, g_s = self._transform_names
-        setattr(self, g_a, self._make_g_a(channel, N, M, dtype))
-        setattr(self, g_s, self._make_g_s(channel, N, M, dtype))
+        for name, make in zip(self._transform_names,
+                              (self._make_g_a, self._make_g_s)):
+            setattr(self, name, make(channel, N, M, dtype))
         self.h_a = self._make_h_a(N, M, dtype)
         self.h_s = self._make_h_s(N, M, dtype)
         self.entropy_bottleneck = EntropyBottleneck(N, generator=generator)
@@ -103,7 +103,8 @@ class ScaleHyperprior(nn.Module):
 
     # the four transform stacks; the AR family's subclasses replace them.
     # The analysis and synthesis stacks are attributes of these names (the
-    # RGB-T pair keeps CompressAI's `enc1`/`dec1` and `g_a`/`decoder`)
+    # RGB-T pair keeps CompressAI's `enc1`/`dec1` and `g_a`/`decoder`;
+    # the `_D` archs build their own fused stacks, and name none)
     _transform_names = ("g_a", "g_s")
     _make_g_a = staticmethod(_g_a)
     _make_g_s = staticmethod(_g_s)

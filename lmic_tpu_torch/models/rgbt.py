@@ -402,21 +402,27 @@ class GuidedCompresser(JointAutoregressiveHierarchicalPriors):
     def _make_g_s(self, channel, N, M, dt):
         return GuidedDecoder(channel, N, M, self.first_stride, dt)
 
+    def _encoder(self, x):
+        return getattr(self, self._transform_names[0])(x)
+
+    def _decoder(self, y_hat):
+        return getattr(self, self._transform_names[1])(y_hat)
+
     def g_a(self, x):
-        return from_amp(self.enc1(x)[0])
+        return from_amp(self._encoder(x)[0])
 
     def g_s(self, y_hat):
-        return from_amp(self.dec1(y_hat)[0])
+        return from_amp(self._decoder(y_hat)[0])
 
     def g_a_hidden(self, x):
         """y plus the encoder's hidden maps ga1..3, all f32."""
-        y, *maps = self.enc1(x)
+        y, *maps = self._encoder(x)
         return from_amp(y), _f32(maps, ("ga1", "ga2", "ga3"))
 
     def g_s_hidden(self, y_hat):
         """x_hat plus the decoder's hidden maps gs1..3 (what the master
         consumes), all f32."""
-        x_hat, *maps = self.dec1(y_hat)
+        x_hat, *maps = self._decoder(y_hat)
         return from_amp(x_hat), _f32(maps, ("gs1", "gs2", "gs3"))
 
     def forward(self, x, training: bool = True,

@@ -2,7 +2,8 @@
 (tests/test_torch_cuda.py) both run: one training step on two devices with
 the same quantization noise (any trained arch, and the RGB-T master's step
 against its frozen guide), the AR codecs' wavefront step on two devices on
-the same coded latents, and the RGB-T pair's transforms stage by stage.
+the same coded latents, and the transforms of the RGB-T pair and of the
+paired `_R`/`_D` archs stage by stage.
 
 `torch.rand` draws other numbers on the card than on the CPU, so
 `fixed_noise` swaps `entropy_models.quantize_noise` for one that adds a
@@ -165,6 +166,34 @@ def wavefront_step_agreement(codec, ref, x):
     return err, flips, n
 
 
+class _Stages:
+    """Runs a stage of a codec pair on two devices: `stage(a, b, *args)`
+    on `pair`'s modules and on `ref`'s, the args (tensors, or dicts of
+    them) copied to each device. Returns `pair`'s outputs, flattened
+    (a dict's values in order); `worst` is the largest error of any
+    output so far, max|a - b| / max(1, max|b|)."""
+
+    def __init__(self, pair, ref):
+        self.sides = ((pair, pair[1].device), (ref, ref[1].device))
+        self.worst = 0.0
+
+    def __call__(self, stage, *args):
+        flat = []
+        for (a_codec, b_codec), dev in self.sides:
+            a = [{k: v.to(dev) for k, v in t.items()} if isinstance(t, dict)
+                 else t.to(dev) for t in args]
+            out = []
+            for t in stage(a_codec.module, b_codec.module, *a):
+                out += list(t.values()) if isinstance(t, dict) else [t]
+            flat.append(out)
+        for a, b in zip(*flat):
+            a, b = a.float().cpu(), b.float().cpu()
+            self.worst = max(self.worst, ((a - b).abs().max()
+                                          / b.abs().max().clamp(min=1.0)
+                                          ).item())
+        return flat[0]
+
+
 def rgbt_agreement(pair, ref, x, guide) -> float:
     """The RGB-T pair `pair` = (guided, master) codecs against `ref`, the
     same pair on another device, on a master image `x` and its `guide`
@@ -173,25 +202,7 @@ def rgbt_agreement(pair, ref, x, guide) -> float:
     outputs of the stage before, copied to each device, so a rounding of
     the latents cannot flip on one side only. Returns the largest error of
     any output, max|a - b| / max(1, max|b|)."""
-    worst = 0.0
-
-    def both(stage, *args):
-        nonlocal worst
-        flat = []
-        for (guided, master), dev in ((pair, pair[1].device),
-                                      (ref, ref[1].device)):
-            a = [{k: v.to(dev) for k, v in t.items()} if isinstance(t, dict)
-                 else t.to(dev) for t in args]
-            out = []
-            for t in stage(guided.module, master.module, *a):
-                out += list(t.values()) if isinstance(t, dict) else [t]
-            flat.append(out)
-        for a, b in zip(*flat):
-            a, b = a.float().cpu(), b.float().cpu()
-            worst = max(worst, ((a - b).abs().max()
-                                / b.abs().max().clamp(min=1.0)).item())
-        return flat[0]
-
+    both = _Stages(pair, ref)
     guided, master = pair
     with torch.inference_mode():
         y = both(lambda g, m, t: g.g_a_hidden(t),
@@ -204,4 +215,24 @@ def rgbt_agreement(pair, ref, x, guide) -> float:
         ym, _ = both(lambda g, m, a, b: m.analyze_features(a, b), feat,
                      align)
         both(lambda g, m, *a: [m.synthesize(*a)], torch.round(ym), gs, align)
-    return worst
+    return both.worst
+
+
+def paired_agreement(pair, ref, x, guide) -> float:
+    """A paired RGB-T couple `pair` = (the `_R` guide codec, the `_D`
+    dependent codec) against `ref`, the same couple on another device, on
+    a dependent image `x` and its same-size `guide` ((1, H, W, C) numpy),
+    stage by stage as `rgbt_agreement`: the guide's g_a and g_s with
+    their maps, the dependent's fused analysis (y, z) on the ga* maps and
+    its fused synthesis on the gs* maps. Returns the largest error."""
+    both = _Stages(pair, ref)
+    guide_codec, codec = pair
+    with torch.inference_mode():
+        y, *ga = both(lambda r, d, t: r.g_a_hidden(t),
+                      guide_codec._pixels(guide))
+        _, *gs = both(lambda r, d, t: r.g_s_hidden(t), torch.round(y))
+        yd, _ = both(lambda r, d, a, h: d.analyze_fused(a, h),
+                     codec._pixels(x), dict(zip(("ga1", "ga2", "ga3"), ga)))
+        both(lambda r, d, a, h: [d.g_s_fused(a, h)], torch.round(yd),
+             dict(zip(("gs1", "gs2", "gs3"), gs)))
+    return both.worst

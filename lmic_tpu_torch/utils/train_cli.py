@@ -5,8 +5,9 @@ Counterpart of lmic_tpu/utils/train_cli.py (`make_master_train_step`,
 unless `--device cpu`. Its two recipes:
 
 - single-model training of any zoo arch the port has (the image codecs,
-  the AR codecs mbt2018 and cheng2020-*, and the RGB-T guide `guided`)
-  with the RD loss `lambda[q] * MSE + bpp`, dual Adam optimizers,
+  the AR codecs mbt2018 and cheng2020-*, the RGB-T guide `guided` and
+  the paired RGB-T guides `mbt2018_R`, `cheng2020-anchor_R`,
+  `cheng2020-attn_R`) with the RD loss `lambda[q] * MSE + bpp`, dual Adam optimizers,
   StepLR(40 epochs, 0.5), best-checkpoint selection on a test split when
   the dataset has one, and resume from a checkpoint; `--channel 1` trains
   on one 8-bit grayscale (thermal) channel;
@@ -23,9 +24,9 @@ Usage:
   python -m lmic_tpu_torch.utils.train_cli --arch master -q 3 --channel 1 \\
       -d /path/FLIR/train/thermal_8_bit --guided-checkpoint guided.ckpt
 
-Not ported yet (each raises, see ROADMAP.md): the paired RGB-T archs
-(`*_R`, queue A item 12; the `*_D` archs have no training recipe, as in
-lmic_tpu), `--bf16`, `--remat` and `--devices` (queue A, item 8).
+The `*_D` archs have no training recipe, as in lmic_tpu. Not ported yet
+(each raises, see ROADMAP.md): `--bf16`, `--remat` and `--devices` (queue
+A, item 8).
 """
 
 from __future__ import annotations
@@ -311,13 +312,7 @@ def main(argv=None):
             f"{args.arch} is a paired dependent-modality model: its forward "
             "consumes the matching '_R' model's hidden maps per batch and "
             "has no standalone training recipe (the reference provides "
-            "none either) — train the '_R' model instead (the '_R' models "
-            "are not ported yet; ROADMAP.md queue A, item 12)"
-        )
-    if args.arch.endswith("_R"):
-        raise SystemExit(
-            f"{args.arch}: the paired RGB-T models (lmic_tpu/models/"
-            "rgbt_joint.py) are not ported; ROADMAP.md queue A, item 12"
+            "none either) — train the '_R' model instead"
         )
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):

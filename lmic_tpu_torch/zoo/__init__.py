@@ -3,7 +3,9 @@
 Counterpart of lmic_tpu/zoo/__init__.py:48-189 (reference
 compressai/zoo/image.py:189-246) for the three non-autoregressive
 architectures, the autoregressive family (mbt2018, cheng2020-anchor,
-cheng2020-attn) and the RGB-T pair (`guided`, `master`). `create_model`
+cheng2020-attn), the RGB-T pair (`guided`, `master`) and the paired
+RGB-T archs (`mbt2018_R`/`_D`, `cheng2020-anchor_R`/`_D`,
+`cheng2020-attn_R`/`_D`). `create_model`
 builds the module on the CPU from a seed, so the same seed gives the same
 weights on every device, then hands it to the codec wrapper on `device`
 (CUDA unless told otherwise).
@@ -39,6 +41,15 @@ from lmic_tpu_torch.models.rgbt import (
     MasterCompresser,
     WindowCrossAttention,
 )
+from lmic_tpu_torch.models.rgbt_joint import (
+    Cheng2020Anchor_D,
+    Cheng2020Anchor_R,
+    Cheng2020Attention_D,
+    Cheng2020Attention_R,
+    FusedARCodec,
+    JointAutoregressiveHierarchicalPriors_D,
+    JointAutoregressiveHierarchicalPriors_R,
+)
 
 # quality -> (N, M), or (N,) for the families with M = N (reference
 # zoo/image.py:189-246)
@@ -71,6 +82,14 @@ cfgs: Dict[str, Dict[int, Tuple[int, ...]]] = {
         **{q: (128,) for q in range(1, 4)},
         **{q: (192,) for q in range(4, 7)},
     },
+    # the paired RGB-T archs: the reference's class defaults N = M = 192
+    # across the lambda table (lmic_tpu/zoo/__init__.py:77-83)
+    "mbt2018_R": {q: (192, 192) for q in range(1, 8)},
+    "mbt2018_D": {q: (192, 192) for q in range(1, 8)},
+    "cheng2020-anchor_R": {q: (192,) for q in range(1, 8)},
+    "cheng2020-anchor_D": {q: (192,) for q in range(1, 8)},
+    "cheng2020-attn_R": {q: (192,) for q in range(1, 8)},
+    "cheng2020-attn_D": {q: (192,) for q in range(1, 8)},
 }
 
 # architecture -> (module class, codec wrapper class)
@@ -83,6 +102,12 @@ model_architectures: Dict[str, Tuple[Any, Any]] = {
     "cheng2020-attn": (Cheng2020Attention, JointARCodec),
     "guided": (GuidedCompresser, GuidedCodec),
     "master": (MasterCompresser, MasterCodec),
+    "mbt2018_R": (JointAutoregressiveHierarchicalPriors_R, GuidedCodec),
+    "mbt2018_D": (JointAutoregressiveHierarchicalPriors_D, FusedARCodec),
+    "cheng2020-anchor_R": (Cheng2020Anchor_R, GuidedCodec),
+    "cheng2020-anchor_D": (Cheng2020Anchor_D, FusedARCodec),
+    "cheng2020-attn_R": (Cheng2020Attention_R, GuidedCodec),
+    "cheng2020-attn_D": (Cheng2020Attention_D, FusedARCodec),
 }
 
 
@@ -94,8 +119,9 @@ def make_module(architecture: str, quality: int, channel: int = 3,
     is the activation compute dtype (torch.bfloat16 for AMP training,
     None for f32 and for every codec wire). `channel` is the image's
     channel count, for the master its modality (1: a thermal master with a
-    3-channel guide at 2x; 3: the roles swapped); the guided arch also
-    takes `first_stride=` (default 2), its first conv's stride."""
+    3-channel guide at 2x; 3: the roles swapped); the guided and `_R`
+    archs also take `first_stride=` (default 2), the first conv's
+    stride."""
     if architecture not in model_architectures:
         raise ValueError(f'Invalid architecture name "{architecture}"')
     if quality not in cfgs[architecture]:
@@ -105,7 +131,8 @@ def make_module(architecture: str, quality: int, channel: int = 3,
     # the single-width families (cheng2020) take M = N (waseda.py:63)
     M = kwargs.pop("M", widths[1] if len(widths) == 2 else N)
     extra = {}
-    if architecture == "guided" and "first_stride" in kwargs:
+    if ((architecture == "guided" or architecture.endswith("_R"))
+            and "first_stride" in kwargs):
         extra["first_stride"] = kwargs.pop("first_stride")
     if kwargs:
         raise TypeError(f"unexpected arguments {sorted(kwargs)}")
@@ -134,7 +161,8 @@ def _init_params(module: nn.Module, generator: torch.Generator):
             std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
             nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                   generator=generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
 
 
 def create_model(architecture: str, quality: int, seed: int = 0,

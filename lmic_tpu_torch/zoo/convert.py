@@ -25,7 +25,17 @@ numpy arrays, and returns this package's `state_dict` (CompressAI keys):
   `decoder.sp_aligner1.blocks.0.attn.qkv1`, `...mlp.fc1`, ...), the
   inverse of lmic_tpu's `_import_guided`/`_import_master`
   (lmic_tpu/zoo/pretrained.py:567-737); dense kernels (in, out) -> Linear
-  weights (out, in), LayerNorm `scale` -> `weight`.
+  weights (out, in), LayerNorm `scale` -> `weight`;
+- the paired RGB-T archs (`mbt2018_R`/`_D`, `cheng2020-anchor_R`/`_D`,
+  `cheng2020-attn_R`/`_D`): the inverses of lmic_tpu's `_import_guided`,
+  `_import_jahp_d`, `_import_cheng_anchor_r`, `_import_cheng_attn_r`,
+  `_import_cheng_anchor_d` and `_import_cheng_attn_d` with their parts
+  `_esa`, `_edge_fuse` and `_cheng_h_nets`
+  (lmic_tpu/zoo/pretrained.py:743-921): `enc_fuse_{i}`/`dec_fuse_{i}`
+  -> `eg_ext{k}.0`, `tran_conv{k}`, `attention{k}.conv1..conv4`;
+  `pic2_ga_convs_{i}` -> `pic2_g_a_conv{i+1}`; cheng2020-attn_R's
+  `g_a_net`/`g_s_net` blocks -> `enc.res_stride1`, `dec.atten1`, ...;
+  cheng2020-attn_D's `ga_blocks_pre_0` -> `g_a_rbs1`.
 
 `coding_state_from_numpy(codec, eb=..., gc=...)` installs carried integer
 CDF tables, medians and the scale table, so both packages code with the
@@ -130,12 +140,12 @@ def _count_leaves(tree) -> int:
     return 1
 
 
-def _cheng_state(arch: str, params: Mapping[str, Any]
-                 ) -> Dict[str, np.ndarray]:
+def _cheng_state(schedules: Mapping[str, Mapping[int, str]],
+                 params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax Sequentials of cheng2020 blocks, `{seq: {index: kind}}` ->
+    `{seq}.{i}.*` keys."""
     out: Dict[str, np.ndarray] = {}
-    schedules = {seq: dict(enumerate(kinds))
-                 for seq, kinds in _CHENG[arch].items()}
-    for seq, schedule in {**schedules, **_CHENG_HYPER}.items():
+    for seq, schedule in schedules.items():
         layers = params[f"{seq}_net"]
         if set(layers) != {f"layers_{i}" for i in schedule}:
             raise ValueError(f"{seq}: layers {sorted(layers)}")
@@ -182,17 +192,113 @@ def _resblock64(path, name):
             for sub, conv in _CHENG_BLOCKS["rb"].items()]
 
 
+# the paired RGB-T archs (lmic_tpu/zoo/pretrained.py:743-921): the guide
+# codecs and the dependent codecs, which read the guide's maps
+_PAIRED_R = ("mbt2018_R", "cheng2020-anchor_R", "cheng2020-attn_R")
+_PAIRED_D = ("mbt2018_D", "cheng2020-anchor_D", "cheng2020-attn_D")
+# cheng2020-attn_R's tapped transforms (waseda.py:409-460): flax
+# auto-name -> CompressAI name under `enc`/`dec`, block kind
+_CHENG_ENC_HIDDEN = (
+    ("ResidualBlockWithStride_0", "res_stride1", "rbs"),
+    ("ResidualBlock_0", "res1", "rb"),
+    ("ResidualBlockWithStride_1", "res_stride2", "rbs"),
+    ("AttentionBlock_0", "atten1", "attn"),
+    ("ResidualBlock_1", "res2", "rb"),
+    ("ResidualBlockWithStride_2", "res_stride3", "rbs"),
+    ("ResidualBlock_2", "res3", "rb"),
+    ("Conv_0/Conv_0", "conv", "conv"),
+    ("AttentionBlock_1", "atten2", "attn"),
+)
+_CHENG_DEC_HIDDEN = (
+    ("AttentionBlock_0", "atten1", "attn"),
+    ("ResidualBlock_0", "res1", "rb"),
+    ("ResidualBlockUpsample_0", "res_stride1", "rbu"),
+    ("ResidualBlock_1", "res2", "rb"),
+    ("ResidualBlockUpsample_1", "res_stride2", "rbu"),
+    ("AttentionBlock_1", "atten2", "attn"),
+    ("ResidualBlock_2", "res3", "rb"),
+    ("ResidualBlockUpsample_2", "res_stride3", "rbu"),
+    ("ResidualBlock_3", "res4", "rb"),
+    ("SubpelConv3x3_0/Conv_0/Conv_0", "conv.0", "conv"),
+)
+# cheng2020-attn_D's fused transforms (waseda.py:533-694): lmic_tpu's
+# attribute -> CompressAI's, block kind
+_CHENG_ATTN_D = (
+    ("ga_blocks_pre_0", "g_a_rbs1", "rbs"), ("g_a_rb1", "g_a_rb1", "rb"),
+    ("g_a_rbs2", "g_a_rbs2", "rbs"), ("g_a_att1", "g_a_att1", "attn"),
+    ("g_a_rb2", "g_a_rb2", "rb"), ("g_a_rbs3", "g_a_rbs3", "rbs"),
+    ("g_a_rb3", "g_a_rb3", "rb"), ("g_a_conv/Conv_0", "g_a_conv", "conv"),
+    ("g_a_att2", "g_a_att2", "attn"), ("g_s_att1", "g_s_att1", "attn"),
+    ("g_s_rb1", "g_s_rb1", "rb"), ("g_s_rbs1", "g_s_rbs1", "rbu"),
+    ("g_s_rb2", "g_s_rb2", "rb"), ("g_s_rbs2", "g_s_rbs2", "rbu"),
+    ("g_s_att2", "g_s_att2", "attn"), ("g_s_rb3", "g_s_rb3", "rb"),
+    ("g_s_rbs3", "g_s_rbs3", "rbu"), ("g_s_rb4", "g_s_rb4", "rb"),
+    ("g_s_conv/Conv_0/Conv_0", "g_s_conv.0", "conv"),
+)
+# ESA's convs in lmic_tpu's call order (flax auto-names Conv_0..6; conv2
+# is a raw nn.Conv, the others lmic_tpu Convs around one)
+_ESA = ("conv1", "conv2", "conv_max", "conv3", "conv3_", "conv_f", "conv4")
+
+
+def _guided_table(enc="enc1", dec="dec1"):
+    """mbt2018's tapped transforms (Encoder1/Decoder1)."""
+    return (
+        [(f"g_a_net/Conv_{i}/Conv_0", f"{enc}.g_a_conv{i + 1}", "conv")
+         for i in range(4)]
+        + [(f"g_a_net/GDN_{i}", f"{enc}.g_a_gdn{i + 1}", "gdn")
+           for i in range(3)]
+        + [(f"g_s_net/Deconv_{i}/Conv_0", f"{dec}.g_s_conv{i + 1}",
+            "deconv") for i in range(4)]
+        + [(f"g_s_net/GDN_{i}", f"{dec}.g_s_gdn{i + 1}", "gdn")
+           for i in range(3)])
+
+
+def _edge_fuse_table(path, eg_x, eg_h, k):
+    """One `_EdgeFuse` level (lmic_tpu/zoo/pretrained.py:772-781):
+    eg_ext{eg_x} on the master stream, eg_ext{eg_h} on the guide's map,
+    tran_conv{k}, attention{k}."""
+    esa = f"{path}/ESA_0"
+    return [(f"{path}/Conv_0/Conv_0", f"eg_ext{eg_x}.0", "conv"),
+            (f"{path}/Conv_1/Conv_0", f"eg_ext{eg_h}.0", "conv"),
+            (f"{path}/Conv_2/Conv_0", f"tran_conv{k}", "conv")] + [
+        (f"{esa}/Conv_{j}" + ("" if j == 1 else "/Conv_0"),
+         f"attention{k}.{name}", "conv") for j, name in enumerate(_ESA)]
+
+
+def _paired_table(arch: str):
+    """The `_R`/`_D` archs' own transforms (their hyper pairs and the
+    mbt2018 machinery come from `_rgbt_state`)."""
+    if arch == "cheng2020-attn_R":
+        return ([(f"g_a_net/{p}", f"enc.{n}", k)
+                 for p, n, k in _CHENG_ENC_HIDDEN]
+                + [(f"g_s_net/{p}", f"dec.{n}", k)
+                   for p, n, k in _CHENG_DEC_HIDDEN])
+    if arch in _PAIRED_R:
+        return _guided_table()
+    table = []
+    for i in range(3):
+        table += _edge_fuse_table(f"enc_fuse_{i}", 2 * i + 1, 2 * i + 2,
+                                  i + 1)
+        table += _edge_fuse_table(f"dec_fuse_{i}", 2 * i + 7, 2 * i + 8,
+                                  i + 4)
+    if arch == "cheng2020-attn_D":
+        return table + list(_CHENG_ATTN_D)
+    for i in range(4):
+        table += [
+            (f"pic2_ga_convs_{i}/Conv_0", f"pic2_g_a_conv{i + 1}", "conv"),
+            (f"pic2_gs_convs_{i}/Conv_0", f"pic2_g_s_conv{i + 1}",
+             "deconv")]
+    for i in range(3):
+        table += [(f"pic2_ga_gdns_{i}", f"pic2_g_a_gdn{i + 1}", "gdn"),
+                  (f"pic2_gs_gdns_{i}", f"pic2_g_s_gdn{i + 1}", "gdn")]
+    return table
+
+
 def _rgbt_table(arch: str):
     if arch == "guided":
-        return (
-            [(f"g_a_net/Conv_{i}/Conv_0", f"enc1.g_a_conv{i + 1}", "conv")
-             for i in range(4)]
-            + [(f"g_a_net/GDN_{i}", f"enc1.g_a_gdn{i + 1}", "gdn")
-               for i in range(3)]
-            + [(f"g_s_net/Deconv_{i}/Conv_0", f"dec1.g_s_conv{i + 1}",
-                "deconv") for i in range(4)]
-            + [(f"g_s_net/GDN_{i}", f"dec1.g_s_gdn{i + 1}", "gdn")
-               for i in range(3)])
+        return _guided_table()
+    if arch in _PAIRED_R + _PAIRED_D:
+        return _paired_table(arch)
     table = []
     for i in range(3):
         sa, name = f"g_s_net/sp_aligner{i + 1}", f"decoder.sp_aligner{i + 1}"
@@ -242,8 +348,9 @@ def _rgbt_leaves(node, kind):
 
 def _rgbt_state(arch: str, params: Mapping[str, Any]
                 ) -> Dict[str, np.ndarray]:
-    """The RGB-T transforms' leaves, and the mbt2018 machinery both
-    compressers inherit. Raises if a leaf of `params` is left over."""
+    """The RGB-T transforms' leaves (the pair's and the paired archs'),
+    and the mbt2018 machinery they inherit, with cheng2020's hyper pair
+    where they have it. Raises if a leaf of `params` is left over."""
     out: Dict[str, np.ndarray] = {}
     for path, name, kind in _rgbt_table(arch):
         node = params
@@ -251,13 +358,18 @@ def _rgbt_state(arch: str, params: Mapping[str, Any]
             node = node.get(part) if isinstance(node, Mapping) else None
         if node is None:
             continue  # an absent skip or downsample
+        if kind in ("rbs", "rb", "rbu", "attn"):
+            out.update(block_state_dict(kind, node, name))
+            continue
         for leaf, value in _rgbt_leaves(node, kind).items():
             out[f"{name}.{leaf}"] = np.asarray(value)
     seqs = dict(_DECONVS["mbt2018"])
-    if arch == "guided":
-        del seqs["g_a"], seqs["g_s"]
-    else:
-        del seqs["g_s"]
+    del seqs["g_s"]
+    if arch != "master":
+        del seqs["g_a"]
+    if arch.startswith("cheng2020"):
+        del seqs["h_a"], seqs["h_s"]
+        out.update(_cheng_state(_CHENG_HYPER, params))
     out.update(_sequence_state(seqs, params))
     want = _count_leaves({k: v for k, v in params.items() if k not in (
         "entropy_bottleneck", "context_prediction")})
@@ -271,10 +383,12 @@ def state_dict_from_jax(arch: str, params: Mapping[str, Any]
     """lmic_tpu `variables["params"]` (numpy leaves) -> this package's
     `state_dict` for `arch`, in the leaves' dtype. The map is linear, so it
     carries a gradient tree of the same structure across too."""
-    if arch in ("guided", "master"):
+    if arch in ("guided", "master") + _PAIRED_R + _PAIRED_D:
         out = _rgbt_state(arch, params)
     elif arch in _CHENG:
-        out = _cheng_state(arch, params)
+        out = _cheng_state({**{seq: dict(enumerate(kinds))
+                               for seq, kinds in _CHENG[arch].items()},
+                            **_CHENG_HYPER}, params)
         out.update(_sequence_state({"entropy_parameters": ()}, params))
     elif arch in _DECONVS:
         out = _sequence_state(_DECONVS[arch], params)

@@ -391,15 +391,16 @@ def test_cpu_round_trip_launches_no_kernel():
 
 
 def test_train_cli_refuses_and_update_model_cli_finalizes(tmp_path):
-    # train_cli trains the AR archs (tests/test_torch_train_ar.py); their
-    # paired RGB-T variants stay refused: '_D' has no training recipe,
-    # '_R' is not ported
+    # train_cli trains the AR archs (tests/test_torch_train_ar.py) and
+    # their '_R' variants in f32 (tests/test_torch_rgbt_joint.py); '_D'
+    # has no training recipe, and '_R' is not among the AMP archs, as in
+    # lmic_tpu
     for arch in AR_ARCHS:
-        for suffix, why in (("_D", "no standalone training recipe"),
-                            ("_R", "ROADMAP.md queue A, item 12")):
+        for args, why in (([arch + "_D"], "no standalone training recipe"),
+                          ([arch + "_R", "--amp"], "--amp supports")):
             with pytest.raises(SystemExit, match=why):
                 train_cli.main(["-d", str(tmp_path), "--device", "cpu",
-                                "--arch", arch + suffix])
+                                "--arch", *args])
     # update_model_cli builds the quality table's widths: N = M = 192
     path = tmp_path / "train.ckpt"
     wide = tzoo.make_module("mbt2018", 1)

@@ -178,5 +178,7 @@ def test_errors():
     codec.update()
     with pytest.raises(ValueError, match="multiples of 64"):
         codec.compress(pixels((1, 48, 64, 3)))
+    # the image zoo has every lmic_tpu image arch; ssf2020 is a video
+    # model (`create_video_model` in lmic_tpu), not one of them
     with pytest.raises(ValueError, match="Invalid architecture"):
-        tzoo.create_model("mbt2018_R", 1, device="cpu")
+        tzoo.create_model("ssf2020", 1, device="cpu")

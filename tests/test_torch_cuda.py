@@ -455,3 +455,56 @@ def test_master_train_step_on_card_matches_cpu(role):
     assert launched == {k: 12 if k == "gdn_fwd" else 6
                         for k in gdn.LAUNCHES}
     assert loss_err <= 1e-4 and grad_err <= 1e-3, (loss_err, grad_err)
+
+
+def _paired(family, device):
+    """A narrow (N = M = 32) `_R` guide codec and `_D` codec of `family`."""
+    out = []
+    for suffix, channel, seed in (("_R", 3, 0), ("_D", 1, 1)):
+        codec = zoo.create_model(family + suffix, 1, seed=seed,
+                                 channel=channel, device=device, N=32, M=32)
+        codec.update()
+        out.append(codec)
+    return out
+
+
+@pytest.mark.parametrize("family", AR_ARCHS)
+def test_paired_round_trip_on_card_matches_cpu(family):
+    """An `_R` -> `_D` round trip on the card at 128x128 (the smallest
+    size whose deepest fusion level holds ESA's 15 pixels) runs gdn_fwd
+    15 times (6 in the `_R` compress, whose ga* maps take a second
+    analysis pass, 3 in each other leg) and no backward kernel; encoding
+    is deterministic and the `_D` decoder recovers its encoder's latents,
+    bit for bit; the transforms stage by stage within 1e-4 of the CPU's,
+    and the tables equal."""
+    from lmic_tpu_torch.models.codec import _symbols_to_host
+    from lmic_tpu_torch.utils.crosscheck import paired_agreement
+
+    guide_codec, codec = pair = _paired(family, "cuda")
+    rng = np.random.default_rng(7)
+    x = (rng.random((1, 128, 128, 1)) * 255).astype(np.uint8)
+    guide = (rng.random((1, 128, 128, 3)) * 255).astype(np.uint8)
+    before = dict(gdn.LAUNCHES)
+    g = guide_codec.compress(guide)
+    g_dec = guide_codec.decompress(g["strings"], g["shape"])
+    out = codec.compress(x, g["hidden"])
+    rec = codec.decompress(out["strings"], out["shape"], g_dec["hidden"],
+                           u8=True)["x_hat"]
+    torch.cuda.synchronize()
+    launched = {k: gdn.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: 15 if k == "gdn_fwd" else 0 for k in before}
+    assert rec.shape == x.shape and rec.dtype == np.uint8
+    assert codec.compress(x, g["hidden"])["strings"] == out["strings"]
+    with torch.inference_mode():
+        y, z = codec.module.analyze_fused(codec._pixels(x), g["hidden"])
+        z_sym = _symbols_to_host(
+            torch.round(z - codec._medians(codec.eb_state)))
+        enc = codec._code_y_z([y], z_sym, keep_y_hat=True)
+        dec = codec._decode_y_hat(enc["strings"], enc["shape"])
+    assert torch.equal(dec, enc["y_hat_latent"])
+    assert enc["strings"] == out["strings"]
+    ref = _paired(family, "cpu")
+    assert paired_agreement(pair, ref, x, guide) < 1e-4
+    for a, b in zip(pair, ref):
+        np.testing.assert_array_equal(a.gc_state.table.cdf,
+                                      b.gc_state.table.cdf)

@@ -59,9 +59,15 @@ ROUND_EVERY_OP = {"xla_allow_excess_precision": False}
 # framework; lmic_tpu's own draw there can be small (0.055 where the
 # port's is 0.145, g_s.0.conv_b.0.conv.0.weight), past the 2x rule, while
 # each layer's output rounds as lmic_tpu's does
-# (test_ar_amp_transforms_round_as_lmic_tpu)
+# (test_ar_amp_transforms_round_as_lmic_tpu). Alone, on the same bf16
+# input and upstream gradient, a block's backward errs as lmic_tpu's does
+# (port / lmic_tpu 0.89-1.14 a leaf over 8 seeds, 1.00 on average), and
+# over seeded batches the blocks' leaves meet the 2x rule on average
+# (test_ar_amp_attention_blocks_pooled_match_lmic_tpu_bf16)
 BF16_NOISIER = {"cheng2020-attn": (("g_a.3.", "g_a.8.", "g_s.0.", "g_s.5."),
                                    4)}
+# the seeded batches of the pooled check
+POOLED_SEEDS = (3, 4, 5, 6)
 
 
 @pytest.fixture()
@@ -255,6 +261,55 @@ def test_ar_amp_loss_and_grads_match_lmic_tpu_bf16(arch, n, m, same_noise):
         bar = 2e-2 + factor * _rel_fro(want_g[own], f32_g[own])
         err = _rel_fro(got, ref)
         assert err < bar, (name, err, bar)
+
+
+def test_ar_amp_attention_blocks_pooled_match_lmic_tpu_bf16(same_noise):
+    """cheng2020-attn's attention blocks (BF16_NOISIER) at the 2x rule of
+    test_ar_amp_loss_and_grads_match_lmic_tpu_bf16, averaged over the
+    blocks' leaves and over the seeded batches of POOLED_SEEDS, so one
+    draw of rounding noise does not decide it: the port's mean relative
+    Frobenius error against lmic_tpu's f32 gradient under 2e-2 plus 2
+    times lmic_tpu's own bf16 mean (a bias taken on its layer's weight,
+    as there). Measured: 0.0447 against lmic_tpu's own 0.0475, 0.39 of
+    the bar (seeds 3-10: 0.37)."""
+    arch, n, m = AR_TRAIN[2]
+    params = jax.tree.map(jnp.asarray, jax_params(arch, n=n, m=m))
+    module = jzoo.make_module(arch, 1, N=n, M=m)
+    bf16 = jzoo.make_module(arch, 1, N=n, M=m, dtype=jnp.bfloat16)
+
+    def grad_fn(mdl, options=None):
+        def loss_fn(p, b):
+            out = mdl.apply({"params": p}, b, training=True,
+                            rngs={"noise": jax.random.key(0)})
+            rd = jtrain.rate_distortion_loss(out, b, LMBDA)
+            return rd["loss"] + mdl.apply({"params": p},
+                                          method=type(mdl).aux_loss)
+
+        b0 = jnp.asarray(_batch())
+        return jax.jit(jax.grad(loss_fn)).lower(params, b0).compile(
+            compiler_options=options or {})
+
+    f32_step, bf16_step = grad_fn(module), grad_fn(bf16, ROUND_EVERY_OP)
+    noisier = BF16_NOISIER[arch][0]
+    got_err, own_err = [], []
+    for seed in POOLED_SEEDS:
+        batch = (pixels(IMAGE, seed=seed) / 255.0).astype(np.float32)
+        ref, own = (state_dict_from_jax(arch, jax.tree.map(
+            np.asarray, step(params, jnp.asarray(batch))))
+            for step in (f32_step, bf16_step))
+        _, got = _port_loss_and_grads(
+            _port_module(arch, jax.tree.map(np.asarray, params), n, m,
+                         compute=torch.bfloat16), _nchw(batch))
+        for name in ref:
+            if not name.startswith(noisier):
+                continue
+            weight = (name[:-len("bias")] + "weight"
+                      if name.endswith(".bias") else name)
+            got_err.append(_rel_fro(got[name], ref[name]))
+            own_err.append(_rel_fro(own[weight], ref[weight]))
+    assert len(got_err) == len(POOLED_SEEDS) * 4 * 38
+    mean, own_mean = np.mean(got_err), np.mean(own_err)
+    assert mean < 2e-2 + 2 * own_mean, (mean, own_mean)
 
 
 def _jax_layer_outputs(arch, params, x, n, m, stack, compute=None,
