@@ -5,6 +5,7 @@ runs them.
 
     python3 chip_probes.py master-batch [B ...]  # from the root of a checkout
     python3 chip_probes.py train-convs
+    python3 chip_probes.py video-convs
 
 - master-batch: the largest batch of the RGB-T master's training step
   that fits, the channel-1 master q7 (f32) against its frozen guided q7 on
@@ -19,6 +20,13 @@ runs them.
   among its deterministic algorithms (`benchmark`), and, at the first
   shape, im2col + one cuBLAS product with autograd's fold
   (`layers._conv_gemm`): device ms, device operations, FFT kernels.
+- video-convs: each 5x5 stride-2 conv and transposed conv of ssf2020's
+  encoders and decoders at a 1920x1152 frame (batch 1, f32, TF32 off,
+  deterministic, no autograd), through cuDNN (the layers' route) and
+  through one cuBLAS product with im2col (conv) or col2im (`F.fold`,
+  transposed conv): device ms, device operations, the largest kernels and
+  the error against cuDNN in f64; then `crosscheck.video_agreement` and
+  the strings' bytes of one 1920x1152 GOP on the card against the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from chip_smoke import (
     RGBT_QUALITY,
     _fft_kernels,
     _profile,
+    _gop_bytes,
+    _gops,
     _time_ms,
     _train_batch,
     log,
@@ -119,10 +129,99 @@ def train_convs():
         del x, w, b, g
 
 
+def _video_conv_cases():
+    """(name, transposed, C_in, C_out, input H, W) of ssf2020 at
+    1920x1152: the encoders' convs, then the decoders' transposed convs."""
+    H, W = chip_smoke.VIDEO_GOP[2:4]
+    return [("enc0 img", False, 3, 128, H, W),
+            ("enc0 motion", False, 6, 128, H, W),
+            ("enc1", False, 128, 128, H // 2, W // 2),
+            ("enc2", False, 128, 128, H // 4, W // 4),
+            ("enc3", False, 128, 192, H // 8, W // 8),
+            ("dec0", True, 192, 128, H // 16, W // 16),
+            ("dec0 res", True, 384, 128, H // 16, W // 16),
+            ("dec1", True, 128, 128, H // 8, W // 8),
+            ("dec2", True, 128, 128, H // 4, W // 4),
+            ("dec3", True, 128, 3, H // 2, W // 2)]
+
+
+def _gemm_conv(x, w, b, transposed):
+    """A 5x5 stride-2 conv (padding 2) or transposed conv (output
+    padding 1) as one cuBLAS product with im2col or col2im."""
+    import torch.nn.functional as F
+
+    B, C, H, W = x.shape
+    if transposed:  # w: (C_in, C_out, 5, 5)
+        cols = w.flatten(1).t() @ x.reshape(B, C, H * W)
+        return F.fold(cols, (2 * H, 2 * W), 5, padding=2,
+                      stride=2) + b[:, None, None]
+    cols = F.unfold(x, 5, padding=2, stride=2)
+    out = w.flatten(1) @ cols + b[:, None]
+    return out.view(B, -1, (H + 1) // 2, (W + 1) // 2)
+
+
+def video_convs():
+    import torch
+    import torch.nn.functional as F
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils.crosscheck import video_agreement
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        for name, transposed, cin, cout, H, W in _video_conv_cases():
+            x = torch.randn((1, cin, H, W), generator=gen, device="cuda")
+            x = x.contiguous(memory_format=torch.channels_last)
+            shape = (cin, cout, 5, 5) if transposed else (cout, cin, 5, 5)
+            w = torch.randn(shape, generator=gen, device="cuda") / (
+                5 * cin ** 0.5)
+            w = w.contiguous(memory_format=torch.channels_last)
+            b = torch.randn(cout, generator=gen, device="cuda") * 0.1
+            if transposed:
+                def cudnn(x=x, w=w, b=b, dt=torch.float32):
+                    return F.conv_transpose2d(x.to(dt), w.to(dt), b.to(dt),
+                                              2, 2, 1)
+            else:
+                def cudnn(x=x, w=w, b=b, dt=torch.float32):
+                    return F.conv2d(x.to(dt), w.to(dt), b.to(dt), 2, 2)
+            ref = cudnn(dt=torch.float64)
+            scale = ref.abs().max().item()
+            routes = {"cudnn": cudnn,
+                      "gemm": lambda x=x, w=w, b=b, t=transposed:
+                      _gemm_conv(x, w, b, t)}
+            out = {}
+            for route, run in routes.items():
+                err = (run().double() - ref).abs().max().item() / scale
+                ms = _time_ms(run, runs=5, warmup=2)
+                _, _, _, top, ops = _profile(run, n=1, keep=3)
+                out[route] = {"ms": round(ms, 3), "rel_err": float(
+                    f"{err:.3g}"), "device_operations": ops,
+                    "kernels": {k: round(v, 3) for k, v in top.items()}}
+            kind = "transposed conv" if transposed else "conv"
+            log(f"video {name}: 5x5 stride-2 {kind} {cin}->{cout} from "
+                f"{W}x{H}: {json.dumps(out)}")
+            del x, w, b, ref
+        torch.cuda.empty_cache()
+    cuda = zoo.create_video_model(seed=0, device="cuda")
+    cpu = zoo.create_video_model(seed=0, device="cpu")
+    cuda.update()
+    cpu.update()
+    gop = _gops(1)[0]
+    t0 = time.perf_counter()
+    worst = video_agreement(cuda, cpu, gop)
+    log(f"video CUDA vs CPU stages at {gop.shape[3]}x{gop.shape[2]}: "
+        f"{worst:.3g} ({time.perf_counter() - t0:.1f} s)")
+    for codec in (cuda, cpu):
+        strings, _ = codec.compress(gop)
+        log(f"video GOP bytes on {codec.device}: keyframe, inter frames "
+            f"{_gop_bytes(strings)}")
+
+
 def main(argv):
     import torch
 
-    if not argv or argv[0] not in ("master-batch", "train-convs"):
+    probes = ("master-batch", "train-convs", "video-convs")
+    if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -134,8 +233,10 @@ def main(argv):
     chip_smoke.phase_environment()
     if argv[0] == "master-batch":
         master_batch([int(a) for a in argv[1:]] or [4, 6, 8, 10, 12, 16])
-    else:
+    elif argv[0] == "train-convs":
         train_convs()
+    else:
+        video_convs()
     return 0
 
 

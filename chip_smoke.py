@@ -89,7 +89,7 @@ Phases, each of which raises (exit code != 0) on any failure:
    batch, step ms, peak memory and a profile of one step logged; then a
    narrow cheng2020-attn step and a narrow master step on the card
    against the CPU with the same noise;
-9. the paired RGB-T archs, last, so every earlier phase keeps the process
+9. the paired RGB-T archs, next, so every earlier phase keeps the process
    state it was measured in: one direct round trip of each `_R` -> `_D`
    pair (mbt2018, cheng2020-anchor, cheng2020-attn) at quality 7 (N = M =
    192), seed 0 for the guide and 1 for the thermal codec, a 512x640 RGB
@@ -103,7 +103,22 @@ Phases, each of which raises (exit code != 0) on any failure:
    profile of each leg of the first pair and of the others' round trips,
    and the first fusion conv on the GEMM route; then cheng2020-attn_R q7
    trained in f32 at batch 16 of 256x256 (2 warm-up and 4 timed steps, 6
-   `gdn_fwd` and 6 of each backward kernel a step, the loss falling).
+   `gdn_fwd` and 6 of each backward kernel a step, the loss falling);
+10. video serving, last: ssf2020 (192 latent, 128 mid planes, its one
+   width) from seed 0, finalized by `update_model_file` and served by
+   `serve.main --checkpoint ... -a ssf2020` in a thread; three seeded
+   3-frame GOPs (an I and two P frames) of 1920x1152 uint8 (1080p padded
+   to multiples of 128) through POST /compress and /decompress after one
+   warm-up pair, with the launch counts set to 0 just before and read
+   just after (ssf2020 has no GDN: all must read 0); each body equal to
+   the direct call's and parsing back to itself, encoding deterministic,
+   the decoder's frames equal to the encoder's in-loop reconstructions
+   bit for bit, the uint8 frames within one level of the float decode,
+   the CUDA transforms and the scale-space warp within 1e-4 of the CPU's
+   stage by stage on a 128x128 GOP (`crosscheck.video_agreement`) with
+   equal tables; each request's ms, stages, bytes and bpp per frame
+   type, the peak memory, a profile of each leg and the 11x11 depthwise
+   blur's kernels at full size logged.
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -201,6 +216,12 @@ PAIRED_ROUND_TRIP = {81_920: (3, 2), 20_480: (3, 2), 5_120: (3, 2)}
 # one `_R` arch trained at lmic_tpu's trainer defaults, f32 (lmic_tpu's
 # AMP_ARCHS leaves the `_R` archs out)
 PAIRED_TRAIN = ("cheng2020-attn_R", 7)
+# phase 10: ssf2020 (its one width: 192 latent, 128 mid planes) served from
+# a finalized checkpoint, three 3-frame GOPs (an I and two P frames) of
+# 1080p padded to multiples of 128, as lmic_tpu's video eval pads it
+VIDEO_GOP = (1, 3, 1152, 1920, 3)
+VIDEO_REQUESTS = 3
+VIDEO_CHECK = (1, 3, 128, 128, 3)  # the CUDA-vs-CPU stages
 
 
 def log(*a):
@@ -1908,6 +1929,214 @@ def phase_paired():
     return serve_launches, train
 
 
+def _gops(n, shape=None, seed=0):
+    """Seeded uint8 GOPs of `shape` (default VIDEO_GOP): a smooth frame
+    with noise that moves a few pixels a frame, with fresh noise on
+    each."""
+    rng = np.random.default_rng(seed + 1000)
+    B, T, H, W, C = shape or VIDEO_GOP
+    out = []
+    for i in range(n):
+        base = _images(1, (1, H, W, C), seed=seed + i)[0][0]
+        dy, dx = rng.integers(-4, 5, 2)
+        frames = [np.clip(np.roll(base, (t * dy, t * dx), (0, 1))
+                          + rng.normal(0, 3, base.shape), 0, 255)
+                  for t in range(T)]
+        out.append(np.stack(frames).astype(np.uint8)[None])
+    return out
+
+
+def _gop_bytes(strings):
+    """(keyframe bytes, inter-frame bytes of each inter frame)."""
+    def n(groups):
+        return sum(len(s) for g in groups for s in g)
+
+    return n(strings[0]), [n(f["motion"]) + n(f["residual"])
+                           for f in strings[1:]]
+
+
+def _log_video_profile(what, run):
+    """One leg's device ms (torch.profiler), busy share of its wall ms,
+    device operations and largest kernels; returns the GDN device ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    gdn_ms, dev_ms, _, top, ops = _profile(run, n=1, keep=10)
+    log(f"video profile {what}: device {dev_ms:.2f} ms of wall "
+        f"{wall_ms:.2f} ms (busy {100 * dev_ms / wall_ms:.1f} %), "
+        f"{ops:.0f} device operations, GDN {gdn_ms:.3f} ms; device ms of "
+        "the largest kernels: "
+        + json.dumps({k: round(v, 3) for k, v in top.items()}))
+    return gdn_ms
+
+
+def _log_blur(n=10):
+    """The 11x11 depthwise Gaussian blur of the scale-space volume at
+    full size, as the warp runs it: its device kernels and ms. The
+    profile is of a second cycle of `n` calls: a session can drop its
+    first operations, and a blur is a few of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from lmic_tpu_torch.ops import video
+
+    _, _, H, W, C = VIDEO_GOP
+    x = torch.rand(1, C, H, W, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    kernel = video.gaussian_kernel2d(11, 1.5, device="cuda")
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    video.gaussian_blur(x, kernel)
+                torch.cuda.synchronize()
+                prof.step()
+        ms = _time_ms(lambda: video.gaussian_blur(x, kernel))
+    kernels = {evt.key[:60]: round(evt.self_device_time_total / 1e3 / n, 3)
+               for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA
+               and not evt.is_user_annotation}
+    ops = sum(evt.count for evt in prof.key_averages()
+              if evt.device_type == DeviceType.CUDA
+              and not evt.is_user_annotation) / n
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    log(f"video blur 11x11 depthwise at {W}x{H}: {ms:.3f} ms a call "
+        f"(CUDA events), {ops:.0f} device operations a call: "
+        + json.dumps(kernels))
+
+
+def phase_video_serving():
+    """ssf2020 served by `serve.main --checkpoint` from a file that
+    `update_model_file` finalized: three 1080p GOPs through POST /compress
+    and /decompress. Returns the GDN launches of the served requests
+    (there must be none)."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils import serve
+    from lmic_tpu_torch.utils.checkpoint import update_model_file
+    from lmic_tpu_torch.utils.crosscheck import video_agreement
+
+    t_phase = time.perf_counter()
+    codec = zoo.create_video_model("ssf2020", 1, seed=0, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = update_model_file(tmp, codec, "ssf2020-q1")
+        started, ready = [], threading.Event()
+        thread = threading.Thread(
+            target=serve.main,
+            args=(["--checkpoint", path, "-a", "ssf2020", "--port", "0"],),
+            kwargs={"started": lambda srv: (started.append(srv),
+                                            ready.set())},
+            daemon=True)
+        thread.start()
+        if not ready.wait(300):
+            raise AssertionError("the video server did not start")
+        server = started[0]
+        direct, _ = serve.load_checkpoint_codec(path, "ssf2020")
+    t_built = time.perf_counter() - t_phase
+    served, port = server.codec, server.server_address[1]
+    try:
+        gops = _gops(VIDEO_REQUESTS)
+        payloads = []
+        for gop in gops:
+            buf = io.BytesIO()
+            serve._write_pixels(buf, gop)
+            payloads.append(buf.getvalue())
+        _post(port, "/decompress", _post(port, "/compress", payloads[0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        requests = []
+        for payload in payloads:
+            t0 = time.perf_counter()
+            body = _post(port, "/compress", payload)
+            t1 = time.perf_counter()
+            enc = _leg_stats(served, "enc_")
+            rec = _post(port, "/decompress", body)
+            t2 = time.perf_counter()
+            requests.append((body, rec, 1e3 * (t1 - t0), 1e3 * (t2 - t1),
+                             enc, _leg_stats(served, "dec_")))
+        torch.cuda.synchronize()
+        counts = dict(gdn.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.shutdown()
+        thread.join(60)
+    if thread.is_alive():
+        raise AssertionError("the video server did not stop")
+    if any(counts.values()):
+        raise AssertionError(f"video serving launched GDN kernels {counts}")
+    _, T, H, W, _ = VIDEO_GOP
+    for i, (gop, (body, rec, c_ms, d_ms, enc, dec)) in enumerate(
+            zip(gops, requests)):
+        strings, shapes = serve._decode_request(io.BytesIO(body), True)
+        if serve._encode_response((strings, shapes), True) != body:
+            raise AssertionError("the body does not parse back to itself")
+        got = serve._read_pixels(io.BytesIO(rec))
+        if got.shape != gop.shape or got.dtype != np.uint8:
+            raise AssertionError(f"bad /decompress {got.shape} {got.dtype}")
+        direct_out = direct.compress(gop)
+        if serve._encode_response(direct_out, True) != body \
+                or direct.compress(gop) != direct_out:
+            raise AssertionError("video bodies differ from the direct "
+                                 "calls, or encoding is not deterministic")
+        if not np.array_equal(direct.decompress(strings, shapes, u8=True),
+                              got):
+            raise AssertionError("/decompress differs from the direct call")
+        with torch.inference_mode():
+            _, recs = direct._encode_gop(direct._frames(gop))
+            in_loop = torch.stack(recs, 1).permute(0, 1, 3, 4, 2).cpu()
+        f32 = direct.decompress(strings, shapes)
+        if not np.array_equal(f32, in_loop.numpy()):
+            raise AssertionError("the decoder's frames differ from the "
+                                 "encoder's in-loop reconstructions")
+        level = np.abs(got.astype(np.float64)
+                       - np.clip(f32, 0.0, 1.0) * 255.0).max()
+        if not np.isfinite(f32).all() or level > 1.0:
+            raise AssertionError(f"uint8 frames {level:.3f} levels off")
+        key, inter = _gop_bytes(strings)
+        log(f"video request {i}: /compress {c_ms:.1f} ms, /decompress "
+            f"{d_ms:.1f} ms; keyframe {key} bytes "
+            f"({8 * key / (H * W):.4f} bpp), inter frames {inter} bytes "
+            f"({[round(8 * b / (H * W), 4) for b in inter]} bpp); stages "
+            + json.dumps({**enc, **dec}))
+    t0 = time.perf_counter()
+    cpu = zoo.create_video_model("ssf2020", 1, seed=0, device="cpu")
+    cpu.update()  # the tables are built on the CPU on both
+    for which, hp in codec.hp_states.items():
+        if not np.array_equal(hp.eb_state.table.cdf,
+                              cpu.hp_states[which].eb_state.table.cdf):
+            raise AssertionError(f"video {which} tables differ")
+    worst = video_agreement(codec, cpu, _gops(1, VIDEO_CHECK, seed=7)[0])
+    if not worst < 1e-4:
+        raise AssertionError(f"video: CUDA vs CPU stages {worst:.3g}")
+    log(f"video ssf2020 q1 (192 latent, 128 mid planes), {T} frames of "
+        f"{W}x{H}, served from {os.path.basename(path)}: built, finalized "
+        f"and loaded in {t_built:.1f} s; 0 GDN launches; peak "
+        f"{peak / 2**30:.2f} GiB; CUDA vs CPU stages within {worst:.3g} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    gop = gops[0]
+    strings, shapes = direct.compress(gop)
+    _log_video_profile("compress", lambda: direct.compress(gop))
+    _log_video_profile("decompress", lambda: direct.decompress(
+        strings, shapes, u8=True))
+    _log_blur()
+    del codec, direct, served, server, cpu
+    torch.cuda.empty_cache()
+    log(f"video phase: {time.perf_counter() - t_phase:.1f} s")
+    return sum(counts.values())
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -2000,6 +2229,7 @@ def main():
     rgbt_launches = phase_rgbt_serving()
     more_training = phase_ar_rgbt_training()
     paired_launches, more_training["paired_training"] = phase_paired()
+    video_launches = phase_video_serving()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
@@ -2023,6 +2253,7 @@ def main():
                              "ar_serving": ar_launches,
                              "rgbt_serving": rgbt_launches,
                              "paired_serving": paired_launches,
+                             "video_serving": video_launches,
                              **{p: c["gdn_fwd"]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
@@ -2054,8 +2285,9 @@ def main():
         "replaces": "lmic_tpu/ops/pallas_gdn.py:195",
         "launches": next(iter(bwd_counts.values())),
         "launches_by_kernel": bwd_counts,
-        "launches_by_path": {p: c[gdn.BWD_KERNELS[0]]
-                             for p, c in training.items()},
+        "launches_by_path": {"video_serving": video_launches,
+                             **{p: c[gdn.BWD_KERNELS[0]]
+                                for p, c in training.items()}},
         "launches_per_step": train_counts[gdn.BWD_KERNELS[0]] / train_steps,
         "max_abs_err": max(errors["gdn_bwd"].values()),
         "max_abs_err_by_dtype": errors["gdn_bwd"],

@@ -1,5 +1,6 @@
-"""Host-side data pipeline of the training path (counterpart of the image
-part of lmic_tpu/datasets/)."""
+"""Host-side data pipeline (counterpart of lmic_tpu/datasets/): the image
+loaders of the training path, the raw video reader and the video clip
+folder."""
 
 from lmic_tpu_torch.datasets.image import (  # noqa: F401
     TRAIN_SCALE_ARRAY,
@@ -10,6 +11,12 @@ from lmic_tpu_torch.datasets.image import (  # noqa: F401
     center_crop,
     random_crop,
 )
+from lmic_tpu_torch.datasets.rawvideo import (  # noqa: F401
+    RawVideoSequence,
+    VideoFormat,
+    get_raw_video_file_info,
+)
+from lmic_tpu_torch.datasets.video import VideoFolder  # noqa: F401
 
 
 def prefetch(iterable, size: int = 2):
@@ -58,5 +65,6 @@ def prefetch(iterable, size: int = 2):
 
 
 __all__ = ["TRAIN_SCALE_ARRAY", "DataLoader", "ImageFolder",
-           "ImageFolderRGB", "ImageFolderT", "center_crop", "prefetch",
-           "random_crop"]
+           "ImageFolderRGB", "ImageFolderT", "RawVideoSequence",
+           "VideoFolder", "VideoFormat", "center_crop",
+           "get_raw_video_file_info", "prefetch", "random_crop"]

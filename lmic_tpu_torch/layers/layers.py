@@ -1,8 +1,8 @@
 """Layers of the image codecs: Conv, Deconv, GDN/IGDN, and the sub-pixel,
 masked-context, residual and attention blocks of the AR family.
 
-Counterpart of lmic_tpu/layers/layers.py:32-168, 207-345, 374-414 (ESA,
-SELayer). Activations are
+Counterpart of lmic_tpu/layers/layers.py:32-168, 207-345, 347-371 (qrelu),
+374-414 (ESA, SELayer). Activations are
 NCHW in `torch.channels_last` memory format. Padding follows the reference:
 
 - Conv(k, s):   nn.Conv2d(padding=k//2)                       -> ceil(H/s)
@@ -144,6 +144,36 @@ class GDN(nn.Module):
             x = x.contiguous(memory_format=torch.channels_last)
         y = gdn_core(x.permute(0, 2, 3, 1), beta, gamma, self.inverse)
         return y.permute(0, 3, 1, 2)
+
+
+class _QReLU(torch.autograd.Function):
+    """Clamp to [0, 2^bit_depth - 1]; outside the range the gradient is
+    the gamma-decay surrogate (reference layers.py:247-296)."""
+
+    @staticmethod
+    def forward(ctx, x, bit_depth, beta):
+        ctx.save_for_backward(x)
+        ctx.bit_depth, ctx.beta = bit_depth, beta
+        return torch.clamp(x, 0, 2**bit_depth - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        alpha = 0.9943258522851727
+        max_value = 2**ctx.bit_depth - 1
+        grad_sub = torch.exp(
+            (-(alpha**ctx.beta))
+            * torch.abs(2.0 * x / max_value - 1) ** ctx.beta
+        ) * g
+        out_of_range = (x < 0) | (x > max_value)
+        return torch.where(out_of_range, grad_sub, g), None, None
+
+
+def qrelu(x: torch.Tensor, bit_depth: int = 8, beta: int = 100
+          ) -> torch.Tensor:
+    """QReLU of ssf2020's scale hyper decoder: `clamp(x, 0, 255)` with the
+    surrogate gradient of `_QReLU` (lmic_tpu's `qrelu` custom VJP)."""
+    return _QReLU.apply(x, bit_depth, beta)
 
 
 def conv3x3(in_channels: int, out_channels: int, stride: int = 1,

@@ -31,3 +31,7 @@ from lmic_tpu_torch.models.rgbt_joint import (  # noqa: F401
     JointAutoregressiveHierarchicalPriors_D,
     JointAutoregressiveHierarchicalPriors_R,
 )
+from lmic_tpu_torch.models.video import (  # noqa: F401
+    ScaleSpaceFlow,
+    ScaleSpaceFlowCodec,
+)

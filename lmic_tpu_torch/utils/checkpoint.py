@@ -7,7 +7,9 @@ compressai/utils/update_model/__main__.py:128-206 for the CDF baking and
 the sha256[:8] name). A training checkpoint is a `torch.save` of
 `{"params", "main", "aux", "step", "extra"}`: the module's and the two
 optimizers' `state_dict`s, the step count and the caller's metadata. A
-deployment checkpoint holds the params and the coding tables as tensors.
+deployment checkpoint holds the params and the coding tables as tensors;
+ssf2020's three sub-codecs' tables go under `hp_states`, {which: {"eb",
+"gc"}}, as in lmic_tpu (lmic_tpu/utils/checkpoint.py:108-127, 163-176).
 Both load with `weights_only=True`. lmic_tpu's flax-msgpack files are
 another format and are not read here.
 """
@@ -23,8 +25,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from lmic_tpu_torch.entropy.coder import CdfTable
-from lmic_tpu_torch.entropy.entropy_models import EBState, GCState
+from lmic_tpu_torch.zoo.convert import (
+    eb_state_from_numpy,
+    gc_state_from_numpy,
+)
 
 _TABLE_KEYS = ("cdf", "cdf_length", "offset")
 
@@ -92,6 +96,11 @@ def update_model_file(out_dir: str, codec, name: str) -> str:
         blob["eb_state"] = _table_tensors(codec.eb_state, "medians")
     if codec.gc_state is not None:
         blob["gc_state"] = _table_tensors(codec.gc_state, "scale_table")
+    if getattr(codec, "hp_states", None):
+        blob["hp_states"] = {
+            which: {"eb": _table_tensors(hp.eb_state, "medians"),
+                    "gc": _table_tensors(hp.gc_state, "scale_table")}
+            for which, hp in codec.hp_states.items()}
     buf = io.BytesIO()
     torch.save(blob, buf)
     data = buf.getvalue()
@@ -110,15 +119,16 @@ def load_updated_model(path: str, codec):
     blob = torch.load(path, map_location="cpu", weights_only=True)
     codec.module.load_state_dict(blob["params"])
     if "eb_state" in blob:
-        e = {k: v.numpy() for k, v in blob["eb_state"].items()}
-        codec.eb_state = EBState(
-            table=CdfTable(*(e[k] for k in _TABLE_KEYS)),
-            medians=e["medians"],
-        )
+        codec.eb_state = eb_state_from_numpy(_numpy(blob["eb_state"]))
     if "gc_state" in blob:
-        g = {k: v.numpy() for k, v in blob["gc_state"].items()}
-        codec.gc_state = GCState(
-            table=CdfTable(*(g[k] for k in _TABLE_KEYS)),
-            scale_table=g["scale_table"],
-        )
+        codec.gc_state = gc_state_from_numpy(_numpy(blob["gc_state"]))
+    if "hp_states" in blob:
+        codec.install_tables({
+            which: (eb_state_from_numpy(_numpy(s["eb"])),
+                    gc_state_from_numpy(_numpy(s["gc"])))
+            for which, s in blob["hp_states"].items()})
     return codec
+
+
+def _numpy(tensors):
+    return {k: v.numpy() for k, v in tensors.items()}

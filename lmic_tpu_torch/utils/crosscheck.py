@@ -2,8 +2,8 @@
 (tests/test_torch_cuda.py) both run: one training step on two devices with
 the same quantization noise (any trained arch, and the RGB-T master's step
 against its frozen guide), the AR codecs' wavefront step on two devices on
-the same coded latents, and the transforms of the RGB-T pair and of the
-paired `_R`/`_D` archs stage by stage.
+the same coded latents, and the transforms of the RGB-T pair, of the
+paired `_R`/`_D` archs and of ssf2020's GOP chain stage by stage.
 
 `torch.rand` draws other numbers on the card than on the CPU, so
 `fixed_noise` swaps `entropy_models.quantize_noise` for one that adds a
@@ -167,23 +167,23 @@ def wavefront_step_agreement(codec, ref, x):
 
 
 class _Stages:
-    """Runs a stage of a codec pair on two devices: `stage(a, b, *args)`
-    on `pair`'s modules and on `ref`'s, the args (tensors, or dicts of
-    them) copied to each device. Returns `pair`'s outputs, flattened
-    (a dict's values in order); `worst` is the largest error of any
-    output so far, max|a - b| / max(1, max|b|)."""
+    """Runs a stage of a tuple of codecs on two devices: `stage(*modules,
+    *args)` on `codecs`' modules and on `ref`'s, the args (tensors, or
+    dicts of them) copied to each device. Returns `codecs`' outputs,
+    flattened (a dict's values in order); `worst` is the largest error of
+    any output so far, max|a - b| / max(1, max|b|)."""
 
-    def __init__(self, pair, ref):
-        self.sides = ((pair, pair[1].device), (ref, ref[1].device))
+    def __init__(self, codecs, ref):
+        self.sides = ((codecs, codecs[-1].device), (ref, ref[-1].device))
         self.worst = 0.0
 
     def __call__(self, stage, *args):
         flat = []
-        for (a_codec, b_codec), dev in self.sides:
+        for codecs, dev in self.sides:
             a = [{k: v.to(dev) for k, v in t.items()} if isinstance(t, dict)
                  else t.to(dev) for t in args]
             out = []
-            for t in stage(a_codec.module, b_codec.module, *a):
+            for t in stage(*(c.module for c in codecs), *a):
                 out += list(t.values()) if isinstance(t, dict) else [t]
             flat.append(out)
         for a, b in zip(*flat):
@@ -235,4 +235,40 @@ def paired_agreement(pair, ref, x, guide) -> float:
                      codec._pixels(x), dict(zip(("ga1", "ga2", "ga3"), ga)))
         both(lambda r, d, a, h: [d.g_s_fused(a, h)], torch.round(yd),
              dict(zip(("gs1", "gs2", "gs3"), gs)))
+    return both.worst
+
+
+def video_agreement(codec, ref, frames) -> float:
+    """An ssf2020 codec against `ref`, the same weights on another device,
+    on a GOP `frames` ((1, T, H, W, 3) numpy), stage by stage as
+    `rgbt_agreement`: the keyframe's analysis, hyper analysis, entropy
+    parameters and synthesis; for each inter frame the motion analysis,
+    its hyperprior, the motion decoder, the scale-space warp
+    (`forward_prediction`), the residual analysis, its hyperprior and the
+    residual synthesis, each on `codec`'s outputs of the stage before.
+    Returns the largest error of any output."""
+    both = _Stages((codec,), (ref,))
+
+    def hyper(y, which):
+        z, = both(lambda m, t: [m.hp_encode_z(t, which)], y)
+        both(lambda m, t: m.hp_params(t, which), torch.round(z))
+
+    with torch.inference_mode():
+        x = codec._frames(frames)
+        y, = both(lambda m, t: [m.img_encode(t)], x[:, 0])
+        hyper(y, "img")
+        x_ref, = both(lambda m, t: [m.img_decode(t)], torch.round(y))
+        for i in range(1, x.shape[1]):
+            ym, = both(lambda m, a, b: [m.motion_encode(a, b)], x[:, i],
+                       x_ref)
+            hyper(ym, "motion")
+            ym = torch.round(ym)
+            info, = both(lambda m, t: [m.motion_decoder(t)], ym)
+            x_pred, = both(lambda m, a, b: [m.forward_prediction(a, b)],
+                           x_ref, info)
+            yr, = both(lambda m, t: [m.res_encode(t)], x[:, i] - x_pred)
+            hyper(yr, "res")
+            x_res, = both(lambda m, a, b: [m.res_decode(a, b)],
+                          torch.round(yr), ym)
+            x_ref = x_pred + x_res
     return both.worst

@@ -1,11 +1,16 @@
-"""HTTP serving of an image codec's uint8 path, and of the RGB-T pair.
+"""HTTP serving of an image or video codec's uint8 path, and of the RGB-T
+pair.
 
-Counterpart of lmic_tpu/utils/serve.py:62-245, 247-304, 370-386, with the
-same wire format (big-endian, framed by utils/codec_cli.py):
+Counterpart of lmic_tpu/utils/serve.py, with the same wire format
+(big-endian, framed by utils/codec_cli.py):
 
   POST /compress   request : u8 ndim, ndim x u32 dims, raw uint8 pixels
-                   response: write_body (u32 h, w; u8 n_groups; per group
-                             u8 n, per string u32 len + bytes)
+                             (video: a (B, T, H, W, 3) GOP)
+                   response: image -> one body (write_body: u32 h, w; u8
+                             n_groups; per group u8 n, per string u32 len
+                             + bytes); video -> u32 n_frames, then per
+                             frame a u8 body count and 1 body (keyframe)
+                             or 2 (inter: motion, residual)
   POST /decompress request : the /compress response, echoed back
                    response: u8 ndim, ndim x u32 dims, raw uint8 pixels
   GET  /meta       response: JSON meta
@@ -21,8 +26,10 @@ reconstruct; a content-keyed LRU of `LMIC_SERVE_GUIDE_CACHE` guides
 
 Any failure of a request maps to a 400 with the error's text. Requests are
 serialized through one lock around the codec work (socket reads and
-writes stay outside it). The video family and the `--bundle`/
-`--checkpoint` command line are ported with later slices.
+writes stay outside it). `main --checkpoint <file> -a <arch>` serves a
+deployment checkpoint that `utils/checkpoint.py::update_model_file` wrote
+(`SERVABLE_ARCHS`); `--bundle` and `-a master --guided-checkpoint` are
+ported with a later slice.
 """
 
 from __future__ import annotations
@@ -48,7 +55,8 @@ from lmic_tpu_torch.utils.codec_cli import (
     write_uints,
 )
 
-__all__ = ["make_server", "load_rgbt_codecs"]
+__all__ = ["make_server", "load_checkpoint_codec", "load_rgbt_codecs",
+           "main"]
 
 _LATER = ("is ported with a later slice of lmic_tpu_torch "
           "(ROADMAP.md, queue A)")
@@ -70,20 +78,59 @@ def _read_pixels(f):
     return np.frombuffer(buf, np.uint8).reshape(shape)
 
 
-def _codec_handlers(codec):
-    """compress/decompress closures for one image codec."""
+def _encode_response(out, video):
+    f = io.BytesIO()
+    if video:
+        # per GOP frame: keyframe -> one body; inter -> motion + residual
+        strings, shapes = out
+        write_uints(f, (len(strings),))
+        for frame_strings, frame_shape in zip(strings, shapes):
+            if isinstance(frame_strings, dict):
+                write_uchars(f, (2,))
+                for part in ("motion", "residual"):
+                    write_body(f, frame_shape[part], frame_strings[part])
+            else:
+                write_uchars(f, (1,))
+                write_body(f, frame_shape, frame_strings)
+    else:
+        write_body(f, out["shape"], out["strings"])
+    return f.getvalue()
+
+
+def _decode_request(f, video):
+    """A /decompress body -> (strings, shapes) for the codec."""
+    if not video:
+        shape, groups = read_body(f)
+        return groups, shape
+    (n_frames,) = read_uints(f, 1)
+    strings, shapes = [], []
+    for _ in range(n_frames):
+        (n_bodies,) = read_uchars(f, 1)
+        if n_bodies == 2:
+            mshape, mstrings = read_body(f)
+            rshape, rstrings = read_body(f)
+            strings.append({"motion": mstrings, "residual": rstrings})
+            shapes.append({"motion": mshape, "residual": rshape})
+        elif n_bodies == 1:
+            shape, groups = read_body(f)
+            strings.append(groups)
+            shapes.append(shape)
+        else:
+            raise ValueError(f"a frame has 1 or 2 bodies, not {n_bodies}")
+    return strings, shapes
+
+
+def _codec_handlers(codec, video):
+    """compress/decompress closures for one image or video codec."""
 
     def compress(f):
-        out = codec.compress(_read_pixels(f))
-        buf = io.BytesIO()
-        write_body(buf, out["shape"], out["strings"])
-        return buf.getvalue()
+        return _encode_response(codec.compress(_read_pixels(f)), video)
 
     def decompress(f):
-        shape, groups = read_body(f)
-        rec = codec.decompress(groups, shape, u8=True)
+        strings, shapes = _decode_request(f, video)
+        rec = codec.decompress(strings, shapes, u8=True)
         buf = io.BytesIO()
-        _write_pixels(buf, np.asarray(rec["x_hat"]))
+        _write_pixels(buf, np.asarray(rec if video else rec["x_hat"]))
         return buf.getvalue()
 
     return compress, decompress
@@ -188,17 +235,44 @@ def load_rgbt_codecs(quality, channel=1, seed=0, device=None, **widths):
     return (guided, master), meta
 
 
+# archs with a standalone compress(x)/decompress(..., u8=True) surface
+# (lmic_tpu/utils/serve.py:336-339); the RGB-T archs need side inputs
+SERVABLE_ARCHS = {
+    "bmshj2018-factorized", "bmshj2018-hyperprior", "mbt2018-mean",
+    "mbt2018", "cheng2020-anchor", "cheng2020-attn", "ssf2020",
+}
+
+
+def load_checkpoint_codec(checkpoint, arch, quality=1, device=None):
+    """The serving codec for --checkpoint: the zoo's codec for `arch` with
+    the deployment checkpoint's params and coding tables, and its meta."""
+    if arch not in SERVABLE_ARCHS:
+        raise SystemExit(
+            f"{arch} is not servable (needs side inputs or has no uint8 "
+            f"decode path); servable: {sorted(SERVABLE_ARCHS)}")
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils.checkpoint import load_updated_model
+
+    video = arch in zoo.video_architectures
+    codec = (zoo.create_video_model(arch, quality, device=device) if video
+             else zoo.create_model(arch, quality, device=device))
+    codec = load_updated_model(checkpoint, codec)
+    meta = {"family": "video" if video else "image", "input_shape": None,
+            "arch": arch, "quality": quality}
+    return codec, meta
+
+
 def make_server(codec, meta, host="127.0.0.1", port=0):
-    """Build a ThreadingHTTPServer serving `codec`. `meta` is a {"family",
-    "input_shape", ...} dict returned by GET /meta; family "rgbt" takes
-    `codec` as a (guided, master) pair."""
+    """Build a ThreadingHTTPServer serving `codec` (its `codec`
+    attribute). `meta` is a {"family", "input_shape", ...} dict returned
+    by GET /meta; family "video" serves a video codec's GOPs, family
+    "rgbt" takes `codec` as a (guided, master) pair."""
     family = meta.get("family")
-    if family == "video":
-        raise NotImplementedError(f"serving the {family} family {_LATER}")
     if family == "rgbt":
         compress_fn, decompress_fn = _rgbt_handlers(*codec)
     else:
-        compress_fn, decompress_fn = _codec_handlers(codec)
+        compress_fn, decompress_fn = _codec_handlers(codec,
+                                                     family == "video")
     lock = threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):
@@ -243,10 +317,15 @@ def make_server(codec, meta, host="127.0.0.1", port=0):
                     400, f"{type(e).__name__}: {e}".encode(), "text/plain"
                 )
 
-    return ThreadingHTTPServer((host, port), Handler)
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.codec = codec  # what it serves, for a caller to read its stats
+    return server
 
 
-def main(argv=None):
+def main(argv=None, started=None):
+    """Serve until interrupted. `started(server)`, when given, is called
+    with the bound server before it serves: a caller that runs `main` in a
+    thread stops it with `server.shutdown()`."""
     import argparse
 
     p = argparse.ArgumentParser(
@@ -255,7 +334,40 @@ def main(argv=None):
     )
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--bundle", help="serving bundle directory")
-    src.add_argument("--checkpoint", help="updated deployment checkpoint")
+    src.add_argument("--checkpoint", help="deployment checkpoint "
+                     "(utils/update_model_cli.py output)")
+    p.add_argument("-a", "--arch", help="architecture (checkpoint mode)")
+    p.add_argument("-q", "--quality", type=int, default=1)
+    p.add_argument("--guided-checkpoint", help="not ported")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8752)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: CUDA; raises without a GPU "
+                        "unless 'cpu' is given)")
     args = p.parse_args(argv)
-    what = "--bundle" if args.bundle else "--checkpoint"
-    raise NotImplementedError(f"{what} {_LATER}")
+    if args.bundle:
+        raise NotImplementedError(f"--bundle {_LATER}")
+    if args.arch == "master" or args.guided_checkpoint:
+        raise NotImplementedError(
+            f"-a master --guided-checkpoint {_LATER}")
+    if not args.arch:
+        raise SystemExit("--checkpoint mode needs --arch")
+    codec, meta = load_checkpoint_codec(args.checkpoint, args.arch,
+                                        args.quality, args.device)
+    server = make_server(codec, meta, args.host, args.port)
+    host, port = server.server_address[:2]
+    print(f"lmic-torch-serve: {meta['family']} codec on http://{host}:"
+          f"{port} (POST /compress, POST /decompress, GET /meta)",
+          flush=True)
+    if started is not None:
+        started(server)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:  # pragma: no cover - interactive stop
+        pass
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -9,6 +9,9 @@ Usage:
   python -m lmic_tpu_torch.utils.update_model_cli train.ckpt \\
       -a mbt2018-mean -q 7 -d out/
 
+`-a ssf2020` builds the video codec (`zoo.create_video_model`) and stores
+its three sub-codecs' tables.
+
 Not ported yet (each raises, see ROADMAP.md queue A, item 8):
 `--from-torch`, `--raw-params`, `--no-update` (bare params, which only
 `--raw-params` reads back), `--aot-shape`.
@@ -50,8 +53,12 @@ def run(argv=None):
                 f"--{flag.replace('_', '-')} is not ported; ROADMAP.md "
                 "queue A, item 8"
             )
-    codec = zoo.create_model(args.arch, args.quality, channel=args.channel,
-                             device=args.device)
+    if args.arch in zoo.video_architectures:
+        codec = zoo.create_video_model(args.arch, args.quality,
+                                       device=args.device)
+    else:
+        codec = zoo.create_model(args.arch, args.quality,
+                                 channel=args.channel, device=args.device)
     # params only: works whatever optimizer settings the run used
     ckpt.load_train_params(args.checkpoint, codec.module)
     name = args.name or f"{args.arch}-q{args.quality}"

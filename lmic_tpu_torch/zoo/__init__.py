@@ -5,7 +5,8 @@ compressai/zoo/image.py:189-246) for the three non-autoregressive
 architectures, the autoregressive family (mbt2018, cheng2020-anchor,
 cheng2020-attn), the RGB-T pair (`guided`, `master`) and the paired
 RGB-T archs (`mbt2018_R`/`_D`, `cheng2020-anchor_R`/`_D`,
-`cheng2020-attn_R`/`_D`). `create_model`
+`cheng2020-attn_R`/`_D`), and the video zoo (ssf2020,
+`create_video_model`, lmic_tpu/zoo/__init__.py:192-215). `create_model`
 builds the module on the CPU from a seed, so the same seed gives the same
 weights on every device, then hands it to the codec wrapper on `device`
 (CUDA unless told otherwise).
@@ -50,6 +51,7 @@ from lmic_tpu_torch.models.rgbt_joint import (
     JointAutoregressiveHierarchicalPriors_D,
     JointAutoregressiveHierarchicalPriors_R,
 )
+from lmic_tpu_torch.models.video import ScaleSpaceFlow, ScaleSpaceFlowCodec
 
 # quality -> (N, M), or (N,) for the families with M = N (reference
 # zoo/image.py:189-246)
@@ -182,3 +184,31 @@ def create_model(architecture: str, quality: int, seed: int = 0,
     if state_dict is not None:
         module.load_state_dict(state_dict)
     return codec_cls(module, device)
+
+
+video_architectures: Dict[str, Tuple[Any, Any]] = {
+    "ssf2020": (ScaleSpaceFlow, ScaleSpaceFlowCodec),
+}
+
+
+def create_video_model(architecture: str = "ssf2020", quality: int = 1,
+                       seed: int = 0, device=None, state_dict=None
+                       ) -> ScaleSpaceFlowCodec:
+    """The video codec with weights drawn from `seed` (or loaded from a
+    `state_dict` with CompressAI key names) on `device`. ssf2020 has one
+    width (192 latent, 128 mid planes) at every quality, as in lmic_tpu,
+    so `quality` selects nothing."""
+    if architecture not in video_architectures:
+        raise ValueError(f'Invalid architecture name "{architecture}"')
+    device = default_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    module_cls, codec_cls = video_architectures[architecture]
+    module = module_cls(generator=generator)
+    _init_params(module, generator)
+    if state_dict is not None:
+        module.load_state_dict(state_dict)
+    return codec_cls(module, device)
+
+
+def video_models():
+    return dict(video_architectures)

@@ -35,12 +35,20 @@ numpy arrays, and returns this package's `state_dict` (CompressAI keys):
   -> `eg_ext{k}.0`, `tran_conv{k}`, `attention{k}.conv1..conv4`;
   `pic2_ga_convs_{i}` -> `pic2_g_a_conv{i+1}`; cheng2020-attn_R's
   `g_a_net`/`g_s_net` blocks -> `enc.res_stride1`, `dec.atten1`, ...;
-  cheng2020-attn_D's `ga_blocks_pre_0` -> `g_a_rbs1`.
+  cheng2020-attn_D's `ga_blocks_pre_0` -> `g_a_rbs1`;
+- ssf2020: each sub-codec's `Conv_{j}`/`Deconv_{j}` stacks ->
+  `{img,res,motion}_encoder.{2j}` / `..._decoder.{2j}`, its hyperprior's
+  `hyper_encoder`/`hyper_decoder_mean` -> `.{2j}` and
+  `hyper_decoder_scale` -> `.deconv{j+1}`, and its bottleneck under
+  `{which}_hyperprior.entropy_bottleneck`, the inverse of lmic_tpu's
+  `_import_ssf2020` (lmic_tpu/zoo/pretrained.py:502-559).
 
 `coding_state_from_numpy(codec, eb=..., gc=...)` installs carried integer
 CDF tables, medians and the scale table, so both packages code with the
 same tables (recomputed tables may differ by one in a few entries: the
-pmfs are float functions evaluated by two frameworks).
+pmfs are float functions evaluated by two frameworks);
+`video_coding_state_from_numpy(codec, {which: (eb, gc)})` does the same
+for ssf2020's three sub-codecs.
 """
 
 from __future__ import annotations
@@ -378,11 +386,63 @@ def _rgbt_state(arch: str, params: Mapping[str, Any]
     return out
 
 
+# ssf2020: the sub-codecs, and per hyperprior sequence its flax kind and
+# CompressAI's name of the j-th conv
+_SSF_SUB_CODECS = ("img", "res", "motion")
+_SSF_HYPER = (("hyper_encoder", "Conv", lambda j: str(2 * j)),
+              ("hyper_decoder_mean", "Deconv", lambda j: str(2 * j)),
+              ("hyper_decoder_scale", "Deconv", lambda j: f"deconv{j + 1}"))
+
+
+def _eb_state(tree: Mapping[str, Any], prefix: str
+              ) -> Dict[str, np.ndarray]:
+    """An entropy bottleneck's `matrix_{k}/bias_{k}/factor_{k}` and
+    `quantiles` -> `{prefix}._matrix{k}`, ..."""
+    out = {}
+    for name, v in tree.items():
+        if name != "quantiles":
+            kind, k = name.rsplit("_", 1)
+            name = f"_{kind}{k}"
+        out[f"{prefix}.{name}"] = np.asarray(v)
+    return out
+
+
+def _video_state(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """ssf2020's leaves. Raises if a leaf of `params` is left over."""
+    out: Dict[str, np.ndarray] = {}
+
+    def conv(node, kind, key):
+        k = np.asarray(node["Conv_0"]["kernel"])
+        out[f"{key}.weight"] = (_deconv_weight(k) if kind == "Deconv"
+                                else _conv_weight(k))
+        out[f"{key}.bias"] = np.asarray(node["Conv_0"]["bias"])
+
+    for which in _SSF_SUB_CODECS:
+        for seq, kind in (("encoder", "Conv"), ("decoder", "Deconv")):
+            for j in range(4):
+                conv(params[f"{which}_{seq}"][f"{kind}_{j}"], kind,
+                     f"{which}_{seq}.{2 * j}")
+        hp = params[f"{which}_hyperprior"]
+        for seq, kind, name in _SSF_HYPER:
+            for j in range(3):
+                conv(hp[seq][f"{kind}_{j}"], kind,
+                     f"{which}_hyperprior.{seq}.{name(j)}")
+        out.update(_eb_state(hp["entropy_bottleneck"],
+                             f"{which}_hyperprior.entropy_bottleneck"))
+    if len(out) != _count_leaves(params):
+        raise ValueError(f"ssf2020: converted {len(out)} of "
+                         f"{_count_leaves(params)} params")
+    return out
+
+
 def state_dict_from_jax(arch: str, params: Mapping[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """lmic_tpu `variables["params"]` (numpy leaves) -> this package's
     `state_dict` for `arch`, in the leaves' dtype. The map is linear, so it
     carries a gradient tree of the same structure across too."""
+    if arch == "ssf2020":
+        return {k: torch.from_numpy(np.array(v))
+                for k, v in _video_state(params).items()}
     if arch in ("guided", "master") + _PAIRED_R + _PAIRED_D:
         out = _rgbt_state(arch, params)
     elif arch in _CHENG:
@@ -399,11 +459,7 @@ def state_dict_from_jax(arch: str, params: Mapping[str, Any]
         out["context_prediction.weight"] = _conv_weight(
             np.asarray(cp["kernel"]))
         out["context_prediction.bias"] = np.asarray(cp["bias"])
-    for name, v in params["entropy_bottleneck"].items():
-        if name != "quantiles":
-            kind, k = name.rsplit("_", 1)
-            name = f"_{kind}{k}"
-        out[f"entropy_bottleneck.{name}"] = np.asarray(v)
+    out.update(_eb_state(params["entropy_bottleneck"], "entropy_bottleneck"))
     return {
         k: torch.from_numpy(np.array(v))  # own copy
         for k, v in out.items()
@@ -418,13 +474,31 @@ def coding_state_from_numpy(codec, eb: Mapping[str, np.ndarray],
     bottleneck; gc: {"cdf", "cdf_length", "offset", "scale_table"} of the
     Gaussian conditional (hyperprior codecs only).
     """
-    codec.eb_state = EBState(
+    codec.eb_state = eb_state_from_numpy(eb)
+    if gc is not None:
+        codec.gc_state = gc_state_from_numpy(gc)
+    return codec
+
+
+def eb_state_from_numpy(eb: Mapping[str, np.ndarray]) -> EBState:
+    return EBState(
         table=CdfTable(eb["cdf"], eb["cdf_length"], eb["offset"]),
         medians=np.array(eb["medians"], np.float32).reshape(-1),  # own copy
     )
-    if gc is not None:
-        codec.gc_state = GCState(
-            table=CdfTable(gc["cdf"], gc["cdf_length"], gc["offset"]),
-            scale_table=np.asarray(gc["scale_table"], np.float32),
-        )
+
+
+def gc_state_from_numpy(gc: Mapping[str, np.ndarray]) -> GCState:
+    return GCState(
+        table=CdfTable(gc["cdf"], gc["cdf_length"], gc["offset"]),
+        scale_table=np.array(gc["scale_table"], np.float32),
+    )
+
+
+def video_coding_state_from_numpy(codec, tables):
+    """Install carried coding state on an ssf2020 codec: `tables` maps
+    each sub-codec ("img", "motion", "res") to its (eb, gc) dicts, keyed
+    as in `coding_state_from_numpy`."""
+    codec.install_tables({
+        which: (eb_state_from_numpy(eb), gc_state_from_numpy(gc))
+        for which, (eb, gc) in tables.items()})
     return codec

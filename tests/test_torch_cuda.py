@@ -508,3 +508,40 @@ def test_paired_round_trip_on_card_matches_cpu(family):
     for a, b in zip(pair, ref):
         np.testing.assert_array_equal(a.gc_state.table.cdf,
                                       b.gc_state.table.cdf)
+
+
+def test_video_gop_on_card_matches_cpu():
+    """An ssf2020 3-frame 128x128 GOP on the card launches no GDN kernel
+    (ssf2020 has none); encoding is deterministic, the whole-GOP encoder
+    gives the per-frame one's bytes, the decoder's frames equal the
+    encoder's in-loop reconstructions bit for bit, and the transforms and
+    the scale-space warp stage by stage within 1e-4 of the CPU's, with
+    equal tables."""
+    from lmic_tpu_torch.utils.crosscheck import video_agreement
+
+    cuda = zoo.create_video_model(seed=0, device="cuda")
+    cpu = zoo.create_video_model(seed=0, device="cpu")
+    cuda.update()
+    cpu.update()
+    x = (np.random.default_rng(8).random((1, 3, 128, 128, 3)) * 255
+         ).astype(np.uint8)
+    before = dict(gdn.LAUNCHES)
+    strings, shapes = cuda.compress(x)
+    rec = cuda.decompress(strings, shapes)
+    torch.cuda.synchronize()
+    assert gdn.LAUNCHES == before
+    assert cuda.compress(x) == (strings, shapes)
+    assert cuda._compress_chunk_sync(x) == (strings, shapes)
+    with torch.inference_mode():
+        xt = cuda._frames(x)
+        x_ref, _ = cuda.encode_keyframe(xt[:, 0])
+        recs = [x_ref]
+        for i in (1, 2):
+            x_ref, _ = cuda.encode_inter(xt[:, i], x_ref)
+            recs.append(x_ref)
+    want = torch.stack(recs, 1).permute(0, 1, 3, 4, 2).cpu().numpy()
+    np.testing.assert_array_equal(rec, want)
+    assert video_agreement(cuda, cpu, x) < 1e-4
+    for which, hp in cuda.hp_states.items():
+        np.testing.assert_array_equal(hp.eb_state.table.cdf,
+                                      cpu.hp_states[which].eb_state.table.cdf)

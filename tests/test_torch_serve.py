@@ -1,8 +1,9 @@
 """The port's HTTP server speaks lmic_tpu's wire: on the same weights and
 tables both servers return identical /compress bodies (mbt2018-mean, the
-autoregressive mbt2018, and the RGB-T pair's master streams with beta and
-gamma), and the port's /decompress round-trips to its direct codec call;
-bad requests are 400s."""
+autoregressive mbt2018, the RGB-T pair's master streams with beta and
+gamma, and ssf2020's GOPs), and the port's /decompress round-trips to its
+direct codec call; bad requests are 400s. `main --checkpoint` serves
+port-finalized files."""
 
 import http.client
 import io
@@ -14,8 +15,11 @@ import pytest
 import torch
 
 from lmic_tpu.utils.serve import make_server as jax_make_server
+from lmic_tpu_torch import zoo
+from lmic_tpu_torch.utils.checkpoint import update_model_file
 from lmic_tpu_torch.utils.codec_cli import read_body, read_floats
 from lmic_tpu_torch.utils.serve import (
+    _decode_request,
     _read_pixels,
     _write_pixels,
     load_rgbt_codecs,
@@ -30,6 +34,7 @@ from torch_port_helpers import (
     pixels,
     port_codec,
     rgbt_pair,
+    video_codecs,
 )
 
 torch.set_num_threads(2)
@@ -234,11 +239,85 @@ def test_rgbt_guide_cache(monkeypatch, cache):
 
 @pytest.mark.parametrize("family", ["video"])
 def test_later_families_not_implemented(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_server(None, {"family": family})
+    """The video family, which an earlier slice refused: for the same GOP
+    and weights the port's server returns lmic_tpu's server's /compress
+    body byte for byte, its /decompress the direct call's uint8 frames,
+    and 400 on a truncated body."""
+    jc, pc, _ = video_codecs(0)
+    ours, theirs = (_serve(make_server, pc, family),
+                    _serve(jax_make_server, jc, family))
+    try:
+        x = pixels((1, 3, 128, 128, 3), seed=11)
+        status, body = _post(ours.server_address[1], "/compress",
+                             _pixel_payload(x))
+        assert status == 200
+        assert _post(theirs.server_address[1], "/compress",
+                     _pixel_payload(x)) == (200, body)
+        strings, shapes = _decode_request(io.BytesIO(body), video=True)
+        assert len(strings) == 3 and isinstance(strings[1], dict)
+        status, rec = _post(ours.server_address[1], "/decompress", body)
+        assert status == 200
+        np.testing.assert_array_equal(
+            _read_pixels(io.BytesIO(rec)),
+            pc.decompress(strings, shapes, u8=True))
+        status, msg = _post(ours.server_address[1], "/decompress",
+                            body[:-7])
+        assert status == 400 and b"corrupt container" in msg
+    finally:
+        for s in (ours, theirs):
+            s.shutdown()
+            s.server_close()
+
+
+def _serve_main(argv):
+    """Run `main(argv)` in a thread; returns (server, thread)."""
+    started = []
+    ready = threading.Event()
+    thread = threading.Thread(target=main, args=(argv,), kwargs={
+        "started": lambda s: (started.append(s), ready.set())}, daemon=True)
+    thread.start()
+    assert ready.wait(120)
+    return started[0], thread
 
 
 @pytest.mark.parametrize("flag", ["--bundle", "--checkpoint"])
-def test_cli_sources_not_implemented(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([flag, "somewhere"])
+def test_cli_sources_not_implemented(flag, tmp_path):
+    """`--bundle` is ported with a later slice; `--checkpoint` serves a
+    port-finalized ssf2020 and mbt2018-mean, each /compress equal to the
+    finalized codec's own call."""
+    if flag == "--bundle":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main([flag, "somewhere"])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(["--checkpoint", "somewhere", "-a", "master",
+                  "--guided-checkpoint", "guide"])
+        return
+    for arch, x in (("ssf2020", pixels((1, 2, 128, 128, 3), seed=12)),
+                    ("mbt2018-mean", pixels((1, 64, 64, 3), seed=13))):
+        codec = (zoo.create_video_model(seed=1, device="cpu")
+                 if arch == "ssf2020"
+                 else zoo.create_model(arch, 1, seed=1, device="cpu"))
+        path = update_model_file(str(tmp_path), codec, arch)
+        server, thread = _serve_main([flag, path, "-a", arch, "--port", "0",
+                                      "--device", "cpu"])
+        try:
+            port = server.server_address[1]
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            conn.request("GET", "/meta")
+            meta = json.loads(conn.getresponse().read())
+            conn.close()
+            assert meta["arch"] == arch
+            status, body = _post(port, "/compress", _pixel_payload(x))
+            assert status == 200
+            video = arch == "ssf2020"
+            strings, shapes = _decode_request(io.BytesIO(body), video)
+            direct = codec.compress(x)
+            assert (strings, shapes) == (direct if video else (
+                direct["strings"], direct["shape"]))
+            status, rec = _post(port, "/decompress", body)
+            assert status == 200
+            assert _read_pixels(io.BytesIO(rec)).shape == x.shape
+        finally:
+            server.shutdown()
+            thread.join(30)
+        assert not thread.is_alive()

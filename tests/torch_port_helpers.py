@@ -114,6 +114,59 @@ def rgbt_pair(role):
     return tuple(out)
 
 
+# ssf2020 at its one width on a 128x128 GOP (H, W multiples of 128)
+VIDEO_GOP = (1, 3, 128, 128, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def video_codecs(seed=0):
+    """lmic_tpu's ssf2020 from `seed`, with its conv biases and bottleneck
+    medians moved off their constant inits (so a swapped or dropped leaf
+    shows), its params, and the port's codec on the converted weights
+    with the three sub-codecs' tables carried across: (jc, pc, params).
+    Shared by the tests; do not change them."""
+    from lmic_tpu.models.video import ScaleSpaceFlowCodec
+
+    codec = jzoo.create_video_model("ssf2020", 1, key=jax.random.key(seed),
+                                    input_size=VIDEO_GOP[2:4])
+    params = jax.tree.map(np.asarray, codec.variables["params"])
+    rng = np.random.default_rng(seed + 20)
+    _perturb_video(params, rng)
+    jc = ScaleSpaceFlowCodec(codec.module, {"params": params})
+    jc.update(force=True)
+    pc = carry_video_tables(jc, tzoo.create_video_model(
+        device="cpu", state_dict=state_dict_from_jax("ssf2020", params)))
+    return jc, pc, params
+
+
+def carry_video_tables(jc, pc):
+    """Install lmic_tpu's ssf2020 codec's three sub-codecs' tables on the
+    port's."""
+    from lmic_tpu_torch.zoo.convert import video_coding_state_from_numpy
+
+    def table(t):
+        return {"cdf": t.cdf, "cdf_length": t.cdf_length, "offset": t.offset}
+
+    return video_coding_state_from_numpy(pc, {
+        w: (dict(table(hp.eb_state.table), medians=hp.eb_state.medians),
+            dict(table(hp.gc_state.table),
+                 scale_table=hp.gc_state.scale_table))
+        for w, hp in jc.hp_states.items()})
+
+
+def _perturb_video(tree, rng):
+    for k, node in tree.items():
+        if isinstance(node, dict):
+            _perturb_video(node, rng)
+        elif k == "bias" and node.ndim == 1:
+            tree[k] = (node + rng.uniform(-0.05, 0.05, node.shape)).astype(
+                np.float32)
+        elif k == "quantiles":
+            q = node.copy()
+            q[:, :, 1] += rng.uniform(-0.3, 0.3, q.shape[0])[:, None]
+            tree[k] = q.astype(np.float32)
+
+
 def write_images(d, n, size, seed=0, channels=3):
     """`n` seeded PNGs of `size` (H, W) in `d`: RGB, or 8-bit grayscale
     for channels=1."""
