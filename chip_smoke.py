@@ -118,7 +118,29 @@ Phases, each of which raises (exit code != 0) on any failure:
    stage by stage on a 128x128 GOP (`crosscheck.video_agreement`) with
    equal tables; each request's ms, stages, bytes and bpp per frame
    type, the peak memory, a profile of each leg and the 11x11 depthwise
-   blur's kernels at full size logged.
+   blur's kernels at full size logged;
+11. evaluation and files, last: the eval functions of
+   `utils/eval_model.py` on mbt2018-mean q8 (two seeded 512x768 images,
+   6 `gdn_fwd` an image in each mode; the coder's bpp equal to 8 x the
+   bytes of a direct compress; the card's estimate within 1e-4 of the
+   CPU's on a 128x128 image), on the channel-1 RGB-T pair q7 (512x640
+   master, 1024x1280 guide; 12 `gdn_fwd` with the coder, 9 to encode and
+   3 to decode) and on the mbt2018_R -> mbt2018_D pair q7 at 512x640 (15
+   with the coder); `video_eval.main` in both modes from a training
+   checkpoint of ssf2020 seed 0 on a seeded 3-frame 1080p YUV420 clip
+   (lmic_tpu's JSON schema; 0 GDN launches), then `codec_cli.main`
+   encode/decode of the clip in both containers (the decoded planes equal
+   to those of the encoder's in-loop frames); mbt2018-mean q8 in both
+   containers, mbt2018 q8 in the reference one (the raster order) and the
+   master pair in both (raster for the reference one) through the
+   array-level cores, each file parsing back to its codec's strings and
+   decoding to the encoder's latents and a direct decompress; the pair
+   finalized by `update_model_file` and served by `serve.main -a master
+   --guided-checkpoint --channel 1` in a thread, one pair through
+   /compress and /decompress equal to the direct calls. The launch
+   counts are set to 0 after one warm-up call of each eval leg and read
+   at the end; each step's ms, the raster loops' ms per latent pixel, the
+   ms-ssim's device ms at 512x768 and 1080p and the peak memory logged.
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -141,6 +163,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -222,6 +245,11 @@ PAIRED_TRAIN = ("cheng2020-attn_R", 7)
 VIDEO_GOP = (1, 3, 1152, 1920, 3)
 VIDEO_REQUESTS = 3
 VIDEO_CHECK = (1, 3, 128, 128, 3)  # the CUDA-vs-CPU stages
+# phase 11: evaluation and files
+EVAL_QUALITY = 8  # mbt2018-mean and mbt2018 q8: N = 192, M = 320
+EVAL_IMAGES = 2
+EVAL_CHECK = (1, 128, 128, 3)  # the card's estimate against the CPU's
+VIDEO_CLIP = (3, 1080, 1920)  # frames, H, W of the YUV420 clip
 
 
 def log(*a):
@@ -2137,6 +2165,446 @@ def phase_video_serving():
     return sum(counts.values())
 
 
+def _counted(fn, *args, **kwargs):
+    """(fn's result, the GDN launches it made, its host ms to a
+    synchronize)."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    before = dict(gdn.LAUNCHES)
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, {k: gdn.LAUNCHES[k] - before[k] for k in before}, ms
+
+
+def _only_fwd(what, counts, n):
+    """Exactly n gdn_fwd launches and no backward kernel."""
+    rest = {k: v for k, v in counts.items() if k != "gdn_fwd"}
+    if counts["gdn_fwd"] != n or any(rest.values()):
+        raise AssertionError(f"{what}: launches {counts}, want {n} gdn_fwd")
+
+
+def _write_yuv_clip(path, frames, H, W, seed=0):
+    """A seeded 8-bit YUV420 clip: moving smooth frames with noise
+    (`_gops`), BT.709 with 2x2 average-pool chroma."""
+    import torch
+
+    from lmic_tpu_torch.transforms import rgb2ycbcr, yuv_444_to_420
+
+    gop = _gops(1, (1, frames, H, W, 3), seed=seed)[0][0]
+    with open(path, "wb") as f:
+        for frame in gop:
+            rgb = torch.from_numpy(frame[None].astype(np.float32) / 255)
+            for p in yuv_444_to_420(rgb2ycbcr(rgb)):
+                np.clip(np.round(p[0, :, :, 0].numpy() * 255), 0, 255
+                        ).astype(np.uint8).tofile(f)
+
+
+def _check_video_docs(outdir, stem, desc):
+    """lmic_tpu's video-eval schema: the per-sequence document and the
+    cumulative one (tests/test_eval_golden.py::test_video_eval_golden)."""
+    with open(os.path.join(outdir, f"ssf2020-mse-{desc}.json")) as f:
+        doc = json.load(f)
+    with open(os.path.join(outdir, f"{stem}-ssf2020-mse-1-{desc}.json")) as f:
+        seq_doc = json.load(f)
+    keys = {"psnr-y", "psnr-u", "psnr-v", "psnr-yuv", "mse-rgb", "psnr-rgb",
+            "ms-ssim-rgb", "bitrate", "encoding_time", "decoding_time"}
+    res = doc["results"]
+    if (doc["name"] != "ssf2020-mse"
+            or doc["description"] != f"Inference ({desc})"
+            or res.get("q") != [f"ssf2020-mse-1-{desc}"]
+            or set(res) != keys | {"q"}
+            or any(len(res[k]) != 1 or not np.isfinite(res[k][0])
+                   for k in keys)
+            or set(seq_doc) != {"source", "name", "description", "results"}
+            or set(seq_doc["results"]) != keys):
+        raise AssertionError(f"video eval ({desc}) documents: {doc}")
+    return {k: round(v[0], 4) for k, v in res.items() if k != "q"}
+
+
+def _parse_file(data, ref, master=False):
+    """A container's (shape, strings) from its bytes, after its header."""
+    from lmic_tpu_torch.utils import codec_cli as cc
+
+    f = io.BytesIO(data)
+    if not ref:
+        cc.read_uints(f, 1)
+    cc.read_uchars(f, 2)
+    cc.read_uints(f, 2)
+    cc.read_uchars(f, 2 if master and not ref else 1)
+    if master:
+        cc.read_floats(f, 2 * cc.SIDE)
+    shape, strings = (cc.read_body_ref if ref else cc.read_body)(f)
+    if f.read():
+        raise AssertionError("bytes left after the body")
+    return tuple(shape), strings
+
+
+def _after_ids(f):
+    """A reference container positioned after its two id bytes."""
+    f.read(2)
+    return f
+
+
+def _ar_latents(codec, ys, z_sym, order, strings):
+    """The AR decoder of `order` recovers exactly its encoder's latents,
+    and the encoder gives `strings`. Returns the decoded latent."""
+    import torch
+
+    with torch.inference_mode():
+        enc = codec._code_y_z(ys, z_sym, keep_y_hat=True, order=order)
+        dec = codec._decode_y_hat(enc["strings"], enc["shape"], order)
+    if enc["strings"] != strings:
+        raise AssertionError(f"{order} encoding differs from the file's")
+    if not torch.equal(dec, enc["y_hat_latent"]):
+        raise AssertionError(f"the {order} decode did not recover the "
+                             "encoded latents")
+    return dec
+
+
+def _files(codec, ar, guided, master, x, xm, guide, steps):
+    """Every container through the array-level cores (no PIL): the file
+    parses back to its codec's strings, its decode recovers the encoder's
+    latents and equals a direct decompress. Returns the raster loops' ms
+    per latent pixel."""
+    import torch
+
+    from lmic_tpu_torch.models.codec import _symbols_to_host
+    from lmic_tpu_torch.utils import codec_cli as cc
+
+    for ref in (False, True):
+        f = io.BytesIO()
+        t0 = time.perf_counter()
+        (cc.write_image_ref if ref else cc.write_image)(
+            f, x, codec, "mbt2018-mean", EVAL_QUALITY)
+        t1 = time.perf_counter()
+        shape, strings = _parse_file(f.getvalue(), ref)
+        out = codec.compress(x)
+        if (shape, strings) != (tuple(out["shape"]), out["strings"]):
+            raise AssertionError("mbt2018-mean file != its codec's strings")
+        f.seek(0)
+        t2 = time.perf_counter()
+        got = (cc.read_image_ref(_after_ids(f), lambda a, q: codec,
+                                 "mbt2018-mean", EVAL_QUALITY) if ref
+               else cc.read_image(f, lambda a, q: codec)[0])
+        t3 = time.perf_counter()
+        _roundtrip_checks(codec, x, strings, shape)
+        if not np.array_equal(got, codec.decompress(strings, shape)["x_hat"]):
+            raise AssertionError("mbt2018-mean file decode != decompress")
+        steps[f"file mbt2018-mean {'ref' if ref else 'native'}"] = (
+            round(1e3 * (t1 - t0), 1), round(1e3 * (t3 - t2), 1))
+    # mbt2018 in the reference container: the raster order
+    f = io.BytesIO()
+    t0 = time.perf_counter()
+    cc.write_image_ref(f, x, ar, "mbt2018", EVAL_QUALITY)
+    t1 = time.perf_counter()
+    enc_loop = ar.stats["enc_loop_ms"]
+    shape, strings = _parse_file(f.getvalue(), True)
+    f.seek(0)
+    t2 = time.perf_counter()
+    got = cc.read_image_ref(_after_ids(f), lambda a, q: ar, "mbt2018",
+                            EVAL_QUALITY)
+    t3 = time.perf_counter()
+    dec_stats = {k: ar.stats[k] for k in ("dec_loop_ms",
+                                          "dec_loop_device_ms",
+                                          "dec_loop_rans_ms")}
+    with torch.inference_mode():
+        ys, z_sym = ar._analyze(x)
+    dec = _ar_latents(ar, ys, z_sym, "raster", strings)
+    with torch.inference_mode():
+        if not np.array_equal(got, ar._synthesize(dec, False)["x_hat"]):
+            raise AssertionError("mbt2018 raster file decode != decompress")
+    pixels = (x.shape[1] // 16) * (x.shape[2] // 16)
+    raster = {"mbt2018 encode": enc_loop / pixels,
+              "mbt2018 decode": dec_stats["dec_loop_ms"] / pixels,
+              "mbt2018 decode device": dec_stats["dec_loop_device_ms"]
+              / pixels,
+              "mbt2018 decode rans": dec_stats["dec_loop_rans_ms"] / pixels}
+    steps["file mbt2018 ref (raster)"] = (round(1e3 * (t1 - t0), 1),
+                                          round(1e3 * (t3 - t2), 1))
+    # the master pair: native (wavefront) and reference (raster)
+    for ref in (False, True):
+        order = "raster" if ref else "wavefront"
+        f = io.BytesIO()
+        t0 = time.perf_counter()
+        (cc.write_rgbt_ref if ref else cc.write_rgbt)(
+            f, xm, guide, guided, master, RGBT_QUALITY, channel=1)
+        t1 = time.perf_counter()
+        enc_loop = master.stats["enc_loop_ms"]
+        shape, strings = _parse_file(f.getvalue(), ref, master=True)
+        f.seek(0)
+        t2 = time.perf_counter()
+        args = (lambda ch: guide, lambda ch: guided, lambda ch: master)
+        got = (cc.read_rgbt_ref(_after_ids(f), *args, channel=1) if ref
+               else cc.read_rgbt(f, *args))
+        t3 = time.perf_counter()
+        dec_loop = master.stats["dec_loop_ms"]
+        g = cc._code_guide(guided, guide)
+        with torch.inference_mode():
+            feat, align, _, _ = master.module.features(master._pixels(xm),
+                                                       g["x_hat"])
+            y, z = master.module.analyze_features(feat, align)
+            z_sym = _symbols_to_host(
+                torch.round(z - master._medians(master.eb_state)))
+        _ar_latents(master, [y], z_sym, order, strings)
+        m = master.compress(xm, g["x_hat"], order=order)
+        if m["strings"] != strings:
+            raise AssertionError(f"master {order} file != its strings")
+        if not np.array_equal(got, master.decompress(m, g,
+                                                     order=order)["x_hat"]):
+            raise AssertionError(f"master {order} file decode != "
+                                 "decompress")
+        steps[f"file master {'ref (raster)' if ref else 'native'}"] = (
+            round(1e3 * (t1 - t0), 1), round(1e3 * (t3 - t2), 1))
+        if ref:
+            mp = (xm.shape[1] // 16) * (xm.shape[2] // 16)
+            raster.update({"master encode": enc_loop / mp,
+                           "master decode": dec_loop / mp})
+    return {k: round(v, 4) for k, v in raster.items()}
+
+
+def _serve_master(guided, master, xm, guide, tmp):
+    """uint8 pixels xm, guide. The pair finalized with `update_model_file` and served by
+    `serve.main -a master --guided-checkpoint --channel 1` in a thread:
+    one pair through /compress and /decompress, the bodies equal to the
+    direct calls. Returns (compress ms, decompress ms)."""
+    from lmic_tpu_torch.utils import serve
+    from lmic_tpu_torch.utils.checkpoint import update_model_file
+    from lmic_tpu_torch.utils.codec_cli import write_body, write_floats
+
+    gk = update_model_file(tmp, guided, "guided")
+    mk = update_model_file(tmp, master, "master")
+    started, ready = [], threading.Event()
+    thread = threading.Thread(
+        target=serve.main,
+        args=(["--checkpoint", mk, "-a", "master", "--guided-checkpoint", gk,
+               "--channel", "1", "-q", str(RGBT_QUALITY), "--port", "0"],),
+        kwargs={"started": lambda s: (started.append(s), ready.set())},
+        daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    while not ready.wait(1):
+        if not thread.is_alive() or time.perf_counter() - t0 > 300:
+            raise AssertionError("the RGB-T server did not start")
+    server = started[0]
+    try:
+        px, pg = io.BytesIO(), io.BytesIO()
+        serve._write_pixels(px, xm)
+        serve._write_pixels(pg, guide)
+        t0 = time.perf_counter()
+        body = _post(server.server_address[1], "/compress",
+                     px.getvalue() + pg.getvalue())
+        t1 = time.perf_counter()
+        rec = _post(server.server_address[1], "/decompress",
+                    body + pg.getvalue())
+        t2 = time.perf_counter()
+    finally:
+        server.shutdown()
+        thread.join(60)
+    if thread.is_alive():
+        raise AssertionError("the RGB-T server did not stop")
+    g_out = guided.compress(guide, hidden=False, reconstruct=True)
+    m = master.compress(xm, g_out["x_hat"])
+    want = io.BytesIO()
+    write_body(want, m["shape"], m["strings"])
+    write_floats(want, m["beta"].reshape(-1).tolist())
+    write_floats(want, m["gamma"].reshape(-1).tolist())
+    if body != want.getvalue():
+        raise AssertionError("served /compress != the direct calls")
+    pix = master.decompress(m, {"x_hat": g_out["x_hat"],
+                                "hidden": g_out["hidden_dec"]},
+                            u8=True)["x_hat"]
+    if not np.array_equal(serve._read_pixels(io.BytesIO(rec)), pix):
+        raise AssertionError("served /decompress != the direct call")
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def phase_eval_and_files():
+    """Evaluation and file coding: the eval functions and CLIs, the
+    containers through their array-level cores, the master pair served
+    from its two finalized checkpoints. Returns the gdn_fwd launches of
+    the phase (each leg's count is checked on its own)."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils import codec_cli as cc
+    from lmic_tpu_torch.utils import eval_model, metrics, video_eval
+    from lmic_tpu_torch.utils.serve import load_rgbt_codecs
+
+    t_phase = time.perf_counter()
+    codec = zoo.create_model("mbt2018-mean", EVAL_QUALITY, seed=0,
+                             device="cuda")
+    ar = zoo.create_model("mbt2018", EVAL_QUALITY, seed=0, device="cuda")
+    (guided, master), _ = load_rgbt_codecs(RGBT_QUALITY, 1, seed=0,
+                                           device="cuda")
+    r, d = _paired_codecs("mbt2018", "cuda")
+    for c in (codec, ar):
+        c.update()
+    images = [im.astype(np.float32) / 255
+              for im in _images(EVAL_IMAGES, IMAGE, seed=41)]
+    xm_u8 = _images(1, RGBT_MASTER, seed=42)[0]
+    guide_u8 = _images(1, RGBT_GUIDE, seed=43)[0]
+    xm = xm_u8.astype(np.float32) / 255
+    guide = guide_u8.astype(np.float32) / 255
+    xp = _images(1, PAIRED_IMAGE, seed=44)[0].astype(np.float32) / 255
+    gp = _images(1, PAIRED_GUIDE, seed=45)[0].astype(np.float32) / 255
+    log(f"eval phase: codecs built in {time.perf_counter() - t_phase:.1f} s")
+    # warm-up: one call of each eval leg, uncounted
+    eval_model.eval_image_codec(codec, images[0])
+    eval_model.eval_rgbt_pair(guided, master, xm, guide)
+    eval_model.eval_rd_pair(r, d, xp, gp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    steps, results = {}, {}
+
+    # image eval: 6 gdn_fwd an image in each mode
+    for i, x in enumerate(images):
+        for mode, fn in (("estimate", eval_model.eval_image_forward),
+                         ("coder", eval_model.eval_image_codec)):
+            m, counts, ms = _counted(fn, codec, x)
+            _only_fwd(f"image eval ({mode})", counts, 6)
+            steps[f"image {i} {mode}"] = round(ms, 1)
+            results[f"image {i} {mode}"] = {k: round(v, 5)
+                                            for k, v in m.items()}
+            if mode == "coder":
+                out = codec.compress(x)
+                n = sum(len(s) for g in out["strings"] for s in g)
+                if m["bpp"] != 8.0 * n / (x.shape[1] * x.shape[2]):
+                    raise AssertionError(f"eval bpp {m['bpp']} != 8 x "
+                                         f"{n} bytes")
+    cpu = zoo.create_model("mbt2018-mean", EVAL_QUALITY, seed=0,
+                           device="cpu")
+    xs = _images(1, EVAL_CHECK, seed=46)[0].astype(np.float32) / 255
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # ms-ssim below 161 px
+        on_card = eval_model.eval_image_forward(codec, xs)
+        on_cpu = eval_model.eval_image_forward(cpu, xs)
+    worst = max(abs(on_card[k] - on_cpu[k]) / abs(on_cpu[k])
+                for k in on_cpu)
+    if not worst < 1e-4:
+        raise AssertionError(f"eval estimate card vs CPU {worst:.3g}: "
+                             f"{on_card} {on_cpu}")
+    del cpu
+
+    # RGB-T eval: the pair, 12 gdn_fwd in each mode (9 + 3 coding)
+    m, counts, ms = _counted(eval_model.eval_rgbt_pair, guided, master, xm,
+                             guide, True)
+    steps["rgbt estimate"] = round(ms, 1)
+    results["rgbt estimate"] = m
+    rgbt_ee = counts["gdn_fwd"]
+    marks, decompress = [], master.decompress
+    master.decompress = lambda *a, **k: (marks.append(
+        gdn.LAUNCHES["gdn_fwd"]), decompress(*a, **k))[1]
+    try:
+        start = gdn.LAUNCHES["gdn_fwd"]
+        m, counts, ms = _counted(eval_model.eval_rgbt_pair, guided, master,
+                                 xm, guide)
+    finally:
+        del master.decompress
+    split = (marks[0] - start, start + counts["gdn_fwd"] - marks[0])
+    _only_fwd("rgbt eval (coder)", counts, 12)
+    if split != (9, 3):
+        raise AssertionError(f"rgbt eval launches {split}, want (9, 3)")
+    steps["rgbt coder"] = round(ms, 1)
+    results["rgbt coder"] = m
+    # the paired `_R` -> `_D` eval: 15 with the coder
+    m, counts, ms = _counted(eval_model.eval_rd_pair, r, d, xp, gp)
+    _only_fwd("paired eval (coder)", counts, 15)
+    steps["paired coder"] = round(ms, 1)
+    results["paired coder"] = m
+    m, counts, ms = _counted(eval_model.eval_rd_pair, r, d, xp, gp, True)
+    steps["paired estimate"] = round(ms, 1)
+    results["paired estimate"] = m
+    paired_ee = counts["gdn_fwd"]
+    log(f"eval gdn_fwd launches: estimate of the RGB-T pair {rgbt_ee}, "
+        f"of the paired archs {paired_ee}")
+    del r, d
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # video: video_eval.main in both modes, then lmic-torch-codec in
+        # both containers on a seeded 1080p clip; no GDN
+        T, H, W = VIDEO_CLIP
+        stem = f"clip_{W}x{H}_30_yuv420"
+        clip = os.path.join(tmp, stem + ".yuv")
+        _write_yuv_clip(clip, T, H, W, seed=47)
+        video = zoo.create_video_model("ssf2020", 1, seed=0, device="cuda")
+        ckpt = os.path.join(tmp, "ssf2020-train.ckpt")
+        torch.save({"params": video.module.state_dict()}, ckpt)
+        video.update()
+        outdir = os.path.join(tmp, "video")
+        for desc, flag in (("ans", []), ("entropy-estimation",
+                                         ["--entropy-estimation"])):
+            _, counts, ms = _counted(video_eval.main, [
+                "-d", clip, "--gop", "3", "-o", outdir, "--checkpoint", ckpt]
+                + flag)
+            _only_fwd(f"video eval ({desc})", counts, 0)
+            steps[f"video eval {desc}"] = round(ms, 1)
+            results[f"video eval {desc}"] = _check_video_docs(outdir, stem,
+                                                              desc)
+        from lmic_tpu_torch.datasets.rawvideo import RawVideoSequence
+
+        seq = RawVideoSequence.from_file(clip)
+        with torch.inference_mode():
+            want = np.concatenate([
+                p.ravel() for x_ref, _ in cc.code_frames(video, seq, T)
+                for p in cc._rgb_to_yuv420_planes(
+                    cc.crop_center(x_ref.permute(0, 2, 3, 1), H, W))])
+        seq.close()
+        for container in ("lmic", "reference"):
+            path = os.path.join(tmp, f"{container}.bin")
+            rec = os.path.join(tmp, f"{container}.yuv")
+            _, counts, enc_ms = _counted(cc.main, [
+                "encode", clip, "-o", path, "--arch", "ssf2020",
+                "--container", container])
+            _, counts2, dec_ms = _counted(cc.main, ["decode", path, "-o",
+                                                    rec])
+            _only_fwd(f"video files ({container})",
+                      {k: counts[k] + counts2[k] for k in counts}, 0)
+            if not np.array_equal(np.fromfile(rec, np.uint8), want):
+                raise AssertionError(f"video file ({container}) planes != "
+                                     "the encoder's in-loop frames")
+            steps[f"video file {container}"] = (round(enc_ms, 1),
+                                                round(dec_ms, 1))
+            results[f"video file {container} bytes"] = os.path.getsize(path)
+        del video
+
+        # files through the array-level cores, then the master pair served
+        raster = _files(codec, ar, guided, master, images[0], xm, guide,
+                        steps)
+        steps["serve master (compress, decompress)"] = tuple(
+            round(v, 1) for v in _serve_master(guided, master, xm_u8,
+                                               guide_u8, tmp))
+    torch.cuda.synchronize()
+    counts = dict(gdn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if any(v for k, v in counts.items() if k != "gdn_fwd"):
+        raise AssertionError(f"eval and files launched backward {counts}")
+
+    # the metric's cost: ms-ssim (f64 sums) on the card
+    msssim = {}
+    for name, shape in (("512x768", IMAGE), ("1080p", (1, 1080, 1920, 3))):
+        a = torch.rand(shape, device="cuda")
+        b = torch.clamp(a + 0.05 * torch.randn_like(a), 0, 1)
+        msssim[name] = round(_time_ms(lambda: metrics.ms_ssim(a, b), runs=5,
+                                      warmup=2), 3)
+    log("eval and files: step ms " + json.dumps(steps))
+    log("eval and files: results " + json.dumps(results))
+    log(f"eval and files: card vs CPU estimate within {worst:.3g} "
+        f"({on_card}); raster loops ms per latent pixel "
+        + json.dumps(raster) + "; ms-ssim device ms " + json.dumps(msssim)
+        + f"; peak {peak / 2**30:.2f} GiB; {counts['gdn_fwd']} gdn_fwd "
+        "launches")
+    del codec, ar, guided, master
+    torch.cuda.empty_cache()
+    log(f"eval and files phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts["gdn_fwd"]
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -2230,6 +2698,7 @@ def main():
     more_training = phase_ar_rgbt_training()
     paired_launches, more_training["paired_training"] = phase_paired()
     video_launches = phase_video_serving()
+    eval_launches = phase_eval_and_files()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
@@ -2248,12 +2717,14 @@ def main():
         "source": "lmic_tpu_torch/csrc/gdn_fwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
         "launches": (serve_launches + ar_launches + rgbt_launches
-                     + paired_launches + launched["gdn_fwd"]),
+                     + paired_launches + eval_launches
+                     + launched["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
                              "rgbt_serving": rgbt_launches,
                              "paired_serving": paired_launches,
                              "video_serving": video_launches,
+                             "eval_and_files": eval_launches,
                              **{p: c["gdn_fwd"]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
@@ -2286,6 +2757,7 @@ def main():
         "launches": next(iter(bwd_counts.values())),
         "launches_by_kernel": bwd_counts,
         "launches_by_path": {"video_serving": video_launches,
+                             "eval_and_files": 0,
                              **{p: c[gdn.BWD_KERNELS[0]]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts[gdn.BWD_KERNELS[0]] / train_steps,

@@ -4,7 +4,9 @@ A second package beside the JAX one, written for an NVIDIA H100: serving
 and training of the non-autoregressive image codecs (bmshj2018-factorized,
 bmshj2018-hyperprior, mbt2018-mean), serving of the autoregressive ones
 (mbt2018, cheng2020-anchor, cheng2020-attn) and of the RGB-T guided/master
-pair, with its own host rANS coder, its own HTTP server, and the GDN/IGDN
+pair, evaluation (RD metrics, lmic_tpu's eval goldens) and file coding in
+lmic_tpu's and the reference app's containers, with its own host rANS
+coder, its own HTTP server, and the GDN/IGDN
 forward and backward as hand-written CUDA kernels (`csrc/gdn_fwd.cu`,
 `csrc/gdn_bwd.cu`, the counterparts of `lmic_tpu/ops/pallas_gdn.py`).
 

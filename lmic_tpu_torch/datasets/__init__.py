@@ -3,11 +3,13 @@ loaders of the training path, the raw video reader and the video clip
 folder."""
 
 from lmic_tpu_torch.datasets.image import (  # noqa: F401
+    FLIR_TEST_IDS,
     TRAIN_SCALE_ARRAY,
     DataLoader,
     ImageFolder,
     ImageFolderRGB,
     ImageFolderT,
+    ImageFolderTest,
     center_crop,
     random_crop,
 )
@@ -64,7 +66,8 @@ def prefetch(iterable, size: int = 2):
         stop.set()
 
 
-__all__ = ["TRAIN_SCALE_ARRAY", "DataLoader", "ImageFolder",
-           "ImageFolderRGB", "ImageFolderT", "RawVideoSequence",
+__all__ = ["FLIR_TEST_IDS", "TRAIN_SCALE_ARRAY", "DataLoader",
+           "ImageFolder", "ImageFolderRGB", "ImageFolderT",
+           "ImageFolderTest", "RawVideoSequence",
            "VideoFolder", "VideoFormat", "center_crop",
            "get_raw_video_file_info", "prefetch", "random_crop"]

@@ -13,6 +13,9 @@ image_rgbt_rgb.py:40-150):
   found by swapping `RGB` and `thermal_8_bit` in the path; a random scale,
   a crop keeping the 2:1 ratio and a shared flip (3-channel master), or
   whole frames and the flip alone (1-channel master);
+- `ImageFolderTest`: the 20 fixed FLIR validation pairs
+  (image_rgbt_test.py:40-128), center-cropped: the RGB side to twice the
+  crop, the thermal side to the crop;
 - `DataLoader`: shuffles and batches into stacked numpy arrays (a tuple
   of arrays for paired items), dropping the last partial batch
   (lmic_tpu's default, the only one its trainer uses). It assembles
@@ -31,7 +34,7 @@ from __future__ import annotations
 
 import random
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -42,6 +45,14 @@ IMG_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".tiff", ".webp"}
 # thermal frames (image_rgbt_t.py, image_rgbt_rgb.py)
 FLIR_RGB_SIZE = (1280, 1024)
 TRAIN_SCALE_ARRAY = [1, 1.2, 1.4, 1.6, 1.8]  # image_rgbt_rgb.py:49
+
+# FLIR ADAS validation ids fixed by the reference eval protocol
+# (image_rgbt_test.py:40-61)
+FLIR_TEST_IDS = [
+    "08865", "08868", "08872", "08885", "08897", "08909", "08921", "08933",
+    "08945", "08957", "08969", "08981", "08993", "09005", "09017", "09029",
+    "09041", "09053", "09065", "09077",
+]
 
 
 def _open(path, mode=None):
@@ -208,6 +219,42 @@ class ImageFolderRGB:
             guided = guided[:, ::-1].copy()
             x = x[:, ::-1].copy()
         return x, guided
+
+
+class ImageFolderTest:
+    """Fixed FLIR validation pairs (image_rgbt_test.py:40-128): (master,
+    guide), the RGB side center-cropped to twice `crop_size`, the thermal
+    side to `crop_size`. `test_ids`: id substrings a file stem must hold
+    (default FLIR_TEST_IDS)."""
+
+    def __init__(self, root, crop_size=(512, 640), channel: int = 3,
+                 test_ids: Optional[Sequence[str]] = None):
+        self.root = str(root)
+        self.channel = channel
+        ids = list(test_ids) if test_ids is not None else FLIR_TEST_IDS
+        self.samples = [f for f in _list_images(Path(self.root))
+                        if any(i in f.stem for i in ids)]
+        self.guided_samples = [
+            f for f in _list_images(_guide_dir(self.root, channel))
+            if any(i in f.stem for i in ids)]
+        self.crop_size = crop_size
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, index: int):
+        if self.channel == 3:
+            x = _to_float(_open(self.samples[index], "RGB"))
+            guided = _to_float(_open(self.guided_samples[index]))
+        else:
+            x = _to_float(_open(self.samples[index]))
+            guided = _to_float(_open(self.guided_samples[index], "RGB")
+                               .resize(FLIR_RGB_SIZE))
+        H, W = self.crop_size
+        if self.channel == 3:
+            return (center_crop(x, (2 * H, 2 * W)),
+                    center_crop(guided, (H, W)))
+        return center_crop(x, (H, W)), center_crop(guided, (2 * H, 2 * W))
 
 
 def _resize_np(arr: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

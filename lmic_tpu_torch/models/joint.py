@@ -15,6 +15,16 @@ the step's buffer `y_hat_pad`, kept `(H + 4, W + 4, M)` in HWC order as
 in lmic_tpu (as rows of a `((H + 4) * (W + 4), M)` view), not from the
 port's NCHW layout.
 
+The reference app's order (`order="raster"`, the symbols of
+`--container reference` files): pixel-major in raster order (h outer, w
+inner), channel-minor, one pixel a step (H * W steps). It is the same
+step on a schedule of one pixel per step (`raster_schedule`), so encode
+and decode share it as in the wavefront order (lmic_tpu's
+`_get_raster_scans` over `step_fn.pixel_params`,
+lmic_tpu/models/joint.py:839-983). The decode loop makes H * W host round
+trips, each with one rANS decode of M symbols: a compatibility path, not
+a fast one.
+
 Wire determinism: encode and decode run the same step at the same shapes
 on the same device, one image at a time, so scales and means agree bit
 for bit on both sides; the step never waits for the device, so the encode
@@ -181,6 +191,28 @@ def wavefront_schedule(H: int, W: int, device) -> WavefrontSchedule:
     )
 
 
+def raster_schedule(H: int, W: int, device) -> WavefrontSchedule:
+    """The reference's raster order as a schedule of one pixel per step:
+    step t codes pixel (t // W, t % W), so T = H * W and R = 1."""
+    p = np.arange(H * W)[:, None]
+    h, w = p // W, p % W
+    Wp = W + 2 * PAD
+    taps = np.stack([(h + i) * Wp + (w + j) for i, j in TAPS], -1)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+
+    return WavefrontSchedule(
+        H=H, W=W, T=H * W, R=1, valid=np.ones((H * W, 1), bool),
+        lo=np.zeros(H * W, np.int64), hi=np.ones(H * W, np.int64),
+        pix=dev(p), pad=dev((h + PAD) * Wp + w + PAD), taps=dev(taps),
+        order=dev(np.arange(H * W)),
+    )
+
+
+ORDERS = {"wavefront": wavefront_schedule, "raster": raster_schedule}
+
+
 @torch.no_grad()
 def make_wavefront_step(module, sched: WavefrontSchedule, scale_table):
     """The per-wavefront computation shared by encode and decode (the
@@ -282,8 +314,11 @@ class JointARCodec(HyperpriorCodec):
         z_hat = self._upload(z_sym) + self._medians(self.eb_state)
         return self.module.hyper_to_params(z_hat)
 
-    def _step_for(self, H: int, W: int):
-        sched = wavefront_schedule(H, W, self.device)
+    def _step_for(self, H: int, W: int, order: str = "wavefront"):
+        if order not in ORDERS:
+            raise ValueError(f"order is one of {sorted(ORDERS)}, not "
+                             f"{order!r}")
+        sched = ORDERS[order](H, W, self.device)
         return sched, *make_wavefront_step(self.module, sched,
                                            self.gc_state.scale_table)
 
@@ -310,14 +345,15 @@ class JointARCodec(HyperpriorCodec):
                 indexes.view(-1, M)[sched.order], y_hat_pad)
 
     def _code_y_z(self, ys: List[torch.Tensor], z_sym: np.ndarray,
-                  keep_y_hat: bool = False):
+                  keep_y_hat: bool = False, order: str = "wavefront"):
         """Entropy-code the latents ys (B of (1, M, H, W)) and the wire z
-        symbols (B, C, h, w): z by the bottleneck, y by the wavefront loop.
-        With keep_y_hat, also return the encoder's quantized latent (B, M,
-        H, W) under "y_hat_latent": what decode must reproduce exactly."""
+        symbols (B, C, h, w): z by the bottleneck, y by the wavefront loop
+        (or the raster one, `order="raster"`). With keep_y_hat, also
+        return the encoder's quantized latent (B, M, H, W) under
+        "y_hat_latent": what decode must reproduce exactly."""
         t0 = time.perf_counter()
         M, H, W = ys[0].shape[1:]
-        sched, prepare, step = self._step_for(H, W)
+        sched, prepare, step = self._step_for(H, W, order)
         syms, idxs, y_hats = [], [], []
         for i, y in enumerate(ys):
             params = self._hyper_params(z_sym[i:i + 1])
@@ -338,8 +374,10 @@ class JointARCodec(HyperpriorCodec):
         return out
 
     @torch.inference_mode()
-    def compress(self, x):
-        """x: (B, H, W, C) float in [0, 1] or uint8; H, W multiples of 64."""
+    def compress(self, x, order: str = "wavefront"):
+        """x: (B, H, W, C) float in [0, 1] or uint8; H, W multiples of 64.
+        `order="raster"` writes the reference app's symbol order
+        (google.py:565-608), for `--container reference` files."""
         self._check_updated()
         x = np.asarray(x)
         self._check_dims(x)
@@ -347,7 +385,7 @@ class JointARCodec(HyperpriorCodec):
         t0 = time.perf_counter()
         ys, z_sym = self._analyze(x)
         self._stat("enc_analysis_ms", t0)
-        return self._code_y_z(ys, z_sym)
+        return self._code_y_z(ys, z_sym, order=order)
 
     def _decode_wavefronts(self, sched, prepare, step, stream, params,
                            times):
@@ -374,9 +412,10 @@ class JointARCodec(HyperpriorCodec):
             times[1] += t2 - t1
         return y_hat_pad
 
-    def _decode_y_hat(self, strings, shape) -> torch.Tensor:
+    def _decode_y_hat(self, strings, shape,
+                      order: str = "wavefront") -> torch.Tensor:
         """The AR latent y_hat (B, M, H, W) of the streams, on the device,
-        one image at a time."""
+        one image at a time, in the streams' symbol `order`."""
         if not isinstance(strings, list) or len(strings) != 2:
             raise ValueError("AR streams have two string groups")
         y_strings, z_strings = strings
@@ -384,7 +423,7 @@ class JointARCodec(HyperpriorCodec):
         z_sym = self.eb_state.decode_symbols(z_strings, tuple(shape))
         t0 = self._stat("dec_z_ms", t0)
         H, W = 4 * int(shape[0]), 4 * int(shape[1])
-        sched, prepare, step = self._step_for(H, W)
+        sched, prepare, step = self._step_for(H, W, order)
         times = [0.0, 0.0]
         y_hat = torch.cat([
             _latent(self._decode_wavefronts(
@@ -398,10 +437,11 @@ class JointARCodec(HyperpriorCodec):
         return y_hat
 
     @torch.inference_mode()
-    def decompress(self, strings, shape, u8: bool = False):
+    def decompress(self, strings, shape, u8: bool = False,
+                   order: str = "wavefront"):
         self._check_updated()
         set_wire_determinism()
-        y_hat = self._decode_y_hat(strings, shape)
+        y_hat = self._decode_y_hat(strings, shape, order)
         t0 = time.perf_counter()
         out = self._synthesize(y_hat, u8)
         self._stat("dec_synthesis_ms", t0)

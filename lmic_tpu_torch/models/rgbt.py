@@ -617,7 +617,7 @@ class MasterCodec(JointARCodec):
     """The master's AR codec. `compress` takes the guide's reconstruction;
     `decompress` re-derives the guide alignment from the transmitted
     beta/gamma and the guide's reconstruction, and synthesizes with the
-    guide's decoder maps. Wavefront symbol order only."""
+    guide's decoder maps. Wavefront symbol order, or raster."""
 
     # the RGB-T container stores no padding geometry
     _dims_hint = ("crop or resize first (the RGBT container cannot record "
@@ -660,11 +660,13 @@ class MasterCodec(JointARCodec):
         return self._pixels(np.asarray(guided_hat))
 
     @torch.inference_mode()
-    def compress(self, x, guided_hat):
+    def compress(self, x, guided_hat, order: str = "wavefront"):
         """x: (B, H, W, C) float in [0, 1] or uint8. The feature chain stays
         on the device, one image at a time; the y latents go to the
-        wavefront loop and only the z symbols, beta and gamma ((B, 64, 1,
-        1) numpy) come to the host."""
+        wavefront loop (the raster one with `order="raster"`, the
+        reference master container's order, codec_rgbt.py:377-382) and
+        only the z symbols, beta and gamma ((B, 64, 1, 1) numpy) come to
+        the host."""
         self._check_updated()
         x = np.asarray(x)
         g = self._guide(guided_hat)
@@ -683,16 +685,18 @@ class MasterCodec(JointARCodec):
             betas.append(beta)
             gammas.append(gamma)
         self._stat("enc_analysis_ms", t0)
-        out = self._code_y_z(ys, np.concatenate(z_syms))
+        out = self._code_y_z(ys, np.concatenate(z_syms), order=order)
         out["beta"] = torch.cat(betas).cpu().numpy()
         out["gamma"] = torch.cat(gammas).cpu().numpy()
         return out
 
     @torch.inference_mode()
-    def decompress(self, out_net, out_net_guided, u8: bool = False):
+    def decompress(self, out_net, out_net_guided, u8: bool = False,
+                   order: str = "wavefront"):
         """out_net: {"strings", "shape", "beta", "gamma"}; out_net_guided:
-        the guided codec's {"x_hat", "hidden"}. -> {"x_hat": (B, H, W, C)
-        numpy in [0, 1], uint8 levels when `u8`}."""
+        the guided codec's {"x_hat", "hidden"}; `order`: the streams'
+        symbol order. -> {"x_hat": (B, H, W, C) numpy in [0, 1], uint8
+        levels when `u8`}."""
         self._check_updated()
         set_wire_determinism()
         t0 = time.perf_counter()
@@ -706,7 +710,8 @@ class MasterCodec(JointARCodec):
             self._guide(out_net_guided["x_hat"]), side(out_net["beta"]),
             side(out_net["gamma"]))
         self._stat("dec_align_ms", t0)
-        y_hat = self._decode_y_hat(out_net["strings"], out_net["shape"])
+        y_hat = self._decode_y_hat(out_net["strings"], out_net["shape"],
+                                   order)
         t0 = time.perf_counter()
         x_hat = self.module.synthesize(
             y_hat.contiguous(memory_format=torch.channels_last),

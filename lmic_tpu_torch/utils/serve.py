@@ -28,8 +28,9 @@ Any failure of a request maps to a 400 with the error's text. Requests are
 serialized through one lock around the codec work (socket reads and
 writes stay outside it). `main --checkpoint <file> -a <arch>` serves a
 deployment checkpoint that `utils/checkpoint.py::update_model_file` wrote
-(`SERVABLE_ARCHS`); `--bundle` and `-a master --guided-checkpoint` are
-ported with a later slice.
+(`SERVABLE_ARCHS`); `-a master --checkpoint <master> --guided-checkpoint
+<guide> --channel <1|3>` serves the RGB-T pair from its two finalized
+checkpoints; `--bundle` is ported with `utils/aot.py`, a later slice.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from lmic_tpu_torch.utils.codec_cli import (
+    SIDE,
     read_body,
     read_floats,
     read_uchars,
@@ -138,7 +140,6 @@ def _codec_handlers(codec, video):
 
 def _rgbt_handlers(guided_codec, master_codec):
     """compress/decompress closures for the RGB-T pair."""
-    SIDE = 64  # beta and gamma: the channel aligner's width
 
     def one_image(pix):
         if pix.shape[0] != 1:
@@ -217,19 +218,31 @@ def _rgbt_handlers(guided_codec, master_codec):
     return compress, decompress
 
 
-def load_rgbt_codecs(quality, channel=1, seed=0, device=None, **widths):
-    """The (guided, master) pair for RGB-T serving, with weights drawn from
-    `seed` (the port reads no checkpoint yet) and fresh coding tables: the
-    master takes `channel` channels, the guide the complementary
-    4 - channel. `widths` (N=, M=) override the quality table's."""
+def load_rgbt_codecs(quality, channel=1, seed=0, device=None,
+                     guided_checkpoint=None, master_checkpoint=None,
+                     **widths):
+    """The (guided, master) pair for RGB-T serving: the master takes
+    `channel` channels, the guide the complementary 4 - channel. From the
+    two finalized checkpoints when they are given (through
+    `codec_cli._build`, as lmic_tpu/utils/serve.py:370-384 builds them),
+    else with weights drawn from `seed` and fresh coding tables, `widths`
+    (N=, M=) overriding the quality table's."""
     from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils.codec_cli import _build
 
-    guided = zoo.create_model("guided", quality, seed=seed,
-                              channel=4 - channel, device=device, **widths)
-    master = zoo.create_model("master", quality, seed=seed, channel=channel,
-                              device=device, **widths)
-    guided.update()
-    master.update()
+    if guided_checkpoint or master_checkpoint:
+        guided = _build("guided", quality, guided_checkpoint, 4 - channel,
+                        device)
+        master = _build("master", quality, master_checkpoint, channel,
+                        device)
+    else:
+        guided = zoo.create_model("guided", quality, seed=seed,
+                                  channel=4 - channel, device=device,
+                                  **widths)
+        master = zoo.create_model("master", quality, seed=seed,
+                                  channel=channel, device=device, **widths)
+        guided.update()
+        master.update()
     meta = {"family": "rgbt", "input_shape": None, "channel": channel,
             "quality": quality}
     return (guided, master), meta
@@ -336,9 +349,15 @@ def main(argv=None, started=None):
     src.add_argument("--bundle", help="serving bundle directory")
     src.add_argument("--checkpoint", help="deployment checkpoint "
                      "(utils/update_model_cli.py output)")
-    p.add_argument("-a", "--arch", help="architecture (checkpoint mode)")
+    p.add_argument("-a", "--arch", help="architecture (checkpoint mode); "
+                                        "'master' serves the RGB-T pair")
     p.add_argument("-q", "--quality", type=int, default=1)
-    p.add_argument("--guided-checkpoint", help="not ported")
+    p.add_argument("--guided-checkpoint",
+                   help="the guided codec's deployment checkpoint (with "
+                        "-a master; --checkpoint is then the master's)")
+    p.add_argument("--channel", type=int, default=1,
+                   help="the master's channel count for the RGB-T pair "
+                        "(the guide gets the complementary modality)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8752)
     p.add_argument("--device", default=None,
@@ -347,13 +366,22 @@ def main(argv=None, started=None):
     args = p.parse_args(argv)
     if args.bundle:
         raise NotImplementedError(f"--bundle {_LATER}")
-    if args.arch == "master" or args.guided_checkpoint:
-        raise NotImplementedError(
-            f"-a master --guided-checkpoint {_LATER}")
-    if not args.arch:
+    if args.arch == "master":
+        if not args.guided_checkpoint:
+            raise SystemExit("-a master needs --guided-checkpoint")
+        if args.channel not in (1, 3):
+            raise SystemExit(
+                f"--channel must be 1 or 3 (the master's modality; the "
+                f"guide gets the complementary one), got {args.channel}")
+        codec, meta = load_rgbt_codecs(
+            args.quality, args.channel, device=args.device,
+            guided_checkpoint=args.guided_checkpoint,
+            master_checkpoint=args.checkpoint)
+    elif not args.arch:
         raise SystemExit("--checkpoint mode needs --arch")
-    codec, meta = load_checkpoint_codec(args.checkpoint, args.arch,
-                                        args.quality, args.device)
+    else:
+        codec, meta = load_checkpoint_codec(args.checkpoint, args.arch,
+                                            args.quality, args.device)
     server = make_server(codec, meta, args.host, args.port)
     host, port = server.server_address[:2]
     print(f"lmic-torch-serve: {meta['family']} codec on http://{host}:"

@@ -6,6 +6,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -545,3 +547,163 @@ def test_video_gop_on_card_matches_cpu():
     for which, hp in cuda.hp_states.items():
         np.testing.assert_array_equal(hp.eb_state.table.cdf,
                                       cpu.hp_states[which].eb_state.table.cdf)
+
+
+def test_metrics_on_card_match_cpu():
+    """psnr, ssim and ms-ssim (f64 sums) on the card within 1e-6 of the
+    CPU's, at an odd size of 5 scales and a small one of fewer."""
+    from lmic_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(2)
+    for shape in ((1, 171, 240, 3), (2, 64, 97, 1)):
+        x = torch.from_numpy(rng.random(shape, dtype=np.float32))
+        y = torch.clamp(x + 0.05 * torch.randn(shape), 0, 1)
+        for name in ("psnr", "ssim", "ms_ssim"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # fewer scales
+                got = getattr(metrics, name)(x.cuda(), y.cuda())
+                want = getattr(metrics, name)(x, y)
+            assert got.is_cuda and abs(float(got) - float(want)) <= 1e-6
+
+
+def test_raster_round_trip_on_card():
+    """mbt2018's raster order (the reference container's) on the card at
+    64x64: the decoder recovers exactly the encoder's latents, and
+    decompress(order="raster") reads compress(order="raster")."""
+    codec = zoo.create_model("mbt2018", 1, seed=0, device="cuda",
+                             **_ar_widths("mbt2018"))
+    codec.update()
+    x = (np.random.default_rng(5).random((1, 64, 64, 3)) * 255).astype(
+        np.uint8)
+    with torch.inference_mode():
+        ys, z_sym = codec._analyze(x)
+        enc = codec._code_y_z(ys, z_sym, keep_y_hat=True, order="raster")
+        dec = codec._decode_y_hat(enc["strings"], enc["shape"], "raster")
+    assert torch.equal(dec, enc["y_hat_latent"])
+    out = codec.compress(x, order="raster")
+    assert out["strings"] == enc["strings"]
+    rec = codec.decompress(out["strings"], out["shape"], order="raster")
+    with torch.inference_mode():
+        want = codec._synthesize(dec, False)["x_hat"]
+    np.testing.assert_array_equal(rec["x_hat"], want)
+
+
+def _png_free_round_trips(tmp_path):
+    """Every container through the array-level cores on the card: (what,
+    decoded, the direct decode)."""
+    import io
+
+    from lmic_tpu_torch.utils import codec_cli as cc
+
+    rng = np.random.default_rng(6)
+    x = rng.random((1, 64, 128, 3), dtype=np.float32)
+    out = []
+    for arch in ("mbt2018-mean", "mbt2018"):
+        codec = zoo.create_model(arch, 1, seed=0, device="cuda",
+                                 **_ar_widths("mbt2018"))
+        codec.update()
+        order = {"order": "raster"} if arch == "mbt2018" else {}
+        for ref in (False, True):
+            f = io.BytesIO()
+            (cc.write_image_ref if ref else cc.write_image)(
+                f, x, codec, arch, 1)
+            f.seek(0)
+            if ref:
+                cc.read_uchars(f, 2)
+                got = cc.read_image_ref(f, lambda a, q: codec, arch, 1)
+                d = codec.compress(x, **order)
+                want = codec.decompress(d["strings"], d["shape"], **order)
+            else:
+                got = cc.read_image(f, lambda a, q: codec)[0]
+                d = codec.compress(x)
+                want = codec.decompress(d["strings"], d["shape"])
+            out.append((f"{arch} ref={ref}", got, want["x_hat"]))
+    (guided, master), xm, guide = _rgbt(1, "cuda")
+    for ref in (False, True):
+        f = io.BytesIO()
+        (cc.write_rgbt_ref if ref else cc.write_rgbt)(
+            f, xm, guide, guided, master, 1, channel=1)
+        f.seek(0)
+        if ref:
+            cc.read_uchars(f, 2)
+            got = cc.read_rgbt_ref(f, lambda ch: guide, lambda ch: guided,
+                                   lambda ch: master, channel=1)
+        else:
+            got = cc.read_rgbt(f, lambda ch: guide, lambda ch: guided,
+                               lambda ch: master)
+        order = "raster" if ref else "wavefront"
+        g = cc._code_guide(guided, guide)
+        m = master.compress(xm, g["x_hat"], order=order)
+        out.append((f"master ref={ref}", got,
+                    master.decompress(m, g, order=order)["x_hat"]))
+    return out
+
+
+def test_every_container_round_trips_on_card(tmp_path):
+    """Native and reference files of mbt2018-mean, mbt2018 (raster) and
+    the master pair (raster), through the array-level cores on the card,
+    decode to the direct decompress; ssf2020's native and reference files
+    of a 3-frame 128x128 clip decode to the encoder's clipped in-loop
+    frames."""
+    from lmic_tpu_torch.datasets.rawvideo import RawVideoSequence
+    from lmic_tpu_torch.utils import codec_cli as cc
+
+    for what, got, want in _png_free_round_trips(tmp_path):
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    rng = np.random.default_rng(7)
+    clip = tmp_path / "clip_128x128_30_yuv420.yuv"
+    rng.integers(0, 255, 3 * (128 * 128 + 2 * 64 * 64),
+                 dtype=np.uint8).tofile(clip)
+    codec = zoo.create_video_model(seed=0, device="cuda")
+    codec.update()
+    seq = RawVideoSequence.from_file(str(clip))
+    want = np.concatenate([
+        p.ravel() for x_ref, _ in cc.code_frames(codec, seq, 3)
+        for p in cc._rgb_to_yuv420_planes(x_ref.permute(0, 2, 3, 1))])
+    seq.close()
+    for container in ("native", "reference"):
+        path = tmp_path / f"{container}.bin"
+        cc.encode_video(clip, path, codec, 1, container=container)
+        with open(path, "rb") as f:
+            cc.read_uchars(f, 2 if container == "reference" else 6)
+            reader = (cc.decode_video_ref if container == "reference"
+                      else cc.decode_video)
+            reader(f, tmp_path / "o.yuv", lambda a, q: codec, 1)
+        np.testing.assert_array_equal(
+            np.fromfile(tmp_path / "o.yuv", np.uint8), want)
+
+
+@pytest.mark.parametrize("entropy_estimation", [False, True])
+def test_rgbt_eval_launch_counts_on_card(entropy_estimation):
+    """`eval_rgbt_pair` runs gdn_fwd 12 times a pair in both modes (the
+    real coder: 9 to encode, 3 to decode), `eval_rd_pair` 15 with the real
+    coder and 12 estimating; no backward kernel."""
+    from lmic_tpu_torch.utils import eval_model
+
+    (guided, master), x, guide = _rgbt(1, "cuda")
+    before = dict(gdn.LAUNCHES)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m = eval_model.eval_rgbt_pair(guided, master, x / 255.0,
+                                      guide / 255.0, entropy_estimation)
+    torch.cuda.synchronize()
+    launched = {k: gdn.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: 12 if k == "gdn_fwd" else 0 for k in before}
+    assert np.isfinite(list(m.values())).all()
+    r = zoo.create_model("mbt2018_R", 1, seed=0, channel=3, device="cuda",
+                         N=32, M=32)
+    d = zoo.create_model("mbt2018_D", 1, seed=1, channel=1, device="cuda",
+                         N=32, M=32)
+    r.update()
+    d.update()
+    rng = np.random.default_rng(3)
+    xr = rng.random((1, 128, 128, 1), dtype=np.float32)
+    gr = rng.random((1, 128, 128, 3), dtype=np.float32)
+    before = dict(gdn.LAUNCHES)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eval_model.eval_rd_pair(r, d, xr, gr, entropy_estimation)
+    torch.cuda.synchronize()
+    n = 12 if entropy_estimation else 15
+    assert {k: gdn.LAUNCHES[k] - before[k] for k in before} == {
+        k: n if k == "gdn_fwd" else 0 for k in before}

@@ -281,16 +281,16 @@ def _serve_main(argv):
 
 
 @pytest.mark.parametrize("flag", ["--bundle", "--checkpoint"])
-def test_cli_sources_not_implemented(flag, tmp_path):
+def test_cli_sources_not_implemented(flag, tmp_path, monkeypatch):
     """`--bundle` is ported with a later slice; `--checkpoint` serves a
     port-finalized ssf2020 and mbt2018-mean, each /compress equal to the
-    finalized codec's own call."""
+    finalized codec's own call; `-a master --guided-checkpoint` serves the
+    RGB-T pair from its two finalized checkpoints, its bodies equal to the
+    direct calls."""
     if flag == "--bundle":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main([flag, "somewhere"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--checkpoint", "somewhere", "-a", "master",
-                  "--guided-checkpoint", "guide"])
+        _serves_the_master_pair(tmp_path, monkeypatch)
         return
     for arch, x in (("ssf2020", pixels((1, 2, 128, 128, 3), seed=12)),
                     ("mbt2018-mean", pixels((1, 64, 64, 3), seed=13))):
@@ -321,3 +321,45 @@ def test_cli_sources_not_implemented(flag, tmp_path):
             server.shutdown()
             thread.join(30)
         assert not thread.is_alive()
+
+
+def _serves_the_master_pair(tmp_path, monkeypatch):
+    for arch in ("guided", "master"):
+        monkeypatch.setitem(zoo.cfgs, arch, {1: (16, 16)})
+    guided = zoo.create_model("guided", 1, seed=3, channel=3, device="cpu")
+    master = zoo.create_model("master", 1, seed=4, channel=1, device="cpu")
+    paths = [update_model_file(str(tmp_path), c, a)
+             for c, a in ((guided, "guided"), (master, "master"))]
+    with pytest.raises(SystemExit, match="needs --guided-checkpoint"):
+        main(["--checkpoint", paths[1], "-a", "master", "--device", "cpu"])
+    server, thread = _serve_main([
+        "--checkpoint", paths[1], "-a", "master", "--guided-checkpoint",
+        paths[0], "--channel", "1", "--port", "0", "--device", "cpu"])
+    try:
+        port = server.server_address[1]
+        served_guided, served_master = server.codec
+        assert served_master.module.channel == 1
+        assert served_guided.module.channel == 3
+        x, guide = _rgbt_payload(9)
+        status, body = _post(port, "/compress", _pixel_payload(x)
+                             + _pixel_payload(guide))
+        assert status == 200
+        g_out = guided.compress(guide, hidden=False, reconstruct=True)
+        direct = master.compress(x, g_out["x_hat"])
+        shape, strings, beta, gamma = _parse_rgbt(body)
+        assert strings == direct["strings"]
+        assert tuple(shape) == tuple(direct["shape"])
+        np.testing.assert_array_equal(beta, direct["beta"].reshape(-1))
+        np.testing.assert_array_equal(gamma, direct["gamma"].reshape(-1))
+        status, rec = _post(port, "/decompress", body
+                            + _pixel_payload(guide))
+        assert status == 200
+        np.testing.assert_array_equal(
+            _read_pixels(io.BytesIO(rec)),
+            master.decompress(direct, {"x_hat": g_out["x_hat"],
+                                       "hidden": g_out["hidden_dec"]},
+                              u8=True)["x_hat"])
+    finally:
+        server.shutdown()
+        thread.join(30)
+    assert not thread.is_alive()

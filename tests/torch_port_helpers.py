@@ -6,12 +6,14 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from lmic_tpu import zoo as jzoo
 from lmic_tpu.entropy import entropy_models as jem
 from lmic_tpu_torch import zoo as tzoo
 from lmic_tpu_torch.entropy import entropy_models as tem
+from lmic_tpu_torch.utils.checkpoint import _table_tensors
 from lmic_tpu_torch.zoo.convert import (
     coding_state_from_numpy,
     state_dict_from_jax,
@@ -137,6 +139,71 @@ def video_codecs(seed=0):
     pc = carry_video_tables(jc, tzoo.create_video_model(
         device="cpu", state_dict=state_dict_from_jax("ssf2020", params)))
     return jc, pc, params
+
+
+@functools.lru_cache(maxsize=None)
+def default_codecs(arch, quality, channel=3, input_size=(64, 64)):
+    """lmic_tpu's codec on its default key (what its eval CLI builds) with
+    fresh tables, and the port's codec on the converted weights with those
+    tables carried across. Cached per process: do not mutate. The params
+    do not depend on `input_size`, the shape flax traces the init at
+    (equal at 64x64 and the CLI's 256x256; the `_D` archs need 128)."""
+    jc = jzoo.create_model(arch, quality, channel=channel,
+                           input_size=input_size)
+    jc.update(force=True)
+    params = jax.tree.map(np.asarray, jc.variables["params"])
+    pc = tzoo.create_model(arch, quality, channel=channel, device="cpu",
+                           state_dict=state_dict_from_jax(arch, params))
+    return jc, carry_tables(jc, pc)
+
+
+@pytest.fixture
+def one_thread():
+    """Run a test on one CPU thread: the CPU's convolutions split their
+    sums by the thread count, so a result pinned at rtol 1e-4 reproduces
+    only at a fixed count. cheng2020-attn q1's default-key weights reach
+    |x_hat| ~ 16,500 before the clip, and its ms-ssim (0.0153) moves by
+    1.1e-4 between 1 and 2 threads (ROADMAP.md, queue C)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# how far lmic_tpu's f32 MS-SSIM lands from the f64 definition, at most
+# (tests/test_torch_eval.py::test_metrics_match_the_definition_and_lmic_tpu;
+# the port's is within 1e-14 of it)
+MS_SSIM_F32 = 3.0e-6
+
+
+def match_eval(got, want, exact_bpp, timings=False):
+    """An eval function's dict against lmic_tpu's: the keys; the real
+    coder's bpp exactly (byte-identical strings), else within 1e-5
+    relative; psnr within 1e-5 relative; ms-ssim within 1e-5 relative plus
+    lmic_tpu's own f32 error (MS_SSIM_F32; small ms-ssim values of random
+    weights make a relative bar alone tighter than lmic_tpu's metric)."""
+    keys = {"psnr", "ms-ssim", "bpp"} | (
+        {"encoding_time", "decoding_time"} if timings else set())
+    assert set(got) == set(want) == keys
+    np.testing.assert_allclose(got["psnr"], want["psnr"], rtol=1e-5)
+    np.testing.assert_allclose(got["ms-ssim"], want["ms-ssim"], rtol=1e-5,
+                               atol=MS_SSIM_F32)
+    if exact_bpp:
+        assert got["bpp"] == want["bpp"]
+    else:
+        np.testing.assert_allclose(got["bpp"], want["bpp"], rtol=1e-5)
+
+
+def deployment_checkpoint(path, codec):
+    """`update_model_file`'s layout without its `update()`: the codec's
+    params and the tables it holds (here lmic_tpu's)."""
+    blob = {"params": dict(codec.module.state_dict())}
+    if codec.eb_state is not None:
+        blob["eb_state"] = _table_tensors(codec.eb_state, "medians")
+    if codec.gc_state is not None:
+        blob["gc_state"] = _table_tensors(codec.gc_state, "scale_table")
+    torch.save(blob, path)
+    return str(path)
 
 
 def carry_video_tables(jc, pc):
