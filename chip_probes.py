@@ -6,6 +6,7 @@ runs them.
     python3 chip_probes.py master-batch [B ...]  # from the root of a checkout
     python3 chip_probes.py train-convs
     python3 chip_probes.py video-convs
+    python3 chip_probes.py sync-u8 ROOT [ROOT ...]
 
 - master-batch: the largest batch of the RGB-T master's training step
   that fits, the channel-1 master q7 (f32) against its frozen guided q7 on
@@ -27,21 +28,40 @@ runs them.
   transposed conv): device ms, device operations, the largest kernels and
   the error against cuDNN in f64; then `crosscheck.video_agreement` and
   the strings' bytes of one 1920x1152 GOP on the card against the CPU.
+- sync-u8: the synchronous uint8 `compress` and `decompress(u8=True)` of
+  bmshj2018-factorized, bmshj2018-hyperprior and mbt2018-mean at quality
+  8, seed 0, at the served 1x512x768 and at a batch of 16 of 768x512,
+  with the port of each checkout ROOT in turn (each in a process of its
+  own, the ROOTs in the order given and then in reverse, so two trees are
+  timed A B B A on one card): wall ms of each call after warm-up (median
+  and least of 5), the median of each stage the codec's `stats` keeps,
+  and a digest of the strings and pixels, which must agree across the
+  ROOTs.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
+import subprocess
 import sys
 import time
 
+import numpy as np
+
 import chip_smoke
 from chip_smoke import (
+    IMAGE,
     LAMBDAS,
     MASTER_BATCH,
     MASTER_GUIDE,
+    PIPE_ARCHS,
+    PIPE_BATCH,
+    QUALITY,
     RGBT_QUALITY,
     _fft_kernels,
+    _images,
     _profile,
     _gop_bytes,
     _gops,
@@ -217,10 +237,81 @@ def video_convs():
             f"{_gop_bytes(strings)}")
 
 
+def sync_u8_one(root, runs=5):
+    """sync-u8 for the port of the checkout `root`: one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import lmic_tpu_torch
+    from lmic_tpu_torch import zoo
+
+    where = os.path.dirname(os.path.dirname(lmic_tpu_torch.__file__))
+    if where != os.path.abspath(root):
+        raise AssertionError(f"lmic_tpu_torch imported from {where}")
+    result = {"root": root}
+    for arch in PIPE_ARCHS[::-1]:
+        codec = zoo.create_model(arch, QUALITY, seed=0, device="cuda")
+        codec.update()
+        for shape in (IMAGE, PIPE_BATCH):
+            x = np.concatenate(_images(shape[0], shape, seed=5))
+            digest = hashlib.sha256()
+            times = {"compress": [], "decompress": []}
+            stages = {}
+            for i in range(2 + runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = codec.compress(x)
+                t1 = time.perf_counter()
+                rec = codec.decompress(out["strings"], out["shape"],
+                                       u8=True)["x_hat"]
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if i == 0:
+                    for group in out["strings"]:
+                        for string in group:
+                            digest.update(string)
+                    digest.update(rec.tobytes())
+                if i >= 2:
+                    times["compress"].append(1e3 * (t1 - t0))
+                    times["decompress"].append(1e3 * (t2 - t1))
+                    for k, v in codec.stats.items():
+                        stages.setdefault(k, []).append(v)
+            result[f"{arch} {'x'.join(map(str, shape))}"] = {
+                "digest": digest.hexdigest()[:16],
+                **{k: [round(float(np.median(v)), 2), round(min(v), 2)]
+                   for k, v in times.items()},
+                "stages": {k: round(float(np.median(v)), 2)
+                           for k, v in stages.items()}}
+        del codec
+    log(json.dumps(result))
+
+
+def sync_u8(roots):
+    """sync-u8 for each ROOT, A B B A, each in a process of its own; the
+    digests must agree across the ROOTs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    results = []
+    for root in list(roots) + list(roots)[::-1]:
+        code = ("import chip_probes; "
+                f"chip_probes.sync_u8_one({os.path.abspath(root)!r})")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=here,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"sync-u8 {root}: {proc.stderr[-2000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        log(line)
+        results.append(json.loads(line))
+    for key in results[0]:
+        if key != "root" and len({r[key]["digest"] for r in results}) != 1:
+            raise AssertionError(f"sync-u8: {key}'s bytes differ across "
+                                 "the checkouts")
+    log("sync-u8: every checkout's strings and pixels agree")
+
+
 def main(argv):
     import torch
 
-    probes = ("master-batch", "train-convs", "video-convs")
+    probes = ("master-batch", "train-convs", "video-convs", "sync-u8")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -235,6 +326,8 @@ def main(argv):
         master_batch([int(a) for a in argv[1:]] or [4, 6, 8, 10, 12, 16])
     elif argv[0] == "train-convs":
         train_convs()
+    elif argv[0] == "sync-u8":
+        sync_u8(argv[1:] or [os.path.dirname(os.path.abspath(__file__))])
     else:
         video_convs()
     return 0

@@ -19,7 +19,8 @@ Phases, each of which raises (exit code != 0) on any failure:
    and the RGB-T pair's f32 rows at C = 192 (327,680 / 327,687 / 81,920 /
    20,480 / 5,120; `gdn_bwd` too at the master step's 327,680 / 327,687 /
    81,920 / 20,480; `gdn_fwd` too at the master step's frozen guide,
-   1,310,720 / 1,310,727), both directions, each deterministic (f32 `gdn_fwd`
+   1,310,720 / 1,310,727, and at phase 12's batched synthesis, 393,216 /
+   1,572,864), both directions, each deterministic (f32 `gdn_fwd`
    exactly equal to its plain version), with CUDA-event timings of the
    kernel, the plain version and a cuBLAS composite of the same math,
    beside the least time the card could take; then each of the backward's
@@ -140,7 +141,27 @@ Phases, each of which raises (exit code != 0) on any failure:
    /compress and /decompress equal to the direct calls. The launch
    counts are set to 0 after one warm-up call of each eval leg and read
    at the end; each step's ms, the raster loops' ms per latent pixel, the
-   ms-ssim's device ms at 512x768 and 1080p and the peak memory logged.
+   ms-ssim's device ms at 512x768 and 1080p and the peak memory logged;
+12. pipelines and bundles, last: mbt2018-mean, bmshj2018-hyperprior and
+   bmshj2018-factorized at quality 8 from seed 0, batch 16 of 768x512
+   uint8 (bench.py's bench_pipelined geometry): a synchronous loop of two
+   batches, then bench_pipelined's loop of six (compress_async of batch
+   i+1, the finalize of batch i, decompress_async of batch i) with
+   LMIC_DECODE_THREAD off (and on too for mbt2018-mean), each batch's
+   strings and pixels equal
+   to the synchronous ones, 3 `gdn_fwd` launches an image to encode and
+   3 a batch to decode, no backward; images/s of each loop, a
+   synchronous batch's device ms, busy share and largest kernels, peak
+   memory; then mbt2018 q8 (512x768) and one 3-frame 1920x1152 ssf2020
+   GOP through their async pairs, equal to their synchronous calls (6 and
+   0 `gdn_fwd`); then serving bundles exported on the card (utils/aot.py;
+   seconds and MiB logged): mbt2018-mean q8 at 1x512x768 served by
+   `serve.main --bundle` (three requests, bodies and pixels equal to the
+   live codec's, 6 `gdn_fwd` a round trip), at 16x768x512 through the
+   pipelined loop (equal to the live codec's batches), and ssf2020 at
+   1x3x1152x1920 (equal to the live codec's GOP), each leg's peak memory
+   logged; each mbt2018-mean bundle holds 3 `gdn_fwd` operator nodes in
+   `_analyze_u8__one` and in each `_synth_u8` variant.
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -250,6 +271,19 @@ EVAL_QUALITY = 8  # mbt2018-mean and mbt2018 q8: N = 192, M = 320
 EVAL_IMAGES = 2
 EVAL_CHECK = (1, 128, 128, 3)  # the card's estimate against the CPU's
 VIDEO_CLIP = (3, 1080, 1920)  # frames, H, W of the YUV420 clip
+# phase 12: pipelines and bundles; bench.py's bench_pipelined geometry
+PIPE_ARCHS = ("mbt2018-mean", "bmshj2018-hyperprior", "bmshj2018-factorized")
+PIPE_BATCH = (16, 768, 512, 3)
+PIPE_BATCHES = 6  # the pipelined loop's batches
+# f32 gdn_fwd (C = 192) in a batch of 16 decoded at once: the batched
+# synthesis's second and third IGDN (its first is at 98,304 rows, a serving
+# row); per batch the analysis runs GDN per image at SERVE_ROWS[:3] and the
+# synthesis runs IGDN once at each of its rows: (GDN times, IGDN times)
+PIPE_ROWS = (393_216, 1_572_864)
+PIPE_BATCH_FWD = {98_304: (16, 1), 24_576: (16, 0), 6_144: (16, 0),
+                  393_216: (0, 1), 1_572_864: (0, 1)}
+SYNC_BATCHES = 2  # the synchronous loop's (two distinct batches)
+BUNDLE_REQUESTS = 3
 
 
 def log(*a):
@@ -541,7 +575,8 @@ def _reduce_plain(partials, C, dt):
 def phase_kernel(peaks):
     """Both GDN kernels against their plain versions at every main-path
     shape (serving, training, the RGB-T pair's wire and its training
-    step); returns the per-shape cases of each."""
+    step, the batched synthesis of phase 12); returns the per-shape cases
+    of each."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -550,10 +585,11 @@ def phase_kernel(peaks):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {k: [] for k in ("gdn_fwd", "gdn_bwd") + gdn.BWD_KERNELS}
     shapes = [(n, C) for C in (128, 192) for n in SERVE_ROWS + TRAIN_ROWS]
-    # f32 only: the pair's wire and the master step's frozen guide
-    f32_only = RGBT_ROWS + MASTER_GUIDE_ROWS
+    # f32 only: the pair's wire, the master step's frozen guide and the
+    # batched synthesis
+    f32_only = RGBT_ROWS + MASTER_GUIDE_ROWS + PIPE_ROWS
     shapes += [(n, 192) for n in f32_only]
-    # no backward: serving, and the frozen guide
+    # no backward: serving, the frozen guide, the batched synthesis
     fwd_only = tuple(n for n in SERVE_ROWS + f32_only
                      if n not in MASTER_TRAIN_ROWS)
     for n, C in shapes:
@@ -735,7 +771,7 @@ def _roundtrip_checks(codec, x, strings, shape):
             y, z = codec.module.analyze(xt)
             z_sym = _symbols_to_host(
                 torch.round(z - codec._medians(codec.eb_state)))
-            _, means = codec._params_from_zsym(z_sym)
+            _, means = codec._params_for_wire_z(z_sym)
         else:
             y = codec.module.g_a(xt)
             means = codec._medians(codec.eb_state)
@@ -2605,6 +2641,375 @@ def phase_eval_and_files():
     return counts["gdn_fwd"]
 
 
+def _pipe_batches(n):
+    """n batches of PIPE_BATCH: two distinct ones, alternating; the first
+    holds B / 4 seeded images and their mirror images about each axis,
+    the second its images turned half a circle."""
+    B, H, W, C = PIPE_BATCH
+    base = np.concatenate(_images(B // 4, (1, H, W, C), seed=12))
+    first = np.concatenate([base, base[:, ::-1], base[:, :, ::-1],
+                            base[:, ::-1, ::-1]])
+    pair = (first, np.ascontiguousarray(first[:, ::-1, ::-1]))
+    return [pair[i % 2] for i in range(n)]
+
+
+def _batch_launches(B):
+    """gdn_fwd launches of one batch's round trip: 3 an image to encode
+    (the analysis runs per image), 3 a batch to decode (the synthesis
+    runs batched); 6 an image at B = 1."""
+    return 3 * B + 3
+
+
+def _sync_loop(codec, batches):
+    """compress then decompress(u8=True) of each batch: (outputs, pixels,
+    seconds to a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, recs = [], []
+    for x in batches:
+        outs.append(codec.compress(x))
+        recs.append(codec.decompress(outs[-1]["strings"], outs[-1]["shape"],
+                                     u8=True)["x_hat"])
+    torch.cuda.synchronize()
+    return outs, recs, time.perf_counter() - t0
+
+
+def _pipelined_loop(codec, batches):
+    """bench.py's bench_pipelined loop: compress_async of batch i+1, then
+    the finalize of batch i (host rANS), then decompress_async of batch
+    i, joining batch i-1's decode: (outputs, pixels, seconds to a
+    synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, recs = [], []
+    pending, prev = codec.compress_async(batches[0]), None
+    for i in range(len(batches)):
+        nxt = (codec.compress_async(batches[i + 1])
+               if i + 1 < len(batches) else None)
+        out = pending()
+        outs.append(out)
+        dec = codec.decompress_async(out["strings"], out["shape"])
+        if prev is not None:
+            recs.append(prev()["x_hat"])
+        prev, pending = dec, nxt
+    recs.append(prev()["x_hat"])
+    torch.cuda.synchronize()
+    return outs, recs, time.perf_counter() - t0
+
+
+def _same_outputs(what, outs, recs, want_outs, want_recs):
+    """Strings and uint8 pixels equal, batch i against want's i % len."""
+    for i, (out, rec) in enumerate(zip(outs, recs)):
+        j = i % len(want_outs)
+        if out["strings"] != want_outs[j]["strings"] \
+                or tuple(out["shape"]) != tuple(want_outs[j]["shape"]):
+            raise AssertionError(f"{what}: batch {i}'s strings differ")
+        if not np.array_equal(rec, want_recs[j]):
+            raise AssertionError(f"{what}: batch {i}'s pixels differ")
+
+
+def _pipelined_serving(arch, batches, threads=("0", "1")):
+    """One arch at PIPE_BATCH: the synchronous loop, then the pipelined
+    loop with LMIC_DECODE_THREAD at each of `threads` (off, on), each
+    byte-equal to the synchronous outputs with exact launch counts.
+    Returns (codec, sync outputs, sync pixels, gdn_fwd launches)."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+
+    B = PIPE_BATCH[0]
+    per_batch = _batch_launches(B)
+    codec = zoo.create_model(arch, QUALITY, seed=0, device="cuda")
+    codec.update()
+    _sync_loop(codec, batches[:1])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    launched = 0
+    _reset_counts()
+    outs, recs, t_sync = _sync_loop(codec, batches[:SYNC_BATCHES])
+    _only_fwd(f"{arch} synchronous", dict(gdn.LAUNCHES),
+              per_batch * SYNC_BATCHES)
+    launched += gdn.LAUNCHES["gdn_fwd"]
+    stages = {k: round(v, 1) for k, v in codec.stats.items()}
+    rates = {"sync": B * SYNC_BATCHES / t_sync}
+    saved = os.environ.get("LMIC_DECODE_THREAD")
+    try:
+        for threaded in threads:
+            os.environ["LMIC_DECODE_THREAD"] = threaded
+            _reset_counts()
+            p_outs, p_recs, t = _pipelined_loop(codec, batches)
+            _only_fwd(f"{arch} pipelined, thread {threaded}",
+                      dict(gdn.LAUNCHES), per_batch * len(batches))
+            launched += gdn.LAUNCHES["gdn_fwd"]
+            _same_outputs(f"{arch} pipelined, thread {threaded}", p_outs,
+                          p_recs, outs, recs)
+            rates[f"pipelined_thread_{threaded}"] = B * len(batches) / t
+    finally:
+        if saved is None:
+            os.environ.pop("LMIC_DECODE_THREAD", None)
+        else:
+            os.environ["LMIC_DECODE_THREAD"] = saved
+    peak = torch.cuda.max_memory_allocated()
+    _, dev_ms, wall, top, ops = _profile(
+        lambda: _sync_loop(codec, batches[:1]), n=1, keep=5)
+    off_ms = 1e3 * B / rates["pipelined_thread_0"]
+    log(f"pipelined {arch} q{QUALITY}, {B} x {PIPE_BATCH[1]}x"
+        f"{PIPE_BATCH[2]} uint8 a batch: images/s "
+        + json.dumps({k: round(v, 2) for k, v in rates.items()})
+        + f"; a synchronous batch {wall:.1f} ms, device {dev_ms:.1f} ms "
+        f"(busy {100 * dev_ms / wall:.1f} %, {ops:.0f} device "
+        f"operations), pipelined (thread off) {off_ms:.1f} ms a batch "
+        f"(device share {100 * dev_ms / off_ms:.1f} %); peak "
+        f"{peak / 2**30:.2f} GiB; stages of a synchronous batch "
+        + json.dumps(stages) + "; largest kernels "
+        + json.dumps({k: round(v, 2) for k, v in top.items()}))
+    return codec, outs, recs, launched
+
+
+def _bundle_size(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _export(codec, path, shape):
+    """Export a bundle on the card: (seconds, MiB on disk)."""
+    from lmic_tpu_torch.utils.aot import export_serving_bundle
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        export_serving_bundle(codec, path, shape)
+    return time.perf_counter() - t0, _bundle_size(path) / 2**20
+
+
+def _gdn_nodes(codec):
+    """gdn_fwd operator nodes of a loaded hyperprior bundle's graphs that
+    hold GDN: {graph name: count}."""
+    import torch
+
+    graphs = {"_analyze_u8__one": codec._analyze_u8.inner,
+              "_synth_u8__i8": codec._synth_u8.fns[torch.int8],
+              "_synth_u8__i16": codec._synth_u8.fns[torch.int16]}
+    return {name: sum(n.target == torch.ops.lmic_tpu_torch.gdn_fwd.default
+                      for n in g.graph.nodes) for name, g in graphs.items()}
+
+
+def _serve_bundle(path, live, images):
+    """`serve.main --bundle` in a thread: BUNDLE_REQUESTS images through
+    POST /compress and /decompress, each body equal to the live codec's
+    strings and its pixels to the live codec's decode. Returns the
+    gdn_fwd launches of the requests, their ms and the served graphs'
+    gdn_fwd nodes."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils import serve
+
+    started, ready = [], threading.Event()
+    thread = threading.Thread(
+        target=serve.main, args=(["--bundle", path, "--port", "0"],),
+        kwargs={"started": lambda srv: (started.append(srv), ready.set())},
+        daemon=True)
+    thread.start()
+    if not ready.wait(300):
+        raise AssertionError("the bundle server did not start")
+    server = started[0]
+    nodes = _gdn_nodes(server.codec)
+    try:
+        port = server.server_address[1]
+        payloads = []
+        for x in images:
+            buf = io.BytesIO()
+            serve._write_pixels(buf, x)
+            payloads.append(buf.getvalue())
+        torch.cuda.synchronize()
+        _reset_counts()
+        bodies, ms = [], []
+        for payload in payloads:
+            t0 = time.perf_counter()
+            body = _post(port, "/compress", payload)
+            t1 = time.perf_counter()
+            rec = _post(port, "/decompress", body)
+            ms.append((round(1e3 * (t1 - t0), 1),
+                       round(1e3 * (time.perf_counter() - t1), 1)))
+            bodies.append((body, rec))
+        torch.cuda.synchronize()
+        counts = dict(gdn.LAUNCHES)
+    finally:
+        server.shutdown()
+        thread.join(60)
+    if thread.is_alive():
+        raise AssertionError("the bundle server did not stop")
+    _only_fwd("served bundle", counts, 6 * len(images))
+    for x, (body, rec) in zip(images, bodies):
+        want = live.compress(x)
+        if body != serve._encode_response(want, False):
+            raise AssertionError("the served bundle's body differs from "
+                                 "the live codec's strings")
+        got = serve._read_pixels(io.BytesIO(rec))
+        if not np.array_equal(got, live.decompress(
+                want["strings"], want["shape"], u8=True)["x_hat"]):
+            raise AssertionError("the served bundle's pixels differ")
+    return counts["gdn_fwd"], ms, nodes
+
+
+def phase_pipelines_and_bundles():
+    """Phase 12: the pipelined API of the three non-AR archs, of mbt2018
+    and of ssf2020, and serving bundles exported on the card. Returns the
+    gdn_fwd launches of its paths (no backward kernel may run)."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.aot import load_serving_bundle
+
+    t_phase = time.perf_counter()
+    batches = _pipe_batches(PIPE_BATCHES)
+    launched = 0
+    live = None
+    for arch in PIPE_ARCHS:
+        # the decode thread on for one arch only, to keep the phase short
+        codec, outs, recs, n = _pipelined_serving(
+            arch, batches, ("0", "1") if arch == SERVE_ARCH else ("0",))
+        launched += n
+        if arch == SERVE_ARCH:
+            live, live_outs, live_recs = codec, outs, recs
+        else:
+            del codec
+    torch.cuda.empty_cache()
+    t_pipe = time.perf_counter() - t_phase
+
+    # the AR family: mbt2018 q8 through its async pair
+    ar = zoo.create_model(AR_SERVE_ARCH, AR_QUALITY, seed=0, device="cuda")
+    ar.update()
+    x = _images(1, IMAGE)[0]
+    want = ar.compress(x)
+    want_rec = ar.decompress(want["strings"], want["shape"], u8=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = ar.compress_async(x)()
+    t1 = time.perf_counter()
+    rec = ar.decompress_async(out["strings"], out["shape"])()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _only_fwd("mbt2018 async pair", dict(gdn.LAUNCHES), 6)
+    launched += 6
+    if out["strings"] != want["strings"] \
+            or not np.array_equal(rec["x_hat"], want_rec["x_hat"]):
+        raise AssertionError("mbt2018's async pair differs from its "
+                             "synchronous calls")
+    _, dev_ms, wall, _, ops = _profile(lambda: ar.decompress_async(
+        out["strings"], out["shape"])(), n=1)
+    log(f"async {AR_SERVE_ARCH} q{AR_QUALITY} {IMAGE[2]}x{IMAGE[1]}: "
+        f"compress {1e3 * (t1 - t0):.1f} ms, decompress "
+        f"{1e3 * (t2 - t1):.1f} ms (decompress device {dev_ms:.1f} ms of "
+        f"{wall:.1f}, busy {100 * dev_ms / wall:.1f} %, {ops:.0f} device "
+        f"operations); peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    del ar
+
+    # video: one 1080p GOP of ssf2020 through its async pair
+    video = zoo.create_video_model("ssf2020", 1, seed=0, device="cuda")
+    video.update()
+    gop = _gops(1, VIDEO_GOP)[0]
+    want_v = video.compress(gop)
+    want_vrec = video.decompress(*want_v, u8=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out_v = video.compress_async(gop)()
+    t1 = time.perf_counter()
+    rec_v = video.decompress_async(*out_v)()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if any(gdn.LAUNCHES.values()):
+        raise AssertionError(f"ssf2020 launched GDN kernels {gdn.LAUNCHES}")
+    if out_v != want_v or not np.array_equal(rec_v, want_vrec):
+        raise AssertionError("ssf2020's async pair differs from its "
+                             "synchronous calls")
+    _, dev_ms, wall, _, ops = _profile(
+        lambda: video.compress_async(gop)(), n=1)
+    log(f"async ssf2020, {VIDEO_GOP[1]} frames of {VIDEO_GOP[3]}x"
+        f"{VIDEO_GOP[2]}: compress {1e3 * (t1 - t0):.1f} ms, decompress "
+        f"{1e3 * (t2 - t1):.1f} ms (compress device {dev_ms:.1f} ms of "
+        f"{wall:.1f}, busy {100 * dev_ms / wall:.1f} %, {ops:.0f} device "
+        f"operations); 0 GDN launches; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t_async = time.perf_counter() - t_phase - t_pipe
+
+    # bundles exported on the card, each coding the live codec's bytes
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, k) for k in ("served", "batch",
+                                                   "video")}
+        exports = {
+            "served": _export(live, paths["served"], IMAGE),
+            "batch": _export(live, paths["batch"], PIPE_BATCH),
+            "video": _export(video, paths["video"], VIDEO_GOP),
+        }
+        peaks = {}
+        torch.cuda.reset_peak_memory_stats()
+        n, served_ms, served_nodes = _serve_bundle(
+            paths["served"], live, _images(BUNDLE_REQUESTS, IMAGE, seed=21))
+        peaks["served"] = torch.cuda.max_memory_allocated() / 2**30
+        launched += n
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        batch = load_serving_bundle(paths["batch"])
+        t_load = time.perf_counter() - t0
+        for k, nodes in (("served", served_nodes),
+                         ("batch", _gdn_nodes(batch))):
+            if set(nodes.values()) != {3}:
+                raise AssertionError(f"{k} bundle's gdn_fwd nodes {nodes}")
+        _reset_counts()
+        b_outs, b_recs, t_b = _pipelined_loop(batch, batches[:SYNC_BATCHES])
+        _only_fwd("batch bundle", dict(gdn.LAUNCHES),
+                  _batch_launches(PIPE_BATCH[0]) * SYNC_BATCHES)
+        launched += gdn.LAUNCHES["gdn_fwd"]
+        _same_outputs("batch bundle", b_outs, b_recs, live_outs, live_recs)
+        _, b_dev, b_wall, _, b_ops = _profile(
+            lambda: _sync_loop(batch, batches[:1]), n=1, keep=0)
+        peaks["batch"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vb = load_serving_bundle(paths["video"])
+        t_vload = time.perf_counter() - t0
+        _reset_counts()
+        got_v = vb.compress(gop)
+        got_vrec = vb.decompress(*got_v, u8=True)
+        torch.cuda.synchronize()
+        if any(gdn.LAUNCHES.values()):
+            raise AssertionError("the video bundle launched GDN kernels")
+        if got_v != want_v or not np.array_equal(got_vrec, want_vrec):
+            raise AssertionError("the video bundle differs from the live "
+                                 "codec")
+        peaks["video"] = torch.cuda.max_memory_allocated() / 2**30
+    log("bundles exported on the card (seconds, MiB): "
+        + json.dumps({k: [round(t, 2), round(mb, 1)]
+                      for k, (t, mb) in exports.items()})
+        + f"; {SERVE_ARCH} q{QUALITY} {IMAGE[2]}x{IMAGE[1]} served by "
+        f"serve.main --bundle, (/compress, /decompress) ms {served_ms}; "
+        f"the {PIPE_BATCH[0]}-image bundle loaded in {t_load:.1f} s, "
+        f"{PIPE_BATCH[0] * SYNC_BATCHES / t_b:.2f} images/s pipelined, "
+        f"a synchronous batch {b_wall:.1f} ms, device {b_dev:.1f} ms (busy "
+        f"{100 * b_dev / b_wall:.1f} %, {b_ops:.0f} device operations); "
+        f"the video bundle loaded in {t_vload:.1f} s; peak GiB of each "
+        "bundle's leg (the live codecs still held) "
+        + json.dumps({k: round(v, 2) for k, v in peaks.items()})
+        + "; every bundle's strings and pixels equal the live codec's; 3 "
+        "gdn_fwd nodes in _analyze_u8__one and in each _synth_u8 variant")
+    del live, video, batch, vb
+    torch.cuda.empty_cache()
+    log(f"pipelines and bundles phase: {time.perf_counter() - t_phase:.1f}"
+        f" s (pipelined serving {t_pipe:.1f}, async pairs {t_async:.1f}); "
+        f"{launched} gdn_fwd launches, no backward")
+    return launched
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -2699,6 +3104,7 @@ def main():
     paired_launches, more_training["paired_training"] = phase_paired()
     video_launches = phase_video_serving()
     eval_launches = phase_eval_and_files()
+    pipe_launches = phase_pipelines_and_bundles()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
@@ -2717,7 +3123,7 @@ def main():
         "source": "lmic_tpu_torch/csrc/gdn_fwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
         "launches": (serve_launches + ar_launches + rgbt_launches
-                     + paired_launches + eval_launches
+                     + paired_launches + eval_launches + pipe_launches
                      + launched["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
@@ -2725,6 +3131,7 @@ def main():
                              "paired_serving": paired_launches,
                              "video_serving": video_launches,
                              "eval_and_files": eval_launches,
+                             "pipelines_and_bundles": pipe_launches,
                              **{p: c["gdn_fwd"]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
@@ -2748,6 +3155,9 @@ def main():
         # at 1,310,720 / 327,680 / 81,920 rows and the master's six
         "training_step_master": totals("gdn_fwd", MASTER_STEP_FWD,
                                        "float32"),
+        # one batch of phase 12's pipelined loop (16 of 768x512): 51
+        # launches, 48 GDN per image and 3 batched IGDN
+        "pipelined_batch": totals("gdn_fwd", PIPE_BATCH_FWD, "float32"),
         "card": smi,
     }, {
         "name": "gdn_bwd",
@@ -2758,6 +3168,7 @@ def main():
         "launches_by_kernel": bwd_counts,
         "launches_by_path": {"video_serving": video_launches,
                              "eval_and_files": 0,
+                             "pipelines_and_bundles": 0,
                              **{p: c[gdn.BWD_KERNELS[0]]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts[gdn.BWD_KERNELS[0]] / train_steps,

@@ -3,29 +3,42 @@
 Counterpart of lmic_tpu/models/codec.py:51-783 (`FactorizedPriorCodec`,
 `HyperpriorCodec`), with the same API and the same wire:
 `compress(x) -> {"strings", "shape"}` for NHWC numpy images (float in
-[0, 1] or uint8), `decompress(strings, shape, u8=False) -> {"x_hat"}`.
+[0, 1] or uint8), `decompress(strings, shape, u8=False) -> {"x_hat"}`,
+and the pipelined pair `compress_async(x)` / `decompress_async(strings,
+shape)`, each returning a finalizer.
 
 Wire determinism (the rules of lmic_tpu/models/codec.py `_PerItem`):
 
 - every graph whose output reaches the bitstream (the analysis transforms
   and the hyper synthesis that picks the scale buckets) runs one image at a
-  time (batch size 1), under `set_wire_determinism()`, so symbols and
-  indexes do not depend on how images are batched;
+  time (batch size 1, `_PerItem`), under `set_wire_determinism()`, so
+  symbols and indexes do not depend on how images are batched;
 - `HyperpriorCodec._params_from_zsym` is the only place the entropy
   parameters are derived, from the wire z symbols, on the encode side and
   on the decode side alike.
 
-Symbols leave the device as int8 when they fit (int16, then int32, when
-they do not), and scale indexes as uint8.
+The uint8 fast path (`_build_u8_fns`, lmic_tpu's device functions of the
+same names) is a set of modules on tensors with no host read inside:
+pixels cross to the device as uint8, symbols come back as int8 (int16 when
+one overflows, flagged on the device; past int16 the plain path's int32)
+and scale indexes as uint8, the whole encode result in one packed buffer. `compress_async` dispatches them
+and starts that buffer's copy to pinned host memory; its finalizer waits on
+the copy's CUDA event (never on the whole device) and runs the host rANS.
+The same modules serve the synchronous uint8 calls and are what
+`utils/aot.py` exports. Float input keeps the plain path, symbols crossing
+in the narrowest integer type that holds them.
 """
 
 from __future__ import annotations
 
+import copy
+import os
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from lmic_tpu_torch import default_device
 from lmic_tpu_torch.entropy import coder as rans
@@ -60,13 +73,265 @@ def _narrowest_int(sym: np.ndarray):
     return np.int32
 
 
+def _u8_pixels(x: torch.Tensor) -> torch.Tensor:
+    """A synthesis output (B, C, H, W) -> uint8 levels round(clip(x, 0, 1)
+    * 255), NHWC contiguous."""
+    x = torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
 def _image_out(x: torch.Tensor, u8: bool) -> Dict[str, Any]:
     """A synthesis output (B, C, H, W) -> {"x_hat": NHWC numpy}, clipped to
     [0, 1] (uint8 levels when `u8`)."""
-    x = torch.clamp(x, 0.0, 1.0)
     if u8:
-        x = torch.round(x * 255.0).to(torch.uint8)
+        return {"x_hat": _u8_pixels(x).cpu().numpy()}
+    x = torch.clamp(x, 0.0, 1.0)
     return {"x_hat": np.ascontiguousarray(x.permute(0, 2, 3, 1).cpu().numpy())}
+
+
+# -- host <-> device copies of the fast path ---------------------------------
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array -> a tensor on `device`. On CUDA through a pinned
+    staging buffer and a non-blocking copy: a copy from pageable memory
+    waits for the stream's earlier work, which would serialize a pipelined
+    caller's batches (PyTorch's pinned allocator keeps the buffer until
+    the copy has run)."""
+    arr = np.ascontiguousarray(arr)
+    if device.type != "cuda":
+        return torch.tensor(arr, device=device)
+    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+    buf = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    buf.numpy()[...] = arr
+    return buf.to(device, non_blocking=True)
+
+
+class _Fetch:
+    """A device tensor's copy to pinned host memory, started when made:
+    `result()` waits on the copy's CUDA event, never on the whole device,
+    and returns the host array. Holds the source until then. On the CPU
+    the tensor already is the result."""
+
+    def __init__(self, t: torch.Tensor):
+        self._src, self._event = t, None
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host = t
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        self._src = None
+        return self._host.numpy()
+
+
+# -- the device functions of the uint8 fast path -----------------------------
+
+
+def _only(module: nn.Module, *paths: str) -> nn.Module:
+    """A shallow copy of `module` that holds only the submodules at the
+    dotted `paths` (and those on the way to them): its methods run as on
+    `module`, on the same weights, and an export of it carries only those
+    weights."""
+    heads: Dict[str, list] = {}
+    for p in paths:
+        head, _, rest = p.partition(".")
+        heads.setdefault(head, []).append(rest)
+    view = copy.copy(module)
+    view.__dict__["_modules"] = {
+        name: sub if "" in heads[name] else _only(sub, *heads[name])
+        for name, sub in module._modules.items() if name in heads}
+    view.__dict__["_parameters"] = {}
+    view.__dict__["_buffers"] = {}
+    return view
+
+
+def _cl(t: torch.Tensor) -> torch.Tensor:
+    """channels_last, the layout of every input of a sub-network on both
+    sides of the wire (a conv may pick another algorithm for another
+    layout, and so compute other last bits)."""
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _const(module: nn.Module, arr, *shape) -> torch.Tensor:
+    """A float32 copy of `arr` on the device of `module`'s weights, owning
+    its memory (an exported graph stores a view's whole storage)."""
+    dev = next(module.parameters()).device
+    return torch.tensor(np.asarray(arr, np.float32), device=dev).view(*shape)
+
+
+def _overflow(sym: torch.Tensor) -> torch.Tensor:
+    """How far the symbols overflow, as an int32 (1,) tensor: 0 when all
+    fit int8, 1 when one needs int16, 2 when one is past int16 (the plain
+    path's int32 symbols then)."""
+    past8 = ((sym < -128) | (sym > 127)).any()
+    past16 = ((sym < -32768) | (sym > 32767)).any()
+    return (past8.to(torch.int32) + past16.to(torch.int32)).reshape(1)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """An int8 tensor's bytes, flat (a reinterpretation, not a cast)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _pixels_in(x: torch.Tensor) -> torch.Tensor:
+    """NHWC pixels -> NCHW float32 (channels_last in memory); uint8 maps to
+    [0, 1] as x / 255."""
+    x = x.permute(0, 3, 1, 2)
+    return x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+
+
+class _EncU8(nn.Module):
+    """Factorized `_enc_u8_packed`'s per-image graph (`wide=False`):
+    uint8 (1, H, W, C) -> (int8 symbols (1, M, h, w) channel-major, int32
+    (1,) overflow level, `_overflow`); `wide=True` is the `_enc_u8`
+    escape: int16 symbols alone."""
+
+    def __init__(self, module, medians: np.ndarray, wide: bool = False):
+        super().__init__()
+        self.module = _only(module, "g_a")
+        self.wide = wide
+        self.register_buffer("medians", _const(module, medians, 1, -1, 1, 1))
+
+    def forward(self, x_u8):
+        sym = torch.round(self.module.g_a(_pixels_in(x_u8)) - self.medians)
+        if self.wide:
+            return sym.to(torch.int16).contiguous()
+        return sym.to(torch.int8).contiguous(), _overflow(sym)
+
+
+class _PackSymbols(nn.Module):
+    """Factorized `_enc_u8_packed`'s batched layout stage: [1 byte: the
+    highest overflow level | int8 symbols], one buffer for one copy."""
+
+    def forward(self, sym8, overflow):
+        flag = overflow.amax().to(torch.uint8).reshape(1)
+        return torch.cat([flag, _bytes(sym8)])
+
+
+class _DecU8(nn.Module):
+    """Factorized `_dec_u8`: integer symbols (B, M, h, w) channel-major ->
+    uint8 pixels (B, H, W, C)."""
+
+    def __init__(self, module, medians: np.ndarray):
+        super().__init__()
+        self.module = _only(module, "g_s")
+        self.register_buffer("medians", _const(module, medians, 1, -1, 1, 1))
+
+    def forward(self, sym):
+        return _u8_pixels(self.module.g_s(_cl(sym.float() + self.medians)))
+
+
+class _AnalyzeU8(nn.Module):
+    """Hyperprior `_analyze_u8`'s per-image graph: pixels (1, H, W, C),
+    uint8 (or float in [0, 1]) -> (y (1, M, H/16, W/16), int8 z symbols
+    (1, N, h, w) channel-major, int32 (1,) overflow level of the z
+    symbols). The AR codecs' `_analyze_u8_ar` too."""
+
+    def __init__(self, module, z_medians: np.ndarray):
+        super().__init__()
+        self.module = _only(module, "g_a", "h_a")
+        self.register_buffer("z_medians",
+                             _const(module, z_medians, 1, -1, 1, 1))
+
+    def forward(self, x):
+        y, z = self.module.analyze(_pixels_in(x))
+        z_sym = torch.round(z - self.z_medians)
+        return y, z_sym.to(torch.int8).contiguous(), _overflow(z_sym)
+
+
+class _ParamsFromZsym(nn.Module):
+    """Hyperprior `_params_from_zsym`'s per-image graph: integer z symbols
+    (1, N, h, w) channel-major -> (uint8 scale indexes (1, M, H, W)
+    channel-major, means or None). The one place the entropy parameters
+    are derived, on both sides of the wire."""
+
+    gc = GaussianConditional()
+
+    def __init__(self, module, z_medians: np.ndarray, scale_table):
+        super().__init__()
+        self.module = _only(module, "h_s")
+        self.register_buffer("z_medians",
+                             _const(module, z_medians, 1, -1, 1, 1))
+        self.register_buffer("scale_table", _const(module, scale_table, -1))
+
+    def forward(self, z_sym):
+        z_hat = _cl(z_sym.float() + self.z_medians)
+        scales, means = self.module.hyper_to_params(z_hat)
+        idx = self.gc.build_indexes(self.scale_table, scales)
+        return idx.to(torch.uint8).contiguous(), means
+
+
+class _YSym(nn.Module):
+    """Hyperprior `_ysym` (elementwise, batched): y and the means ->
+    (int8 and int16 symbols channel-major, int32 (1,) overflow level)."""
+
+    def forward(self, y, means=None):
+        sym = torch.round(y - means if means is not None else y)
+        return (sym.to(torch.int8).contiguous(),
+                sym.to(torch.int16).contiguous(), _overflow(sym))
+
+
+class _PackEnc(nn.Module):
+    """Hyperprior `_pack_enc` (layout only, batched): [z level, y level |
+    int8 z | uint8 indexes | int8 y], one buffer for one copy."""
+
+    def forward(self, z8, idx, y8, zovf, yovf):
+        flags = torch.stack([zovf.amax(), yovf.amax()]).to(torch.uint8)
+        return torch.cat([flags, _bytes(z8), idx.reshape(-1), _bytes(y8)])
+
+
+class _SynthU8(nn.Module):
+    """Hyperprior `_synth_u8` (batched): integer y symbols (B, M, H, W)
+    channel-major and the means (or float y_hat alone: the AR codecs'
+    `_g_s_u8`) -> uint8 pixels (B, H, W, C)."""
+
+    def __init__(self, module):
+        super().__init__()
+        self.module = _only(module, "g_s")
+
+    def forward(self, y_sym, means=None):
+        y_hat = y_sym.float()
+        if means is not None:
+            y_hat = y_hat + means
+        return _u8_pixels(self.module.g_s(_cl(y_hat)))
+
+
+class _PerItem:
+    """Run a B = 1 device graph once per batch item and concatenate.
+
+    The wire-determining graphs (the analysis transforms, the hyper
+    synthesis that picks the scale buckets) must not see the batch shape:
+    a batched conv may sum in another order than its B = 1 run, and a
+    1-ulp scale difference flips a Gaussian bucket and desyncs the stream.
+    `post`, when given, is a batched layout-only stage applied to the
+    concatenated results. `inner` stays exposed for export (utils/aot.py
+    exports it at B = 1 and re-wraps it on load)."""
+
+    def __init__(self, inner, post=None):
+        self.inner = inner
+        self.post = post
+
+    def __call__(self, *args):
+        B = args[0].shape[0]
+        if B == 1:
+            out = self.inner(*args)
+        else:
+            outs = [self.inner(*(a[i:i + 1] for a in args))
+                    for i in range(B)]
+            if isinstance(outs[0], tuple):
+                out = tuple(None if o[0] is None else torch.cat(o)
+                            for o in zip(*outs))
+            else:
+                out = torch.cat(outs)
+        if self.post is None:
+            return out
+        return self.post(*out) if isinstance(out, tuple) else self.post(out)
 
 
 class CompressionCodec:
@@ -125,6 +390,51 @@ class CompressionCodec:
                 f"{factor}; pad first (CLIs use centered padding)"
             )
 
+    def _ensure(self, build: str):
+        """Run the method `build` unless it ran for the current coding
+        tables: the device functions it makes hold their medians and scale
+        table, and the tables can be replaced (`update`, a deployment
+        checkpoint, tables carried across)."""
+        built = self.__dict__.setdefault("_built_for", {})
+        tables = built.get(build)
+        if (tables is None or tables[0] is not self.eb_state
+                or tables[1] is not self.gc_state):
+            getattr(self, build)()
+            built[build] = (self.eb_state, self.gc_state)
+
+    @staticmethod
+    def _check_u8(x: np.ndarray, what: str):
+        if x.dtype != np.uint8:
+            raise ValueError(f"{what}: uint8 fast path only, got {x.dtype}")
+
+    @property
+    def _host_worker(self):
+        """One worker thread for the host half of `decompress_async`: a
+        pipelining caller then overlaps this batch's decode (host rANS and
+        its copies) with the next batch's encode. rANS and kernel launches
+        run in native code that releases the GIL."""
+        pool = getattr(self, "_host_pool", None)
+        if pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = self._host_pool = ThreadPoolExecutor(max_workers=1)
+        return pool
+
+    @staticmethod
+    def _decode_threaded() -> bool:
+        """LMIC_DECODE_THREAD=1 moves decompress_async's host half to the
+        worker thread (`_host_worker`); off by default, as in lmic_tpu.
+        Inline, the pixels' copy still overlaps the caller's next batch."""
+        return os.environ.get("LMIC_DECODE_THREAD", "0") == "1"
+
+    def _decompress_async(self, body, strings, shape):
+        """`body(strings, shape)` -> a finalizer, run inline or on the
+        worker thread (`_decode_threaded`)."""
+        if not self._decode_threaded():
+            return body(strings, shape)
+        fut = self._host_worker.submit(body, strings, shape)
+        return lambda: fut.result()()
+
 
 class FactorizedPriorCodec(CompressionCodec):
     """bmshj2018-factorized coding wrapper."""
@@ -139,21 +449,46 @@ class FactorizedPriorCodec(CompressionCodec):
         if self.eb_state is None:
             raise RuntimeError("Uninitialized CDFs. Run update() first")
 
+    def _build_u8_fns(self):
+        """The uint8 fast path's device functions (lmic_tpu's names): the
+        analysis per image, packed with its overflow flag into one buffer;
+        the int16 escape; the synthesis to uint8 pixels."""
+        med = self.eb_state.medians
+        self._enc_u8_packed = _PerItem(_EncU8(self.module, med),
+                                       post=_PackSymbols())
+        self._enc_u8 = _PerItem(_EncU8(self.module, med, wide=True))
+        self._dec_u8 = _DecU8(self.module, med)
+
+    def _latent_shape(self, B, H, W):
+        # stride-2 convs emit ceil(H/2) per stage: 4 stages -> ceil(H/16)
+        return (B, self.module.M, -(-H // 16), -(-W // 16))
+
     @torch.inference_mode()
-    def compress(self, x):
-        """x: (B, H, W, C) float in [0, 1] or uint8."""
-        self._check_updated()
-        set_wire_determinism()
-        x = np.asarray(x)
+    def _fetch_symbols(self, x, x_dev, fetch):
+        """One copy resolves flag and symbols; on an int8 overflow the
+        int16 escape runs, past int16 the plain path (same bytes)."""
         t0 = time.perf_counter()
+        buf = fetch.result()
+        self._stat("enc_fetch_ms", t0)
+        if buf[0] == 0:
+            B, H, W = x_dev.shape[:3]
+            return buf[1:].view(np.int8).reshape(self._latent_shape(B, H, W))
+        if buf[0] == 1:
+            return _Fetch(self._enc_u8(x_dev)).result()
+        return self._plain_symbols(x.astype(np.float32) / 255.0)
+
+    def _plain_symbols(self, x):
+        """The plain path's symbols of float pixels, int32 on the host."""
         med = self._medians(self.eb_state)
-        sym = np.concatenate([
+        return np.concatenate([
             _symbols_to_host(torch.round(
                 self.module.g_a(self._pixels(x[i:i + 1])) - med
             ))
             for i in range(x.shape[0])
         ])
-        t0 = self._stat("enc_device_ms", t0)
+
+    def _code_symbols(self, sym):
+        t0 = time.perf_counter()
         B, C, h, w = sym.shape
         indexes = np.repeat(np.arange(C, dtype=np.int32), h * w)
         strings = rans.encode_batch(sym.reshape(B, -1), indexes,
@@ -162,10 +497,75 @@ class FactorizedPriorCodec(CompressionCodec):
         return {"strings": [strings], "shape": (h, w)}
 
     @torch.inference_mode()
-    def decompress(self, strings, shape, u8: bool = False):
+    def compress_async(self, x):
+        """Dispatch the device half of compress (uint8 only) and start its
+        copy to the host; the finalizer waits for the copy and runs the
+        host coder, so a caller codes this batch while the device runs the
+        next."""
         self._check_updated()
+        x = np.asarray(x)
+        self._check_u8(x, "compress_async")
+        self._ensure("_build_u8_fns")
+        set_wire_determinism()
+        x_dev = _to_device(x, self.device)
+        fetch = _Fetch(self._enc_u8_packed(x_dev))
+        return lambda: self._code_symbols(self._fetch_symbols(x, x_dev,
+                                                              fetch))
+
+    @torch.inference_mode()
+    def compress(self, x):
+        """x: (B, H, W, C) float in [0, 1] or uint8 (the fast path)."""
+        self._check_updated()
+        x = np.asarray(x)
+        if x.dtype == np.uint8:
+            return self.compress_async(x)()
+        set_wire_determinism()
+        t0 = time.perf_counter()
+        sym = self._plain_symbols(x)
+        self._stat("enc_device_ms", t0)
+        return self._code_symbols(sym)
+
+    @staticmethod
+    def _check_strings(strings):
         if not isinstance(strings, list) or len(strings) != 1:
             raise ValueError("factorized streams have one string group")
+
+    @torch.inference_mode()
+    def _decompress_u8_body(self, strings, shape):
+        """Host rANS, the symbols' upload, the synthesis dispatched and its
+        pixels' copy started: returns the finalizer."""
+        set_wire_determinism()
+        t0 = time.perf_counter()
+        sym = self.eb_state.decode_symbols(strings[0], tuple(shape))
+        self._stat("dec_rans_ms", t0)
+        fetch = _Fetch(self._dec_u8(_to_device(
+            sym.astype(_narrowest_int(sym)), self.device)))
+
+        def finalize():
+            t1 = time.perf_counter()
+            out = fetch.result()
+            self._stat("dec_fetch_ms", t1)
+            return {"x_hat": out}
+
+        return finalize
+
+    def decompress_async(self, strings, shape):
+        """Run the host half of decode (inline, or on the worker thread
+        with LMIC_DECODE_THREAD=1) and return a finalizer giving the uint8
+        pixels, whose copy runs in the background."""
+        self._check_updated()
+        self._check_strings(strings)
+        self._ensure("_build_u8_fns")
+        return self._decompress_async(self._decompress_u8_body, strings,
+                                      shape)
+
+    @torch.inference_mode()
+    def decompress(self, strings, shape, u8: bool = False):
+        self._check_updated()
+        self._check_strings(strings)
+        if u8:
+            self._ensure("_build_u8_fns")
+            return self._decompress_u8_body(strings, shape)()
         set_wire_determinism()
         t0 = time.perf_counter()
         sym = self.eb_state.decode_symbols(strings[0], tuple(shape))
@@ -200,21 +600,29 @@ class HyperpriorCodec(CompressionCodec):
         if self.eb_state is None or self.gc_state is None:
             raise RuntimeError("Uninitialized CDFs. Run update() first")
 
-    def _params_from_zsym(self, z_sym: np.ndarray):
-        """Entropy parameters as a function of the WIRE z symbols (int32,
-        channel-major (B, C, h, w)), one image at a time. The only place
-        they are derived, on both sides of the wire. Returns (indexes int32
-        (B, M, H, W) on the host, means on the device or None)."""
-        z_med = self._medians(self.eb_state)
-        table = torch.from_numpy(self.gc_state.scale_table).to(self.device)
-        idx, means = [], []
-        for i in range(z_sym.shape[0]):
-            z_hat = self._upload(z_sym[i:i + 1]) + z_med
-            scales, mu = self.module.hyper_to_params(z_hat)
-            idx.append(self.gc.build_indexes(table, scales).to(torch.uint8))
-            means.append(mu)
-        idx = torch.cat(idx).cpu().numpy().astype(np.int32)
-        return idx, (None if means[0] is None else torch.cat(means))
+    def _build_u8_fns(self):
+        """The uint8 fast path's device functions (lmic_tpu's names). The
+        analysis and the params graph are wire-determining and run per
+        image (`_PerItem`); the y symbols, the pack and the synthesis are
+        elementwise or layout-only, or reach no wire, and run batched."""
+        z_med = self.eb_state.medians
+        self._analyze_u8 = _PerItem(_AnalyzeU8(self.module, z_med))
+        self._params_from_zsym = _PerItem(_ParamsFromZsym(
+            self.module, z_med, self.gc_state.scale_table))
+        self._ysym = _YSym()
+        self._pack_enc = _PackEnc()
+        self._synth_u8 = _SynthU8(self.module)
+
+    def _params_for_wire_z(self, z_sym: np.ndarray):
+        """Entropy parameters of the WIRE z symbols (int32, channel-major
+        (B, C, h, w)): they cross in their narrowest integer type and go
+        through `_params_from_zsym`, the graph that every path runs.
+        Returns (indexes int32 (B, M, H, W) on the host, means on the
+        device or None)."""
+        self._ensure("_build_u8_fns")
+        z_dev = _to_device(z_sym.astype(_narrowest_int(z_sym)), self.device)
+        idx, means = self._params_from_zsym(z_dev)
+        return idx.cpu().numpy().astype(np.int32), means
 
     def _analyze(self, x: np.ndarray):
         """The encoder's transforms, one image at a time: (list of B
@@ -237,16 +645,69 @@ class HyperpriorCodec(CompressionCodec):
             self.eb_state.table,
         )
 
+    def _latent_shapes(self, B, H, W):
+        # ceil division: the conv stacks emit ceil(H/2) per stride-2 stage
+        m = self.module
+        return ((B, m.N, -(-H // 64), -(-W // 64)),
+                (B, m.M, -(-H // 16), -(-W // 16)))
+
     @torch.inference_mode()
-    def compress(self, x):
-        """x: (B, H, W, C) float in [0, 1] or uint8; H, W multiples of 64."""
+    def compress_async(self, x):
+        """Dispatch the whole device half of compress (uint8 only): the
+        analysis and the params graph per image, the y symbols, and the
+        pack; start the packed buffer's copy to the host. The finalizer
+        waits for that copy and runs the host coder."""
         self._check_updated()
         x = np.asarray(x)
         self._check_dims(x)
+        self._check_u8(x, "compress_async")
+        self._ensure("_build_u8_fns")
+        set_wire_determinism()
+        x_dev = _to_device(x, self.device)
+        y, z8, zovf = self._analyze_u8(x_dev)
+        idx, means = self._params_from_zsym(z8)
+        y8, y16, yovf = self._ysym(y, means)
+        fetch = _Fetch(self._pack_enc(z8, idx, y8, zovf, yovf))
+        return lambda: self._finish_compress_u8(x, fetch, y16)
+
+    def _finish_compress_u8(self, x: np.ndarray, fetch, y16):
+        t0 = time.perf_counter()
+        buf = fetch.result()
+        t0 = self._stat("enc_fetch_ms", t0)
+        if buf[0] or buf[1] > 1:
+            # a z symbol outside int8 or a y symbol past int16: the plain
+            # path, same bytes
+            return self.compress(x.astype(np.float32) / 255.0)
+        zshape, yshape = self._latent_shapes(*x.shape[:3])
+        zn, yn = int(np.prod(zshape)), int(np.prod(yshape))
+        if buf.size != 2 + zn + 2 * yn:
+            raise ValueError("packed encode layout mismatch")
+        z_sym = buf[2:2 + zn].view(np.int8).reshape(zshape)
+        idx = buf[2 + zn:2 + zn + yn].reshape(yshape)
+        if buf[1]:  # a y symbol outside int8: the int16 copy
+            y_sym = _Fetch(y16).result()
+        else:
+            y_sym = buf[2 + zn + yn:].view(np.int8).reshape(yshape)
+        B = zshape[0]
+        z_strings = self._encode_z(z_sym)
+        y_strings = rans.encode_batch(y_sym.reshape(B, -1),
+                                      idx.reshape(B, -1), self.gc_state.table)
+        self._stat("enc_rans_ms", t0)
+        return {"strings": [y_strings, z_strings], "shape": zshape[2:4]}
+
+    @torch.inference_mode()
+    def compress(self, x):
+        """x: (B, H, W, C) float in [0, 1] or uint8 (the fast path); H, W
+        multiples of 64."""
+        self._check_updated()
+        x = np.asarray(x)
+        self._check_dims(x)
+        if x.dtype == np.uint8:
+            return self.compress_async(x)()
         set_wire_determinism()
         t0 = time.perf_counter()
         ys, z_sym = self._analyze(x)
-        idx, means = self._params_from_zsym(z_sym)
+        idx, means = self._params_for_wire_z(z_sym)
         y = torch.cat(ys)
         y_sym = _symbols_to_host(
             torch.round(y - means if means is not None else y)
@@ -260,17 +721,67 @@ class HyperpriorCodec(CompressionCodec):
         self._stat("enc_rans_ms", t0)
         return {"strings": [y_strings, z_strings], "shape": (h, w)}
 
-    @torch.inference_mode()
-    def decompress(self, strings, shape, u8: bool = False):
-        self._check_updated()
+    @staticmethod
+    def _check_strings(strings):
         if not isinstance(strings, list) or len(strings) != 2:
             raise ValueError("hyperprior streams have two string groups")
+
+    @torch.inference_mode()
+    def _decompress_u8(self, strings, shape):
+        """The uint8 decode: host rANS of z, the params graph, the indexes'
+        copy, host rANS of y, the synthesis dispatched and its pixels'
+        copy started. Returns the finalizer."""
         set_wire_determinism()
         y_strings, z_strings = strings
         t0 = time.perf_counter()
         z_sym = self.eb_state.decode_symbols(z_strings, tuple(shape))
         t0 = self._stat("dec_z_rans_ms", t0)
-        idx, means = self._params_from_zsym(z_sym)
+        if _narrowest_int(z_sym) is not np.int8:
+            # z outside int8: the plain path (which a frozen bundle lacks)
+            out = self.decompress(strings, shape)
+            x_hat = np.round(out["x_hat"] * 255.0).astype(np.uint8)
+            return lambda: {"x_hat": x_hat}
+        idx, means = self._params_from_zsym(
+            _to_device(z_sym.astype(np.int8), self.device))
+        idx = _Fetch(idx).result().astype(np.int32)
+        t0 = self._stat("dec_idx_fetch_ms", t0)
+        B = idx.shape[0]
+        y_sym = rans.decode_batch(y_strings, idx.reshape(B, -1),
+                                  self.gc_state.table).reshape(idx.shape)
+        self._stat("dec_y_rans_ms", t0)
+        fetch = _Fetch(self._synth_u8(_to_device(
+            y_sym.astype(_narrowest_int(y_sym)), self.device), means))
+
+        def finalize():
+            t1 = time.perf_counter()
+            out = fetch.result()
+            self._stat("dec_fetch_ms", t1)
+            return {"x_hat": out}
+
+        return finalize
+
+    def decompress_async(self, strings, shape):
+        """Run the host half of decode (inline, or on the worker thread
+        with LMIC_DECODE_THREAD=1) and return a finalizer giving the uint8
+        pixels, whose copy runs in the background."""
+        self._check_updated()
+        self._check_strings(strings)
+        self._ensure("_build_u8_fns")
+        return self._decompress_async(self._decompress_u8, strings, shape)
+
+    @torch.inference_mode()
+    def decompress(self, strings, shape, u8: bool = False):
+        self._check_updated()
+        self._check_strings(strings)
+        if u8:
+            self._ensure("_build_u8_fns")
+            return self._decompress_u8(strings, shape)()
+        set_wire_determinism()
+        y_strings, z_strings = strings
+        t0 = time.perf_counter()
+        z_sym = self.eb_state.decode_symbols(z_strings, tuple(shape))
+        t0 = self._stat("dec_z_rans_ms", t0)
+        idx, means = self._params_for_wire_z(z_sym)
         t0 = self._stat("dec_params_ms", t0)
         B = idx.shape[0]
         y_sym = rans.decode_batch(

@@ -47,7 +47,16 @@ from torch import nn
 from lmic_tpu_torch.entropy import coder as rans
 from lmic_tpu_torch.entropy import entropy_models
 from lmic_tpu_torch.layers import Conv, MaskedConv2d
-from lmic_tpu_torch.models.codec import HyperpriorCodec, _symbols_to_host
+from lmic_tpu_torch.models.codec import (
+    HyperpriorCodec,
+    _AnalyzeU8,
+    _Fetch,
+    _PackSymbols,
+    _PerItem,
+    _SynthU8,
+    _symbols_to_host,
+    _to_device,
+)
 from lmic_tpu_torch.models.image import MeanScaleHyperprior
 from lmic_tpu_torch.ops.math import from_amp
 from lmic_tpu_torch.utils.determinism import set_wire_determinism
@@ -373,19 +382,55 @@ class JointARCodec(HyperpriorCodec):
             out["y_hat_latent"] = torch.cat(y_hats)
         return out
 
+    def _build_u8_io(self):
+        """The pixel ingest and egress of lmic_tpu's `_build_u8_io`: the
+        analysis per image (`_PerItem`: y feeds the per-image wavefront
+        loop, z becomes symbols), its z symbols as int8 with an overflow
+        flag, and the synthesis of y_hat to uint8 pixels."""
+        self._analyze_u8_ar = _PerItem(_AnalyzeU8(self.module,
+                                                  self.eb_state.medians))
+        self._g_s_u8 = _SynthU8(self.module)
+
     @torch.inference_mode()
+    def compress_async(self, x, order: str = "wavefront"):
+        """Dispatch the analysis (uint8 or float pixels) and start its z
+        symbols' copy to the host; the finalizer runs the wavefront loop
+        on the device and the host coder, so a caller overlaps the next
+        batch's transforms with this batch's loop."""
+        self._check_updated()
+        x = np.asarray(x)
+        self._check_dims(x)
+        if order not in ORDERS:
+            raise ValueError(f"order is one of {sorted(ORDERS)}, not "
+                             f"{order!r}")
+        self._ensure("_build_u8_io")
+        set_wire_determinism()
+        t0 = time.perf_counter()
+        y, z8, zovf = self._analyze_u8_ar(_to_device(x, self.device))
+        fetch = _Fetch(_PackSymbols()(z8, zovf))
+        self._stat("enc_analysis_ms", t0)
+
+        @torch.inference_mode()
+        def finalize():
+            t1 = time.perf_counter()
+            buf = fetch.result()
+            self._stat("enc_fetch_ms", t1)
+            if buf[0]:  # a z symbol outside int8: the wide symbols
+                ys, z_sym = self._analyze(x)
+            else:
+                ys = list(y.split(1))
+                zshape = self._latent_shapes(*x.shape[:3])[0]
+                z_sym = buf[1:].view(np.int8).reshape(zshape).astype(
+                    np.int32)
+            return self._code_y_z(ys, z_sym, order=order)
+
+        return finalize
+
     def compress(self, x, order: str = "wavefront"):
         """x: (B, H, W, C) float in [0, 1] or uint8; H, W multiples of 64.
         `order="raster"` writes the reference app's symbol order
         (google.py:565-608), for `--container reference` files."""
-        self._check_updated()
-        x = np.asarray(x)
-        self._check_dims(x)
-        set_wire_determinism()
-        t0 = time.perf_counter()
-        ys, z_sym = self._analyze(x)
-        self._stat("enc_analysis_ms", t0)
-        return self._code_y_z(ys, z_sym, order=order)
+        return self.compress_async(x, order)()
 
     def _decode_wavefronts(self, sched, prepare, step, stream, params,
                            times):
@@ -446,3 +491,30 @@ class JointARCodec(HyperpriorCodec):
         out = self._synthesize(y_hat, u8)
         self._stat("dec_synthesis_ms", t0)
         return out
+
+    @torch.inference_mode()
+    def decompress_async(self, strings, shape, u8: bool = True,
+                         order: str = "wavefront"):
+        """Run the serial decode loop inline, dispatch the synthesis (to
+        uint8 pixels by default) and start its copy to the host; the
+        finalizer waits for that copy."""
+        self._check_updated()
+        set_wire_determinism()
+        y_hat = self._decode_y_hat(strings, shape, order)
+        t0 = time.perf_counter()
+        if u8:
+            self._ensure("_build_u8_io")
+            x = self._g_s_u8(y_hat)
+        else:
+            x = torch.clamp(self.module.g_s(y_hat), 0.0, 1.0).permute(
+                0, 2, 3, 1).contiguous()
+        fetch = _Fetch(x)
+        self._stat("dec_synthesis_ms", t0)
+
+        def finalize():
+            t1 = time.perf_counter()
+            out = fetch.result()
+            self._stat("dec_fetch_ms", t1)
+            return {"x_hat": out}
+
+        return finalize

@@ -41,7 +41,14 @@ from lmic_tpu_torch.entropy.entropy_models import (
     get_scale_table,
 )
 from lmic_tpu_torch.layers import Conv, Deconv, qrelu
-from lmic_tpu_torch.models.codec import CompressionCodec, _narrowest_int
+from lmic_tpu_torch.models.codec import (
+    CompressionCodec,
+    _cl,
+    _Fetch,
+    _narrowest_int,
+    _only,
+    _to_device,
+)
 from lmic_tpu_torch.ops.math import ste_round
 from lmic_tpu_torch.ops.video import scale_space_warp
 from lmic_tpu_torch.utils.determinism import set_wire_determinism
@@ -257,21 +264,16 @@ class _HyperpriorState:
 
     def params_from_zsym(self, z_sym: torch.Tensor):
         """Entropy parameters from z symbols (1, C, h, w) on the device:
-        (uint8 scale indexes, means). The one place they are derived, on
-        both sides of the wire (lmic_tpu's `_params_from_zsym`)."""
-        z_hat = _cl(z_sym.float() + self._medians)
-        scales, means = self.codec.module.hp_params(z_hat, self.which)
-        indexes = self.gc.build_indexes(self._table, scales)
-        return indexes.to(torch.uint8), means
+        (uint8 scale indexes, means) (`_params`)."""
+        return _params(self.codec.module, self.which, self._medians,
+                       self._table, z_sym)
 
     def device_part(self, y: torch.Tensor):
-        """The device half of compress, with no host sync: the in-loop
-        y_hat and the float symbols and indexes (z_sym, idx, y_sym)."""
-        z = self.codec.module.hp_encode_z(y, self.which)
-        z_sym = torch.round(z - self._medians)
-        idx, means = self.params_from_zsym(z_sym)
-        y_sym = torch.round(y - means)
-        return _cl(y_sym + means), (z_sym, idx, y_sym)
+        """The device half of compress, with no host sync (`_device_part`):
+        the in-loop y_hat and the float symbols and indexes (z_sym, idx,
+        y_sym)."""
+        return _device_part(self.codec.module, self.which, self._medians,
+                            self._table, y)
 
     def code_part(self, z_sym: np.ndarray, idx: np.ndarray,
                   y_sym: np.ndarray):
@@ -310,11 +312,148 @@ class _HyperpriorState:
         return _cl(self.codec._upload(y_sym) + means)
 
 
-def _cl(t: torch.Tensor) -> torch.Tensor:
-    """channels_last, the layout of every input of a sub-network on both
-    sides of the wire (a conv may pick another algorithm for another
-    layout, and so compute other last bits)."""
-    return t.contiguous(memory_format=torch.channels_last)
+def _params(module, which: str, z_medians, table, z_sym):
+    """Entropy parameters of sub-codec `which` from z symbols (1, C, h, w)
+    on the device: (uint8 scale indexes, means). The one place they are
+    derived, on both sides of the wire (lmic_tpu's `_params_from_zsym`)."""
+    z_hat = _cl(z_sym.float() + z_medians)
+    scales, means = module.hp_params(z_hat, which)
+    indexes = _HyperpriorState.gc.build_indexes(table, scales)
+    return indexes.to(torch.uint8), means
+
+
+def _device_part(module, which: str, z_medians, table, y):
+    """Sub-codec `which`'s device half of compress, with no host sync: the
+    in-loop y_hat and the float symbols and indexes (z_sym, idx, y_sym)."""
+    z = module.hp_encode_z(y, which)
+    z_sym = torch.round(z - z_medians)
+    idx, means = _params(module, which, z_medians, table, z_sym)
+    y_sym = torch.round(y - means)
+    return _cl(y_sym + means), (z_sym, idx, y_sym)
+
+
+# Hyperprior's planes and mid_planes: the channels of every sub-codec's y
+# and z
+PLANES = 192
+
+
+def _labels(T: int):
+    """The sub-codecs of a T-frame GOP's parts, in coding order."""
+    return ["img"] + ["motion", "res"] * (T - 1)
+
+
+class _GopGraph(nn.Module):
+    """A device function of the GOP chain: a view of the module holding
+    the submodules `paths` (all of it when none is given) and each
+    sub-codec's z medians and scale table, the tensors of its state."""
+
+    def __init__(self, codec: "ScaleSpaceFlowCodec", *paths: str):
+        super().__init__()
+        self.module = _only(codec.module, *paths) if paths else codec.module
+        for which, st in codec.hp_states.items():
+            self.register_buffer(f"{which}_z_medians", st._medians)
+            self.register_buffer(f"{which}_scale_table", st._table)
+
+    def consts(self, which: str):
+        return (getattr(self, f"{which}_z_medians"),
+                getattr(self, f"{which}_scale_table"))
+
+
+class _GopEncode(_GopGraph):
+    """One sequence's GOP encode (lmic_tpu's `_compress_chunk_dispatch`
+    and `_pack_gop`): frames (1, T, 3, H, W) float -> one uint8 buffer, per
+    part (the keyframe's, then each inter frame's motion and residual)
+    its int32 z symbols, uint8 scale indexes and int32 y symbols, each
+    channel-major."""
+
+    def chain(self, x):
+        """The GOP's device chain: [(sub-codec, (z_sym, idx, y_sym))] in
+        coding order, and the in-loop reconstructions."""
+        m = self.module
+
+        def part(which, y):
+            return _device_part(m, which, *self.consts(which), y)
+
+        y_hat, p = part("img", m.img_encode(x[:, 0]))
+        x_ref = m.img_decode(y_hat)
+        parts, recs = [("img", p)], [x_ref]
+        for i in range(1, x.shape[1]):
+            x_cur = x[:, i]
+            y_motion_hat, pm = part("motion", m.motion_encode(x_cur, x_ref))
+            x_pred = m.motion_decode_predict(y_motion_hat, x_ref)
+            y_res_hat, pr = part("res", m.res_encode(x_cur - x_pred))
+            x_ref = x_pred + m.res_decode(y_res_hat, y_motion_hat)
+            parts += [("motion", pm), ("res", pr)]
+            recs.append(x_ref)
+        return parts, recs
+
+    def forward(self, x):
+        pieces = []
+        for _, (z_sym, idx, y_sym) in self.chain(x)[0]:
+            pieces += [z_sym.to(torch.int32).reshape(-1).view(torch.uint8),
+                       idx.reshape(-1),
+                       y_sym.to(torch.int32).reshape(-1).view(torch.uint8)]
+        return torch.cat(pieces)
+
+
+class _GopParams(_GopGraph):
+    """The decoder's entropy parameters of a GOP's parts: integer z
+    symbols (K, C, h, w) -> (uint8 scale indexes (K, C, H, W)
+    channel-major, means (K, C, H, W)), each part through its sub-codec's
+    `_params` at batch 1."""
+
+    def __init__(self, codec):
+        super().__init__(codec, *(
+            f"{w}_hyperprior.hyper_decoder_{k}"
+            for w in codec.SUB_CODECS for k in ("mean", "scale")))
+
+    def forward(self, z_sym):
+        out = [_params(self.module, which, *self.consts(which),
+                       z_sym[k:k + 1])
+               for k, which in enumerate(_labels((z_sym.shape[0] + 1) // 2))]
+        return (torch.cat([idx for idx, _ in out]).contiguous(),
+                torch.cat([means for _, means in out]))
+
+
+class _GopFrames(_GopGraph):
+    """The decoder's frame chain: integer y symbols (K, C, H, W) and the
+    means -> the frames (1, T, 3, H, W) as the chain computes them."""
+
+    def __init__(self, codec):
+        super().__init__(codec, "img_decoder", "motion_decoder",
+                         "res_decoder")
+
+    def forward(self, y_sym, means):
+        m = self.module
+        y_hats = [_cl(y_sym[k:k + 1].float() + means[k:k + 1])
+                  for k in range(y_sym.shape[0])]
+        x_ref = m.img_decode(y_hats[0])
+        frames = [x_ref]
+        for k in range(1, len(y_hats), 2):
+            y_motion_hat, y_res_hat = y_hats[k], y_hats[k + 1]
+            x_pred = m.motion_decode_predict(y_motion_hat, x_ref)
+            x_ref = x_pred + m.res_decode(y_res_hat, y_motion_hat)
+            frames.append(x_ref)
+        return torch.stack(frames, dim=1)
+
+
+class _IngestU8(nn.Module):
+    """(B, T, H, W, 3) pixels -> (B, T, 3, H, W) float32 frames; uint8 maps
+    to [0, 1] as u8 / 255."""
+
+    def forward(self, frames):
+        t = frames.float() / 255.0 if frames.dtype == torch.uint8 \
+            else frames.float()
+        return t.permute(0, 1, 4, 2, 3)
+
+
+class _EgressU8(nn.Module):
+    """(B, T, 3, H, W) frames -> uint8 levels round(clip(x, 0, 1) * 255),
+    (B, T, H, W, 3)."""
+
+    def forward(self, x):
+        x = torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+        return x.permute(0, 1, 3, 4, 2).contiguous()
 
 
 def _host_int32(t: torch.Tensor) -> np.ndarray:
@@ -371,7 +510,12 @@ class ScaleSpaceFlowCodec(CompressionCodec):
     The whole-GOP paths (`_compress_chunk`, `_decompress_chunk`) cross the
     host-device link once for the GOP's symbols and indexes on encode;
     on decode once up for the z symbols, once down for all scale indexes,
-    once up for all y symbols and once down for the stacked frames. The
+    once up for all y symbols and once down for the stacked frames. Their
+    device halves are the modules `_ingest_u8`, `_gop_encode`,
+    `_gop_params`, `_gop_frames` and `_egress_u8` (lmic_tpu's names where
+    it has them), built with the tables and exported by utils/aot.py; the
+    host halves run unchanged on top of a bundle's. `compress_async` and
+    `decompress_async` split each path at its last copy to the host. The
     per-frame paths (`_compress_chunk_sync`, `_decompress_chunk_sync`,
     over `encode_keyframe` ... `decode_inter`) compute the same bytes.
     """
@@ -401,6 +545,11 @@ class ScaleSpaceFlowCodec(CompressionCodec):
                              f"{sorted(self.SUB_CODECS)}")
         self.hp_states = {which: _HyperpriorState(self, which, eb, gc)
                           for which, (eb, gc) in tables.items()}
+        self._ingest_u8 = _IngestU8()
+        self._gop_encode = _GopEncode(self)
+        self._gop_params = _GopParams(self)
+        self._gop_frames = _GopFrames(self)
+        self._egress_u8 = _EgressU8()
 
     def _check_updated(self):
         if not self.hp_states:
@@ -422,18 +571,15 @@ class ScaleSpaceFlowCodec(CompressionCodec):
 
     def _frames(self, frames: np.ndarray) -> torch.Tensor:
         """(B, T, H, W, 3) numpy -> (B, T, 3, H, W) float32 on the device,
-        each frame channels_last; uint8 maps to [0, 1] as u8 / 255 on the
-        device."""
-        t = torch.tensor(frames, device=self.device)
-        t = t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
-        return t.permute(0, 1, 4, 2, 3)
+        each frame channels_last; uint8 crosses as uint8 and maps to
+        [0, 1] as u8 / 255 on the device."""
+        return self._ingest_u8(_to_device(frames, self.device))
 
-    @staticmethod
-    def _pixels_out(x: torch.Tensor, u8: bool) -> torch.Tensor:
+    def _pixels_out(self, x: torch.Tensor, u8: bool) -> torch.Tensor:
         """(B, T, 3, H, W) -> (B, T, H, W, 3) on the device; uint8 levels
         `round(clip(x, 0, 1) * 255)` when `u8`."""
         if u8:
-            x = torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+            return self._egress_u8(x)
         return x.permute(0, 1, 3, 4, 2).contiguous()
 
     # -- the per-frame chain: device tensors in and out --
@@ -490,24 +636,28 @@ class ScaleSpaceFlowCodec(CompressionCodec):
         return ([_merge_strings([p[0][t] for p in parts])
                  for t in range(frames.shape[1])], parts[0][1])
 
+    def compress_async(self, frames):
+        """Dispatch one sequence's whole GOP chain and start its packed
+        buffer's copy to the host; the finalizer waits for that copy and
+        runs the host rANS, so a caller codes this GOP while the device
+        runs the next. A multi-sequence batch is coded here, per
+        sequence, and the finalizer returns it."""
+        self._check_updated()
+        frames = np.asarray(frames)
+        self._check_frame_dims(frames)
+        if frames.shape[0] > 1:
+            out = self.compress(frames)
+            return lambda: out
+        t0 = time.perf_counter()
+        fetch = self._compress_chunk_dispatch(frames)
+        self._stat("enc_dispatch_ms", t0)
+        return lambda: self._compress_chunk_finish(frames, fetch)
+
+    @torch.inference_mode()
     def _encode_gop(self, x: torch.Tensor):
         """The GOP's device chain, no host sync: [(sub-codec, (z_sym, idx,
         y_sym))] in coding order, and the in-loop reconstructions."""
-        sts, m = self.hp_states, self.module
-        y_hat, part = sts["img"].device_part(m.img_encode(x[:, 0]))
-        x_ref = m.img_decode(y_hat)
-        parts, recs = [("img", part)], [x_ref]
-        for i in range(1, x.shape[1]):
-            x_cur = x[:, i]
-            y_motion_hat, pm = sts["motion"].device_part(
-                m.motion_encode(x_cur, x_ref))
-            x_pred = m.motion_decode_predict(y_motion_hat, x_ref)
-            y_res_hat, pr = sts["res"].device_part(
-                m.res_encode(x_cur - x_pred))
-            x_ref = x_pred + m.res_decode(y_res_hat, y_motion_hat)
-            parts += [("motion", pm), ("res", pr)]
-            recs.append(x_ref)
-        return parts, recs
+        return self._gop_encode.chain(x)
 
     @staticmethod
     def _frame_strings(outs, T):
@@ -520,32 +670,43 @@ class ScaleSpaceFlowCodec(CompressionCodec):
             shapes.append({"motion": om["shape"], "residual": orr["shape"]})
         return strings, shapes
 
-    @torch.inference_mode()
     def _compress_chunk(self, frames: np.ndarray):
         """Whole-GOP encode of one sequence with one device -> host fetch:
         every part's int32 z and y symbols and uint8 indexes, packed."""
         t0 = time.perf_counter()
-        parts, _ = self._encode_gop(self._frames(frames))
-        pieces = []
-        for _, (z_sym, idx, y_sym) in parts:
-            pieces += [z_sym.to(torch.int32).reshape(-1).view(torch.uint8),
-                       idx.reshape(-1),
-                       y_sym.to(torch.int32).reshape(-1).view(torch.uint8)]
-        packed = torch.cat(pieces)
+        fetch = self._compress_chunk_dispatch(frames)
         self._sync()
-        t0 = self._stat("enc_device_ms", t0)
-        buf = packed.cpu().numpy()
+        self._stat("enc_device_ms", t0)
+        return self._compress_chunk_finish(frames, fetch)
+
+    @torch.inference_mode()
+    def _compress_chunk_dispatch(self, frames: np.ndarray):
+        """Enqueue the GOP's device chain and its packed buffer's copy to
+        the host, with no host sync."""
+        set_wire_determinism()
+        return _Fetch(self._gop_encode(self._frames(frames)))
+
+    def _compress_chunk_finish(self, frames: np.ndarray, fetch):
+        """Wait for the packed buffer and host-code every part."""
+        t0 = time.perf_counter()
+        buf = fetch.result()
         t0 = self._stat("enc_fetch_ms", t0)
+        _, T, H, W, _ = frames.shape
+        zshape = (1, PLANES, H // self._FACTOR, W // self._FACTOR)
+        yshape = (1, PLANES, H // 16, W // 16)
         outs, off = [], 0
-        for which, tensors in parts:
+        for which in _labels(T):
             arrays = []
-            for t, dt in zip(tensors, (np.int32, np.uint8, np.int32)):
-                n = t.numel() * np.dtype(dt).itemsize
-                arrays.append(buf[off:off + n].view(dt).reshape(t.shape))
+            for shape, dt in ((zshape, np.int32), (yshape, np.uint8),
+                              (yshape, np.int32)):
+                n = int(np.prod(shape)) * np.dtype(dt).itemsize
+                arrays.append(buf[off:off + n].view(dt).reshape(shape))
                 off += n
             outs.append(self.hp_states[which].code_part(*arrays))
+        if off != buf.size:
+            raise ValueError("packed GOP layout mismatch")
         self._stat("enc_rans_ms", t0)
-        return self._frame_strings(outs, frames.shape[1])
+        return self._frame_strings(outs, T)
 
     @torch.inference_mode()
     def _compress_chunk_sync(self, frames: np.ndarray):
@@ -576,57 +737,55 @@ class ScaleSpaceFlowCodec(CompressionCodec):
                 [_slice_strings(s, i, i + 1) for s in strings], shapes, u8)
             for i in range(B)])
 
+    def decompress_async(self, strings, shapes, u8: bool = True):
+        """Run the host halves of one sequence's GOP decode inline (z and y
+        rANS, the indexes' copy), dispatch the frame chain and start the
+        frames' copy to the host; the finalizer waits for that copy. A
+        multi-sequence batch is decoded here and the finalizer returns
+        it."""
+        self._check_updated()
+        parts = _gop_parts(strings, shapes)
+        if len(parts[0][1][0]) > 1:
+            out = self.decompress(strings, shapes, u8=u8)
+            return lambda: out
+        return self._decompress_chunk(strings, shapes, u8, _async=True)
+
     @torch.inference_mode()
-    def _decompress_chunk(self, strings, shapes, u8: bool = False):
+    def _decompress_chunk(self, strings, shapes, u8: bool = False,
+                          _async: bool = False):
         """Whole-GOP decode of one sequence: host rANS of every z stream,
         one upload of their symbols, one fetch of every part's scale
         indexes, host rANS of every y stream, one upload of their symbols,
-        the frame chain, one fetch of the stacked frames."""
-        sts, m = self.hp_states, self.module
+        the frame chain, one fetch of the stacked frames (or, `_async`, a
+        finalizer that waits for that fetch)."""
+        set_wire_determinism()
+        sts = self.hp_states
         parts = _gop_parts(strings, shapes)
         t0 = time.perf_counter()
-        z_syms = [sts[which].decode_z(s[1], shape)
-                  for which, s, shape in parts]
+        z_sym = np.concatenate([sts[which].decode_z(s[1], shape)
+                                for which, s, shape in parts])
         t0 = self._stat("dec_z_rans_ms", t0)
-        z_dev = self._upload_all(z_syms)
-        params = [sts[which].params_from_zsym(z)
-                  for (which, _, _), z in zip(parts, z_dev)]
-        idx_buf = torch.cat([idx.reshape(-1) for idx, _ in params])
-        idx_buf = idx_buf.cpu().numpy()
+        idx, means = self._gop_params(_to_device(
+            z_sym.astype(_narrowest_int(z_sym)), self.device))
+        idx = _Fetch(idx).result()
         t0 = self._stat("dec_idx_fetch_ms", t0)
-        y_syms, off = [], 0
-        for (which, s, _), (idx, _) in zip(parts, params):
-            idx_k = idx_buf[off:off + idx.numel()].reshape(idx.shape)
-            off += idx.numel()
-            y_syms.append(sts[which].decode_y(s[0], idx_k))
+        y_sym = np.concatenate([sts[which].decode_y(s[0], idx[k:k + 1])
+                                for k, (which, s, _) in enumerate(parts)])
         t0 = self._stat("dec_y_rans_ms", t0)
-        y_hats = [_cl(y + means) for y, (_, means)
-                  in zip(self._upload_all(y_syms), params)]
-        x_ref = m.img_decode(y_hats[0])
-        frames = [x_ref]
-        for k in range(1, len(y_hats), 2):
-            y_motion_hat, y_res_hat = y_hats[k], y_hats[k + 1]
-            x_pred = m.motion_decode_predict(y_motion_hat, x_ref)
-            x_ref = x_pred + m.res_decode(y_res_hat, y_motion_hat)
-            frames.append(x_ref)
-        out = self._pixels_out(torch.stack(frames, dim=1), u8)
-        self._sync()
-        t0 = self._stat("dec_device_ms", t0)
-        arr = out.cpu().numpy()
-        self._stat("dec_fetch_ms", t0)
-        return arr
+        frames = self._gop_frames(_to_device(
+            y_sym.astype(_narrowest_int(y_sym)), self.device), means)
+        fetch = _Fetch(self._pixels_out(frames, u8))
+        if not _async:
+            self._sync()
+        self._stat("dec_device_ms", t0)
 
-    def _upload_all(self, syms):
-        """int32 symbol arrays -> float32 device tensors of their shapes,
-        channels_last, in one upload of the narrowest integer type."""
-        flat = np.concatenate([s.reshape(-1) for s in syms])
-        dev = torch.from_numpy(flat.astype(_narrowest_int(flat))).to(
-            self.device).float()
-        out, off = [], 0
-        for s in syms:
-            out.append(_cl(dev[off:off + s.size].view(s.shape)))
-            off += s.size
-        return out
+        def finalize():
+            t1 = time.perf_counter()
+            out = fetch.result()
+            self._stat("dec_fetch_ms", t1)
+            return out
+
+        return finalize if _async else finalize()
 
     @torch.inference_mode()
     def _decompress_chunk_sync(self, strings, shapes, u8: bool = False):

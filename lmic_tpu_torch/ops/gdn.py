@@ -13,6 +13,11 @@ and channel-last activations `(..., C)`:
 - a CPU tensor goes to `gdn_reference` / `gdn_bwd_reference`, the same
   formulas in plain torch.
 
+The forward is reached through the operator `lmic_tpu_torch::gdn_fwd`
+(`gdn_fwd_op`, a `torch.library.custom_op` with both implementations and
+a fake one for tracing), so `torch.export` keeps it as one node
+(utils/aot.py).
+
 When a gradient is wanted, `gdn_core` runs `GDNCore`, the
 `torch.autograd.Function` counterpart of `gdn_core.defvjp(_gdn_fwd,
 _gdn_bwd)`: the forward saves `(x, beta, gamma)` and nothing else, and the
@@ -39,6 +44,14 @@ BWD_KERNELS = ("gdn_bwd_dx", "gdn_bwd_partials", "gdn_bwd_reduce")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOCK = threading.Lock()
+# the launches of a codec's decode thread (LMIC_DECODE_THREAD=1) and of
+# the caller's thread are counted in one dict
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(kernel: str):
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 _libs = {}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -183,7 +196,7 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
         raise RuntimeError(
             f"gdn_fwd launch failed: {lib.lmic_gdn_error_string(err).decode()}"
         )
-    LAUNCHES["gdn_fwd"] += 1
+    _count("gdn_fwd")
     return y
 
 
@@ -231,27 +244,48 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
                 gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
                 dn.data_ptr(), n, C, code, inv, stream,
             ), lib, "gdn_bwd_dx")
-            LAUNCHES["gdn_bwd_dx"] += 1
+            _count("gdn_bwd_dx")
             _raise_on(lib.lmic_gdn_bwd_partials(
                 x.data_ptr(), dn.data_ptr(), partials.data_ptr(), n, C,
                 code, stream,
             ), lib, "gdn_bwd_partials")
-            LAUNCHES["gdn_bwd_partials"] += 1
+            _count("gdn_bwd_partials")
         # with no rows there are no partials, and the sum writes zeros
         _raise_on(lib.lmic_gdn_bwd_reduce(
             partials.data_ptr(), dbeta.data_ptr(), dgamma.data_ptr(),
             chunks, C, code, stream,
         ), lib, "gdn_bwd_reduce")
-        LAUNCHES["gdn_bwd_reduce"] += 1
+        _count("gdn_bwd_reduce")
     return dx, dbeta, dgamma
 
 
+@torch.library.custom_op("lmic_tpu_torch::gdn_fwd", mutates_args=(),
+                         device_types="cpu")
+def gdn_fwd_op(x: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor,
+               inverse: bool) -> torch.Tensor:
+    """The GDN/IGDN forward as one operator, `torch.ops.lmic_tpu_torch.
+    gdn_fwd`: the kernel for CUDA tensors (`gdn_fwd`, counted in
+    `LAUNCHES`), `gdn_reference` for CPU tensors, and no other device.
+    Being an operator, it stays one node in a `torch.export` graph (the
+    kernel's ctypes launch reads data pointers, which tracing has not), so
+    an exported codec runs the kernel, not an inlined plain version."""
+    return gdn_reference(x, beta, gamma, inverse)
+
+
+@gdn_fwd_op.register_kernel("cuda")
+def _gdn_fwd_cuda(x, beta, gamma, inverse):
+    return gdn_fwd(x, beta, gamma, inverse)
+
+
+@gdn_fwd_op.register_fake
+def _gdn_fwd_fake(x, beta, gamma, inverse):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 def _forward(x, beta, gamma, inverse):
-    if x.device.type == "cuda":
-        return gdn_fwd(x, beta, gamma, inverse)
-    if x.device.type == "cpu":
-        return gdn_reference(x, beta, gamma, inverse)
-    raise ValueError(f"gdn_core: no GDN path for device {x.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"gdn_core: no GDN path for device {x.device}")
+    return gdn_fwd_op(x, beta, gamma, bool(inverse))
 
 
 class GDNCore(torch.autograd.Function):

@@ -30,7 +30,9 @@ writes stay outside it). `main --checkpoint <file> -a <arch>` serves a
 deployment checkpoint that `utils/checkpoint.py::update_model_file` wrote
 (`SERVABLE_ARCHS`); `-a master --checkpoint <master> --guided-checkpoint
 <guide> --channel <1|3>` serves the RGB-T pair from its two finalized
-checkpoints; `--bundle` is ported with `utils/aot.py`, a later slice.
+checkpoints; `--bundle <dir>` serves a serving bundle (utils/aot.py:
+`load_serving_bundle`, whose meta the server returns on GET /meta) on
+`--device`, which must be the device the bundle was exported on.
 """
 
 from __future__ import annotations
@@ -59,10 +61,6 @@ from lmic_tpu_torch.utils.codec_cli import (
 
 __all__ = ["make_server", "load_checkpoint_codec", "load_rgbt_codecs",
            "main"]
-
-_LATER = ("is ported with a later slice of lmic_tpu_torch "
-          "(ROADMAP.md, queue A)")
-
 
 def _write_pixels(f, arr):
     write_uchars(f, (arr.ndim,))
@@ -365,8 +363,11 @@ def main(argv=None, started=None):
                         "unless 'cpu' is given)")
     args = p.parse_args(argv)
     if args.bundle:
-        raise NotImplementedError(f"--bundle {_LATER}")
-    if args.arch == "master":
+        from lmic_tpu_torch.utils.aot import load_serving_bundle
+
+        codec = load_serving_bundle(args.bundle, device=args.device)
+        meta = dict(codec.bundle_meta)
+    elif args.arch == "master":
         if not args.guided_checkpoint:
             raise SystemExit("-a master needs --guided-checkpoint")
         if args.channel not in (1, 3):

@@ -10,11 +10,13 @@ Usage:
       -a mbt2018-mean -q 7 -d out/
 
 `-a ssf2020` builds the video codec (`zoo.create_video_model`) and stores
-its three sub-codecs' tables.
+its three sub-codecs' tables. `--aot-shape BxHxW[xC]` (`BxTxHxW[xC]` for
+ssf2020) also exports the finalized codec's serving bundle
+(utils/aot.py) to `<dir>/<name>-aot`, on `--device`, and prints its path.
 
 Not ported yet (each raises, see ROADMAP.md queue A, item 8):
 `--from-torch`, `--raw-params`, `--no-update` (bare params, which only
-`--raw-params` reads back), `--aot-shape`.
+`--raw-params` reads back).
 """
 
 from __future__ import annotations
@@ -41,13 +43,15 @@ def parse_args(argv):
                         "unless 'cpu' is given)")
     for flag in ("--raw-params", "--from-torch", "--no-update"):
         p.add_argument(flag, action="store_true", help="not ported")
-    p.add_argument("--aot-shape", default=None, help="not ported")
+    p.add_argument("--aot-shape", default=None,
+                   help="also export a serving bundle for this input "
+                        "shape: BxHxW[xC], or BxTxHxW[xC] for ssf2020")
     return p.parse_args(argv)
 
 
 def run(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    for flag in ("raw_params", "from_torch", "no_update", "aot_shape"):
+    for flag in ("raw_params", "from_torch", "no_update"):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported; ROADMAP.md "
@@ -63,6 +67,20 @@ def run(argv=None):
     ckpt.load_train_params(args.checkpoint, codec.module)
     name = args.name or f"{args.arch}-q{args.quality}"
     out = ckpt.update_model_file(args.out_dir, codec, name)
+    if args.aot_shape:
+        from lmic_tpu_torch.utils.aot import export_serving_bundle
+
+        shape = tuple(int(d) for d in args.aot_shape.lower().split("x"))
+        want = 5 if args.arch in zoo.video_architectures else 4
+        if len(shape) == want - 1:
+            shape = (*shape, 3)
+        if len(shape) != want:
+            raise SystemExit(
+                "--aot-shape must be BxTxHxW[xC] for ssf2020, "
+                "BxHxW[xC] otherwise"
+            )
+        print(export_serving_bundle(codec, f"{args.out_dir}/{name}-aot",
+                                    shape))
     print(out)
     return out
 

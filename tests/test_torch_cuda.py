@@ -707,3 +707,74 @@ def test_rgbt_eval_launch_counts_on_card(entropy_estimation):
     n = 12 if entropy_estimation else 15
     assert {k: gdn.LAUNCHES[k] - before[k] for k in before} == {
         k: n if k == "gdn_fwd" else 0 for k in before}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", [(6151, 192), (6144, 128), (1, 16)])
+def test_operator_matches_reference(dtype, inverse, rows, C):
+    """`torch.ops.lmic_tpu_torch.gdn_fwd` on CUDA tensors launches the
+    kernel once (counted) and is held to the plain version at the bars
+    above; on their CPU copies it is the plain version."""
+    x, beta, gamma = _data(rows, C, dtype)
+    n0 = gdn.LAUNCHES["gdn_fwd"]
+    got = torch.ops.lmic_tpu_torch.gdn_fwd(x, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    assert gdn.LAUNCHES["gdn_fwd"] == n0 + 1
+    want = gdn.gdn_reference(x, beta, gamma, inverse)
+    assert _rel_err(got, want) < TOL[dtype]
+    assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
+    cpu = [t.cpu() for t in (x, beta, gamma)]
+    assert torch.equal(torch.ops.lmic_tpu_torch.gdn_fwd(*cpu, inverse),
+                       gdn.gdn_reference(*cpu, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows", [393_216, 1_572_864])
+def test_operator_at_the_batched_synthesis_rows(inverse, rows):
+    """f32 `gdn_fwd`, through its operator, at the rows of a batch of 16
+    768x512 images decoded at once (the synthesis's IGDN at 393,216 and
+    1,572,864 rows, C = 192): equal to the plain version, the same bytes
+    on every launch."""
+    x, beta, gamma = _data(rows, 192, torch.float32, seed=rows, skew=True)
+    n0 = gdn.LAUNCHES["gdn_fwd"]
+    got = torch.ops.lmic_tpu_torch.gdn_fwd(x, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    assert gdn.LAUNCHES["gdn_fwd"] == n0 + 1
+    assert torch.equal(got, gdn.gdn_reference(x, beta, gamma, inverse))
+    assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
+
+
+def test_bundle_on_card_matches_the_live_codec(tmp_path):
+    """An mbt2018-mean bundle exported on the card codes the live CUDA
+    codec's strings and pixels byte for byte, launches the kernel through
+    its operator nodes (3 an image to encode, per image, and 3 a batch to
+    decode), and is refused on the CPU."""
+    from lmic_tpu_torch.utils.aot import (
+        export_serving_bundle,
+        load_serving_bundle,
+    )
+
+    shape = (2, 64, 128, 3)
+    live = zoo.create_model("mbt2018-mean", 1, seed=0, device="cuda", N=32,
+                            M=48)
+    live.update()
+    export_serving_bundle(live, str(tmp_path), shape)
+    served = load_serving_bundle(str(tmp_path), device="cuda")
+    x = (np.random.default_rng(5).random(shape) * 255).astype(np.uint8)
+    want = live.compress(x)
+    want_rec = live.decompress(want["strings"], want["shape"], u8=True)
+    before = dict(gdn.LAUNCHES)
+    out = served.compress_async(x)()
+    rec = served.decompress_async(out["strings"], out["shape"])()
+    torch.cuda.synchronize()
+    assert {k: gdn.LAUNCHES[k] - before[k] for k in before} == {
+        k: 3 * shape[0] + 3 if k == "gdn_fwd" else 0 for k in before}
+    assert out["strings"] == want["strings"]
+    np.testing.assert_array_equal(rec["x_hat"], want_rec["x_hat"])
+    for name in ("_analyze_u8__one", "_synth_u8__i8", "_synth_u8__i16"):
+        program = torch.export.load(str(tmp_path / "fns" / f"{name}.pt2"))
+        assert sum(n.target == torch.ops.lmic_tpu_torch.gdn_fwd.default
+                   for n in program.graph.nodes) == 3, name
+    with pytest.raises(ValueError, match="exported on 'cuda'"):
+        load_serving_bundle(str(tmp_path), device="cpu")

@@ -282,14 +282,14 @@ def _serve_main(argv):
 
 @pytest.mark.parametrize("flag", ["--bundle", "--checkpoint"])
 def test_cli_sources_not_implemented(flag, tmp_path, monkeypatch):
-    """`--bundle` is ported with a later slice; `--checkpoint` serves a
+    """`--bundle` serves a CPU serving bundle of mbt2018-mean, its bodies
+    and pixels equal to the live codec's; `--checkpoint` serves a
     port-finalized ssf2020 and mbt2018-mean, each /compress equal to the
     finalized codec's own call; `-a master --guided-checkpoint` serves the
     RGB-T pair from its two finalized checkpoints, its bodies equal to the
     direct calls."""
     if flag == "--bundle":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main([flag, "somewhere"])
+        _serves_a_bundle(tmp_path)
         _serves_the_master_pair(tmp_path, monkeypatch)
         return
     for arch, x in (("ssf2020", pixels((1, 2, 128, 128, 3), seed=12)),
@@ -321,6 +321,46 @@ def test_cli_sources_not_implemented(flag, tmp_path, monkeypatch):
             server.shutdown()
             thread.join(30)
         assert not thread.is_alive()
+
+
+def _serves_a_bundle(tmp_path):
+    from lmic_tpu_torch.utils.aot import export_serving_bundle
+
+    x = pixels((1, 64, 64, 3), seed=14)
+    live = zoo.create_model(ARCH, 1, seed=1, device="cpu")
+    live.update()
+    bundle = export_serving_bundle(live, str(tmp_path / "bundle"), x.shape)
+    with pytest.raises(ValueError, match="exported on 'cpu'"):
+        main(["--bundle", bundle, "--device", "meta"])
+    server, thread = _serve_main(["--bundle", bundle, "--port", "0",
+                                  "--device", "cpu"])
+    try:
+        port = server.server_address[1]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request("GET", "/meta")
+        meta = json.loads(conn.getresponse().read())
+        conn.close()
+        assert meta["family"] == "hyperprior"
+        assert meta["input_shape"] == list(x.shape)
+        status, body = _post(port, "/compress", _pixel_payload(x))
+        assert status == 200
+        strings, shape = _decode_request(io.BytesIO(body), False)
+        direct = live.compress(x)
+        assert (strings, tuple(shape)) == (direct["strings"],
+                                           tuple(direct["shape"]))
+        status, rec = _post(port, "/decompress", body)
+        assert status == 200
+        np.testing.assert_array_equal(
+            _read_pixels(io.BytesIO(rec)),
+            live.decompress(strings, shape, u8=True)["x_hat"])
+        # the bundle is fixed to its shape: another one is a 400
+        status, msg = _post(port, "/compress",
+                            _pixel_payload(pixels((1, 128, 64, 3))))
+        assert status == 400 and b"fixed to input shape" in msg
+    finally:
+        server.shutdown()
+        thread.join(30)
+    assert not thread.is_alive()
 
 
 def _serves_the_master_pair(tmp_path, monkeypatch):

@@ -466,10 +466,33 @@ def test_clis_refuse_what_is_not_ported(tmp_path):
     # the master trains in f32 only (lmic_tpu ignores the flag there)
     with pytest.raises(SystemExit, match="--amp supports"):
         train_cli.main(base + ["--amp", "--arch", "master"])
-    for flag in (["--raw-params"], ["--from-torch"], ["--no-update"],
-                 ["--aot-shape", "1x64x64"]):
+    for flag in (["--raw-params"], ["--from-torch"], ["--no-update"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             update_model_cli.run(["x.ckpt", "--device", "cpu"] + flag)
+    # --aot-shape is ported: it also writes a serving bundle that loads
+    # and codes as the finalized checkpoint does
+    from lmic_tpu_torch.utils.aot import load_serving_bundle
+
+    module = tzoo.make_module("bmshj2018-factorized", 1)
+    torch.save({"params": module.state_dict()}, tmp_path / "train.ckpt")
+    with pytest.raises(SystemExit, match="BxHxW"):
+        update_model_cli.run([str(tmp_path / "train.ckpt"), "--device",
+                              "cpu", "-d", str(tmp_path), "--aot-shape",
+                              "64x64"])
+    final = update_model_cli.run([
+        str(tmp_path / "train.ckpt"), "--device", "cpu", "-d",
+        str(tmp_path), "--aot-shape", "1x64x64"])
+    served = load_serving_bundle(
+        str(tmp_path / "bmshj2018-factorized-q1-aot"), device="cpu")
+    assert served.bundle_meta["input_shape"] == [1, 64, 64, 3]
+    live = ckpt.load_updated_model(
+        final, tzoo.create_model("bmshj2018-factorized", 1, device="cpu"))
+    x = pixels((1, 64, 64, 3), seed=4)
+    out = served.compress(x)
+    assert out["strings"] == live.compress(x)["strings"]
+    np.testing.assert_array_equal(
+        served.decompress(out["strings"], out["shape"], u8=True)["x_hat"],
+        live.decompress(out["strings"], out["shape"], u8=True)["x_hat"])
 
 
 def test_backward_runs_the_gdn_function():
