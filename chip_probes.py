@@ -3,7 +3,7 @@
 from `chip_smoke.py` (whose helpers they use) because no path of the port
 runs them.
 
-    python3 chip_probes.py master-batch [B ...]  # from the root of a checkout
+    python3 chip_probes.py master-batch [--remat] [--profile] [B ...]
     python3 chip_probes.py train-convs
     python3 chip_probes.py video-convs
     python3 chip_probes.py sync-u8 ROOT [ROOT ...]
@@ -13,7 +13,13 @@ runs them.
   512x640 thermal masters with 1024x1280 RGB guides, as `chip_smoke.py`'s
   phase 8 runs it: two steps at each batch (default 4 6 8 10 12 16),
   ascending, until one runs out of memory; each batch's step ms and peak
-  memory.
+  memory. With --remat the step rematerializes the master's transform
+  blocks as `train_cli --remat` runs it (expandable segments in the
+  caching allocator), and each batch also logs the blocks whose
+  backward span (from the start of the block's recompute to the next
+  block's) reached the highest memory, the span of the largest setting
+  the step's peak. With --profile the timed step runs under the profiler
+  (and no third step): its device ms, busy share and largest kernels.
 - train-convs: a 3x3 conv forward and backward under autograd, f32, TF32
   off, deterministic, at the training shapes `chip_smoke.py` logs (192 ->
   192 at 128x128, batch 16; 256 -> 256 at 512x640, batch 4), through
@@ -60,6 +66,7 @@ from chip_smoke import (
     PIPE_BATCH,
     QUALITY,
     RGBT_QUALITY,
+    RecomputePeaks,
     _fft_kernels,
     _images,
     _profile,
@@ -71,13 +78,19 @@ from chip_smoke import (
 )
 
 
-def master_batch(batches):
+def master_batch(batches, remat=False, profiled=False):
     import torch
 
     from lmic_tpu_torch import zoo
-    from lmic_tpu_torch.utils.train import create_train_state, make_optimizer
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        expandable_segments,
+        make_optimizer,
+    )
     from lmic_tpu_torch.utils.train_cli import make_master_train_step
 
+    if remat:  # as train_cli --remat runs
+        expandable_segments("cuda")
     q = RGBT_QUALITY
     guided = zoo.create_model("guided", q, seed=0, channel=3,
                               first_stride=2, device="cuda").module
@@ -86,8 +99,9 @@ def master_batch(batches):
                               device="cuda").module
     opt = make_optimizer()
     state = create_train_state(master, opt)
-    step = make_master_train_step(master, guided, opt, LAMBDAS[q - 1])
-    fits = None
+    step = make_master_train_step(master, guided, opt, LAMBDAS[q - 1],
+                                  remat=remat)
+    fits, spans = None, None
     for b in batches:
         try:
             xm = _train_batch((b, *MASTER_BATCH[1:]), seed=3)
@@ -96,9 +110,22 @@ def master_batch(batches):
             step(state, xm, xg)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(state, xm, xg)
+            if profiled:
+                prof = _profile(lambda: step(state, xm, xg), n=1, keep=15)
+            else:
+                step(state, xm, xg)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            if profiled:
+                log(f"master batch {b} profile: device {prof[1]:.1f} ms of "
+                    f"{prof[2]:.1f} ms, {prof[4]:.0f} device operations; "
+                    "largest kernels (ms): " + json.dumps(
+                        {k: round(v, 1) for k, v in prof[3].items()}))
+            elif remat:  # a third step, its backward spans measured
+                with RecomputePeaks(master) as spans:
+                    step(state, xm, xg)
+                    torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError as e:
             log(f"master batch {b}: out of memory ({str(e).splitlines()[0]})")
             break
@@ -108,10 +135,13 @@ def master_batch(batches):
             state.aux.zero_grad(set_to_none=True)
             torch.cuda.empty_cache()
         fits = b
-        log(f"master batch {b}: step {ms:.1f} ms, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
-            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
-    log(f"largest master batch that fits: {fits} (of {list(batches)})")
+        log(f"master batch {b}{' remat' if remat else ''}: step {ms:.1f} "
+            f"ms, peak memory {peak / 2**30:.2f} GiB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+            + (f"; highest backward spans (GiB): {json.dumps(spans.top())}"
+               if spans else ""))
+    log(f"largest master batch that fits{' with --remat' if remat else ''}"
+        f": {fits} (of {list(batches)})")
 
 
 def train_convs():
@@ -323,7 +353,10 @@ def main(argv):
     set_wire_determinism()
     chip_smoke.phase_environment()
     if argv[0] == "master-batch":
-        master_batch([int(a) for a in argv[1:]] or [4, 6, 8, 10, 12, 16])
+        flags = ("--remat", "--profile")
+        master_batch([int(a) for a in argv[1:] if a not in flags]
+                     or [4, 6, 8, 10, 12, 16], "--remat" in argv[1:],
+                     "--profile" in argv[1:])
     elif argv[0] == "train-convs":
         train_convs()
     elif argv[0] == "sync-u8":

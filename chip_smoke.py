@@ -162,6 +162,34 @@ Phases, each of which raises (exit code != 0) on any failure:
    1x3x1152x1920 (equal to the live codec's GOP), each leg's peak memory
    logged; each mbt2018-mean bundle holds 3 `gdn_fwd` operator nodes in
    `_analyze_u8__one` and in each `_synth_u8` variant.
+13. pretrained and remat, last: a CompressAI-format .pth.tar of
+   mbt2018-mean q8 (N = 192, M = 320) from seed 0 with its baked tables
+   (`crosscheck.write_reference_checkpoint`: the reference's buffers, a
+   `module.` prefix, an old `_matrices.0` key), finalized on the card by
+   `update_model_cli --from-torch` and served by `serve.main --checkpoint`
+   in a thread: three seeded 512x768 images through POST /compress and
+   /decompress with the launch counts set to 0 just before and read just
+   after (6 `gdn_fwd` a round trip, no backward); the finalized tables
+   equal to the file's buffers bit for bit, the bodies to the direct
+   calls and the strings to the source codec's, encoding deterministic,
+   the decoder recovering the encoder's latents; `--no-update` then
+   `--raw-params` on the same file equal, byte for byte, to the plain
+   finalization; one 3-frame 1920x1152 ssf2020 GOP through its own
+   `--from-torch` file (the three sub-codecs' tables adopted, the
+   source's strings, the decoder's frames the encoder's in-loop ones, 0
+   GDN launches). Then training under --remat: mbt2018-mean q7 at batch
+   16 of 256x256, f32 and AMP, a warm-up, a profiled and 4 timed steps
+   with the launch counts set to 0 just before and read just after (12
+   `gdn_fwd` and 6 of each backward kernel a step: every GDN runs again
+   in its block's recompute), the loss falling, step ms and peak memory
+   logged, and one step against the plain step under
+   `crosscheck.fixed_noise` (losses and clipped gradients within the f32
+   and bf16 bars, exact launch counts); then the channel-1 master q7
+   under --remat against its frozen guide at lmic_tpu's batch of 16, with
+   the caching allocator's expandable segments as `train_cli --remat`
+   sets them (two steps, 18 `gdn_fwd` and 6 of each backward kernel the
+   timed one; step ms, peak memory and the backward spans, from one
+   block's recompute to the next, with the highest memory logged).
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -284,6 +312,23 @@ PIPE_BATCH_FWD = {98_304: (16, 1), 24_576: (16, 0), 6_144: (16, 0),
                   393_216: (0, 1), 1_572_864: (0, 1)}
 SYNC_BATCHES = 2  # the synchronous loop's (two distinct batches)
 BUNDLE_REQUESTS = 3
+# phase 13: a CompressAI-format file of mbt2018-mean q8 (N = 192, M = 320,
+# the served codec of phase 3) finalized by `update_model_cli
+# --from-torch` and served from the result; the training step of phase 5
+# under --remat (12 `gdn_fwd` and 6 of each backward kernel a step: every
+# GDN runs again in its block's recompute); the master under --remat at
+# lmic_tpu's batch of 16 (18 and 6: the frozen guide's 6 run once)
+PRETRAINED_ARCH, PRETRAINED_QUALITY = "mbt2018-mean", 8
+PRETRAINED_REQUESTS = 3
+REMAT_STEP = {"gdn_fwd": 12, "gdn_bwd_dx": 6, "gdn_bwd_partials": 6,
+              "gdn_bwd_reduce": 6}
+REMAT_MASTER_BATCH = 16
+# f32/bf16 gdn_fwd rows of a --remat step: each GDN and IGDN of phase 5's
+# step twice, in the forward and in its block's recompute
+REMAT_ROWS = {r: 2 for r in TRAIN_ROWS[:3]}
+# the bars of a remat step against the plain one on the card: the card's
+# f32 and bf16 bars of the training phases
+REMAT_BARS = {"f32": (1e-4, 1e-3), "amp": (1e-3, 2e-2)}
 
 
 def log(*a):
@@ -3010,6 +3055,372 @@ def phase_pipelines_and_bundles():
     return launched
 
 
+def _from_torch(path, arch, quality, out_dir, *flags):
+    """`update_model_cli.run` on a CompressAI-format file, on the card."""
+    from lmic_tpu_torch.utils import update_model_cli
+
+    return update_model_cli.run([path, "-a", arch, "-q", str(quality),
+                                 "-d", out_dir, "--from-torch", *flags])
+
+
+def _serve_checkpoint(path, arch, quality, payloads):
+    """`serve.main --checkpoint path` in a thread: each payload through
+    POST /compress and /decompress, the launch counts set to 0 just
+    before and read just after. Returns ([(body, rec, compress ms,
+    decompress ms)], launch counts)."""
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils import serve
+
+    started, ready = [], threading.Event()
+    thread = threading.Thread(
+        target=serve.main,
+        args=(["--checkpoint", path, "-a", arch, "-q", str(quality),
+               "--port", "0"],),
+        kwargs={"started": lambda srv: (started.append(srv), ready.set())},
+        daemon=True)
+    thread.start()
+    if not ready.wait(300):
+        raise AssertionError(f"the {arch} server did not start")
+    server = started[0]
+    port = server.server_address[1]
+    try:
+        _post(port, "/decompress", _post(port, "/compress", payloads[0]))
+        _reset_counts()
+        out = []
+        for payload in payloads:
+            t0 = time.perf_counter()
+            body = _post(port, "/compress", payload)
+            t1 = time.perf_counter()
+            rec = _post(port, "/decompress", body)
+            out.append((body, rec, 1e3 * (t1 - t0),
+                        1e3 * (time.perf_counter() - t1)))
+        counts = dict(gdn.LAUNCHES)
+    finally:
+        server.shutdown()
+        thread.join(60)
+    if thread.is_alive():
+        raise AssertionError(f"the {arch} server did not stop")
+    return out, counts
+
+
+def _pretrained_image(tmp):
+    """A CompressAI-format file of mbt2018-mean q8 from seed 0 with its
+    baked tables -> `update_model_cli --from-torch` -> `serve.main
+    --checkpoint` (three 512x768 requests); then `--no-update` and
+    `--raw-params` on the same file against the plain finalization.
+    Returns the served requests' `gdn_fwd` launches."""
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils import serve
+    from lmic_tpu_torch.utils.checkpoint import update_model_file
+    from lmic_tpu_torch.utils.codec_cli import read_body
+    from lmic_tpu_torch.utils.crosscheck import (
+        reference_table_mismatches,
+        write_reference_checkpoint,
+    )
+
+    arch, q = PRETRAINED_ARCH, PRETRAINED_QUALITY
+    t0 = time.perf_counter()
+    source = zoo.create_model(arch, q, seed=0, device="cuda")
+    source.update()
+    path = os.path.join(tmp, f"{arch}-{q}.pth.tar")
+    sd = write_reference_checkpoint(path, source)
+    final = _from_torch(path, arch, q, os.path.join(tmp, "final"))
+    direct, _ = serve.load_checkpoint_codec(final, arch, q)
+    bad = reference_table_mismatches(direct, sd)
+    if bad:
+        raise AssertionError(f"{arch}: finalized tables differ from the "
+                             f"file's buffers: {bad}")
+    t_final = time.perf_counter() - t0
+    images = _images(PRETRAINED_REQUESTS, seed=21)
+    payloads = []
+    for x in images:
+        buf = io.BytesIO()
+        serve._write_pixels(buf, x)
+        payloads.append(buf.getvalue())
+    requests, counts = _serve_checkpoint(final, arch, q, payloads)
+    _only_fwd("served --from-torch checkpoint", counts,
+              6 * len(images))  # 3 GDN in g_a + 3 IGDN in g_s a round trip
+    for i, (x, (body, rec, c_ms, d_ms)) in enumerate(zip(images, requests)):
+        shape, groups = read_body(io.BytesIO(body))
+        out = direct.compress(x)
+        if [list(g) for g in out["strings"]] != groups \
+                or tuple(out["shape"]) != tuple(shape) \
+                or direct.compress(x)["strings"] != out["strings"]:
+            raise AssertionError("the served body differs from the direct "
+                                 "call, or encoding is not deterministic")
+        if source.compress(x)["strings"] != out["strings"]:
+            raise AssertionError("the finalized codec codes other strings "
+                                 "than the file's source")
+        got = serve._read_pixels(io.BytesIO(rec))
+        want = direct.decompress(out["strings"], out["shape"], u8=True)
+        if got.shape != x.shape or not np.array_equal(got, want["x_hat"]):
+            raise AssertionError("/decompress differs from the direct call")
+        if i == 0:
+            _roundtrip_checks(direct, x, out["strings"], out["shape"])
+        nbytes = sum(len(s) for g in groups for s in g)
+        log(f"pretrained request {i}: {nbytes} bytes "
+            f"({8 * nbytes / (x.shape[1] * x.shape[2]):.4f} bpp), "
+            f"/compress {c_ms:.1f} ms, /decompress {d_ms:.1f} ms")
+    # --no-update then --raw-params: the plain finalization of the weights
+    t1 = time.perf_counter()
+    bare = _from_torch(path, arch, q, os.path.join(tmp, "bare"),
+                       "--no-update")
+    from lmic_tpu_torch.utils import update_model_cli
+
+    raw = update_model_cli.run([bare, "-a", arch, "-q", str(q), "-d",
+                                os.path.join(tmp, "raw"), "--raw-params"])
+    plain = update_model_file(os.path.join(tmp, "plain"), source,
+                              f"{arch}-q{q}")
+    with open(raw, "rb") as a, open(plain, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("--no-update + --raw-params differs from "
+                                 "the plain finalization")
+    log(f"{arch} q{q} (N={source.module.N}, M={source.module.M}): a "
+        f"CompressAI-format file written, finalized --from-torch as "
+        f"{os.path.basename(final)} and loaded in {t_final:.1f} s; tables "
+        f"equal to the file's buffers; three requests served with "
+        f"{counts['gdn_fwd']} gdn_fwd; --no-update + --raw-params = the "
+        f"plain finalization {os.path.basename(plain)} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    return counts["gdn_fwd"]
+
+
+def _pretrained_video(tmp):
+    """ssf2020 from seed 0 as a CompressAI-format file with the three
+    sub-codecs' baked tables, finalized --from-torch; one 1920x1152 GOP
+    coded to the source's strings, decoded to the encoder's in-loop
+    frames, with no GDN launch."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils import checkpoint as ckpt
+    from lmic_tpu_torch.utils.crosscheck import (
+        reference_table_mismatches,
+        write_reference_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    source = zoo.create_video_model("ssf2020", 1, seed=0, device="cuda")
+    source.update()
+    path = os.path.join(tmp, "ssf2020-1.pth.tar")
+    sd = write_reference_checkpoint(path, source)
+    final = ckpt.load_updated_model(
+        _from_torch(path, "ssf2020", 1, os.path.join(tmp, "video")),
+        zoo.create_video_model("ssf2020", 1, seed=3, device="cuda"))
+    bad = reference_table_mismatches(final, sd)
+    if bad:
+        raise AssertionError(f"ssf2020: finalized tables differ: {bad}")
+    gop = _gops(1)[0]
+    out, counts, ms = _counted(final.compress, gop)
+    _only_fwd("ssf2020 --from-torch GOP", counts, 0)
+    if out != source.compress(gop):
+        raise AssertionError("ssf2020: the finalized codec codes other "
+                             "strings than the file's source")
+    with torch.inference_mode():
+        _, recs = final._encode_gop(final._frames(gop))
+        in_loop = torch.stack(recs, 1).permute(0, 1, 3, 4, 2).cpu()
+    if not np.array_equal(final.decompress(*out), in_loop.numpy()):
+        raise AssertionError("ssf2020: the decoder's frames differ from "
+                             "the encoder's in-loop reconstructions")
+    key, inter = _gop_bytes(out[0])
+    log(f"ssf2020 from a CompressAI-format file: finalized, loaded and one "
+        f"3-frame 1920x1152 GOP coded ({ms:.1f} ms; keyframe {key} bytes, "
+        f"inter {inter}) and decoded in {time.perf_counter() - t0:.1f} s; "
+        "tables equal to the file's buffers, strings equal to the "
+        "source's, 0 GDN launches")
+    del source, final
+
+
+class RecomputePeaks:
+    """Within the block: the peak memory of each span of the backward
+    from one recompute of a `remat` block to the next, under the block's
+    name (`forward` for the forward and the backward up to the first
+    recompute)."""
+
+    def __init__(self, module):
+        self.names = {id(m): n for n, m in module.named_modules()}
+        self.peaks = {}
+
+    def _label(self, fn, args):
+        from torch import nn
+
+        from lmic_tpu_torch.layers import remat
+
+        mods = list(args[0]) if fn is remat._through else [
+            a for a in args if isinstance(a, nn.Module)]
+        owner = getattr(fn, "__self__", None)
+        head = "" if owner is None else self.names.get(
+            id(owner), type(owner).__name__) + "."
+        return (head + fn.__name__ + "("
+                + ",".join(self.names.get(id(m), type(m).__name__)
+                           for m in mods) + ")")
+
+    def _close(self):
+        import torch
+
+        peak = torch.cuda.max_memory_allocated()
+        self.peaks[self.current] = max(self.peaks.get(self.current, 0), peak)
+        torch.cuda.reset_peak_memory_stats()
+
+    def __enter__(self):
+        import torch
+
+        from lmic_tpu_torch.layers import remat
+
+        self.inside = remat._inside
+
+        def inside(fn, *args):
+            if torch._C._current_graph_task_id() != -1:  # a recompute
+                self._close()
+                self.current = self._label(fn, args)
+            return self.inside(fn, *args)
+
+        remat._inside = inside
+        torch.cuda.reset_peak_memory_stats()
+        self.current = "forward"
+        return self
+
+    def __exit__(self, *exc):
+        from lmic_tpu_torch.layers import remat
+
+        self._close()
+        remat._inside = self.inside
+
+    def top(self, n=4):
+        return {k: round(v / 2**30, 2) for k, v in sorted(
+            self.peaks.items(), key=lambda kv: -kv[1])[:n]}
+
+
+def _remat_steps():
+    """mbt2018-mean q7 at batch 16 of 256x256 under --remat, f32 and AMP:
+    timed steps with exact launch counts (REMAT_STEP a step), and one step
+    against the plain step with the same noise (`fixed_noise`). Returns
+    the launch counts of the timed steps."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.crosscheck import remat_step_agreement
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    batch = _train_batch(TRAIN_BATCH, seed=1)
+    counts = {k: 0 for k in gdn.LAUNCHES}
+    for mode, dtype in (("f32", None), ("amp", torch.bfloat16)):
+        module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
+                                  device="cuda", dtype=dtype).module
+        opt = make_optimizer()
+        state = create_train_state(module, opt)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step = make_train_step(module, opt, TRAIN_LAMBDA, remat=True)
+        launched = _train_case(
+            f"{TRAIN_ARCH} q{TRAIN_QUALITY} {mode} --remat batch "
+            f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}",
+            step, state, (batch,), gen, 4, REMAT_STEP)
+        for k, v in launched.items():
+            counts[k] += v
+        with RecomputePeaks(module) as spans:  # an uncounted step
+            step(state, batch, gen)
+        log(f"{mode} --remat step: highest backward spans (GiB) "
+            + json.dumps(spans.top()))
+        del module, state, opt, step
+        t0 = time.perf_counter()
+        loss_err, grad_err, once = remat_step_agreement(
+            TRAIN_ARCH, TRAIN_QUALITY, batch, TRAIN_LAMBDA, dtype=dtype)
+        loss_bar, grad_bar = REMAT_BARS[mode]
+        if once != REMAT_STEP or not (loss_err <= loss_bar
+                                      and grad_err <= grad_bar):
+            raise AssertionError(
+                f"{mode} --remat step against the plain step: launches "
+                f"{once}, loss {loss_err:.3g}, gradients {grad_err:.3g}")
+        log(f"{mode} --remat step against the plain step (same noise): "
+            f"losses within {loss_err:.3g}, clipped gradients within "
+            f"{grad_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _remat_master():
+    """The channel-1 master q7 against its frozen guide under --remat at
+    REMAT_MASTER_BATCH: a warm-up step and a timed one, launch counts set
+    to 0 just before and read just after (18 `gdn_fwd`, 6 of each backward
+    kernel a step), step ms and peak memory. Returns the counts."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        expandable_segments,
+        make_optimizer,
+    )
+    from lmic_tpu_torch.utils.train_cli import make_master_train_step
+
+    torch.cuda.empty_cache()
+    expandable_segments("cuda")  # as train_cli --remat runs
+    q, B = RGBT_QUALITY, REMAT_MASTER_BATCH
+    guided = zoo.create_model("guided", q, seed=0, channel=3,
+                              first_stride=2, device="cuda").module
+    guided.eval().requires_grad_(False)
+    master = zoo.create_model("master", q, seed=1, channel=1,
+                              device="cuda").module
+    opt = make_optimizer()
+    state = create_train_state(master, opt)
+    step = make_master_train_step(master, guided, opt, LAMBDAS[q - 1],
+                                  remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xm = _train_batch((B, *MASTER_BATCH[1:]), seed=3)
+    xg = _train_batch((B, *MASTER_GUIDE[1:]), seed=4)
+    t0 = time.perf_counter()
+    _, first = step(state, xm, xg, gen)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    with RecomputePeaks(master) as spans:
+        _, second = step(state, xm, xg, gen)
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launched = dict(gdn.LAUNCHES)
+    peak = max(spans.peaks.values())
+    want = {k: 18 if k == "gdn_fwd" else 6 for k in launched}
+    losses = [float(first["loss"]), float(second["loss"])]
+    if launched != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"master --remat batch {B}: launches "
+                             f"{launched}, losses {losses}")
+    log(f"train master q{q} (N={master.N}, M={master.M}) channel 1 f32 "
+        f"--remat batch {B} of {MASTER_BATCH[1]}x{MASTER_BATCH[2]} with "
+        f"{MASTER_GUIDE[1]}x{MASTER_GUIDE[2]} guides: step {ms:.1f} ms, "
+        f"peak memory {peak / 2**30:.2f} GiB, loss {losses[0]:.3f} -> "
+        f"{losses[1]:.3f}; built and a warm-up step {t_warm:.1f} s; "
+        f"highest backward spans (GiB) {json.dumps(spans.top())}")
+    del guided, master, state, opt, xm, xg
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_pretrained_and_remat():
+    """Phase 13 (see the module doc): a CompressAI-format file finalized --from-torch and
+    served (mbt2018-mean q8, and an ssf2020 GOP), then training under
+    --remat (mbt2018-mean q7 f32 and AMP, the master at batch 16). Returns
+    (the served requests' `gdn_fwd` launches, the training steps' launch
+    counts)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        served = _pretrained_image(tmp)
+        _pretrained_video(tmp)
+    t_pre = time.perf_counter() - t_phase
+    counts = _remat_steps()
+    for k, v in _remat_master().items():
+        counts[k] += v
+    log(f"pretrained and remat phase: {time.perf_counter() - t_phase:.1f} s "
+        f"(pretrained {t_pre:.1f} s)")
+    return served, counts
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -3105,13 +3516,16 @@ def main():
     video_launches = phase_video_serving()
     eval_launches = phase_eval_and_files()
     pipe_launches = phase_pipelines_and_bundles()
+    pretrained_launches, more_training["remat_training"] = \
+        phase_pretrained_and_remat()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
 
     errors = {k: _max_abs_err_by_dtype(v) for k, v in cases.items()}
     # every training path: mbt2018-mean (phase 5), the AR family and the
-    # RGB-T pair (phase 8), the paired `_R` arch (phase 9)
+    # RGB-T pair (phase 8), the paired `_R` arch (phase 9), --remat
+    # (phase 13)
     training = {"training": train_counts, **more_training}
     launched = {k: sum(c[k] for c in training.values()) for k in gdn.LAUNCHES}
     bwd_counts = {k: launched[k] for k in gdn.BWD_KERNELS}
@@ -3124,7 +3538,7 @@ def main():
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
         "launches": (serve_launches + ar_launches + rgbt_launches
                      + paired_launches + eval_launches + pipe_launches
-                     + launched["gdn_fwd"]),
+                     + pretrained_launches + launched["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
                              "rgbt_serving": rgbt_launches,
@@ -3132,6 +3546,7 @@ def main():
                              "video_serving": video_launches,
                              "eval_and_files": eval_launches,
                              "pipelines_and_bundles": pipe_launches,
+                             "pretrained_serving": pretrained_launches,
                              **{p: c["gdn_fwd"]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
@@ -3151,6 +3566,10 @@ def main():
                                     "float32"),
         "training_step_f32": totals("gdn_fwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
+        # a --remat step: each GDN and IGDN again in its block's recompute
+        "training_step_remat_f32": totals("gdn_fwd", REMAT_ROWS, "float32"),
+        "training_step_remat_bf16": totals("gdn_fwd", REMAT_ROWS,
+                                           "bfloat16"),
         # the master's step (batch 4): 12 launches, the frozen guide's six
         # at 1,310,720 / 327,680 / 81,920 rows and the master's six
         "training_step_master": totals("gdn_fwd", MASTER_STEP_FWD,
@@ -3169,6 +3588,7 @@ def main():
         "launches_by_path": {"video_serving": video_launches,
                              "eval_and_files": 0,
                              "pipelines_and_bundles": 0,
+                             "pretrained_serving": 0,
                              **{p: c[gdn.BWD_KERNELS[0]]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts[gdn.BWD_KERNELS[0]] / train_steps,

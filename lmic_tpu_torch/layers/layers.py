@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lmic_tpu_torch.layers import remat
 from lmic_tpu_torch.ops import NonNegativeParametrizer
 from lmic_tpu_torch.ops.gdn import gdn_core
 
@@ -144,6 +145,35 @@ class GDN(nn.Module):
             x = x.contiguous(memory_format=torch.channels_last)
         y = gdn_core(x.permute(0, 2, 3, 1), beta, gamma, self.inverse)
         return y.permute(0, 3, 1, 2)
+
+
+class GDNStack(nn.Sequential):
+    """An `nn.Sequential` of convs and GDNs (an analysis or synthesis
+    transform) whose blocks under `remat.rematerialize()` are its conv +
+    GDN pairs, the last conv joining the last pair: the stack keeps one
+    activation a resolution instead of two, and the full-resolution
+    output of a synthesis is never kept."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        parts = [[]]
+        for layer in self:
+            parts[-1].append(layer)
+            if isinstance(layer, GDN):
+                parts.append([])
+        if len(parts) > 1:  # the last conv joins the last pair
+            tail = parts.pop()
+            parts[-1] += tail
+        for part in parts:
+            x = remat.sequence(part, x)
+        return x
+
+
+class Block(nn.Sequential):
+    """An `nn.Sequential` that is one block under `remat.rematerialize()`
+    (the hyper transforms)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat.run(super().forward, x)
 
 
 class _QReLU(torch.autograd.Function):
@@ -258,6 +288,9 @@ class ResidualBlockWithStride(nn.Module):
                                 dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat.run(self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.gdn(self.conv2(_leaky(self.conv1(x))))
         identity = x if self.skip is None else self.skip(x)
         return out + identity.to(out.dtype)
@@ -278,6 +311,9 @@ class ResidualBlockUpsample(nn.Module):
                                       dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat.run(self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.igdn(self.conv(_leaky(self.subpel_conv(x))))
         return out + self.upsample(x)
 
@@ -296,6 +332,9 @@ class ResidualBlock(nn.Module):
             self.skip = conv1x1(in_channels, out_channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat.run(self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         out = _leaky(self.conv2(_leaky(self.conv1(x))))
         identity = x if self.skip is None else self.skip(x)
         return out + identity.to(out.dtype)
@@ -331,6 +370,9 @@ class AttentionBlock(nn.Module):
                                     conv1x1(N, N, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat.run(self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         a, b = self.conv_a(x), self.conv_b(x)
         return x + (a * torch.sigmoid(b)).to(x.dtype)
 

@@ -15,6 +15,7 @@ from torch import nn
 
 from lmic_tpu_torch.layers import (
     AttentionBlock,
+    Block,
     ResidualBlock,
     ResidualBlockUpsample,
     ResidualBlockWithStride,
@@ -58,7 +59,7 @@ class Cheng2020Anchor(JointAutoregressiveHierarchicalPriors):
 
     @staticmethod
     def _make_h_a(N, M, dt):
-        return nn.Sequential(
+        return Block(
             conv3x3(N, N, dtype=dt), _leaky(),
             conv3x3(N, N, dtype=dt), _leaky(),
             conv3x3(N, N, stride=2, dtype=dt), _leaky(),
@@ -68,7 +69,7 @@ class Cheng2020Anchor(JointAutoregressiveHierarchicalPriors):
 
     @staticmethod
     def _make_h_s(N, M, dt):
-        return nn.Sequential(
+        return Block(
             conv3x3(N, N, dtype=dt), _leaky(),
             SubpelConv3x3(N, N, 2, dtype=dt), _leaky(),
             conv3x3(N, N * 3 // 2, dtype=dt), _leaky(),

@@ -24,12 +24,12 @@ from lmic_tpu_torch.entropy.entropy_models import (
     EntropyBottleneck,
     GaussianConditional,
 )
-from lmic_tpu_torch.layers import GDN, Conv, Deconv
+from lmic_tpu_torch.layers import GDN, Block, Conv, Deconv, GDNStack
 from lmic_tpu_torch.ops.math import from_amp
 
 
-def _g_a(channel: int, N: int, M: int, dt) -> nn.Sequential:
-    return nn.Sequential(
+def _g_a(channel: int, N: int, M: int, dt) -> GDNStack:
+    return GDNStack(
         Conv(channel, N, dtype=dt), GDN(N, dtype=dt),
         Conv(N, N, dtype=dt), GDN(N, dtype=dt),
         Conv(N, N, dtype=dt), GDN(N, dtype=dt),
@@ -37,8 +37,8 @@ def _g_a(channel: int, N: int, M: int, dt) -> nn.Sequential:
     )
 
 
-def _g_s(channel: int, N: int, M: int, dt) -> nn.Sequential:
-    return nn.Sequential(
+def _g_s(channel: int, N: int, M: int, dt) -> GDNStack:
+    return GDNStack(
         Deconv(M, N, dtype=dt), GDN(N, inverse=True, dtype=dt),
         Deconv(N, N, dtype=dt), GDN(N, inverse=True, dtype=dt),
         Deconv(N, N, dtype=dt), GDN(N, inverse=True, dtype=dt),
@@ -111,7 +111,7 @@ class ScaleHyperprior(nn.Module):
 
     @staticmethod
     def _make_h_a(N, M, dt):
-        return nn.Sequential(
+        return Block(
             Conv(M, N, kernel_size=3, stride=1, dtype=dt), nn.ReLU(),
             Conv(N, N, dtype=dt), nn.ReLU(),
             Conv(N, N, dtype=dt),
@@ -119,7 +119,7 @@ class ScaleHyperprior(nn.Module):
 
     @staticmethod
     def _make_h_s(N, M, dt):
-        return nn.Sequential(
+        return Block(
             Deconv(N, N, dtype=dt), nn.ReLU(),
             Deconv(N, N, dtype=dt), nn.ReLU(),
             Conv(N, M, kernel_size=3, stride=1, dtype=dt), nn.ReLU(),
@@ -166,7 +166,7 @@ class MeanScaleHyperprior(ScaleHyperprior):
 
     @staticmethod
     def _make_h_a(N, M, dt):
-        return nn.Sequential(
+        return Block(
             Conv(M, N, kernel_size=3, stride=1, dtype=dt), nn.LeakyReLU(0.01),
             Conv(N, N, dtype=dt), nn.LeakyReLU(0.01),
             Conv(N, N, dtype=dt),
@@ -174,7 +174,7 @@ class MeanScaleHyperprior(ScaleHyperprior):
 
     @staticmethod
     def _make_h_s(N, M, dt):
-        return nn.Sequential(
+        return Block(
             Deconv(N, M, dtype=dt), nn.LeakyReLU(0.01),
             Deconv(M, M * 3 // 2, dtype=dt), nn.LeakyReLU(0.01),
             Conv(M * 3 // 2, M * 2, kernel_size=3, stride=1, dtype=dt),

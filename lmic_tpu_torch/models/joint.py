@@ -46,7 +46,7 @@ from torch import nn
 
 from lmic_tpu_torch.entropy import coder as rans
 from lmic_tpu_torch.entropy import entropy_models
-from lmic_tpu_torch.layers import Conv, MaskedConv2d
+from lmic_tpu_torch.layers import Conv, MaskedConv2d, remat
 from lmic_tpu_torch.models.codec import (
     HyperpriorCodec,
     _AnalyzeU8,
@@ -99,6 +99,11 @@ class JointAutoregressiveHierarchicalPriors(MeanScaleHyperprior):
         scales, means = gaussian_params.chunk(2, dim=1)
         return scales, means
 
+    def _context_params(self, hyper_p, y_hat):
+        """The context model and the entropy parameters on the quantized
+        latent: (scales, means). One block of `remat` in training."""
+        return self.param_fuse(hyper_p, self.context_prediction(y_hat))
+
     def _entropy_forward(self, y, training: bool,
                          generator: Optional[torch.Generator]):
         """The latent y -> {"y_hat": the context's (and g_s's) input,
@@ -115,8 +120,8 @@ class JointAutoregressiveHierarchicalPriors(MeanScaleHyperprior):
             y_hat = entropy_models.quantize_noise(y, generator)
         else:
             y_hat = torch.round(y)
-        scales_hat, means_hat = self.param_fuse(
-            params, self.context_prediction(y_hat))
+        scales_hat, means_hat = remat.run(self._context_params, params,
+                                          y_hat)
         _, y_likelihoods = self.gaussian_conditional(
             y, scales_hat, means=means_hat, training=training,
             generator=generator,

@@ -43,7 +43,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lmic_tpu_torch.layers import GDN, Conv, Deconv, ResidualBlock, conv1x1
+from lmic_tpu_torch.layers import (
+    GDN,
+    Conv,
+    Deconv,
+    GDNStack,
+    ResidualBlock,
+    conv1x1,
+    remat,
+)
 from lmic_tpu_torch.models.codec import _image_out, _symbols_to_host
 from lmic_tpu_torch.models.joint import (
     JointARCodec,
@@ -78,6 +86,9 @@ class FeatureEncoder(nn.Module):
         self.resblock3 = ResidualBlock(FEATURES, FEATURES)
 
     def forward(self, x):
+        return remat.run(self._forward, x)
+
+    def _forward(self, x):
         out = self.conv1(x)
         return self.resblock3(self.resblock2(self.resblock1(out))) + out
 
@@ -96,6 +107,9 @@ class FeatureDecoder(nn.Module):
         self.deconv1 = Deconv(FEATURES, out_channels, 3, stride)
 
     def forward(self, x):
+        return remat.run(self._forward, x)
+
+    def _forward(self, x):
         out = self.resblock3(self.resblock2(self.resblock1(x)))
         return self.deconv1(out + self.conv(x))
 
@@ -122,10 +136,15 @@ class ChannelAligner(nn.Module):
 
     def forward(self, x_feature, guided_feature):
         """-> (gamma * guided_feature + beta, beta, gamma)."""
-        beta = self.conv5(self._trunk(x_feature)).mean((2, 3), keepdim=True)
-        gamma = self.conv6(self._trunk(guided_feature)).mean((2, 3),
-                                                             keepdim=True)
+        beta = remat.run(self._branch, self.conv5, x_feature)
+        gamma = remat.run(self._branch, self.conv6, guided_feature)
         return gamma * guided_feature + beta, beta, gamma
+
+    def _branch(self, head, f):
+        """The trunk, a head and the mean over the grid: one block of
+        `remat` a branch, so a recompute rebuilds one trunk at a time
+        (eight 256-channel maps, 2.7 GB a sample at 512x640)."""
+        return head(self._trunk(f)).mean((2, 3), keepdim=True)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +282,9 @@ class SwinCrossBlock(nn.Module):
         return self._mask_value
 
     def forward(self, x, guided):
+        return remat.run(self._forward, x, guided)
+
+    def _forward(self, x, guided):
         B, H, W, C = x.shape
         ws, shift = self.window_size, self.shift_size
         if min(H, W) < ws:
@@ -343,10 +365,16 @@ class GuidedEncoder(nn.Module):
         self.g_a_conv4 = Conv(N, M, dtype=dtype)
 
     def forward(self, x):
-        g1 = self.g_a_gdn1(self.g_a_conv1(x))
-        g2 = self.g_a_gdn2(self.g_a_conv2(g1))
-        g3 = self.g_a_gdn3(self.g_a_conv3(g2))
-        return self.g_a_conv4(g3), g1, g2, g3
+        # the conv + GDN pairs are the blocks of `remat`, the last conv
+        # joining the last pair (layers.GDNStack)
+        g1 = remat.sequence((self.g_a_conv1, self.g_a_gdn1), x)
+        g2 = remat.sequence((self.g_a_conv2, self.g_a_gdn2), g1)
+        y, g3 = remat.run(self._last, g2)
+        return y, g1, g2, g3
+
+    def _last(self, x):
+        g3 = self.g_a_gdn3(self.g_a_conv3(x))
+        return self.g_a_conv4(g3), g3
 
 
 class GuidedDecoder(nn.Module):
@@ -365,10 +393,14 @@ class GuidedDecoder(nn.Module):
         self.g_s_conv4 = Deconv(N, channel, stride=first_stride, dtype=dtype)
 
     def forward(self, y_hat):
-        g1 = self.g_s_gdn1(self.g_s_conv1(y_hat))
-        g2 = self.g_s_gdn2(self.g_s_conv2(g1))
-        g3 = self.g_s_gdn3(self.g_s_conv3(g2))
-        return self.g_s_conv4(g3), g1, g2, g3
+        g1 = remat.sequence((self.g_s_conv1, self.g_s_gdn1), y_hat)
+        g2 = remat.sequence((self.g_s_conv2, self.g_s_gdn2), g1)
+        x_hat, g3 = remat.run(self._last, g2)
+        return x_hat, g1, g2, g3
+
+    def _last(self, x):
+        g3 = self.g_s_gdn3(self.g_s_conv3(x))
+        return self.g_s_conv4(g3), g3
 
 
 def _f32(maps, names):
@@ -470,8 +502,8 @@ class MasterDecoder(nn.Module):
             g = guide_hidden[f"gs{i}"]
             if self.master_chl == 1:
                 g = getattr(self, f"downsample{i}")(g)
-            out = getattr(self, f"g_s_gdn{i}")(
-                getattr(self, f"g_s_conv{i}")(out))
+            out = remat.sequence((getattr(self, f"g_s_conv{i}"),
+                                  getattr(self, f"g_s_gdn{i}")), out)
             aligned = getattr(self, f"sp_aligner{i}")(out, g)
             out = torch.cat([aligned, out], dim=1)
         return self.g_s_conv4(out)
@@ -515,7 +547,7 @@ class MasterCompresser(JointAutoregressiveHierarchicalPriors):
 
     def _make_g_a(self, channel, N, M, dt):
         # its input: the master feature and the aligned guide feature
-        return nn.Sequential(
+        return GDNStack(
             Conv(2 * FEATURES, N), GDN(N),
             Conv(N, N), GDN(N),
             Conv(N, N), GDN(N),

@@ -10,8 +10,9 @@ optimizers' `state_dict`s, the step count and the caller's metadata. A
 deployment checkpoint holds the params and the coding tables as tensors;
 ssf2020's three sub-codecs' tables go under `hp_states`, {which: {"eb",
 "gc"}}, as in lmic_tpu (lmic_tpu/utils/checkpoint.py:108-127, 163-176).
-Both load with `weights_only=True`. lmic_tpu's flax-msgpack files are
-another format and are not read here.
+Bare params (`save_params`, lmic_tpu's `--no-update` output) are a
+`torch.save` of the `state_dict`. All load with `weights_only=True`.
+lmic_tpu's flax-msgpack files are another format and are not read here.
 """
 
 from __future__ import annotations
@@ -83,11 +84,30 @@ def _table_tensors(state, last: str) -> Dict[str, torch.Tensor]:
             for k, v in arrays.items()}
 
 
-def update_model_file(out_dir: str, codec, name: str) -> str:
+def save_params(path: str, module):
+    """Write the bare params (`module.state_dict()`), what lmic_tpu's
+    `save_params` writes and `update_model_cli --no-update` leaves."""
+    torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()},
+               path)
+
+
+def load_params(path: str, module):
+    """Restore bare params written by `save_params` into `module` (any
+    device). Returns the module."""
+    module.load_state_dict(torch.load(path, map_location=_device_of(module),
+                                      weights_only=True))
+    return module
+
+
+def update_model_file(out_dir: str, codec, name: str,
+                      update: bool = True) -> str:
     """Finalize a deployment checkpoint: run `codec.update(force=True)`,
     store the params and coding tables, and name the file
-    `<name>-<sha256[:8] of its bytes>.ckpt` in `out_dir`."""
-    codec.update(force=True)
+    `<name>-<sha256[:8] of its bytes>.ckpt` in `out_dir`. `update=False`
+    keeps the tables the codec holds (e.g. adopted from a reference
+    file's baked buffers, zoo/pretrained.py)."""
+    if update:
+        codec.update(force=True)
     blob: Dict[str, Any] = {
         "params": {k: v.detach().cpu()
                    for k, v in codec.module.state_dict().items()},

@@ -1,9 +1,14 @@
 """Cross-device checks that `chip_smoke.py` and the card tests
 (tests/test_torch_cuda.py) both run: one training step on two devices with
 the same quantization noise (any trained arch, and the RGB-T master's step
-against its frozen guide), the AR codecs' wavefront step on two devices on
-the same coded latents, and the transforms of the RGB-T pair, of the
-paired `_R`/`_D` archs and of ssf2020's GOP chain stage by stage.
+against its frozen guide), a step under `--remat` against the plain step
+on one device, the AR codecs' wavefront step on two devices on the same
+coded latents, and the transforms of the RGB-T pair, of the paired
+`_R`/`_D` archs and of ssf2020's GOP chain stage by stage.
+
+`write_reference_checkpoint` is their test support for zoo/pretrained.py:
+it writes a codec as a CompressAI-format file, the layout of the
+reference's published weights.
 
 `torch.rand` draws other numbers on the card than on the CPU, so
 `fixed_noise` swaps `entropy_models.quantize_noise` for one that adds a
@@ -13,7 +18,8 @@ numpy-made U(-0.5, 0.5) noise, the same for a given shape on any device.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Sequence
+import math
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,20 +57,20 @@ def fixed_noise(seed: int = 0):
         entropy_models.quantize_noise = original
 
 
-def _step_agreement(devices, step_on):
-    """`step_on(device)` -> (metrics, module) for each of two `devices`
-    under `fixed_noise`. Returns (loss_err, grad_err, launched): the
-    largest relative difference of the step's losses, the largest
-    difference of a clipped gradient leaf relative to that leaf's largest
-    value on the second device, and the GDN kernel launches on the first
-    device."""
+def _step_agreement(runs, step_on):
+    """`step_on(run)` -> (metrics, module) for each of two `runs` (two
+    devices, or the remat and the plain step) under `fixed_noise`. Returns
+    (loss_err, grad_err, launched): the largest relative difference of the
+    step's losses, the largest difference of a clipped gradient leaf
+    relative to that leaf's largest value in the second run, and the GDN
+    kernel launches of the first run."""
     results, launched = [], None
     with fixed_noise():
-        for device in devices:
+        for run in runs:
             before = dict(gdn.LAUNCHES)
-            metrics, module = step_on(device)
+            metrics, module = step_on(run)
             if launched is None:
-                if torch.device(device).type == "cuda":
+                if next(module.parameters()).is_cuda:
                     torch.cuda.synchronize()
                 launched = {k: gdn.LAUNCHES[k] - before[k]
                             for k in before}
@@ -101,18 +107,40 @@ def train_step_agreement(arch: str, quality: int, x: torch.Tensor,
     return _step_agreement(devices, step_on)
 
 
+def remat_step_agreement(arch: str, quality: int, x: torch.Tensor,
+                         lmbda: float, device: str = "cuda",
+                         dtype: Optional[torch.dtype] = None, **widths):
+    """One step of `arch` under `--remat` against the plain step, both on
+    `device` from seed 0 (`dtype` the compute dtype, bfloat16 for AMP) on
+    the NCHW batch `x`, under `fixed_noise`: (loss_err, grad_err,
+    launched) of `_step_agreement`, launched the remat step's."""
+
+    def step_on(remat):
+        module = zoo.create_model(arch, quality, seed=0, device=device,
+                                  dtype=dtype, **widths).module
+        opt = make_optimizer()
+        _, metrics = make_train_step(module, opt, lmbda, remat=remat)(
+            create_train_state(module, opt), x.to(device))
+        return metrics, module
+
+    return _step_agreement((True, False), step_on)
+
+
 def master_step_agreement(quality: int, channel: int, x: torch.Tensor,
                           guide: torch.Tensor, lmbda: float,
                           devices: Sequence[str] = ("cuda", "cpu"),
+                          remat: Sequence[bool] = (False, False),
                           **widths):
     """One master step (`train_cli.make_master_train_step`) of a master
     of `channel` channels against its frozen guide (seed 0, first conv at
     stride 2; the master from seed 1) on the NCHW master batch `x` and
-    guide batch `guide`, on each of two `devices`, under `fixed_noise`:
-    (loss_err, grad_err, launched) of `_step_agreement`."""
+    guide batch `guide`, on each of two `devices` (with `remat[i]` on the
+    i-th), under `fixed_noise`: (loss_err, grad_err, launched) of
+    `_step_agreement`."""
     from lmic_tpu_torch.utils.train_cli import make_master_train_step
 
-    def step_on(device):
+    def step_on(run):
+        device, rematerialized = run
         guided = zoo.create_model("guided", quality, seed=0,
                                   channel=4 - channel, first_stride=2,
                                   device=device, **widths).module
@@ -121,12 +149,13 @@ def master_step_agreement(quality: int, channel: int, x: torch.Tensor,
                                   channel=channel, device=device,
                                   **widths).module
         opt = make_optimizer()
-        _, metrics = make_master_train_step(master, guided, opt, lmbda)(
+        _, metrics = make_master_train_step(
+            master, guided, opt, lmbda, remat=rematerialized)(
             create_train_state(master, opt), x.to(device),
             guide.to(device))
         return metrics, master
 
-    return _step_agreement(devices, step_on)
+    return _step_agreement(tuple(zip(devices, remat)), step_on)
 
 
 def wavefront_step_agreement(codec, ref, x):
@@ -272,3 +301,111 @@ def video_agreement(codec, ref, frames) -> float:
                           torch.round(yr), ym)
             x_ref = x_pred + x_res
     return both.worst
+
+
+# what a CompressAI GDN's reparametrizations hold as buffers
+# (compressai/ops/parametrizers.py): pedestal = 2^-36 and the lower bounds
+# sqrt(minimum + pedestal), beta's minimum 1e-6
+_PEDESTAL = 2.0 ** -36
+
+
+def coding_states(codec) -> Dict[str, object]:
+    """{key prefix of an entropy model in a CompressAI file: its coding
+    state} of `codec` (either package's: the same attributes)."""
+    if getattr(codec, "hp_states", None):
+        pairs = {f"{which}_hyperprior.": (hp.eb_state, hp.gc_state)
+                 for which, hp in codec.hp_states.items()}
+    else:
+        pairs = {"": (codec.eb_state, codec.gc_state)}
+    out = {}
+    for prefix, (eb, gc) in pairs.items():
+        out[prefix + "entropy_bottleneck"] = eb
+        if gc is not None:
+            out[prefix + "gaussian_conditional"] = gc
+    return out
+
+
+def reference_table_mismatches(codec, state_dict) -> list:
+    """The entropy models of `codec` whose coding tables differ, in any
+    bit, from the baked buffers of the reference `state_dict` (the CDFs,
+    lengths and offsets as int32, the medians `quantiles[:, 0, 1]` and
+    the scale table as f32): an empty list when every table is the
+    file's."""
+    bad = []
+    for prefix, st in coding_states(codec).items():
+        got = [st.table.cdf, st.table.cdf_length, st.table.offset]
+        want = [state_dict[f"{prefix}.{k}"] for k in
+                ("_quantized_cdf", "_cdf_length", "_offset")]
+        if prefix.endswith("entropy_bottleneck"):
+            got.append(st.medians)
+            want.append(state_dict[f"{prefix}.quantiles"][:, 0, 1])
+        else:
+            got.append(st.scale_table)
+            want.append(state_dict[f"{prefix}.scale_table"])
+        for g, w in zip(got, want):
+            g, w = np.asarray(g), w.cpu().numpy()
+            if g.dtype != w.dtype or g.dtype not in (np.int32, np.float32) \
+                    or not np.array_equal(g.view(np.int32),
+                                          w.view(np.int32)):
+                bad.append(prefix)
+                break
+    return bad
+
+
+def write_reference_checkpoint(path: str, codec, baked: bool = True,
+                               extra: Optional[Mapping[str, torch.Tensor]]
+                               = None) -> Dict[str, torch.Tensor]:
+    """Write `codec` as a CompressAI-format state_dict file (the reference
+    `update_model`'s deployment layout): `codec.module.state_dict()`, the
+    reference's non-parameter buffers (GDN reparametrization pedestals and
+    bounds, the context model's mask, the entropy models' `target` and
+    bounds), with `baked` the codec's coding tables as
+    `_quantized_cdf/_offset/_cdf_length` and `scale_table`, and `extra`
+    (e.g. the modules an RGB-T class inherits and never runs). Old
+    spellings show as in older files: every key under `module.`
+    (DataParallel), one bottleneck's `_matrix0` as `_matrices.0` and one
+    `skip` as `downsample`. Returns the state_dict written, with the
+    current key names."""
+    from lmic_tpu_torch.layers import GDN, MaskedConv2d
+
+    sd = {k: v.detach().cpu().clone()
+          for k, v in codec.module.state_dict().items()}
+    for name, m in codec.module.named_modules():
+        if isinstance(m, GDN):
+            sd[f"{name}.beta_reparam.pedestal"] = torch.tensor(_PEDESTAL)
+            sd[f"{name}.beta_reparam.lower_bound.bound"] = torch.tensor(
+                (1e-6 + _PEDESTAL) ** 0.5)
+            sd[f"{name}.gamma_reparam.pedestal"] = torch.tensor(_PEDESTAL)
+            sd[f"{name}.gamma_reparam.lower_bound.bound"] = torch.tensor(
+                _PEDESTAL ** 0.5)
+        elif isinstance(m, MaskedConv2d):
+            sd[f"{name}.mask"] = m.mask.cpu().expand_as(m.weight).clone()
+    for prefix, st in coding_states(codec).items():
+        table = st.table
+        scales = getattr(st, "scale_table", None)
+        sd[f"{prefix}.likelihood_lower_bound.bound"] = torch.tensor(1e-9)
+        if scales is None:
+            t = math.log(2 / 1e-9 - 1)  # the bottleneck's tail target
+            sd[f"{prefix}.target"] = torch.tensor([-t, 0.0, t])
+        else:
+            sd[f"{prefix}.lower_bound_scale.bound"] = torch.tensor(0.11)
+            if baked:
+                sd[f"{prefix}.scale_table"] = torch.from_numpy(
+                    np.array(scales, np.float32))
+        if baked:
+            sd[f"{prefix}._quantized_cdf"] = torch.from_numpy(
+                np.array(table.cdf, np.int32))
+            sd[f"{prefix}._offset"] = torch.from_numpy(
+                np.array(table.offset, np.int32))
+            sd[f"{prefix}._cdf_length"] = torch.from_numpy(
+                np.array(table.cdf_length, np.int32))
+    sd.update({k: v.detach().cpu() for k, v in (extra or {}).items()})
+    old, matrices, skip = {}, False, False
+    for k, v in sd.items():
+        if not matrices and k.endswith("._matrix0"):
+            k, matrices = k.replace("._matrix0", "._matrices.0"), True
+        elif not skip and ".skip." in k:
+            k, skip = k.replace(".skip.", ".downsample."), True
+        old["module." + k] = v
+    torch.save(old, path)
+    return sd

@@ -16,17 +16,23 @@ Counterpart of lmic_tpu/utils/train.py (reference examples/train.py):
 
 The parameters live in the module; `TrainState` holds it with both
 optimizers and the step count. The step draws its quantization noise from
-an explicit `torch.Generator` on the batch's device.
+an explicit `torch.Generator` on the batch's device. `remat=True` is
+lmic_tpu's `--remat`: the forward keeps only the inputs of its transform
+blocks and the backward recomputes them (layers/remat.py), the same
+gradients for less memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, Iterable, Optional, Union
 
 import torch
 from torch import nn
+
+from lmic_tpu_torch.layers.remat import rematerialize
 
 # fork's lambda table, indexed by quality - 1 (examples/train.py:65)
 LAMBDA_TABLE = (256, 512, 1024, 2048, 4096, 8192, 10240)
@@ -166,9 +172,27 @@ def train_update(state: TrainState, optimizer: DualOptimizer,
     return state, metrics
 
 
+def expandable_segments(device) -> bool:
+    """Switch the CUDA caching allocator to expandable segments for a
+    `--remat` run on `device`, unless PYTORCH_CUDA_ALLOC_CONF is set.
+    Remat trains at batches near the card's memory, where fixed segments
+    fragment until cuDNN gets no workspace and falls back to its direct
+    data-gradient kernel: the master q7 at batch 16 on the H100 spent 166
+    s of a 174 s step in it, and 8.4 s a step with expandable segments
+    (PERF.md). Returns whether it switched."""
+    if (torch.device(device).type != "cuda"
+            or "PYTORCH_CUDA_ALLOC_CONF" in os.environ):
+        return False
+    set_settings = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                           None) or torch.cuda.memory._set_allocator_settings
+    set_settings("expandable_segments:True")
+    return True
+
+
 def make_train_step(module: nn.Module, optimizer: DualOptimizer,
-                    lmbda: float) -> Callable:
-    """Build the train step.
+                    lmbda: float, remat: bool = False) -> Callable:
+    """Build the train step (with `remat`, rematerializing the transform
+    blocks).
 
     step(state, batch, generator) -> (state, metrics). `batch` is
     (B, C, H, W) in [0, 1] on the module's device (channels_last memory);
@@ -180,9 +204,12 @@ def make_train_step(module: nn.Module, optimizer: DualOptimizer,
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    generator: Optional[torch.Generator] = None):
-        return train_update(state, optimizer, lambda: rd_aux_loss(
-            module, module(batch, training=True, generator=generator),
-            batch, lmbda))
+        def loss_fn():
+            with rematerialize(remat):
+                out = module(batch, training=True, generator=generator)
+            return rd_aux_loss(module, out, batch, lmbda)
+
+        return train_update(state, optimizer, loss_fn)
 
     return train_step
 

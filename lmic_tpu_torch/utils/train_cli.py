@@ -16,7 +16,11 @@ unless `--device cpu`. Its two recipes:
   and its reconstruction and decoder maps condition the master's step.
 
 `--amp` runs the transforms in bf16 (params, quantization noise and
-likelihoods stay f32) for the archs in AMP_ARCHS.
+likelihoods stay f32) for the archs in AMP_ARCHS. `--remat` recomputes
+the transform blocks in the backward instead of keeping their
+activations (layers/remat.py), for every arch and both recipes: the same
+step in less memory; on CUDA it also gives the caching allocator
+expandable segments (`train.expandable_segments`).
 
 Usage:
   python -m lmic_tpu_torch.utils.train_cli --arch mbt2018-mean -q 7 \\
@@ -25,8 +29,8 @@ Usage:
       -d /path/FLIR/train/thermal_8_bit --guided-checkpoint guided.ckpt
 
 The `*_D` archs have no training recipe, as in lmic_tpu. Not ported yet
-(each raises, see ROADMAP.md): `--bf16`, `--remat` and `--devices` (queue
-A, item 8).
+(each raises, see ROADMAP.md): `--bf16` and `--devices` (queue A, item
+8).
 """
 
 from __future__ import annotations
@@ -42,10 +46,12 @@ import numpy as np
 import torch
 
 from lmic_tpu_torch import default_device, zoo
+from lmic_tpu_torch.layers.remat import rematerialize
 from lmic_tpu_torch.utils import checkpoint as ckpt
 from lmic_tpu_torch.utils.train import (
     LAMBDA_TABLE,
     create_train_state,
+    expandable_segments,
     make_eval_step,
     make_optimizer,
     make_train_step,
@@ -69,18 +75,17 @@ AMP_ARCHS = {
 _NOT_PORTED = {
     "bf16": "--bf16 (bf16 matmul precision) is not ported: use --amp; "
             "ROADMAP.md queue A, item 8",
-    "remat": "--remat (rematerialized forward) is not ported; ROADMAP.md "
-             "queue A, item 8",
     "devices": "--devices (data parallel over local devices) is not "
                "ported; ROADMAP.md queue A, item 8",
 }
 
 
 def make_master_train_step(master_module, guided_module, optimizer,
-                           lmbda: float):
+                           lmbda: float, remat: bool = False):
     """The master step (reference train.py:208-274): the frozen guide's
-    eval forward without gradients feeds the master's training forward,
-    then RD + aux, one backward, the clip and both Adams.
+    eval forward without gradients feeds the master's training forward
+    (with `remat`, rematerializing the master's transform blocks), then
+    RD + aux, one backward, the clip and both Adams.
 
     step(state, master_batch, guided_batch, generator) -> (state,
     metrics); the batches are NCHW in [0, 1] on the modules' device."""
@@ -93,11 +98,14 @@ def make_master_train_step(master_module, guided_module, optimizer,
         # before the master's activations are allocated
         hidden = {k: g_out["hidden"][k] for k in ("gs1", "gs2", "gs3")}
         del g_out
-        return train_update(state, optimizer, lambda: rd_aux_loss(
-            master_module,
-            master_module(master_batch, guided_hat, hidden, training=True,
-                          generator=generator),
-            master_batch, lmbda))
+
+        def loss_fn():
+            with rematerialize(remat):
+                out = master_module(master_batch, guided_hat, hidden,
+                                    training=True, generator=generator)
+            return rd_aux_loss(master_module, out, master_batch, lmbda)
+
+        return train_update(state, optimizer, loss_fn)
 
     return step
 
@@ -136,7 +144,10 @@ def parse_args(argv):
                    help="torch device (default: CUDA; raises without a GPU "
                         "unless 'cpu' is given)")
     p.add_argument("--bf16", action="store_true", help="not ported")
-    p.add_argument("--remat", action="store_true", help="not ported")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the transform blocks in the backward "
+                        "instead of keeping their activations (less "
+                        "memory, about a third more compute)")
     p.add_argument("--devices", type=int, default=None, help="not ported")
     return p.parse_args(argv)
 
@@ -220,6 +231,8 @@ def train_single(args):
     from lmic_tpu_torch.datasets import DataLoader, ImageFolder, ImageFolderT
 
     device = default_device(args.device)
+    if args.remat:
+        expandable_segments(device)
     lmbda = LAMBDA_TABLE[args.quality - 1]
     dtype = torch.bfloat16 if args.amp else None
     codec = zoo.create_model(args.arch, args.quality, seed=args.seed,
@@ -253,7 +266,7 @@ def train_single(args):
 
     optimizer, state, start_epoch, best_loss = _train_state(
         args, module, args.steps_per_epoch or max(1, len(dl)))
-    step_fn = make_train_step(module, optimizer, lmbda)
+    step_fn = make_train_step(module, optimizer, lmbda, remat=args.remat)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     def run_step(batch):
@@ -272,6 +285,8 @@ def train_master(args):
     from lmic_tpu_torch.datasets import DataLoader, ImageFolderRGB
 
     device = default_device(args.device)
+    if args.remat:
+        expandable_segments(device)
     lmbda = LAMBDA_TABLE[args.quality - 1]
     guided = zoo.create_model(
         "guided", args.quality, seed=args.seed,
@@ -292,7 +307,8 @@ def train_master(args):
     dl = DataLoader(ds, args.batch_size, seed=args.seed)
     optimizer, state, start_epoch, best_loss = _train_state(
         args, master, args.steps_per_epoch or max(1, len(dl)))
-    step_fn = make_master_train_step(master, guided, optimizer, lmbda)
+    step_fn = make_master_train_step(master, guided, optimizer, lmbda,
+                                     remat=args.remat)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     def run_step(batch):

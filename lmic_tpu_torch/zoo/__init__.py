@@ -9,7 +9,9 @@ RGB-T archs (`mbt2018_R`/`_D`, `cheng2020-anchor_R`/`_D`,
 `create_video_model`, lmic_tpu/zoo/__init__.py:192-215). `create_model`
 builds the module on the CPU from a seed, so the same seed gives the same
 weights on every device, then hands it to the codec wrapper on `device`
-(CUDA unless told otherwise).
+(CUDA unless told otherwise). `register_architecture` adds an image
+architecture; `zoo.pretrained` loads CompressAI-format files and
+`zoo.urls` resolves the reference's published ones.
 """
 
 from __future__ import annotations
@@ -111,6 +113,13 @@ model_architectures: Dict[str, Tuple[Any, Any]] = {
     "cheng2020-attn_R": (Cheng2020Attention_R, GuidedCodec),
     "cheng2020-attn_D": (Cheng2020Attention_D, FusedARCodec),
 }
+
+
+def register_architecture(name: str, module_cls, codec_cls):
+    """Add an image architecture: `module_cls(N=, M=, channel=,
+    generator=, dtype=)` and its codec wrapper. Its widths go in
+    `cfgs[name]` ({quality: (N, M)})."""
+    model_architectures[name] = (module_cls, codec_cls)
 
 
 def make_module(architecture: str, quality: int, channel: int = 3,

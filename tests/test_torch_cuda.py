@@ -778,3 +778,72 @@ def test_bundle_on_card_matches_the_live_codec(tmp_path):
                    for n in program.graph.nodes) == 3, name
     with pytest.raises(ValueError, match="exported on 'cuda'"):
         load_serving_bundle(str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "amp"])
+def test_remat_step_on_card_matches_the_plain_step(dtype):
+    """A --remat step on the card against the plain step, the same
+    weights and noise: the losses and each clipped gradient leaf within
+    the card's bars (f32 1e-4 / 1e-3, bf16 1e-3 / 2e-2); 12 `gdn_fwd` (each
+    GDN again in its block's recompute) and 6 of each backward kernel."""
+    from lmic_tpu_torch.utils.crosscheck import remat_step_agreement
+
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 64, 128, 3), dtype=np.float32)).permute(0, 3, 1, 2)
+    loss_err, grad_err, launched = remat_step_agreement(
+        "mbt2018-mean", 1, x, 1024, dtype=dtype, N=32, M=48)
+    assert launched == {k: 12 if k == "gdn_fwd" else 6
+                        for k in gdn.LAUNCHES}
+    loss_bar, grad_bar = (1e-4, 1e-3) if dtype is None else (1e-3, 2e-2)
+    assert loss_err <= loss_bar and grad_err <= grad_bar, (loss_err,
+                                                           grad_err)
+
+
+def test_master_remat_step_on_card_matches_the_plain_step():
+    """The master's --remat step against its frozen guide on the card
+    against the plain step: the f32 card bars; 18 `gdn_fwd` (the guide's 6
+    once, the master's 6 twice) and 6 of each backward kernel."""
+    from lmic_tpu_torch.utils.crosscheck import master_step_agreement
+
+    (mH, mW), (gH, gW) = RGBT_ROLES[1]
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.random((2, mH, mW, 1), dtype=np.float32))
+    guide = torch.from_numpy(rng.random((2, gH, gW, 3), dtype=np.float32))
+    loss_err, grad_err, launched = master_step_agreement(
+        1, 1, x.permute(0, 3, 1, 2), guide.permute(0, 3, 1, 2), 1024,
+        devices=("cuda", "cuda"), remat=(True, False), N=32, M=48)
+    assert launched == {k: 18 if k == "gdn_fwd" else 6
+                        for k in gdn.LAUNCHES}
+    assert loss_err <= 1e-4 and grad_err <= 1e-3, (loss_err, grad_err)
+
+
+def test_from_torch_on_card(tmp_path, monkeypatch):
+    """A CompressAI-format file of a narrow mbt2018-mean with baked tables,
+    finalized by `update_model_cli --from-torch` on the card: its tables
+    are the file's bit for bit, and it codes the source's strings with 6
+    `gdn_fwd` a round trip."""
+    from lmic_tpu_torch.utils import checkpoint as ckpt
+    from lmic_tpu_torch.utils import update_model_cli
+    from lmic_tpu_torch.utils.crosscheck import (
+        reference_table_mismatches,
+        write_reference_checkpoint,
+    )
+
+    monkeypatch.setitem(zoo.cfgs, "mbt2018-mean", {1: (32, 48)})
+    source = zoo.create_model("mbt2018-mean", 1, device="cuda")
+    source.update()
+    path = str(tmp_path / "mbt2018-mean.pth.tar")
+    sd = write_reference_checkpoint(path, source)
+    out = update_model_cli.run([path, "-a", "mbt2018-mean", "-q", "1",
+                                "-d", str(tmp_path), "--from-torch"])
+    final = ckpt.load_updated_model(
+        out, zoo.create_model("mbt2018-mean", 1, seed=3, device="cuda"))
+    assert reference_table_mismatches(final, sd) == []
+    x = (np.random.default_rng(2).random((1, 64, 128, 3)) * 255).astype(
+        np.uint8)
+    n0 = gdn.LAUNCHES["gdn_fwd"]
+    enc = final.compress(x)
+    final.decompress(enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    assert gdn.LAUNCHES["gdn_fwd"] == n0 + 6
+    assert enc["strings"] == source.compress(x)["strings"]
