@@ -7,6 +7,7 @@ runs them.
     python3 chip_probes.py train-convs
     python3 chip_probes.py video-convs
     python3 chip_probes.py sync-u8 ROOT [ROOT ...]
+    python3 chip_probes.py gdn-ab ROOT [ROOT ...]
 
 - master-batch: the largest batch of the RGB-T master's training step
   that fits, the channel-1 master q7 (f32) against its frozen guided q7 on
@@ -43,6 +44,15 @@ runs them.
   and least of 5), the median of each stage the codec's `stats` keeps,
   and a digest of the strings and pixels, which must agree across the
   ROOTs.
+- gdn-ab: the GDN kernels of each checkout ROOT in turn, A B B A as
+  sync-u8 runs them, each in a process of its own that imports that
+  ROOT's `chip_smoke.py` and port: the kernel phase's per-step totals (ms,
+  plain, bound, library) of every GDN kernel at the training rows, C = 192,
+  f32 and bf16; an on-card checksum of every f32 output (gdn_fwd, and each of
+  gdn_bwd's three launches: dx and the dn scratch, the partials, dbeta and
+  dgamma) at every f32 shape of the kernel phase, which must agree across
+  the ROOTs; and phase 5's AMP step (mbt2018-mean q7, batch 16 of 256x256):
+  step ms, peak memory, and device ms and busy share from a profile.
 """
 
 from __future__ import annotations
@@ -338,10 +348,143 @@ def sync_u8(roots):
     log("sync-u8: every checkout's strings and pixels agree")
 
 
+def _checksum(t):
+    """A digest of a tensor's bytes, computed on the card: the sum mod
+    2^64 of each 32-bit word (plus one) times a multiplier that depends on
+    its index, with the shape."""
+    import torch
+
+    words = t.contiguous().view(-1).view(torch.int32).to(torch.int64) + 1
+    index = torch.arange(words.numel(), device=t.device, dtype=torch.int64)
+    total = (words * (index * 2654435761 + 1)).sum().item()
+    return f"{tuple(t.shape)}:{total & (2**64 - 1):016x}"
+
+
+def _f32_checksums():
+    """{shape and direction: checksums of the f32 outputs} of gdn_fwd and of
+    gdn_bwd's three launches at every f32 shape of the kernel phase."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    cs = chip_smoke
+    f32_only = cs.RGBT_ROWS + cs.MASTER_GUIDE_ROWS + cs.PIPE_ROWS
+    shapes = [(n, C) for C in (128, 192) for n in cs.SERVE_ROWS
+              + cs.TRAIN_ROWS] + [(n, 192) for n in f32_only]
+    fwd_only = tuple(n for n in cs.SERVE_ROWS + f32_only
+                     if n not in cs.MASTER_TRAIN_ROWS)
+    out = {}
+    for n, C in shapes:
+        for inverse in (False, True):
+            gen = torch.Generator(device="cuda").manual_seed(n * 1000 + C)
+            x, beta, gamma, g = cs._gdn_inputs(gen, n, C, torch.float32)
+            key = f"{n}x{C} inverse={inverse}"
+            sums = [_checksum(gdn.gdn_fwd(x, beta, gamma, inverse))]
+            if n not in fwd_only:
+                launch = cs._bwd_launches(x, beta, gamma,
+                                          gamma.t().contiguous(), g, inverse)
+                for name in gdn.BWD_KERNELS:  # dx, partials, reduce in turn
+                    sums += [_checksum(t) for t in launch[name]()]
+            out[key] = sums
+            del x, beta, gamma, g
+    return out
+
+
+def _amp_step(timed=5):
+    """Phase 5's AMP training step: step ms (median), peak memory, and the
+    device ms, GDN ms and busy share of a profiled step."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cs = chip_smoke
+    batch = _train_batch(cs.TRAIN_BATCH, seed=1)
+    module = zoo.create_model(cs.TRAIN_ARCH, cs.TRAIN_QUALITY, seed=0,
+                              device="cuda", dtype=torch.bfloat16).module
+    opt = make_optimizer()
+    state = create_train_state(module, opt)
+    step = make_train_step(module, opt, cs.TRAIN_LAMBDA)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cs._steps(step, state, batch, gen, 2)
+    torch.cuda.reset_peak_memory_stats()
+    ms, _ = cs._steps(step, state, batch, gen, timed)
+    peak = torch.cuda.max_memory_allocated()
+    gdn_ms, dev_ms, wall_ms, _, _ = _profile(lambda: step(state, batch, gen))
+    return {"step_ms": float(np.median(ms)), "peak_gib": peak / 2**30,
+            "device_ms": dev_ms, "gdn_ms": gdn_ms,
+            "busy": dev_ms / wall_ms}
+
+
+def gdn_ab_one(root):
+    """gdn-ab for the checkout `root`, whose chip_smoke.py this process has
+    imported: one JSON line."""
+    import torch
+
+    from lmic_tpu_torch import ops
+    from lmic_tpu_torch.utils.determinism import set_wire_determinism
+
+    for mod in (chip_smoke, ops):
+        where = os.path.abspath(mod.__file__)
+        if not where.startswith(os.path.abspath(root) + os.sep):
+            raise AssertionError(f"{mod.__name__} imported from {where}")
+    set_wire_determinism()
+    cs = chip_smoke
+    cases = cs.phase_kernel(cs._peaks(torch.cuda.get_device_name(0)))
+    result = {"root": root, "step": {
+        kernel: {dtype: cs._totals(cases, kernel, cs.TRAIN_ROWS[:3], dtype)
+                 for dtype in ("float32", "bfloat16")}
+        for kernel in cases}}
+    result["f32_checksums"] = _f32_checksums()
+    torch.cuda.empty_cache()
+    result["amp_step"] = _amp_step()
+    log(json.dumps(result))
+
+
+def gdn_ab(roots):
+    """gdn-ab for each ROOT, A B B A, each in a process of its own; the f32
+    checksums must agree across the ROOTs and runs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    results = []
+    for root in list(roots) + list(roots)[::-1]:
+        root = os.path.abspath(root)
+        # the ROOT's chip_smoke and port; this file's probe, by its path
+        code = (f"import importlib.util, sys; sys.path.insert(0, {root!r}); "
+                "import chip_smoke; spec = importlib.util."
+                f"spec_from_file_location('chip_probes', {__file__!r}); "
+                "probes = importlib.util.module_from_spec(spec); "
+                "spec.loader.exec_module(probes); "
+                f"probes.gdn_ab_one({root!r})")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"gdn-ab {root}: {proc.stderr[-3000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        results.append(result)
+        step, amp = result["step"], result["amp_step"]
+        log(f"gdn-ab {root}: " + json.dumps({
+            "ms_per_step": {k: {d: round(v[d]["ms"], 4) for d in v}
+                            for k, v in step.items()},
+            "amp_step": {k: round(v, 4) for k, v in amp.items()}}))
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(here, "chiprun_out", "gdn_ab.json"), "w") as f:
+        json.dump(results, f, indent=1)
+    for key in results[0]["f32_checksums"]:
+        if len({json.dumps(r["f32_checksums"][key]) for r in results}) != 1:
+            raise AssertionError(f"gdn-ab: f32 outputs at {key} differ")
+    log(f"gdn-ab: every f32 output agrees across the checkouts and runs "
+        f"({len(results[0]['f32_checksums'])} shapes and directions)")
+
+
 def main(argv):
     import torch
 
-    probes = ("master-batch", "train-convs", "video-convs", "sync-u8")
+    probes = ("master-batch", "train-convs", "video-convs", "sync-u8",
+              "gdn-ab")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -361,6 +504,8 @@ def main(argv):
         train_convs()
     elif argv[0] == "sync-u8":
         sync_u8(argv[1:] or [os.path.dirname(os.path.abspath(__file__))])
+    elif argv[0] == "gdn-ab":
+        gdn_ab(argv[1:] or [os.path.dirname(os.path.abspath(__file__))])
     else:
         video_convs()
     return 0

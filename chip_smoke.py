@@ -9,9 +9,9 @@ Phases, each of which raises (exit code != 0) on any failure:
 1. environment: the card's name and power limit, the torch/CUDA/nvcc
    versions; the port's native sources are built, all at once; each GDN
    kernel's registers and spills from ptxas (a register-tiled f32 kernel
-   must not spill); the count of tensor-core (HMMA) instructions in each
-   GDN kernel, from `cuobjdump -sass`: every bf16 product kernel must have
-   some, and no f32 kernel any (that would be TF32);
+   must not spill); the count of tensor-core instructions (HMMA or HGMMA)
+   in each GDN kernel, from `cuobjdump -sass`: every bf16 product kernel
+   must have some, and no f32 kernel any (that would be TF32);
 2. kernels: the CUDA GDN forward (`gdn_fwd`) and backward (`gdn_bwd`,
    three launches) against their plain versions on the card at the main
    paths' shapes (serving: 98,304 / 24,576 / 6,144 / 6,151 rows; training:
@@ -366,7 +366,7 @@ def phase_environment():
 # The GDN kernels by name: the bf16 product kernels run on the tensor
 # cores; the f32 kernels (TF32 off) and the reduce must not.
 MMA_KERNELS = ("gdn_fwd_mma_kernel", "gdn_bwd_dx_mma_kernel",
-               "gdn_bwd_partials_mma_kernel")
+               "gdn_bwd_partials_wide_kernel")
 FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                 "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
 
@@ -410,8 +410,9 @@ def _check_registers(source, log_path):
 
 
 def _check_tensor_cores(source, lib):
-    """Count HMMA instructions per kernel in `lib` (cuobjdump -sass); raise
-    if a bf16 product kernel has none or another GDN kernel has one."""
+    """Count tensor-core instructions (HMMA from mma.sync and wmma, HGMMA
+    from wgmma) per kernel in `lib` (cuobjdump -sass); raise if a bf16
+    product kernel has none or another GDN kernel has one."""
     from lmic_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -419,7 +420,7 @@ def _check_tensor_cores(source, lib):
         tool = shutil.which("cuobjdump") or tool
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    counts = {}  # kernel name -> HMMA count of each instantiation
+    counts = {}  # kernel name -> tensor-core count of each instantiation
     current = None
     for line in sass.splitlines():
         # letters and underscores only: the anonymous namespace's mangled
@@ -428,9 +429,9 @@ def _check_tensor_cores(source, lib):
         if m:
             current = counts.setdefault(m.group(1), [])
             current.append(0)
-        elif current is not None and "HMMA" in line:
+        elif current is not None and re.search(r"\bHG?MMA\b", line):
             current[-1] += 1
-    log(f"HMMA instructions in {source}: " + ", ".join(
+    log(f"HMMA/HGMMA instructions in {source}: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
     for name, found in counts.items():
         if name in MMA_KERNELS and not all(found):
@@ -528,7 +529,7 @@ def _bwd_launches(x, beta, gamma, gamma_t, g, inverse):
     n, C = x.shape
     chunks = -(-n // lib.lmic_gdn_bwd_chunk_rows())
     dx = torch.empty_like(x)
-    dn = torch.empty((n, C), dtype=torch.float32, device="cuda")
+    dn, dn_sums = gdn._dn_scratch(lib, n, C, x.dtype, "cuda")
     partials = torch.empty((chunks, C * C + C), dtype=torch.float32,
                            device="cuda")
     dbeta = torch.empty(C, dtype=x.dtype, device="cuda")
@@ -544,12 +545,15 @@ def _bwd_launches(x, beta, gamma, gamma_t, g, inverse):
     def run_dx():
         check(lib.lmic_gdn_bwd_dx(
             x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), dx.data_ptr(), dn.data_ptr(), n, C, code,
-            int(inverse), stream), "gdn_bwd_dx")
-        return dx, dn
+            beta.data_ptr(), dx.data_ptr(), dn.data_ptr(),
+            dn_sums.data_ptr(), n, C, code, int(inverse), stream),
+            "gdn_bwd_dx")
+        # f32 has no tile sums: its partials sum the f32 scratch
+        return (dx, dn) if x.dtype == torch.float32 else (dx, dn, dn_sums)
 
     def run_partials():
         check(lib.lmic_gdn_bwd_partials(x.data_ptr(), dn.data_ptr(),
+                                        dn_sums.data_ptr(),
                                         partials.data_ptr(), n, C, code,
                                         stream), "gdn_bwd_partials")
         return (partials,)
@@ -564,9 +568,10 @@ def _bwd_launches(x, beta, gamma, gamma_t, g, inverse):
             "gdn_bwd_reduce": run_reduce}
 
 
-def _dx_plain(x, beta, gamma, g, inverse):
-    """gdn_bwd_dx's outputs (dx, the f32 dn) in plain torch, as
-    gdn_bwd_reference forms them."""
+def _dx_plain(x, beta, gamma, g, inverse, tile_rows):
+    """gdn_bwd_dx's outputs in plain torch, as gdn_bwd_reference forms
+    them: (dx, the f32 dn) for f32; for bf16 (dx, dn rounded to bf16, the
+    f32 dn summed over each tile of `tile_rows` rows)."""
     import torch
 
     x32, g32 = x.float(), g.float()
@@ -577,21 +582,40 @@ def _dx_plain(x, beta, gamma, g, inverse):
         dn, scale = -0.5 * g32 * x32 * norm ** -1.5, torch.rsqrt(norm)
     dnx = dn.to(x.dtype).float()
     dx = g32 * scale + 2.0 * x32 * torch.matmul(dnx, gamma.float())
-    return dx.to(x.dtype), dn
+    if x.dtype == torch.float32:
+        return dx.to(x.dtype), dn
+    return dx.to(x.dtype), dn.to(x.dtype), _row_sums(dn, tile_rows)
 
 
-def _partials_plain(x, dn, rows):
+def _row_sums(t, rows):
+    """The sums of `t` (n, C) over each run of `rows` rows, the last one
+    padded with zeros."""
+    import torch
+
+    n, C = t.shape
+    k = -(-n // rows)
+    pad = torch.zeros((k * rows - n, C), device=t.device, dtype=t.dtype)
+    return torch.cat([t, pad]).view(k, rows, C).sum(1)
+
+
+def _partials_plain(x, dn, dn_sums, rows, tile_rows):
     """gdn_bwd_partials' output in plain torch: per chunk of `rows` rows,
-    dn (rounded to x's type) transposed times x^2, then the sum of dn."""
+    dn (rounded to x's type) transposed times x^2, then dbeta: the sum of
+    the f32 dn (f32), or of the chunk's sums over tiles of `tile_rows`
+    rows (bf16)."""
     import torch
 
     n, C = x.shape
     chunks = -(-n // rows)
     pad = torch.zeros((chunks * rows - n, C), device=x.device)
-    d = torch.cat([dn, pad]).view(chunks, rows, C)
+    d = torch.cat([dn.float(), pad]).view(chunks, rows, C)
     x2 = torch.cat([(x * x).float(), pad]).view(chunks, rows, C)
     dgamma = torch.bmm(d.to(x.dtype).float().transpose(1, 2), x2)
-    return (torch.cat([dgamma.reshape(chunks, C * C), d.sum(1)], 1),)
+    if dn_sums is None:
+        dbeta = d.sum(1)
+    else:
+        dbeta = _row_sums(dn_sums, rows // tile_rows)
+    return (torch.cat([dgamma.reshape(chunks, C * C), dbeta], 1),)
 
 
 def _partials_library(x, dn, rows):
@@ -719,24 +743,35 @@ def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
     n, C = x.shape
     es, dt = x.element_size(), x.dtype
     launch = _bwd_launches(x, beta, gamma, gamma_t, g, inverse)
-    dn = launch["gdn_bwd_dx"]()[1]
+    dx_out = launch["gdn_bwd_dx"]()
+    dn = dx_out[1]  # f32 for f32; bf16, with the tile sums, for bf16
+    dn_sums = dx_out[2] if len(dx_out) > 2 else None
     partials = launch["gdn_bwd_partials"]()[0]
-    rows = gdn._load("gdn_bwd.cu").lmic_gdn_bwd_chunk_rows()
+    lib = gdn._load("gdn_bwd.cu")
+    rows = lib.lmic_gdn_bwd_chunk_rows()
+    tile_rows = lib.lmic_gdn_bwd_tile_rows()
     chunks = partials.shape[0]
     ccc = C * C + C
+    dn_bytes = n * C * dn.element_size()
+    sums_bytes = 0 if dn_sums is None else 4 * dn_sums.numel()
     work = {  # plain, library call, bytes, operations, peak
         "gdn_bwd_dx": (
-            lambda: _dx_plain(x, beta, gamma, g, inverse),
+            lambda: _dx_plain(x, beta, gamma, g, inverse, tile_rows),
             lambda: _dx_composite(x, beta, gamma, gamma_t, g, inverse),
-            # x, g read; dx, dn (f32) written; gamma, beta read
-            3 * n * C * es + 4 * n * C + ccc * es,
+            # x, g read; dx, the dn scratch and (bf16) its tile sums
+            # written; gamma, beta read
+            3 * n * C * es + dn_bytes + sums_bytes + ccc * es,
             4 * n * C * C + 12 * n * C, peak),
         "gdn_bwd_partials": (
-            lambda: _partials_plain(x, dn, rows),
+            lambda: _partials_plain(x, dn, dn_sums, rows, tile_rows),
             _partials_library(x, dn, rows),
-            # x, dn read; the partials written
-            n * C * es + 4 * n * C + 4 * chunks * ccc,
-            2 * n * C * C + 2 * n * C, peak),
+            # x, the dn scratch and (bf16) its tile sums read; the
+            # partials written
+            n * C * es + dn_bytes + sums_bytes + 4 * chunks * ccc,
+            # dn^T . x^2 and x^2; dbeta's adds: every f32 dn (f32) or the
+            # tile sums (bf16)
+            2 * n * C * C + n * C
+            + (n * C if dn_sums is None else dn_sums.numel()), peak),
         "gdn_bwd_reduce": (
             lambda: _reduce_plain(partials, C, dt),
             lambda: partials.sum(0),

@@ -17,8 +17,8 @@
 // per byte of HBM: bound by the FP32 CUDA cores (TF32 is off, as the JAX
 // kernel runs f32 at Precision.HIGHEST). In bf16 the products run on the
 // tensor cores (58 GFLOP at 262,144 x 192, 0.06 ms at 989 TFLOP/s), and
-// it is bound by bytes: x, g and dx (0.09 ms), plus the f32 dn scratch
-// that the structure below writes and reads back.
+// it is bound by bytes: x, g and dx (0.09 ms), plus the dn scratch that
+// the structure below writes and reads back (bf16, 0.03 ms each way).
 //
 // The hazard is the reduction over rows. The TPU kernel adds each tile's
 // dbeta/dgamma into an output block that every sequential grid step
@@ -26,8 +26,8 @@
 // no atomics, and the same bytes on every run:
 //  1. gdn_bwd_dx: one CTA per 64-row tile. It recomputes the norm with
 //     the forward kernel's sums (csrc/gdn_fwd.cu: the same products, added
-//     in the same order); forms dn and g*scale elementwise; writes dn in f32
-//     to an (n, C) scratch; stages dn rounded to the input type, and forms
+//     in the same order); forms dn and g*scale elementwise; writes dn to an
+//     (n, C) scratch; stages dn rounded to the input type, and forms
 //     dx = g*scale + 2x (dn . gamma).
 //     float32 (gdn_bwd_dx_kernel): bound by the FP32 operations of its
 //     two products, 4*n*C^2 (577 us at 262,144 x 192 at 67 TFLOP/s). Both
@@ -35,27 +35,34 @@
 //     staged transposed once; gamma^T, then gamma, in cp.async k-slices;
 //     8-row x 4-channel register tiles), and a thread owns the same tile
 //     in both, so norm, dn and g*scale never leave its registers: dn goes
-//     to the scratch and over x^2, g*scale waits for the epilogue. x and g
-//     come to shared memory by cp.async with the first slice (101 KB of
+//     to the f32 scratch and over x^2, g*scale waits for the epilogue. x
+//     and g come to shared memory by cp.async with the first slice (101 KB of
 //     shared memory at C = 192). C = 192 and 128 run instances compiled
 //     for that width.
 //     bfloat16 (gdn_bwd_dx_mma_kernel): 8 warps on the tensor cores. x^2
 //     staged as bf16; product 1 runs panel by panel (gamma^T in 64-column
 //     panels, csrc/gdn_mma.cuh) into an f32 norm tile in shared memory;
-//     dn in bf16 is staged over x^2 and g*scale over the norm; product 2
-//     runs panel by panel (gamma), each panel's sums through shared memory
-//     to the dx epilogue. 103 KB of shared memory at C = 192.
-//  2. gdn_bwd_partials: one CTA per (1024-row chunk, 64x64 block of
-//     dgamma); the CTAs of the first column block also sum dbeta. Each
-//     writes its chunk's partial sums.
-//     float32 (gdn_bwd_partials_kernel): bound by the FP32 operations of
+//     dn is rounded to bf16 once, written to the bf16 scratch and staged
+//     over x^2, g*scale over the norm, and the f32 dn's sum over the tile's
+//     rows goes to an (ceil(n / 64), C) f32 buffer of tile sums, in a fixed
+//     order (the TPU kernel's per-tile dbeta); product 2 runs panel by
+//     panel (gamma), each panel's sums through shared memory to the dx
+//     epilogue. 103 KB of shared memory at C = 192.
+//  2. gdn_bwd_partials: each 1024-row chunk's partial sums of dgamma and
+//     dbeta.
+//     float32 (gdn_bwd_partials_kernel): one CTA per (chunk, 64x64 block of
+//     dgamma); the CTAs of the first column block also sum dbeta from the
+//     f32 dn. Bound by the FP32 operations of
 //     dn^T . x^2, 2*n*C^2 (288 us at 262,144 x 192 at 67 TFLOP/s). 4 warps,
 //     an 8 x 4 register tile a thread; 32-row slices of dn and x stream
 //     through a ring of three with cp.async, x squared in place; C = 192
 //     and 128 run instances compiled for that width.
-//     bfloat16 (gdn_bwd_partials_mma_kernel): 64-row slices of dn (rounded
-//     to bf16) and x^2 staged as bf16, the block as a dn^T . x^2 product of
-//     wmma fragments (A = dn^T read column-major from the staged dn).
+//     bfloat16 (gdn_bwd_partials_wide_kernel): bound by the bytes of the
+//     bf16 dn and x, each read once: a CTA (or a cluster of them) takes
+//     whole-width 64-row slices of its chunk through a TMA-filled ring and
+//     keeps the whole 192 x 192 block of dgamma in registers (wgmma, x
+//     squared in shared memory); dbeta is the in-order sum of the chunk's
+//     16 tile sums.
 //  3. gdn_bwd_reduce: bound by the bytes of the partials. A thread sums 4
 //     neighbouring elements over the chunks in chunk order, copying them
 //     itself with cp.async through a ring in shared memory (64 chunks in
@@ -67,9 +74,13 @@
 //
 // Precision follows _bwd_kernel: x^2 is rounded to the input type; the
 // products accumulate in f32; dn is rounded to the input type before both
-// the dn . gamma and the dn^T . x^2 products, while dbeta sums the f32 dn;
+// the dn . gamma and the dn^T . x^2 products (in bf16 that rounded dn is
+// all the scratch keeps), while dbeta sums the f32 dn;
 // dx is rounded once at the store, dbeta/dgamma once after the final sum.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -472,7 +483,8 @@ __global__ void __launch_bounds__(gdn_mma::kMmaThreads, 2)
                           const __nv_bfloat16 *__restrict__ gamma,
                           const __nv_bfloat16 *__restrict__ beta,
                           __nv_bfloat16 *__restrict__ dx,
-                          float *__restrict__ dn, int64_t n, int C,
+                          __nv_bfloat16 *__restrict__ dn,
+                          float *__restrict__ dn_sums, int64_t n, int C,
                           bool vec) {
   using namespace gdn_mma;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -504,12 +516,18 @@ __global__ void __launch_bounds__(gdn_mma::kMmaThreads, 2)
   }
   __syncthreads();
 
-  // elementwise: dn (f32 to the scratch, bf16 over x^2) and g * scale
-  // (over the norm); padding and rows past n stage dn = 0
-  const int chunks = Cp / 8;
-  for (int e = threadIdx.x; e < kTileRows * chunks; e += kMmaThreads) {
-    const int r = e / chunks;
-    const int c = (e - r * chunks) * 8;
+  // elementwise: dn and g * scale (over the norm). dn is rounded to bf16
+  // once, for the scratch and over x^2 for product 2; padding and rows past
+  // n stage dn = 0. Thread (cg, rp) takes the 8 columns from 8 cg of rows
+  // rp, rp + R, ..., and sums its f32 dn over them in row order; the R sums
+  // of a column are then added in rp order into the tile's dbeta partial.
+  const int groups = Cp / 8;
+  const int R = kMmaThreads / groups;
+  const int cg = threadIdx.x % groups;
+  const int rp = threadIdx.x / groups;
+  const int c = cg * 8;
+  float col[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int r = rp; rp < R && r < kTileRows; r += R) {
     const int valid = r < rows ? C - c : 0;
     float d[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (valid > 0) {
@@ -534,9 +552,24 @@ __global__ void __launch_bounds__(gdn_mma::kMmaThreads, 2)
         }
         tr[k] = gv[k] * s;
       }
-      store8(dn + at, valid, vec, d);
+      store8(dn + at, valid, vec, d);  // rounded as pack8 rounds it
     }
     *reinterpret_cast<uint4 *>(a + r * lda + c) = pack8(d);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) col[k] += d[k];
+  }
+  // the R row sums of each column meet in the panel region, which product
+  // 1 is done with and product 2 stages only after its first barrier
+  float *part = reinterpret_cast<float *>(p);  // [R][Cp]: at most 8 KB
+  if (rp < R) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) part[rp * Cp + c + k] = col[k];
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < C; o += kMmaThreads) {
+    float s = 0.f;
+    for (int q = 0; q < R; ++q) s += part[q * Cp + o];
+    dn_sums[static_cast<int64_t>(blockIdx.x) * C + o] = s;
   }
 
   // product 2: dx = g * scale + 2 x (dn . gamma), panel by panel
@@ -566,93 +599,376 @@ __global__ void __launch_bounds__(gdn_mma::kMmaThreads, 2)
   }
 }
 
-constexpr int kSlice = 64;  // rows staged per step of the bf16 partials
+// The bf16 partials: for each 1024-row chunk, dgamma's partial dn^T . x^2
+// (bf16 operands, f32 sums on the tensor cores) and dbeta's, the in-order
+// sum of the chunk's 16 tile sums that gdn_bwd_dx_mma_kernel wrote.
+//
+// It is bound by bytes: 2*n*C^2 operations (51 GFLOP a training step at
+// C = 192, 0.05 ms at 989 TFLOP/s) against the bf16 dn scratch and x read
+// and the partials written (0.19 ms at 3.35 TB/s). So the design reads
+// each byte once, keeps copies in flight, and keeps the product off the
+// copies' way:
+//  - a CTA takes whole-width 64-row slices of its chunk: dn's columns o0 ..
+//    o0+191 and x's i0 .. i0+191 (one CTA covers C <= 192, ceil(C/192)^2
+//    blocks otherwise), so every dgamma sum of the block lives in registers
+//    of its three warpgroups (64 rows o each, all 192 columns i: 96 f32 a
+//    thread);
+//  - the slices stream through a ring of kWideStages in shared memory,
+//    copied by the Tensor Memory Accelerator: one thread asks for each
+//    64-row x 64-column box (128 bytes a row) with the 128-byte swizzle,
+//    and an mbarrier a stage counts the bytes in; three slices are in
+//    flight while one is multiplied, one barrier a slice. (Copies of 16
+//    bytes a thread with cp.async, into the same layout, kept the copies
+//    alone far from the card's byte rate; the TMA leaves the threads
+//    free.) Then every thread squares an even share of the x slice in
+//    place (x * x is exact in f32, so rounding it once is the TPU kernel's
+//    bf16 x * x);
+//  - the product runs on wgmma (m64n192k16, four a slice per warpgroup),
+//    which reads both operands from shared memory at the tensor cores' full
+//    rate; mma.sync fed by ldmatrix took about as long a slice as its
+//    copies, so the two could not hide each other. A = dn^T and B = x^2 are
+//    both MN-major in the slices (a row of the chunk is a k): each box is
+//    the canonical 128-byte-swizzled MN-major layout, 8 rows k of 64
+//    columns to an atom of 1 KB, atoms kWideAtom apart along k and boxes
+//    kWideBox apart along the columns. The product of a slice overlaps the
+//    wait for the next slice and its squares;
+//  - the small layers of a step have few chunks (64 at 65,536 rows, 16 at
+//    16,384), so a chunk's slices are split over a cluster of `split` CTAs
+//    (slice s to rank s % split; 4 when the grid has at most 33 blocks, 2
+//    at most 66, else 1: a rule on n and C, never on the card). Rank q owns
+//    the dgamma rows of the warps w with w % split == q: once every rank is
+//    done with its ring, every rank stores its sums of those rows into q's
+//    shared memory (distributed shared memory), and q adds them in rank
+//    order. No atomics.
+// Every sum has a fixed order (k over a slice's 64 rows in the tensor
+// cores' order, the slices in order, the ranks in order), so every launch
+// gives the same bytes. Rows past n and columns past C come in as zeros
+// (the TMA's fill) and add exact zeros. Rows that are not 16-byte aligned
+// (C % 8 != 0) take element copies into the same layout, in the same
+// kernel.
+constexpr int kWideThreads = 384;  // 3 warpgroups: 64 rows o each
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideBlock = 192;    // dgamma rows and columns per CTA
+constexpr int kWideRows = 64;      // rows per staged slice (a dx tile)
+constexpr int kWideStages = 4;
+constexpr int kWideAtom = 1024;    // bytes of 8 rows of a box
+constexpr int kWideBox = kWideRows / 8 * kWideAtom;      // 64 x 64 bf16
+constexpr int kWideSlice = kWideBlock / 64 * kWideBox;   // bytes an operand
+constexpr int kWideAcc = 96;       // f32 sums a thread: 64 x 192 / 128
+constexpr int kMaxSplit = 4;
+constexpr size_t kWideSmem = kWideStages * 2 * kWideSlice;
+static_assert(kChunkRows % kWideRows == 0, "whole slices per chunk");
+static_assert(kWideRows == gdn_mma::kTileRows, "a slice is a dx tile");
+static_assert(3 * 64 == kWideBlock, "the warpgroups tile the block");
+// what a rank receives: every rank's sums of the warps it owns
+static_assert(kWideWarps * kWideAcc * 32 * 4 <= kWideSmem,
+              "the sums a rank receives overlay its ring");
+static_assert(kWideWarps % kMaxSplit == 0 && kWideWarps % 2 == 0,
+              "every rank owns as many warps");
 
-__global__ void __launch_bounds__(gdn_mma::kMmaThreads)
-    gdn_bwd_partials_mma_kernel(const __nv_bfloat16 *__restrict__ x,
-                                const float *__restrict__ dn,
-                                float *__restrict__ partials, int64_t n,
-                                int C, bool vec) {
-  using namespace gdn_mma;
-  // [kSlice][kPanelLd] dn rounded to bf16, then as many of x^2 in bf16;
-  // at the end the block's f32 sums, [kTileRows][kAccLd]
-  __shared__ __align__(128) unsigned char smem[2 * kSlice * kPanelLd * 2];
-  __shared__ float dbs[kMmaThreads / 8][kPanel];
-  static_assert(2 * kSlice * kPanelLd * 2 >= kTileRows * kAccLd * 4,
-                "the sums overlay the staged slices");
-  static_assert(kPanel == kTile && kTileRows == kTile, "64 x 64 dgamma blocks");
-  bf16 *dns = reinterpret_cast<bf16 *>(smem);
-  bf16 *x2s = dns + kSlice * kPanelLd;
-  float *sums = reinterpret_cast<float *>(smem);
+// both bf16 halves squared, each rounded once to bf16
+__device__ __forceinline__ unsigned square2(unsigned v) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %1;\n" : "=r"(d) : "r"(v));
+  return d;
+}
 
-  const int tiles = (C + kTile - 1) / kTile;
-  const int o0 = (blockIdx.x / tiles) * kTile;
-  const int i0 = (blockIdx.x % tiles) * kTile;
-  const int64_t start = static_cast<int64_t>(blockIdx.y) * kChunkRows;
-  const int64_t end = n - start < kChunkRows ? n : start + kChunkRows;
-  // a thread stages the same 8 columns of every slice, rows tid / 8 + 32 m
-  const int c = (threadIdx.x % 8) * 8;
-  const int warp = threadIdx.x / 32;
-  const int m0 = (warp % 4) * 16;  // this warp's dgamma rows o0 + m0 ..
-  const int n0 = (warp / 4) * 32;  // and columns i0 + n0 ..
+// The byte offset in a slice of element (k, c), as the TMA's 128-byte
+// swizzle places it: box c / 64, row k, its 16-byte unit XOR k % 8.
+__device__ __forceinline__ int swizzled_at(int k, int c) {
+  return (c / 64) * kWideBox + k * 128 + ((((c % 64) / 8) ^ (k % 8)) * 16) +
+         (c % 8) * 2;
+}
 
-  FragC acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  float db[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int64_t s0 = start; s0 < end; s0 += kSlice) {
-    for (int e = threadIdx.x; e < kSlice * 8; e += kMmaThreads) {
-      const int rr = e / 8;
-      const int64_t row = s0 + rr;
-      float d[8], v[8];
-      load8(dn + row * C + o0 + c, row < end ? C - o0 - c : 0, vec, d);
-      load8(x + row * C + i0 + c, row < end ? C - i0 - c : 0, vec, v);
+// The descriptor wgmma reads a 128-byte-swizzled MN-major operand by: the
+// start address, the byte offsets between 64-column boxes (leading) and
+// between 8-row atoms along k (stride), each in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(const void *p) {
+  const uint64_t at = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return ((at >> 4) & 0x3fff) |
+         static_cast<uint64_t>(kWideBox >> 4) << 16 |
+         static_cast<uint64_t>(kWideAtom >> 4) << 32 | 1ull << 62;
+}
+
+// d (64 x 192 over the warpgroup, 96 f32 a thread) += a . b on the tensor
+// cores: a the 64 x 16 bf16 operand and b the 16 x 192 one that the
+// descriptors locate, both MN-major (imm-trans 1), f32 sums
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96],
+                                                 uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      " %96, %97, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// keeps the compiler from moving accesses of d across the asynchronous
+// product's issue and wait
+__device__ __forceinline__ void fence_operands(float (&d)[96]) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        db[k] += d[k];  // the unrounded dn, rows in a fixed order
-        v[k] *= v[k];
-      }
-      *reinterpret_cast<uint4 *>(dns + rr * kPanelLd + c) = pack8(d);
-      *reinterpret_cast<uint4 *>(x2s + rr * kPanelLd + c) = pack8(v);
-    }
-    __syncthreads();
-    for (int k = 0; k < kSlice; k += 16) {
-      // A = dn^T: element (o, r) at dns[r][o], i.e. column-major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, dns + k * kPanelLd + m0, kPanelLd);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, x2s + k * kPanelLd + n0 + 16 * f,
-                               kPanelLd);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ unsigned smem_at(const void *p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t *bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_at(bar))
+               : "memory");
+}
+
+// this thread's arrival, announcing `bytes` to come from the TMA
+__device__ __forceinline__ void mbar_expect(uint64_t *bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_at(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// waits until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t *bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_at(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// the box of `map` at (column c, row r) into dst, counted on bar
+__device__ __forceinline__ void tma_box(void *dst, const CUtensorMap &map,
+                                        int c, int r, uint64_t *bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_at(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c), "r"(r),
+      "r"(smem_at(bar))
+      : "memory");
+}
+
+// Rows row0 .. row0+63 of src's columns c0 .. c0+191 into the slice s in
+// the swizzled layout, element by element (squared as they are stored
+// when `square`): zeros from row `live` on and past column C.
+__device__ __forceinline__ void copy_elements(
+    unsigned char *s, const __nv_bfloat16 *__restrict__ src, int64_t row0,
+    int live, int c0, int C, bool square) {
+  src += row0 * C + c0;
+  for (int e = threadIdx.x; e < kWideRows * kWideBlock; e += kWideThreads) {
+    const int k = e / kWideBlock;
+    const int c = e - k * kWideBlock;
+    float v = k < live && c0 + c < C ? __bfloat162float(src[k * C + c]) : 0.f;
+    if (square) v *= v;
+    *reinterpret_cast<__nv_bfloat16 *>(s + swizzled_at(k, c)) =
+        __float2bfloat16(v);
   }
+}
 
-  store_block(sums, kAccLd, 0, kPanel, acc);
-  if (i0 == 0) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) dbs[threadIdx.x / 8][c + k] = db[k];
+__global__ void __launch_bounds__(kWideThreads, 1)
+    gdn_bwd_partials_wide_kernel(const __grid_constant__ CUtensorMap x_map,
+                                 const __grid_constant__ CUtensorMap dn_map,
+                                 const __nv_bfloat16 *__restrict__ x,
+                                 const __nv_bfloat16 *__restrict__ dn,
+                                 const float *__restrict__ dn_sums,
+                                 float *__restrict__ partials, int64_t n,
+                                 int C, int split, bool tma) {
+  namespace cg = cooperative_groups;
+  // kWideStages x {dn, x} from the first 1024-byte boundary, which the
+  // swizzle's atoms need (the launch adds 1 KB for it)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char *smem = smem_raw + (1024 - smem_at(smem_raw) % 1024) % 1024;
+  __shared__ uint64_t landed[kWideStages];  // a stage's TMA bytes are in
+
+  const int tiles = (C + kWideBlock - 1) / kWideBlock;
+  const int rank = static_cast<int>(blockIdx.x) % split;
+  const int block = static_cast<int>(blockIdx.x) / split;
+  const int o0 = (block / tiles) * kWideBlock;
+  const int i0 = (block % tiles) * kWideBlock;
+  const int ow = C - o0 < kWideBlock ? C - o0 : kWideBlock;
+  const int64_t chunk = blockIdx.y;
+  const int64_t start = chunk * kChunkRows;
+  const int valid = static_cast<int>(
+      n - start < kChunkRows ? n - start : static_cast<int64_t>(kChunkRows));
+  const int slices = (valid + kWideRows - 1) / kWideRows;
+  // this rank's slices: rank, rank + split, ...
+  const int mine = slices > rank ? (slices - rank + split - 1) / split : 0;
+  // the boxes that hold columns below C
+  const int dn_boxes = (ow + 63) / 64;
+  const int x_boxes = ((C - i0 < kWideBlock ? C - i0 : kWideBlock) + 63) / 64;
+
+  auto slot = [&](int j) { return smem + (j % kWideStages) * 2 * kWideSlice; };
+  auto issue = [&](int j) {  // TMA: thread 0 alone; element copies: all
+    if (j >= mine) return;
+    const int s = rank + j * split;
+    const int64_t row0 = start + static_cast<int64_t>(s) * kWideRows;
+    if (!tma) {
+      const int live = valid - s * kWideRows;
+      copy_elements(slot(j), dn, row0, live, o0, C, false);
+      copy_elements(slot(j) + kWideSlice, x, row0, live, i0, C, true);
+    } else if (threadIdx.x == 0) {
+      uint64_t *bar = landed + j % kWideStages;
+      mbar_expect(bar, (dn_boxes + x_boxes) * kWideBox);
+      for (int b = 0; b < dn_boxes; ++b)
+        tma_box(slot(j) + b * kWideBox, dn_map, o0 + 64 * b,
+                static_cast<int>(row0), bar);
+      for (int b = 0; b < x_boxes; ++b)
+        tma_box(slot(j) + kWideSlice + b * kWideBox, x_map, i0 + 64 * b,
+                static_cast<int>(row0), bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kWideStages; ++k) mbar_init(landed + k);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  float *out = partials + static_cast<int64_t>(blockIdx.y) * (C * C + C);
-  for (int e = threadIdx.x; e < kTileRows * (kPanel / 8); e += kMmaThreads) {
-    const int r = e / (kPanel / 8);
-    const int cc = (e % (kPanel / 8)) * 8;
-    if (o0 + r >= C) continue;
-    float v[8];
+  for (int j = 0; j < kWideStages - 1; ++j) issue(j);
+
+  float *out = partials + chunk * (static_cast<int64_t>(C) * C + C);
+  // dbeta: the chunk's tile sums in tile order, while the slices land
+  if (i0 == 0 && rank == 0) {
+    const float *ts = dn_sums + chunk * (kChunkRows / kWideRows) * C + o0;
+    for (int o = threadIdx.x; o < ow; o += kWideThreads) {
+      float s = 0.f;
+      for (int k = 0; k < slices; ++k) s += ts[static_cast<int64_t>(k) * C + o];
+      out[static_cast<int64_t>(C) * C + o0 + o] = s;
+    }
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;  // this warpgroup's dgamma rows o0 + 64 wg ..
+  const bool live_rows = wg < dn_boxes;
+  float acc[kWideAcc];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = sums[r * kAccLd + cc + k];
-    store8(out + static_cast<int64_t>(o0 + r) * C + i0 + cc, C - i0 - cc, vec,
-           v);
+  for (int i = 0; i < kWideAcc; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < mine; ++j) {
+    if (tma) {
+      mbar_wait(landed + j % kWideStages, (j / kWideStages) & 1);
+      // x^2 in place, an even share a thread
+      uint4 *xs = reinterpret_cast<uint4 *>(slot(j) + kWideSlice);
+      for (int e = threadIdx.x; e < x_boxes * kWideBox / 16;
+           e += kWideThreads) {
+        uint4 v = xs[e];
+        v.x = square2(v.x), v.y = square2(v.y), v.z = square2(v.z),
+        v.w = square2(v.w);
+        xs[e] = v;
+      }
+    }
+    // the squares (and element copies), written through the generic proxy,
+    // are seen by wgmma's reads once every thread has passed the barrier
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(acc);
+    __syncthreads();  // slice j is whole; every product of j - 1 is done
+    issue(j + kWideStages - 1);  // over slice j - 1
+    if (live_rows) {
+      const unsigned char *a = slot(j) + wg * kWideBox;
+      const unsigned char *b = slot(j) + kWideSlice;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < kWideRows; k += 16)
+        wgmma_m64n192k16(acc, wgmma_desc(a + (k / 8) * kWideAtom),
+                         wgmma_desc(b + (k / 8) * kWideAtom));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      fence_operands(acc);
+    }
   }
-  if (i0 == 0 && threadIdx.x < kPanel && o0 + threadIdx.x < C) {
-    float s = 0.f;
-    for (int k = 0; k < kMmaThreads / 8; ++k) s += dbs[k][threadIdx.x];
-    out[C * C + o0 + threadIdx.x] = s;
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_operands(acc);
+
+  // accumulator 4 t + 2 h + (0, 1): row 16 (warp % 4) + lane / 4 + 8 h of
+  // the warpgroup's 64, columns 8 t + 2 (lane % 4) + (0, 1)
+  const int o_h0 = o0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int i_t0 = i0 + 2 * (lane % 4);
+  auto store = [&](int t, int h, float v0, float v1) {
+    const int o = o_h0 + 8 * h;
+    const int i = i_t0 + 8 * t;
+    if (o >= C || i >= C) return;
+    float *at = out + static_cast<int64_t>(o) * C + i;
+    if (tma) {  // C % 8 == 0: columns i and i + 1 both live
+      *reinterpret_cast<float2 *>(at) = make_float2(v0, v1);
+    } else {
+      at[0] = v0;
+      if (i + 1 < C) at[1] = v1;
+    }
+  };
+  if (split == 1) {
+#pragma unroll
+    for (int t = 0; t < kWideBlock / 8; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store(t, h, acc[4 * t + 2 * h], acc[4 * t + 2 * h + 1]);
+    return;
   }
+  // rank q stores the rows of the warps w with w % split == q: every rank
+  // (q too) leaves its sums of them in q's shared memory, over the ring,
+  // and q adds them in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  const int owner = warp % split;
+  const int owned = warp / split;  // among the owner's warps
+  cluster.sync();  // every rank is done with its ring
+  // [owned warp][rank][kWideAcc][lane]
+  float *to = cluster.map_shared_rank(reinterpret_cast<float *>(smem), owner) +
+              (owned * split + rank) * kWideAcc * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < kWideAcc; ++i) to[i * 32] = acc[i];
+  cluster.sync();  // every rank's sums are in place
+  if (owner != rank) return;
+  const float *got = reinterpret_cast<const float *>(smem) +
+                     owned * split * kWideAcc * 32 + lane;
+#pragma unroll 4
+  for (int t = 0; t < kWideBlock / 8; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float *p = got + (4 * t + 2 * h + e) * 32;
+        v[e] = p[0];
+#pragma unroll
+        for (int r = 1; r < kMaxSplit; ++r)
+          if (r < split) v[e] += p[r * kWideAcc * 32];
+      }
+      store(t, h, v[0], v[1]);
+    }
 }
 
 template <bool kInverse, int kWidth>
@@ -732,7 +1048,8 @@ size_t dx_mma_smem(int C) {
 template <bool kInverse>
 cudaError_t launch_dx_mma(const void *x, const void *g, const void *gamma_t,
                           const void *gamma, const void *beta, void *dx,
-                          void *dn, int64_t n, int C, cudaStream_t stream) {
+                          void *dn, void *dn_sums, int64_t n, int C,
+                          cudaStream_t stream) {
   const size_t smem = dx_mma_smem(C);
   auto kernel = gdn_bwd_dx_mma_kernel<kInverse>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -749,22 +1066,93 @@ cudaError_t launch_dx_mma(const void *x, const void *g, const void *gamma_t,
   kernel<<<static_cast<unsigned>(blocks), gdn_mma::kMmaThreads, smem, stream>>>(
       static_cast<const T *>(x), static_cast<const T *>(g),
       static_cast<const T *>(gamma_t), static_cast<const T *>(gamma),
-      static_cast<const T *>(beta), static_cast<T *>(dx),
-      static_cast<float *>(dn), n, C, vec);
+      static_cast<const T *>(beta), static_cast<T *>(dx), static_cast<T *>(dn),
+      static_cast<float *>(dn_sums), n, C, vec);
   return cudaGetLastError();
 }
 
-cudaError_t launch_partials_mma(const void *x, const void *dn,
-                                void *partials, int64_t n, int C,
-                                cudaStream_t stream) {
-  const int tiles = (C + kTile - 1) / kTile;
-  const dim3 grid(static_cast<unsigned>(tiles * tiles),
-                  static_cast<unsigned>((n + kChunkRows - 1) / kChunkRows));
-  const bool vec = C % 8 == 0 && gdn_mma::aligned16(x) &&
-                   gdn_mma::aligned16(dn) && gdn_mma::aligned16(partials);
-  gdn_bwd_partials_mma_kernel<<<grid, gdn_mma::kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16 *>(x), static_cast<const float *>(dn),
-      static_cast<float *>(partials), n, C, vec);
+// The cluster size of the bf16 partials: the most ranks (up to kMaxSplit)
+// that keep the grid within 132 CTAs, the H100's SM count. A rule on n and
+// C alone, so the sums' order, and with it their bytes, never depends on
+// the card.
+int partials_split(int64_t n, int C) {
+  const int64_t tiles = (C + kWideBlock - 1) / kWideBlock;
+  const int64_t blocks = tiles * tiles * ((n + kChunkRows - 1) / kChunkRows);
+  int split = 1;
+  while (split < kMaxSplit && blocks * split * 2 <= 132) split *= 2;
+  return split;
+}
+
+// The TMA's view of a bf16 (n, C) operand, C % 8 == 0: 64-row x 64-column
+// boxes with the 128-byte swizzle, zeros past n and C. cuTensorMapEncodeTiled
+// is a driver function, reached through the runtime's entry point table.
+cudaError_t box_map(CUtensorMap *map, const void *p, int64_t n, int C) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void *fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * 2};
+  const cuuint32_t box[2] = {64, kWideRows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void *>(p), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_partials_wide(const void *x, const void *dn,
+                                 const void *dn_sums, void *partials,
+                                 int64_t n, int C, cudaStream_t stream) {
+  auto kernel = gdn_bwd_partials_wide_kernel;
+  const size_t smem = kWideSmem + 1024;  // room to align the ring
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = (C + kWideBlock - 1) / kWideBlock;
+  const int split = partials_split(n, C);
+  // the TMA needs 16-byte rows and bases (and a row index that fits int);
+  // other shapes take element copies
+  const bool tma = C % 8 == 0 && gdn_mma::aligned16(x) &&
+                   gdn_mma::aligned16(dn) && gdn_mma::aligned16(partials) &&
+                   n < (int64_t{1} << 31);
+  CUtensorMap x_map = {}, dn_map = {};
+  if (tma) {
+    if ((err = box_map(&x_map, x, n, C)) != cudaSuccess) return err;
+    if ((err = box_map(&dn_map, dn, n, C)) != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles * tiles * split),
+                        static_cast<unsigned>((n + kChunkRows - 1) /
+                                              kChunkRows));
+  config.blockDim = dim3(kWideThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = static_cast<unsigned>(split);
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  using T = __nv_bfloat16;
+  err = cudaLaunchKernelEx(&config, kernel, x_map, dn_map,
+                           static_cast<const T *>(x),
+                           static_cast<const T *>(dn),
+                           static_cast<const float *>(dn_sums),
+                           static_cast<float *>(partials), n, C, split, tma);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -823,14 +1211,22 @@ int lmic_gdn_bwd_max_channels(int dtype) {
 // C*C + C floats each.
 int lmic_gdn_bwd_chunk_rows() { return kChunkRows; }
 
+// Rows per tile of the bf16 dx pass: it writes ceil(n / this) rows of C
+// f32 sums of dn, one per tile, in tile order.
+int lmic_gdn_bwd_tile_rows() { return gdn_mma::kTileRows; }
+
 // x, g, dx: (n, C) contiguous; gamma_t: gamma transposed, (C_in, C_out);
 // gamma: (C_out, C_in); beta: (C,); all of one type (0 = float32,
-// 1 = bfloat16). dn: (n, C) float32 scratch. Each entry point launches on
-// `stream` without synchronising and returns cudaGetLastError() after the
-// launch (0 on success).
+// 1 = bfloat16). dn: (n, C) scratch, float32 for float32 and bfloat16
+// (dn rounded as the products take it) for bfloat16. dn_sums: for
+// bfloat16, (ceil(n / lmic_gdn_bwd_tile_rows()), C) float32, each tile's
+// sum of the f32 dn over its rows; not read or written for float32 (may be
+// null). Each entry point launches on `stream` without synchronising and
+// returns cudaGetLastError() after the launch (0 on success).
 int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
                     const void *gamma, const void *beta, void *dx, void *dn,
-                    int64_t n, int C, int dtype, int inverse, void *stream) {
+                    void *dn_sums, int64_t n, int C, int dtype, int inverse,
+                    void *stream) {
   if (n <= 0) return 0;
   if (C <= 0 || C > lmic_gdn_bwd_max_channels(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -842,23 +1238,26 @@ int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
                   : launch_dx<false>(x, g, gamma_t, gamma, beta, dx, dn, n,
                                      C, s);
   } else {
-    err = inverse ? launch_dx_mma<true>(x, g, gamma_t, gamma, beta, dx, dn, n,
-                                        C, s)
+    err = inverse ? launch_dx_mma<true>(x, g, gamma_t, gamma, beta, dx, dn,
+                                        dn_sums, n, C, s)
                   : launch_dx_mma<false>(x, g, gamma_t, gamma, beta, dx, dn,
-                                         n, C, s);
+                                         dn_sums, n, C, s);
   }
   return static_cast<int>(err);
 }
 
 // partials: (ceil(n / lmic_gdn_bwd_chunk_rows()), C*C + C) float32; row k
-// holds chunk k's dgamma (C*C, row-major) then its dbeta (C).
-int lmic_gdn_bwd_partials(const void *x, const void *dn, void *partials,
-                          int64_t n, int C, int dtype, void *stream) {
+// holds chunk k's dgamma (C*C, row-major) then its dbeta (C). dn and
+// dn_sums as lmic_gdn_bwd_dx wrote them.
+int lmic_gdn_bwd_partials(const void *x, const void *dn, const void *dn_sums,
+                          void *partials, int64_t n, int C, int dtype,
+                          void *stream) {
   if (n <= 0) return 0;
   if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_partials(x, dn, partials, n, C, s);
-  if (dtype == 1) return launch_partials_mma(x, dn, partials, n, C, s);
+  if (dtype == 1)
+    return launch_partials_wide(x, dn, dn_sums, partials, n, C, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

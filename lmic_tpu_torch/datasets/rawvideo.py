@@ -9,6 +9,7 @@ file, index frames as structured records with y/u/v planes.
 from __future__ import annotations
 
 import enum
+import os
 import re
 from fractions import Fraction
 from typing import Any, Dict, Optional
@@ -81,9 +82,16 @@ def make_frame_dtype(video_format: VideoFormat, value_type, width, height):
 
 def get_raw_video_file_info(filename: str) -> Dict[str, Any]:
     """Parse `<name>_WxH_FPS[_FORMAT][_Nbit].yuv` style names
-    (reference rawvideo.py:123-211)."""
+    (reference rawvideo.py:123-211).
+
+    Only the basename is read, so digits in a directory never become a
+    size or a framerate. The framerate is a number that follows a `_` and
+    ends at the next `_`, `.` or the end (an `fps`/`Hz` suffix allowed),
+    and is not itself a format name such as `420`; lmic_tpu searches the
+    whole path for any run of digits, so the width, or a directory's
+    digits, became its framerate."""
+    name = os.path.basename(filename)
     size_pattern = r"(?P<width>\d+)x(?P<height>\d+)"
-    framerate_pattern = r"(?P<framerate>[\d\.]+)(?:fps|Hz)?"
     bitdepth_pattern = r"(?P<bitdepth>\d+)bit"
     formats = "|".join(VIDEO_FORMATS.keys())
     format_pattern = (
@@ -91,11 +99,14 @@ def get_raw_video_file_info(filename: str) -> Dict[str, Any]:
     )
 
     info: Dict[str, Any] = {}
-    for pattern in (size_pattern, framerate_pattern, bitdepth_pattern,
-                    format_pattern):
-        m = re.search(pattern, filename)
+    for pattern in (size_pattern, bitdepth_pattern, format_pattern):
+        m = re.search(pattern, name)
         if m:
             info.update(m.groupdict())
+    for m in re.finditer(r"_(\d+(?:\.\d+)?)(?:fps|Hz)?(?=[_.]|$)", name):
+        if m.group(1) not in VIDEO_FORMATS:
+            info["framerate"] = m.group(1)
+            break
 
     if info.get("bitdepth2"):
         info["bitdepth"] = info["bitdepth2"]

@@ -62,12 +62,13 @@ _SIGNATURES = {
         "lmic_gdn_error_string": [_I],
     },
     "gdn_bwd.cu": {
-        "lmic_gdn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
-                            _P],
-        "lmic_gdn_bwd_partials": [_P, _P, _P, _I64, _I, _I, _P],
+        "lmic_gdn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+                            _I, _P],
+        "lmic_gdn_bwd_partials": [_P, _P, _P, _P, _I64, _I, _I, _P],
         "lmic_gdn_bwd_reduce": [_P, _P, _P, _I64, _I, _I, _P],
         "lmic_gdn_bwd_max_channels": [_I],
         "lmic_gdn_bwd_chunk_rows": [],
+        "lmic_gdn_bwd_tile_rows": [],
         "lmic_gdn_bwd_error_string": [_I],
     },
 }
@@ -200,13 +201,27 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
     return y
 
 
+def _dn_scratch(lib, n, C, dtype, device):
+    """The buffers `gdn_bwd_dx` writes and `gdn_bwd_partials` reads: the
+    (n, C) dn scratch, f32 for f32 inputs and bf16 for bf16 ones, and for
+    bf16 the (ceil(n / tile rows), C) f32 tile sums of dn (empty for f32,
+    whose kernels sum the f32 scratch)."""
+    if dtype == torch.float32:
+        return (torch.empty((n, C), dtype=torch.float32, device=device),
+                torch.empty(0, dtype=torch.float32, device=device))
+    tiles = -(-n // lib.lmic_gdn_bwd_tile_rows())
+    return (torch.empty((n, C), dtype=dtype, device=device),
+            torch.empty((tiles, C), dtype=torch.float32, device=device))
+
+
 def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
     """Launch the backward kernels on CUDA tensors: x and the cotangent g
     (..., C), beta (C,), gamma (C, C), all of one dtype, float32 or
     bfloat16. Returns (dx, dbeta, dgamma) in that dtype.
 
-    Three launches, each counted: `gdn_bwd_dx` (dx and the f32 dn scratch),
-    `gdn_bwd_partials` (per-chunk partial dbeta/dgamma) and
+    Three launches, each counted: `gdn_bwd_dx` (dx and the dn scratch:
+    f32 for f32; for bf16, dn rounded to bf16 and each 64-row tile's f32
+    sum of dn), `gdn_bwd_partials` (per-chunk partial dbeta/dgamma) and
     `gdn_bwd_reduce` (the fixed-order sum of the partials)."""
     C = _check("gdn_bwd", x, beta, gamma)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -232,7 +247,7 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
     dgamma = torch.empty((C, C), dtype=dt, device=dev)
     n = x.numel() // C if C else 0
     chunks = -(-n // lib.lmic_gdn_bwd_chunk_rows())
-    dn = torch.empty((n, C), dtype=torch.float32, device=dev)
+    dn, dn_sums = _dn_scratch(lib, n, C, dt, dev)
     partials = torch.empty((chunks, C * C + C), dtype=torch.float32,
                            device=dev)
     code, inv = _DTYPE_CODES[dt], int(bool(inverse))
@@ -242,12 +257,12 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
             _raise_on(lib.lmic_gdn_bwd_dx(
                 x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(),
                 gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
-                dn.data_ptr(), n, C, code, inv, stream,
+                dn.data_ptr(), dn_sums.data_ptr(), n, C, code, inv, stream,
             ), lib, "gdn_bwd_dx")
             _count("gdn_bwd_dx")
             _raise_on(lib.lmic_gdn_bwd_partials(
-                x.data_ptr(), dn.data_ptr(), partials.data_ptr(), n, C,
-                code, stream,
+                x.data_ptr(), dn.data_ptr(), dn_sums.data_ptr(),
+                partials.data_ptr(), n, C, code, stream,
             ), lib, "gdn_bwd_partials")
             _count("gdn_bwd_partials")
         # with no rows there are no partials, and the sum writes zeros

@@ -173,8 +173,21 @@ CHUNK_EDGES = [(dtype, rows, C) for dtype in (torch.float32, torch.bfloat16)
                for rows in (1023, 1024, 1025, 2049) for C in (37, 128, 192)]
 
 
+# bf16 gdn_bwd at a training step's rows (batch 16 of 256x256: 262,144 /
+# 65,536 / 16,384, and a ragged count) at C = 128 and 192; at the widest C
+# the bf16 backward takes; and with a ragged last 64-row tile in a chunk
+# past the first edge. They cover the bf16 partials' clusters of 1, 2 and 4
+# CTAs a chunk, one and 3 x 3 blocks of dgamma, and its element copies.
+TRAINING = ([(torch.bfloat16, rows, C)
+             for rows in (262_144, 65_536, 16_384, 16_391)
+             for C in (128, 192)]
+            + [(torch.bfloat16, rows, 432) for rows in (1_000, 16_391)]
+            + [(torch.bfloat16, rows, C) for rows in (5_000, 70_001)
+               for C in (37, 192)])
+
+
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("dtype,rows,C", TILED + CHUNK_EDGES)
+@pytest.mark.parametrize("dtype,rows,C", TILED + CHUNK_EDGES + TRAINING)
 def test_tiled_bwd_kernel_matches_reference(dtype, inverse, rows, C):
     _check_bwd(dtype, inverse, rows, C)
 

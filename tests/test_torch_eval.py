@@ -261,6 +261,10 @@ def test_eval_sequence_matches_lmic_tpu(tmp_path, entropy_estimation):
     jc, pc, _ = video_codecs(0)
     path = str(_clip(tmp_path, seed=8))
     seq, jseq = RawVideoSequence.from_file(path), JSeq.from_file(path)
+    # the name's 30 fps sets the rate; lmic_tpu reads the first digits of
+    # the whole temporary path instead, so it is handed the name's rate
+    assert seq.framerate == 30
+    jseq.framerate = seq.framerate
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         got = video_eval.eval_sequence(pc, seq, 3, None, entropy_estimation)

@@ -2,6 +2,8 @@
 reparametrization and STE rounding, forward and gradients against
 jax.grad; the CDF quantizer integer-equal on random pmfs."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,3 +121,44 @@ def test_build_key_hashes_the_shared_cuda_headers(tmp_path, monkeypatch):
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _build.library_path("k.cu") != cu
     assert _build.library_path("r.cc") == cc
+
+
+# C parameter types -> the ctypes that ops/gdn.py binds them to
+_CTYPES = {"const void *": ctypes.c_void_p, "void *": ctypes.c_void_p,
+           "int64_t": ctypes.c_int64, "int": ctypes.c_int}
+
+
+def _extern_c(path):
+    """{name: (return type, [parameter types])} of each function defined in
+    the `extern "C"` block of the CUDA source at `path`."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    block = re.sub(r"//[^\n]*", "", text[text.index('extern "C" {'):])
+    found = {}
+    for m in re.finditer(r"^((?:const )?\w+ \*?)(lmic_\w+)\(([^)]*)\) \{",
+                         block, re.M):
+        params = [p.strip() for p in m.group(3).split(",") if p.strip()]
+        found[m.group(2)] = (m.group(1).strip(), [
+            re.sub(r"\s*\w+$", "", p).replace("void*", "void *")
+            for p in params])
+    return found
+
+
+@pytest.mark.parametrize("source", ["gdn_fwd.cu", "gdn_bwd.cu"])
+def test_gdn_signatures_match_the_c_abi(source):
+    """ops/gdn.py's ctypes bindings (`_SIGNATURES`, and the restype `_load`
+    gives each name) declare every entry point of the CUDA source's C ABI
+    with its arguments in order: a pointer bound as a 32-bit int, or a
+    missing argument, would only show on the card."""
+    import os
+
+    from lmic_tpu_torch.ops import _build, gdn
+
+    defined = _extern_c(os.path.join(_build.CSRC, source))
+    bound = gdn._SIGNATURES[source]
+    assert sorted(defined) == sorted(bound)
+    for name, (ret, params) in defined.items():
+        assert ret == ("const char *" if name.endswith("string") else "int")
+        assert [_CTYPES[p] for p in params] == bound[name], name

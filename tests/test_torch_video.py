@@ -5,6 +5,8 @@ with the same quantization noise on both sides, the aux loss, one MSE
 gradient, the weight converter both ways, and the raw-video and clip
 loaders. The codec's strings are in tests/test_torch_video_codec.py."""
 
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -269,15 +271,48 @@ def test_state_dict_converts_both_ways(codecs):
 
 # -- datasets ----------------------------------------------------------------
 
-@pytest.mark.parametrize("name", [
-    "seq_64x32_30fps_420_8bit.yuv", "BasketballDrive_1920x1080_50.yuv",
-    "a_416x240_29.97fps_yuv444p10le.yuv", "b_352x288_23.976_444_10bit.yuv",
-    "c_32x16_60Hz_yuv400.yuv", "d_64x48.yuv"])
+def _plain(info):
+    return {k: (v.value if k == "format" else v) for k, v in info.items()}
+
+
+# the port's framerate of each name. lmic_tpu reads the first run of digits
+# in the whole path as the framerate (the width in each name here but the
+# last, "64" or "1920"), so only "clip_30fps.yuv" holds the port to
+# lmic_tpu's framerate; every other key is held to lmic_tpu's on every name.
+FRAMERATES = {
+    "seq_64x32_30fps_420_8bit.yuv": Fraction(30),
+    "BasketballDrive_1920x1080_50.yuv": Fraction(50),
+    "a_416x240_29.97fps_yuv444p10le.yuv": Fraction(30000, 1001),
+    "b_352x288_23.976_444_10bit.yuv": Fraction(24000, 1001),
+    "c_32x16_60Hz_yuv400.yuv": Fraction(60),
+    "d_64x48.yuv": None,
+    "seq_64x32_420_8bit.yuv": None,
+    "clip_30fps.yuv": Fraction(30),
+}
+
+
+@pytest.mark.parametrize("name", list(FRAMERATES))
 def test_raw_video_file_info_matches_lmic_tpu(name):
     got = tds.get_raw_video_file_info(name)
     want = jds.get_raw_video_file_info(name)
-    assert {k: (v.value if k == "format" else v) for k, v in got.items()} \
-        == {k: (v.value if k == "format" else v) for k, v in want.items()}
+    assert got.pop("framerate", None) == FRAMERATES[name]
+    if name == "clip_30fps.yuv":
+        assert want["framerate"] == FRAMERATES[name]
+    want.pop("framerate", None)
+    assert _plain(got) == _plain(want)
+
+
+@pytest.mark.parametrize("path,want", [
+    ("/data/2024/run_3/e_64x48_25fps.yuv",
+     {"width": 64, "height": 48, "framerate": Fraction(25)}),
+    ("/tmp/pytest-7/popen-gw2/clip_128x128_30_yuv420.yuv",
+     {"width": 128, "height": 128, "framerate": Fraction(30),
+      "format": "yuv420"}),
+    ("/data/1080x720/30fps/clip.yuv", {})])
+def test_raw_video_file_info_reads_the_basename(path, want):
+    """Digits in a directory are neither a size nor a framerate: the video
+    eval's kbps moved with the directory it ran in."""
+    assert _plain(tds.get_raw_video_file_info(path)) == want
 
 
 @pytest.mark.parametrize("name,frame_bytes", [
@@ -291,7 +326,10 @@ def test_raw_video_sequence_matches_lmic_tpu(tmp_path, name, frame_bytes):
     ours = tds.RawVideoSequence.from_file(str(path))
     theirs = jds.RawVideoSequence.from_file(str(path))
     assert len(ours) == len(theirs) == 3
-    assert ours.framerate == theirs.framerate
+    # the name's framerate; lmic_tpu's comes from the first digits of the
+    # temporary directory's path
+    assert ours.framerate == {"seq_64x32_30fps_420_8bit.yuv": 30,
+                              "seq_32x16_25fps_yuv444_10bit.yuv": 25}[name]
     for i in range(3):
         for plane in ("y", "u", "v"):
             np.testing.assert_array_equal(ours[i][plane], theirs[i][plane])
