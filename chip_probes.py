@@ -8,6 +8,7 @@ runs them.
     python3 chip_probes.py video-convs
     python3 chip_probes.py sync-u8 ROOT [ROOT ...]
     python3 chip_probes.py gdn-ab ROOT [ROOT ...]
+    python3 chip_probes.py gdn-host PARENT
 
 - master-batch: the largest batch of the RGB-T master's training step
   that fits, the channel-1 master q7 (f32) against its frozen guided q7 on
@@ -50,9 +51,19 @@ runs them.
   plain, bound, library) of every GDN kernel at the training rows, C = 192,
   f32 and bf16; an on-card checksum of every f32 output (gdn_fwd, and each of
   gdn_bwd's three launches: dx and the dn scratch, the partials, dbeta and
-  dgamma) at every f32 shape of the kernel phase, which must agree across
-  the ROOTs; and phase 5's AMP step (mbt2018-mean q7, batch 16 of 256x256):
-  step ms, peak memory, and device ms and busy share from a profile.
+  dgamma) at every f32 shape of the kernel phase, and of the bf16 partials
+  and reduce on fixed seeded inputs (x, dn, tile sums), all of which must
+  agree across the ROOTs; and phase 5's AMP step (mbt2018-mean q7, batch
+  16 of 256x256): step ms, peak memory, and device ms and busy share from
+  a profile. Host times of separate processes differ by tens of µs on a
+  host shared with others, so gdn-host compares them in one process:
+- gdn-host: the gdn_bwd library of the checkout PARENT beside this
+  tree's in one process, in turns (the launches' C ABI is the same; a
+  parent without the gamma_t query gets the wrapper to build gamma_t on
+  every call, as its own did): the host µs of one `lmic_gdn_bwd_dx` call
+  on each bf16 route and in f32, of one `gdn_bwd` call, and phase 5's AMP
+  step ms with each library in ops/gdn.py. This is the port's one
+  measurement of host cost.
 """
 
 from __future__ import annotations
@@ -390,6 +401,49 @@ def _f32_checksums():
     return out
 
 
+def _bf16_sums_checksums():
+    """{shape: checksums of the bf16 partials, dbeta and dgamma} from
+    `gdn_bwd_partials` and `gdn_bwd_reduce` on fixed seeded inputs made
+    here (x, a bf16 dn, f32 tile sums; not the dx kernel's output), at the
+    kernel phase's bf16 backward shapes and at three off the dx kernel's
+    TMA route (C = 37, a ragged 70,001 rows, C = 432), through the C ABI."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    lib = gdn._load("gdn_bwd.cu")
+    rows, tile = lib.lmic_gdn_bwd_chunk_rows(), lib.lmic_gdn_bwd_tile_rows()
+    shapes = [(n, C) for C in (128, 192) for n in chip_smoke.TRAIN_ROWS]
+    shapes += [(5_000, 37), (70_001, 192), (16_391, 432)]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for n, C in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(n * 1000 + C)
+        x = torch.randn((n, C), generator=gen, device="cuda").bfloat16()
+        dn = (0.1 * torch.randn((n, C), generator=gen, device="cuda")
+              ).bfloat16()
+        sums = torch.randn((-(-n // tile), C), generator=gen, device="cuda")
+        chunks = -(-n // rows)
+        partials = torch.empty((chunks, C * C + C), device="cuda")
+        dbeta = torch.empty(C, dtype=torch.bfloat16, device="cuda")
+        dgamma = torch.empty((C, C), dtype=torch.bfloat16, device="cuda")
+        for err in (
+                lib.lmic_gdn_bwd_partials(x.data_ptr(), dn.data_ptr(),
+                                          sums.data_ptr(),
+                                          partials.data_ptr(), n, C, 1,
+                                          stream),
+                lib.lmic_gdn_bwd_reduce(partials.data_ptr(),
+                                        dbeta.data_ptr(), dgamma.data_ptr(),
+                                        chunks, C, 1, stream)):
+            if err:
+                raise RuntimeError(
+                    lib.lmic_gdn_bwd_error_string(err).decode())
+        # bf16 -> f32 is exact, and gives whole 32-bit words
+        out[f"{n}x{C}"] = [_checksum(partials), _checksum(dbeta.float()),
+                           _checksum(dgamma.float())]
+    return out
+
+
 def _amp_step(timed=5):
     """Phase 5's AMP training step: step ms (median), peak memory, and the
     device ms, GDN ms and busy share of a profiled step."""
@@ -440,6 +494,7 @@ def gdn_ab_one(root):
                  for dtype in ("float32", "bfloat16")}
         for kernel in cases}}
     result["f32_checksums"] = _f32_checksums()
+    result["bf16_sums_checksums"] = _bf16_sums_checksums()
     torch.cuda.empty_cache()
     result["amp_step"] = _amp_step()
     log(json.dumps(result))
@@ -473,18 +528,141 @@ def gdn_ab(roots):
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
     with open(os.path.join(here, "chiprun_out", "gdn_ab.json"), "w") as f:
         json.dump(results, f, indent=1)
-    for key in results[0]["f32_checksums"]:
-        if len({json.dumps(r["f32_checksums"][key]) for r in results}) != 1:
-            raise AssertionError(f"gdn-ab: f32 outputs at {key} differ")
+    for sums in ("f32_checksums", "bf16_sums_checksums"):
+        for key in results[0][sums]:
+            if len({json.dumps(r[sums][key]) for r in results}) != 1:
+                raise AssertionError(f"gdn-ab: {sums} at {key} differ")
     log(f"gdn-ab: every f32 output agrees across the checkouts and runs "
-        f"({len(results[0]['f32_checksums'])} shapes and directions)")
+        f"({len(results[0]['f32_checksums'])} shapes and directions), and "
+        f"so do the bf16 partials and reduce on fixed inputs "
+        f"({len(results[0]['bf16_sums_checksums'])} shapes)")
+
+
+def _host_us(fn, runs=50):
+    """Host µs a call of `fn`: the wall time of `runs` calls issued while a
+    spin kernel keeps the card busy, so no call waits on the device."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # cycles: ~100 ms at H100 clocks
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / runs
+
+
+def _bind(lib):
+    """`lib` with ops/gdn.py's ctypes signatures of gdn_bwd.cu, as `_load`
+    binds them. A library without `lmic_gdn_bwd_dx_reads_gamma_t` read
+    gamma_t on every route, so it answers 1 and the wrapper builds the
+    transpose on every call, as that tree's wrapper did."""
+    import ctypes
+
+    from lmic_tpu_torch.ops import gdn
+
+    for name, argtypes in gdn._SIGNATURES["gdn_bwd.cu"].items():
+        if name == "lmic_gdn_bwd_dx_reads_gamma_t" and not hasattr(lib, name):
+            setattr(lib, name, lambda *args: 1)
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = (ctypes.c_char_p if name.endswith("string")
+                      else ctypes.c_int)
+    return lib
+
+
+def gdn_host(parent, rounds=3, n=65_536, C=192):
+    """gdn-host: the gdn_bwd library of the checkout `parent` and this
+    tree's in one process (their launches' C ABI is the same, so
+    ops/gdn.py's wrapper takes either; see `_bind`), in turns: the host µs of one `lmic_gdn_bwd_dx` call
+    (bf16 on its TMA route and off it, through a view offset by one
+    element; f32), of one `gdn.gdn_bwd` call, and phase 5's AMP step ms
+    (median of 5 after 2 warm-up steps)."""
+    import importlib.util
+
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cs = chip_smoke
+    spec = importlib.util.spec_from_file_location(
+        "parent_build",
+        os.path.join(parent, "lmic_tpu_torch", "ops", "_build.py"))
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)  # builds under the parent's _build/
+    libs = {"parent": _bind(build.load("gdn_bwd.cu")),
+            "change": gdn._load("gdn_bwd.cu")}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x, beta, gamma, g = cs._gdn_inputs(gen, n, C, dt)
+        gamma_t = gamma.t().contiguous()
+        dx = torch.empty_like(x)
+        dn, dn_sums = gdn._dn_scratch(libs["change"], n, C, dt, "cuda")
+        spare = torch.empty(n * C + 1, dtype=dt, device="cuda")
+        routes = {"aligned": x}
+        if dt == torch.bfloat16:
+            routes["offset"] = spare[1:].view(n, C)
+        for _ in range(rounds):
+            for which, lib in libs.items():
+                for route, xi in routes.items():
+                    def call(lib=lib, xi=xi):
+                        if lib.lmic_gdn_bwd_dx(
+                                xi.data_ptr(), g.data_ptr(),
+                                gamma_t.data_ptr(), gamma.data_ptr(),
+                                beta.data_ptr(), dx.data_ptr(),
+                                dn.data_ptr(), dn_sums.data_ptr(), n, C,
+                                gdn._DTYPE_CODES[dt], 0, stream):
+                            raise RuntimeError(f"{which} {route}")
+                    key = f"{str(dt).split('.')[-1]} {route} {which}"
+                    calls.setdefault(key, []).append(
+                        _host_us(call, runs=100))
+    batch = _train_batch(cs.TRAIN_BATCH, seed=1)
+    module = zoo.create_model(cs.TRAIN_ARCH, cs.TRAIN_QUALITY, seed=0,
+                              device="cuda", dtype=torch.bfloat16).module
+    opt = make_optimizer()
+    state = create_train_state(module, opt)
+    step = make_train_step(module, opt, cs.TRAIN_LAMBDA)
+    step_gen = torch.Generator(device="cuda").manual_seed(0)
+    x, beta, gamma, g = cs._gdn_inputs(gen, n, C, torch.bfloat16)
+    steps, wrapper = {}, {}
+    for k in range(2 * rounds):  # parent first in even rounds
+        for which in (("parent", "change") if k % 2 == 0
+                      else ("change", "parent")):
+            gdn._libs["gdn_bwd.cu"] = libs[which]
+            cs._steps(step, state, batch, step_gen, 2)
+            ms, _ = cs._steps(step, state, batch, step_gen, 5)
+            steps.setdefault(which, []).append(float(np.median(ms)))
+            wrapper.setdefault(which, []).append(
+                _host_us(lambda: gdn.gdn_bwd(x, beta, gamma, g)))
+    gdn._libs["gdn_bwd.cu"] = libs["change"]
+    result = {"lmic_gdn_bwd_dx_us": calls, "gdn_bwd_us": wrapper,
+              "amp_step_ms": steps}
+    log("gdn-host: " + json.dumps(result))
+    for key, v in sorted({**{f"{k} call": v for k, v in calls.items()},
+                          **{f"{k} gdn_bwd": v for k, v in wrapper.items()},
+                          **{f"{k} step": v
+                             for k, v in steps.items()}}.items()):
+        log(f"gdn-host {key}: median {np.median(v):.2f} of "
+            + ", ".join(f"{u:.2f}" for u in v))
 
 
 def main(argv):
     import torch
 
     probes = ("master-batch", "train-convs", "video-convs", "sync-u8",
-              "gdn-ab")
+              "gdn-ab", "gdn-host")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -506,6 +684,8 @@ def main(argv):
         sync_u8(argv[1:] or [os.path.dirname(os.path.abspath(__file__))])
     elif argv[0] == "gdn-ab":
         gdn_ab(argv[1:] or [os.path.dirname(os.path.abspath(__file__))])
+    elif argv[0] == "gdn-host":
+        gdn_host(os.path.abspath(argv[1]))
     else:
         video_convs()
     return 0

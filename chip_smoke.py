@@ -9,9 +9,11 @@ Phases, each of which raises (exit code != 0) on any failure:
 1. environment: the card's name and power limit, the torch/CUDA/nvcc
    versions; the port's native sources are built, all at once; each GDN
    kernel's registers and spills from ptxas (a register-tiled f32 kernel
-   must not spill); the count of tensor-core instructions (HMMA or HGMMA)
-   in each GDN kernel, from `cuobjdump -sass`: every bf16 product kernel
-   must have some, and no f32 kernel any (that would be TF32);
+   and the bf16 `gdn_bwd_dx_wide_kernel` must not spill); the count of
+   tensor-core instructions (HMMA or HGMMA) in each GDN kernel, from
+   `cuobjdump -sass`: every bf16 product kernel must have some (the
+   TMA-fed wide kernels HGMMA, from wgmma), and no f32 kernel any (that
+   would be TF32);
 2. kernels: the CUDA GDN forward (`gdn_fwd`) and backward (`gdn_bwd`,
    three launches) against their plain versions on the card at the main
    paths' shapes (serving: 98,304 / 24,576 / 6,144 / 6,151 rows; training:
@@ -27,7 +29,12 @@ Phases, each of which raises (exit code != 0) on any failure:
    launches (`gdn_bwd_dx`, `gdn_bwd_partials`, `gdn_bwd_reduce`) on its
    own, against its own plain version, bound and library call (the dx
    composite, one cuBLAS `bmm` of the partials' chunked product, `sum(0)`
-   of the partials);
+   of the partials), each dx launch held to the kernel its route names
+   (f32 `gdn_bwd_dx_kernel`; bf16 `gdn_bwd_dx_wide_kernel` at these
+   shapes, and `gdn_bwd_dx_mma_kernel` at two bf16 shapes off the TMA
+   route, 16,391 rows at C = 192 in a view offset by one element and at
+   C = 320); bf16 `gdn_bwd_dx` logged per layer of a training step
+   (C = 192 and 128) beside its bound and composite;
 3. serving: mbt2018-mean at quality 8 (N=192, M=320) from a seed, served by
    the port's HTTP server; three seeded 512x768 uint8 images go through
    POST /compress and /decompress with the launch counts set to 0 just
@@ -43,7 +50,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    counts set to 0 just before and read just after (6 forward and 6 of
    each backward kernel per step), the loss falling on one batch (over 10
    steps in f32, 6 in AMP), a
-   profile of the GDN kernels' share, one step's gradients on the card
+   profile of the GDN kernels' share (in AMP, 6 launches a step of
+   `gdn_bwd_dx_wide_kernel` and none of `gdn_bwd_dx_mma_kernel`), one
+   step's gradients on the card
    against the CPU on a narrow model with the same noise, and the trained
    model saved, reloaded, finalized and round-tripped through the codec;
 6. AR serving: mbt2018 at quality 8 (N=192, M=320) from a seed, served
@@ -364,9 +373,11 @@ def phase_environment():
 
 
 # The GDN kernels by name: the bf16 product kernels run on the tensor
-# cores; the f32 kernels (TF32 off) and the reduce must not.
+# cores (those fed by the TMA on wgmma: HGMMA); the f32 kernels (TF32 off)
+# and the reduce must not.
 MMA_KERNELS = ("gdn_fwd_mma_kernel", "gdn_bwd_dx_mma_kernel",
-               "gdn_bwd_partials_wide_kernel")
+               "gdn_bwd_dx_wide_kernel", "gdn_bwd_partials_wide_kernel")
+WGMMA_KERNELS = ("gdn_bwd_dx_wide_kernel", "gdn_bwd_partials_wide_kernel")
 FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                 "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
 
@@ -376,11 +387,14 @@ FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
 # must stay in registers.
 TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                       "gdn_bwd_partials_kernel")
+# ... and so must the bf16 dx kernel's (wgmma sums, dn, g * scale)
+NO_SPILL_KERNELS = TILED_FP32_KERNELS + ("gdn_bwd_dx_wide_kernel",)
 
 
 def _check_registers(source, log_path):
     """Log each kernel's registers and spills from the build's ptxas
-    output (-Xptxas -v); raise if a register-tiled f32 kernel spills."""
+    output (-Xptxas -v); raise if a register-tiled f32 kernel or the bf16
+    wide dx kernel spills, or is missing from the report."""
     kernel, seen = None, {}
     with open(log_path) as f:
         for line in f:
@@ -401,18 +415,20 @@ def _check_registers(source, log_path):
     for kernel, info in sorted(seen.items()):
         log(f"ptxas {source} {kernel}: {info.get('registers')} registers, "
             f"spill stores/loads {info.get('spill')} bytes")
-        if kernel.startswith(TILED_FP32_KERNELS) and any(
+        if kernel.startswith(NO_SPILL_KERNELS) and any(
                 info.get("spill", (1, 1))):
             raise AssertionError(f"{kernel} spills: {info}")
-    if not any(k.startswith(TILED_FP32_KERNELS) for k in seen):
-        raise AssertionError(f"no ptxas report of the f32 kernels in "
-                             f"{log_path}")
+    for name in NO_SPILL_KERNELS:
+        if name.startswith(source[:-3] + "_") and not any(
+                k.startswith(name) for k in seen):
+            raise AssertionError(f"no ptxas report of {name} in {log_path}")
 
 
 def _check_tensor_cores(source, lib):
     """Count tensor-core instructions (HMMA from mma.sync and wmma, HGMMA
     from wgmma) per kernel in `lib` (cuobjdump -sass); raise if a bf16
-    product kernel has none or another GDN kernel has one."""
+    product kernel has none, a wgmma kernel has no HGMMA, or another GDN
+    kernel has one."""
     from lmic_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -420,7 +436,8 @@ def _check_tensor_cores(source, lib):
         tool = shutil.which("cuobjdump") or tool
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    counts = {}  # kernel name -> tensor-core count of each instantiation
+    # kernel name -> [HMMA, HGMMA] counts of each instantiation
+    counts = {}
     current = None
     for line in sass.splitlines():
         # letters and underscores only: the anonymous namespace's mangled
@@ -428,15 +445,19 @@ def _check_tensor_cores(source, lib):
         m = re.search(r"Function : \S*?(gdn_[a-z_]+?_kernel)", line)
         if m:
             current = counts.setdefault(m.group(1), [])
-            current.append(0)
-        elif current is not None and re.search(r"\bHG?MMA\b", line):
-            current[-1] += 1
+            current.append([0, 0])
+        elif current is not None:
+            m = re.search(r"\b(HG?MMA)\b", line)
+            if m:
+                current[-1][m.group(1) == "HGMMA"] += 1
     log(f"HMMA/HGMMA instructions in {source}: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
     for name, found in counts.items():
-        if name in MMA_KERNELS and not all(found):
+        if name in MMA_KERNELS and not all(sum(f) for f in found):
             raise AssertionError(f"{name} has no tensor-core instruction")
-        if name not in MMA_KERNELS and any(found):
+        if name in WGMMA_KERNELS and not all(f[1] for f in found):
+            raise AssertionError(f"{name} has no HGMMA (wgmma) instruction")
+        if name not in MMA_KERNELS and any(sum(f) for f in found):
             raise AssertionError(f"{name} runs on the tensor cores")
     want = {k for k in MMA_KERNELS + FP32_KERNELS
             if k.startswith(source[:-3] + "_")}
@@ -644,8 +665,9 @@ def _reduce_plain(partials, C, dt):
 def phase_kernel(peaks):
     """Both GDN kernels against their plain versions at every main-path
     shape (serving, training, the RGB-T pair's wire and its training
-    step, the batched synthesis of phase 12); returns the per-shape cases
-    of each."""
+    step, the batched synthesis of phase 12), and the backward's launches
+    at two bf16 shapes off the wide dx kernel's route; returns the
+    per-shape cases of each."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -653,6 +675,7 @@ def phase_kernel(peaks):
     mem_bw, fp32, bf16 = peaks
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {k: [] for k in ("gdn_fwd", "gdn_bwd") + gdn.BWD_KERNELS}
+    routes = []  # each backward case's dx route, for _check_dx_routes
     shapes = [(n, C) for C in (128, 192) for n in SERVE_ROWS + TRAIN_ROWS]
     # f32 only: the pair's wire, the master step's frozen guide and the
     # batched synthesis
@@ -698,8 +721,12 @@ def phase_kernel(peaks):
                     if name == "gdn_bwd" and n in fwd_only:
                         continue
                     if name == "gdn_bwd":
+                        kernel = ("gdn_bwd_dx_kernel" if es == 4
+                                  else "gdn_bwd_dx_wide_kernel")
+                        routes.append((n, C, dt, 0, inverse, kernel))
                         _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
-                                          inverse, peak, mem_bw, fp32)
+                                          inverse, peak, mem_bw, fp32,
+                                          kernel)
                     got = run()
                     want = plain()
                     torch.cuda.synchronize()
@@ -728,14 +755,80 @@ def phase_kernel(peaks):
                         "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
                     })
             del x, beta, gamma, g, gamma_t
+    # bf16 off the wide kernel's TMA route, on gdn_bwd_dx_mma_kernel: a
+    # view offset by one element, and a width the wide kernel has no
+    # instance of
+    for n, C, offset in ((16_391, 192, 1), (16_391, 320, 0)):
+        x, beta, gamma, g = _gdn_inputs(gen, n, C, torch.bfloat16)
+        buf = torch.empty(n * C + offset, dtype=x.dtype, device="cuda")
+        buf[offset:].copy_(x.view(-1))
+        x = buf[offset:].view(n, C)
+        for inverse in (False, True):
+            routes.append((n, C, x.dtype, offset, inverse,
+                           "gdn_bwd_dx_mma_kernel"))
+            _bwd_kernel_cases(cases, x, beta, gamma, gamma.t().contiguous(),
+                              g, inverse, bf16, mem_bw, fp32,
+                              "gdn_bwd_dx_mma_kernel")
+        del x, beta, gamma, g, buf
+    _check_dx_routes(gen, routes)
     return cases
 
 
+DX_KERNELS = ("gdn_bwd_dx_kernel", "gdn_bwd_dx_mma_kernel",
+              "gdn_bwd_dx_wide_kernel")
+
+
+def _dx_kernels(run):
+    """The dx kernels that `run` launches, by name, in the order they ran
+    on the device (one torch.profiler session)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ran = sorted((e.time_range.start, k) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 for k in DX_KERNELS if k in e.name)
+    return [k for _, k in ran]
+
+
+def _check_dx_routes(gen, routes):
+    """One dx launch for each (n, C, dtype, offset, inverse, kernel) of
+    `routes`, on fresh inputs of that shape and type whose x starts
+    `offset` elements past an aligned base, all in one profiler session:
+    each must run `kernel`."""
+    import torch
+
+    def run():
+        for n, C, dt, offset, inverse, _ in routes:
+            x, beta, gamma, g = _gdn_inputs(gen, n, C, dt)
+            buf = torch.empty(n * C + offset, dtype=dt, device="cuda")
+            buf[offset:].copy_(x.view(-1))
+            x = buf[offset:].view(n, C)
+            _bwd_launches(x, beta, gamma, gamma.t().contiguous(), g,
+                          inverse)["gdn_bwd_dx"]()
+            torch.cuda.synchronize()
+
+    ran = _dx_kernels(run)
+    want = [r[-1] for r in routes]
+    if ran != want:
+        bad = [(r[:5], k) for r, k in zip(routes, ran) if r[-1] != k]
+        raise AssertionError(f"gdn_bwd_dx routes: {len(ran)} dx launches "
+                             f"seen of {len(want)}; first wrong: {bad[:3]}")
+    log("gdn_bwd_dx routes: " + json.dumps(
+        {k: want.count(k) for k in DX_KERNELS}) + " launches as the rule says")
+
+
 def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
-                      mem_bw, fp32):
+                      mem_bw, fp32, dx_kernel):
     """Each of gdn_bwd's three launches against its plain version on the
     same inputs (the kernel's own dn and partials feed the next two), timed
-    on its own, with its own bound."""
+    on its own, with its own bound; the dx cases name `dx_kernel`, the
+    kernel their route takes, which `_check_dx_routes` holds."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -793,6 +886,7 @@ def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
         cases[name].append({
             "shape": [n, C], "dtype": str(dt).split(".")[-1],
             "inverse": inverse, "max_abs_err": err, "max_rel_err": rel,
+            **({"dx_kernel": dx_kernel} if name == "gdn_bwd_dx" else {}),
             "us": 1e3 * _time_ms(run),
             "plain_us": 1e3 * _time_ms(plain),
             "library_us": 1e3 * _time_ms(library),
@@ -800,6 +894,25 @@ def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
             "bound_by": "operations" if t_ops > t_mem else "bytes",
             "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
         })
+
+
+def _bf16_dx_layers(cases):
+    """bf16 gdn_bwd_dx at each layer of a training step, C = 192 and 128:
+    µs of the GDN and the IGDN launch beside the bound and the composite
+    (the library call)."""
+    layers = {}
+    for C in (192, 128):
+        for n in TRAIN_ROWS[:3]:
+            sel = sorted((c for c in cases["gdn_bwd_dx"]
+                          if c["shape"] == [n, C]
+                          and c["dtype"] == "bfloat16"),
+                         key=lambda c: c["inverse"])
+            layers[f"{n}x{C}"] = {
+                "us": [c["us"] for c in sel],
+                "bound_us": sel[0]["bound_us"],
+                "bound_by": sel[0]["bound_by"],
+                "library_us": [c["library_us"] for c in sel]}
+    return layers
 
 
 def _reset_counts():
@@ -1462,12 +1575,13 @@ def _steps(step, state, batch, gen, n):
 GDN_KERNELS = MMA_KERNELS + FP32_KERNELS
 
 
-def _profile(run, n=3, keep=12):
+def _profile(run, n=3, keep=12, launches=None):
     """Device time per call of `run` of the GDN kernels and of all
     kernels, the wall time per call, the device ms per call of each GDN
     kernel and of the other kernels that take the most (`keep` of them;
     None: all), and the device operations per call, from a
-    torch.profiler trace of n calls."""
+    torch.profiler trace of n calls. A `launches` dict gets each GDN
+    kernel's launches per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1493,6 +1607,8 @@ def _profile(run, n=3, keep=12):
         name = next((k for k in GDN_KERNELS if k in evt.key), None)
         if name:
             gdn_us += us
+            if launches is not None:
+                launches[name] = launches.get(name, 0) + evt.count / n
         name = name or evt.key[:60]
         by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
     if total_us <= 0:
@@ -1610,8 +1726,15 @@ def phase_training():
             raise AssertionError(f"{mode}: loss did not fall: {losses}")
         log(f"{mode} loss over {len(losses)} steps on one batch: "
             + ", ".join(f"{v:.2f}" for v in losses))
+        per_step = {}
         gdn_ms, dev_ms, wall_ms, top, _ = _profile(
-            lambda: step(state, batch, gen))
+            lambda: step(state, batch, gen), launches=per_step)
+        log(f"train {mode} GDN kernel launches a step: {per_step}")
+        # bf16 at C = 192: the wide dx kernel, never the mma one
+        if mode == "amp" and (
+                per_step.get("gdn_bwd_dx_wide_kernel") != 6
+                or per_step.get("gdn_bwd_dx_mma_kernel", 0) != 0):
+            raise AssertionError(f"amp: dx kernels a step {per_step}")
         last = mets[-1]
         log(f"train {TRAIN_ARCH} q{TRAIN_QUALITY} {mode} batch "
             f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}: step ms "
@@ -3525,17 +3648,26 @@ def main():
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     for kernel, kcases in cases.items():
         for c in kcases:
-            log(f"{kernel} {c['shape']} {c['dtype']} inverse={c['inverse']}: "
+            via = f" ({c['dx_kernel']})" if "dx_kernel" in c else ""
+            log(f"{kernel} {c['shape']} {c['dtype']} inverse={c['inverse']}"
+                f"{via}: "
                 f"{c['us']:.1f} us (plain {c['plain_us']:.1f}, library "
                 f"{c['library_us']:.1f}, bound {c['bound_us']:.1f} by "
                 f"{c['bound_by']}), rel err {c['max_rel_err']:.2e}, abs err "
                 f"{c['max_abs_err']:.3g}")
+    layers = _bf16_dx_layers(cases)
+    for key, v in layers.items():
+        log(f"bf16 gdn_bwd_dx {key}: GDN / IGDN "
+            + " / ".join(f"{u:.1f}" for u in v["us"])
+            + f" us, bound {v['bound_us']:.1f} by {v['bound_by']} "
+            f"({100 * v['bound_us'] / np.mean(v['us']):.0f} % of it), "
+            "composite " + " / ".join(f"{u:.1f}" for u in v["library_us"]))
     if args.kernels_only:
         log(json.dumps({"kernels_only": {
             kernel: {f"training_step_{d}": _totals(cases, kernel,
                                                    TRAIN_ROWS[:3], d)
                      for d in ("float32", "bfloat16")}
-            for kernel in cases}}))
+            for kernel in cases}, "bf16_dx_by_layer": layers}))
         return 0
     t0 = time.perf_counter()
     serve_launches = phase_serving()

@@ -24,9 +24,11 @@
 // dbeta/dgamma into an output block that every sequential grid step
 // revisits; CUDA blocks run in no order. So the design is three launches,
 // no atomics, and the same bytes on every run:
-//  1. gdn_bwd_dx: one CTA per 64-row tile. It recomputes the norm with
-//     the forward kernel's sums (csrc/gdn_fwd.cu: the same products, added
-//     in the same order); forms dn and g*scale elementwise; writes dn to an
+//  1. gdn_bwd_dx: a CTA per 64-row tile (the bf16 wide kernel: a
+//     persistent CTA walks tiles). It recomputes the norm (f32 and the
+//     bf16 mma kernel: with the forward kernel's sums, csrc/gdn_fwd.cu, the
+//     same products added in the same order; the bf16 wide kernel in
+//     wgmma's order); forms dn and g*scale elementwise; writes dn to an
 //     (n, C) scratch; stages dn rounded to the input type, and forms
 //     dx = g*scale + 2x (dn . gamma).
 //     float32 (gdn_bwd_dx_kernel): bound by the FP32 operations of its
@@ -39,15 +41,21 @@
 //     and g come to shared memory by cp.async with the first slice (101 KB of
 //     shared memory at C = 192). C = 192 and 128 run instances compiled
 //     for that width.
-//     bfloat16 (gdn_bwd_dx_mma_kernel): 8 warps on the tensor cores. x^2
-//     staged as bf16; product 1 runs panel by panel (gamma^T in 64-column
-//     panels, csrc/gdn_mma.cuh) into an f32 norm tile in shared memory;
-//     dn is rounded to bf16 once, written to the bf16 scratch and staged
-//     over x^2, g*scale over the norm, and the f32 dn's sum over the tile's
-//     rows goes to an (ceil(n / 64), C) f32 buffer of tile sums, in a fixed
-//     order (the TPU kernel's per-tile dbeta); product 2 runs panel by
-//     panel (gamma), each panel's sums through shared memory to the dx
-//     epilogue. 103 KB of shared memory at C = 192.
+//     bfloat16: bound by bytes. dn is rounded to bf16 once, for the bf16
+//     scratch and for product 2, and the f32 dn's sum over each 64-row
+//     tile goes to a (ceil(n / 64), C) f32 buffer of tile sums, in a fixed
+//     order (the TPU kernel's per-tile dbeta). C = 128 and 192 with
+//     16-byte aligned rows (the zoo's AMP training paths) run
+//     gdn_bwd_dx_wide_kernel: persistent CTAs keep gamma in shared memory,
+//     x and g arrive by TMA one tile ahead, both products run on wgmma
+//     with the norm, dn and g*scale in registers, and dn and dx leave by
+//     TMA (csrc/gdn_hopper.cuh). Every other shape runs
+//     gdn_bwd_dx_mma_kernel: 8 warps, x^2 staged as bf16, product 1 panel
+//     by panel (gamma^T in 64-column panels, csrc/gdn_mma.cuh) into an f32
+//     norm tile in shared memory, dn staged over x^2 and g*scale over the
+//     norm, product 2 panel by panel (gamma), each panel's sums through
+//     shared memory to the dx epilogue; 103 KB of shared memory at
+//     C = 192.
 //  2. gdn_bwd_partials: each 1024-row chunk's partial sums of dgamma and
 //     dbeta.
 //     float32 (gdn_bwd_partials_kernel): one CTA per (chunk, 64x64 block of
@@ -87,6 +95,7 @@
 #include <cstdint>
 
 #include "gdn_f32.cuh"
+#include "gdn_hopper.cuh"
 #include "gdn_mma.cuh"
 
 namespace {
@@ -111,6 +120,7 @@ struct Io<__nv_bfloat16> {
 };
 
 namespace f32 = gdn_f32;
+namespace hop = gdn_hopper;
 
 // The f32 dx pass: bound by the FP32 operations of its two products. Both
 // are the shared main loop (gdn_f32::product: 8 x 4 register tiles fed by
@@ -599,9 +609,289 @@ __global__ void __launch_bounds__(gdn_mma::kMmaThreads, 2)
   }
 }
 
+// The bf16 dx pass at the widths of the zoo's AMP training paths (C = 128
+// and 192), for Hopper: the dx and per-tile dbeta part of
+// lmic_tpu/ops/pallas_gdn.py::_bwd_kernel. It computes what
+// gdn_bwd_dx_mma_kernel computes (dx, the bf16 dn scratch, each 64-row
+// tile's f32 sum of dn) with the same precision, and is bound by bytes:
+// x and g read, dx and dn written
+// (8 bytes a row-channel) against the 4*C bf16 tensor-core operations of
+// its two products a row-channel, 96 operations a byte at C = 192, 3x
+// below the H100's 295. So the design reads each byte once and keeps
+// every intermediate on chip:
+//  - persistent CTAs, one an SM, walk the tiles b, b + grid, ...; each
+//    loads gamma once by TMA (72 KB at C = 192) and keeps it: box (rows o
+//    64 rb.., columns 64 cb..) at (cb * boxes + rb) * 8 KB, so for a column
+//    block cb the rows o lie 128 bytes apart across the boxes. Product 1
+//    reads it K-major (B(k = j, n = o) = gamma[o][j]: row o's 64 values of
+//    j in a box row), product 2 MN-major (B(k = o, n = i) = gamma[o][i]:
+//    8-row atoms along o, one 64-column box along i), from the same bytes;
+//  - a tile's x and g come as 64-row x 64-column boxes by TMA into a ring
+//    of two stages, an mbarrier a stage, issued by thread 0 one tile ahead
+//    (while the tile's first product runs); rows past n come in as zeros;
+//  - one warpgroup per 64-column box of the output (3 at C = 192, 2 at
+//    128): each runs both products for its columns on wgmma m64n64k16
+//    (f32 sums in 32 registers a thread), so a thread holds the same
+//    (row, column) positions in both and g*scale waits in its registers
+//    for the epilogue. The 64-wide split keeps product 2's MN-major B on
+//    whole swizzle atoms (a 96-wide half would start mid-atom) and needs
+//    no setmaxnreg: 64 f32 of state a thread fit 168 registers;
+//  - product 1's A is x^2, squared by all threads from the x stage into a
+//    tile of its own (same layout); product 2's A is the bf16 dn tile the
+//    elementwise pass writes from the accumulators, which the TMA also
+//    stores to the scratch. x and g are read at the fragments' (row,
+//    column) from the swizzled stage (conflict-free: a warp's 8 rows read
+//    8 different 16-byte units of their rows), so the norm never leaves the
+//    registers; dx is written over x in the stage (each element read and
+//    written by one thread) and stored by TMA from there;
+//  - each column's tile sum of the f32 dn: a thread's two rows, then a
+//    shuffle butterfly over the 8 lanes that share the column, then the
+//    warpgroup's 4 warps in order through shared memory. One CTA computes
+//    a tile from its own rows alone, so no byte depends on the grid or the
+//    card; there are no atomics.
+// The norm sums its bf16 products in wgmma's order, not in
+// gdn_fwd_mma_kernel's mma.sync order: the backward's norm may differ from
+// the forward's in its last f32 bits, well inside the bf16 bar. 225 KB of
+// shared memory at C = 192: gamma 72 KB, two stages of x and g 96 KB, x^2
+// 24 KB, dn 24 KB, the warps' sums 3 KB.
+constexpr int kDxStages = 2;  // this tile's x and g, and the next one's
+
+template <int kWidth>
+struct DxWide {
+  static constexpr int kBoxes = kWidth / 64;  // and warpgroups
+  static constexpr int kThreads = kBoxes * 128;
+  static constexpr int kTileBytes = kBoxes * hop::kBox;  // 64 x C bf16
+  static constexpr int kGamma = kWidth * kWidth * 2;
+  // gamma, the ring, x^2, dn, the warps' sums, and room to align to 1 KB
+  static constexpr size_t kSmem = kGamma +
+                                  (2 * kDxStages + 2) * kTileBytes +
+                                  kBoxes * 4 * 64 * sizeof(float) + 1024;
+  static_assert(kWidth % 64 == 0, "whole boxes");
+  static_assert(kSmem <= gdn_mma::kSmemLimit, "fits a CTA");
+  static_assert(kThreads >= kWidth, "a thread a tile sum");
+};
+
+template <bool kInverse, int kWidth>
+__global__ void __launch_bounds__(DxWide<kWidth>::kThreads, 1)
+    gdn_bwd_dx_wide_kernel(const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap g_map,
+                           const __grid_constant__ CUtensorMap gamma_map,
+                           const __grid_constant__ CUtensorMap dx_map,
+                           const __grid_constant__ CUtensorMap dn_map,
+                           const __nv_bfloat16 *__restrict__ beta,
+                           float *__restrict__ dn_sums, int64_t n) {
+  using W = DxWide<kWidth>;
+  constexpr int C = kWidth;
+  constexpr int kBox = hop::kBox;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char *gam =
+      smem_raw + (1024 - hop::smem_at(smem_raw) % 1024) % 1024;
+  unsigned char *ring = gam + W::kGamma;  // kDxStages x {x, g}
+  unsigned char *x2 = ring + 2 * kDxStages * W::kTileBytes;
+  unsigned char *dns = x2 + W::kTileBytes;
+  float *wsum = reinterpret_cast<float *>(dns + W::kTileBytes);  // [warp][64]
+  __shared__ uint64_t landed[kDxStages];  // a stage's x and g are in
+  __shared__ uint64_t gamma_landed;
+
+  const int64_t tiles = (n + 63) / 64;
+  // this CTA's tiles: blockIdx.x + j * gridDim.x for j < mine
+  const int64_t mine = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  auto stage = [&](int64_t j) {
+    return ring + (j % kDxStages) * 2 * W::kTileBytes;
+  };
+  auto issue = [&](int64_t j) {  // thread 0
+    if (j >= mine) return;
+    const int row0 = static_cast<int>((blockIdx.x + j * gridDim.x) * 64);
+    uint64_t *bar = landed + j % kDxStages;
+    unsigned char *s = stage(j);
+    hop::mbar_expect(bar, 2 * W::kTileBytes);
+#pragma unroll
+    for (int b = 0; b < W::kBoxes; ++b) {
+      hop::tma_box(s + b * kBox, x_map, 64 * b, row0, bar);
+      hop::tma_box(s + W::kTileBytes + b * kBox, g_map, 64 * b, row0, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kDxStages; ++k) hop::mbar_init(landed + k);
+    hop::mbar_init(&gamma_landed);
+    hop::fence_mbar_init();
+    hop::mbar_expect(&gamma_landed, W::kGamma);
+    for (int cb = 0; cb < W::kBoxes; ++cb)
+      for (int rb = 0; rb < W::kBoxes; ++rb)
+        hop::tma_box(gam + (cb * W::kBoxes + rb) * kBox, gamma_map, 64 * cb,
+                     64 * rb, &gamma_landed);
+    issue(0);
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;  // this warpgroup's output columns 64 wg ..
+  // accumulator 4 t + 2 h + e: row r0 + 8 h, column 64 wg + 8 t + cl + e
+  const int r0 = 16 * (warp % 4) + lane / 4;
+  const int cl = 2 * (lane % 4);
+  // the byte offset in a tile of its pair (t, h), e = 0 and 1: rows r0 and
+  // r0 + 8 are both lane / 4 modulo 8
+  auto at = [&](int t, int h) {
+    return wg * kBox + (r0 + 8 * h) * 128 + ((t ^ (lane / 4)) * 16) + cl * 2;
+  };
+  float bv[16];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      bv[2 * t + e] = __bfloat162float(beta[64 * wg + 8 * t + cl + e]);
+  // product 1's B: gamma's rows 64 wg .. in column block kb at kb * kBoxes;
+  // product 2's B: gamma's columns 64 wg .., rows o at o * 128
+  const unsigned char *b1 = gam + wg * kBox;
+  const unsigned char *b2 = gam + wg * W::kBoxes * kBox;
+  __syncthreads();  // the barriers are initialised
+  hop::mbar_wait(&gamma_landed, 0);
+
+  for (int64_t j = 0; j < mine; ++j) {
+    const int64_t tile = blockIdx.x + j * gridDim.x;
+    const int row0 = static_cast<int>(tile * 64);
+    const int valid = n - row0 < 64 ? static_cast<int>(n - row0) : 64;
+    unsigned char *xt = stage(j);
+    const unsigned char *gt = xt + W::kTileBytes;
+    hop::mbar_wait(landed + j % kDxStages, (j / kDxStages) & 1);
+    // x^2 in the layout of x, an even share a thread
+    for (int e = threadIdx.x; e < W::kTileBytes / 16; e += W::kThreads) {
+      uint4 v = reinterpret_cast<const uint4 *>(xt)[e];
+      v.x = hop::square2(v.x), v.y = hop::square2(v.y),
+      v.z = hop::square2(v.z), v.w = hop::square2(v.w);
+      reinterpret_cast<uint4 *>(x2)[e] = v;
+    }
+    hop::fence_proxy_async();
+    __syncthreads();  // x^2 is whole; every thread is done with tile j - 1
+
+    // product 1: the norm's sums, k = j over C in steps of 16
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < C / 16; ++s) {
+      const int kb = s / 4, ko = (s % 4) * 32;
+      hop::wgmma_m64n64k16<0>(
+          acc, hop::desc_k(x2 + kb * kBox + ko),
+          hop::desc_k(b1 + kb * W::kBoxes * kBox + ko));
+    }
+    hop::wgmma_commit();
+    hop::fence_operands(acc);
+    // while it runs: tile j - 1's stores have read the stage that tile
+    // j + 1 takes
+    if (threadIdx.x == 0) {
+      hop::bulk_wait_read<0>();
+      issue(j + 1);
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_operands(acc);
+
+    // elementwise: dn over acc, g * scale kept; dn rounded once to bf16
+    // into the dn tile; rows past n give zeros
+    float gs[32];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = at(t, h);
+        const unsigned xw = *reinterpret_cast<const unsigned *>(xt + off);
+        const unsigned gw = *reinterpret_cast<const unsigned *>(gt + off);
+        const bool live = r0 + 8 * h < valid;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // bf16 -> f32 is exact: the bits shifted into the high half
+          const float xv = __uint_as_float(e ? xw & 0xffff0000u : xw << 16);
+          const float gv = __uint_as_float(e ? gw & 0xffff0000u : gw << 16);
+          const int i = 4 * t + 2 * h + e;
+          const float norm = acc[i] + bv[2 * t + e];
+          const float rs = rsqrtf(norm);
+          float d, sg;
+          if (kInverse) {
+            d = 0.5f * gv * xv * rs;
+            sg = gv * sqrtf(norm);
+          } else {
+            d = -0.5f * gv * xv * (rs * rs * rs);
+            sg = gv * rs;
+          }
+          acc[i] = live ? d : 0.f;
+          gs[i] = live ? sg : 0.f;
+        }
+        *reinterpret_cast<unsigned *>(dns + off) =
+            gdn_mma::pack2(acc[4 * t + 2 * h], acc[4 * t + 2 * h + 1]);
+      }
+    // each column's sum of the f32 dn over the tile: the thread's two
+    // rows, the 8 lanes of the column (all get the same bits), the warps
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = acc[4 * t + e] + acc[4 * t + 2 + e];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (lane < 4) wsum[warp * 64 + 8 * t + cl + e] = s;
+      }
+    hop::fence_proxy_async();
+    __syncthreads();  // the dn tile and the warps' sums are whole
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int b = 0; b < W::kBoxes; ++b)
+        hop::tma_store(dn_map, dns + b * kBox, 64 * b, row0);
+      hop::bulk_commit();
+    }
+    if (threadIdx.x < C) {
+      const int c = threadIdx.x;
+      const float *w = wsum + (c / 64) * 4 * 64 + c % 64;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s += w[q * 64];
+      dn_sums[tile * C + c] = s;
+    }
+
+    // product 2: dn . gamma, k = o over C in steps of 16
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < C / 16; ++s)
+      hop::wgmma_m64n64k16<1>(
+          acc, hop::desc_k(dns + (s / 4) * kBox + (s % 4) * 32),
+          hop::desc_mn(b2 + s * 2 * hop::kAtom, W::kBoxes * kBox));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_operands(acc);
+
+    // dx = g * scale + 2 x (dn . gamma), rounded once, over x in the stage
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = at(t, h);
+        unsigned *p = reinterpret_cast<unsigned *>(xt + off);
+        const unsigned xw = *p;
+        const int i = 4 * t + 2 * h;
+        *p = gdn_mma::pack2(
+            gs[i] + 2.0f * __uint_as_float(xw << 16) * acc[i],
+            gs[i + 1] + 2.0f * __uint_as_float(xw & 0xffff0000u) * acc[i + 1]);
+      }
+    // the dn store has read the dn tile, which tile j + 1 writes
+    if (threadIdx.x == 0) hop::bulk_wait_read<0>();
+    hop::fence_proxy_async();
+    __syncthreads();  // dx is whole in the stage
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int b = 0; b < W::kBoxes; ++b)
+        hop::tma_store(dx_map, xt + b * kBox, 64 * b, row0);
+      hop::bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) hop::bulk_wait<0>();  // the stores are done
+}
+
 // The bf16 partials: for each 1024-row chunk, dgamma's partial dn^T . x^2
 // (bf16 operands, f32 sums on the tensor cores) and dbeta's, the in-order
-// sum of the chunk's 16 tile sums that gdn_bwd_dx_mma_kernel wrote.
+// sum of the chunk's 16 tile sums that the bf16 dx pass wrote.
 //
 // It is bound by bytes: 2*n*C^2 operations (51 GFLOP a training step at
 // C = 192, 0.05 ms at 989 TFLOP/s) against the bf16 dn scratch and x read
@@ -651,138 +941,21 @@ constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideBlock = 192;    // dgamma rows and columns per CTA
 constexpr int kWideRows = 64;      // rows per staged slice (a dx tile)
 constexpr int kWideStages = 4;
-constexpr int kWideAtom = 1024;    // bytes of 8 rows of a box
-constexpr int kWideBox = kWideRows / 8 * kWideAtom;      // 64 x 64 bf16
+constexpr int kWideAtom = hop::kAtom;  // bytes of 8 rows of a box
+constexpr int kWideBox = hop::kBox;    // 64 x 64 bf16
 constexpr int kWideSlice = kWideBlock / 64 * kWideBox;   // bytes an operand
 constexpr int kWideAcc = 96;       // f32 sums a thread: 64 x 192 / 128
 constexpr int kMaxSplit = 4;
 constexpr size_t kWideSmem = kWideStages * 2 * kWideSlice;
 static_assert(kChunkRows % kWideRows == 0, "whole slices per chunk");
-static_assert(kWideRows == gdn_mma::kTileRows, "a slice is a dx tile");
+static_assert(kWideRows == gdn_mma::kTileRows && kWideRows == hop::kBoxRows,
+              "a slice is a dx tile and a row of boxes");
 static_assert(3 * 64 == kWideBlock, "the warpgroups tile the block");
 // what a rank receives: every rank's sums of the warps it owns
 static_assert(kWideWarps * kWideAcc * 32 * 4 <= kWideSmem,
               "the sums a rank receives overlay its ring");
 static_assert(kWideWarps % kMaxSplit == 0 && kWideWarps % 2 == 0,
               "every rank owns as many warps");
-
-// both bf16 halves squared, each rounded once to bf16
-__device__ __forceinline__ unsigned square2(unsigned v) {
-  unsigned d;
-  asm("mul.rn.bf16x2 %0, %1, %1;\n" : "=r"(d) : "r"(v));
-  return d;
-}
-
-// The byte offset in a slice of element (k, c), as the TMA's 128-byte
-// swizzle places it: box c / 64, row k, its 16-byte unit XOR k % 8.
-__device__ __forceinline__ int swizzled_at(int k, int c) {
-  return (c / 64) * kWideBox + k * 128 + ((((c % 64) / 8) ^ (k % 8)) * 16) +
-         (c % 8) * 2;
-}
-
-// The descriptor wgmma reads a 128-byte-swizzled MN-major operand by: the
-// start address, the byte offsets between 64-column boxes (leading) and
-// between 8-row atoms along k (stride), each in 16-byte units.
-__device__ __forceinline__ uint64_t wgmma_desc(const void *p) {
-  const uint64_t at = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  return ((at >> 4) & 0x3fff) |
-         static_cast<uint64_t>(kWideBox >> 4) << 16 |
-         static_cast<uint64_t>(kWideAtom >> 4) << 32 | 1ull << 62;
-}
-
-// d (64 x 192 over the warpgroup, 96 f32 a thread) += a . b on the tensor
-// cores: a the 64 x 16 bf16 operand and b the 16 x 192 one that the
-// descriptors locate, both MN-major (imm-trans 1), f32 sums
-__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96],
-                                                 uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95}, "
-      " %96, %97, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// keeps the compiler from moving accesses of d across the asynchronous
-// product's issue and wait
-__device__ __forceinline__ void fence_operands(float (&d)[96]) {
-#pragma unroll
-  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ unsigned smem_at(const void *p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t *bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_at(bar))
-               : "memory");
-}
-
-// this thread's arrival, announcing `bytes` to come from the TMA
-__device__ __forceinline__ void mbar_expect(uint64_t *bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_at(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// waits until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t *bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_at(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// the box of `map` at (column c, row r) into dst, counted on bar
-__device__ __forceinline__ void tma_box(void *dst, const CUtensorMap &map,
-                                        int c, int r, uint64_t *bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_at(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c), "r"(r),
-      "r"(smem_at(bar))
-      : "memory");
-}
 
 // Rows row0 .. row0+63 of src's columns c0 .. c0+191 into the slice s in
 // the swizzled layout, element by element (squared as they are stored
@@ -796,7 +969,7 @@ __device__ __forceinline__ void copy_elements(
     const int c = e - k * kWideBlock;
     float v = k < live && c0 + c < C ? __bfloat162float(src[k * C + c]) : 0.f;
     if (square) v *= v;
-    *reinterpret_cast<__nv_bfloat16 *>(s + swizzled_at(k, c)) =
+    *reinterpret_cast<__nv_bfloat16 *>(s + hop::swizzled_at(k, c)) =
         __float2bfloat16(v);
   }
 }
@@ -813,7 +986,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   // kWideStages x {dn, x} from the first 1024-byte boundary, which the
   // swizzle's atoms need (the launch adds 1 KB for it)
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char *smem = smem_raw + (1024 - smem_at(smem_raw) % 1024) % 1024;
+  unsigned char *smem =
+      smem_raw + (1024 - hop::smem_at(smem_raw) % 1024) % 1024;
   __shared__ uint64_t landed[kWideStages];  // a stage's TMA bytes are in
 
   const int tiles = (C + kWideBlock - 1) / kWideBlock;
@@ -844,18 +1018,18 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       copy_elements(slot(j) + kWideSlice, x, row0, live, i0, C, true);
     } else if (threadIdx.x == 0) {
       uint64_t *bar = landed + j % kWideStages;
-      mbar_expect(bar, (dn_boxes + x_boxes) * kWideBox);
+      hop::mbar_expect(bar, (dn_boxes + x_boxes) * kWideBox);
       for (int b = 0; b < dn_boxes; ++b)
-        tma_box(slot(j) + b * kWideBox, dn_map, o0 + 64 * b,
-                static_cast<int>(row0), bar);
+        hop::tma_box(slot(j) + b * kWideBox, dn_map, o0 + 64 * b,
+                     static_cast<int>(row0), bar);
       for (int b = 0; b < x_boxes; ++b)
-        tma_box(slot(j) + kWideSlice + b * kWideBox, x_map, i0 + 64 * b,
-                static_cast<int>(row0), bar);
+        hop::tma_box(slot(j) + kWideSlice + b * kWideBox, x_map, i0 + 64 * b,
+                     static_cast<int>(row0), bar);
     }
   };
   if (threadIdx.x == 0) {
-    for (int k = 0; k < kWideStages; ++k) mbar_init(landed + k);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < kWideStages; ++k) hop::mbar_init(landed + k);
+    hop::fence_mbar_init();
   }
   __syncthreads();
   for (int j = 0; j < kWideStages - 1; ++j) issue(j);
@@ -881,38 +1055,39 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 
   for (int j = 0; j < mine; ++j) {
     if (tma) {
-      mbar_wait(landed + j % kWideStages, (j / kWideStages) & 1);
+      hop::mbar_wait(landed + j % kWideStages, (j / kWideStages) & 1);
       // x^2 in place, an even share a thread
       uint4 *xs = reinterpret_cast<uint4 *>(slot(j) + kWideSlice);
       for (int e = threadIdx.x; e < x_boxes * kWideBox / 16;
            e += kWideThreads) {
         uint4 v = xs[e];
-        v.x = square2(v.x), v.y = square2(v.y), v.z = square2(v.z),
-        v.w = square2(v.w);
+        v.x = hop::square2(v.x), v.y = hop::square2(v.y),
+        v.z = hop::square2(v.z), v.w = hop::square2(v.w);
         xs[e] = v;
       }
     }
     // the squares (and element copies), written through the generic proxy,
     // are seen by wgmma's reads once every thread has passed the barrier
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_operands(acc);
+    hop::fence_proxy_async();
+    hop::wgmma_wait<0>();
+    hop::fence_operands(acc);
     __syncthreads();  // slice j is whole; every product of j - 1 is done
     issue(j + kWideStages - 1);  // over slice j - 1
     if (live_rows) {
       const unsigned char *a = slot(j) + wg * kWideBox;
       const unsigned char *b = slot(j) + kWideSlice;
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      hop::wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kWideRows; k += 16)
-        wgmma_m64n192k16(acc, wgmma_desc(a + (k / 8) * kWideAtom),
-                         wgmma_desc(b + (k / 8) * kWideAtom));
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      fence_operands(acc);
+        hop::wgmma_m64n192k16(acc,
+                              hop::desc_mn(a + (k / 8) * kWideAtom, kWideBox),
+                              hop::desc_mn(b + (k / 8) * kWideAtom, kWideBox));
+      hop::wgmma_commit();
+      hop::fence_operands(acc);
     }
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_operands(acc);
+  hop::wgmma_wait<0>();
+  hop::fence_operands(acc);
 
   // accumulator 4 t + 2 h + (0, 1): row 16 (warp % 4) + lane / 4 + 8 h of
   // the warpgroup's 64, columns 8 t + 2 (lane % 4) + (0, 1)
@@ -1071,6 +1246,66 @@ cudaError_t launch_dx_mma(const void *x, const void *g, const void *gamma_t,
   return cudaGetLastError();
 }
 
+template <bool kInverse, int kWidth>
+cudaError_t launch_dx_wide_as(const void *x, const void *g, const void *gamma,
+                              const void *beta, void *dx, void *dn,
+                              void *dn_sums, int64_t n, cudaStream_t stream) {
+  using W = DxWide<kWidth>;
+  auto kernel = gdn_bwd_dx_wide_kernel<kInverse, kWidth>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(W::kSmem));
+  if (err != cudaSuccess) return err;
+  // x, g, gamma, dx, dn
+  CUtensorMap maps[5];
+  const void *bases[5] = {x, g, gamma, dx, dn};
+  for (int k = 0; k < 5; ++k)
+    if ((err = hop::box_map(maps + k, bases[k], k == 2 ? kWidth : n,
+                            kWidth)) != cudaSuccess)
+      return err;
+  // persistent CTAs, one an SM: each tile's bytes are one CTA's alone, so
+  // they do not depend on the grid
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  const int64_t tiles = (n + 63) / 64;
+  kernel<<<static_cast<unsigned>(tiles < sms ? tiles : sms), W::kThreads,
+           W::kSmem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
+                               static_cast<const __nv_bfloat16 *>(beta),
+                               static_cast<float *>(dn_sums), n);
+  return cudaGetLastError();
+}
+
+// The bf16 dx route, a rule on shape and alignment alone: the widths of
+// the zoo's AMP training paths take gdn_bwd_dx_wide_kernel where the TMA
+// can move their rows (16-byte rows and bases, row indices that fit an
+// int); every other shape takes gdn_bwd_dx_mma_kernel.
+bool dx_wide_route(const void *x, const void *g, const void *gamma,
+                   const void *dx, const void *dn, int64_t n, int C) {
+  return (C == 128 || C == 192) && gdn_mma::aligned16(x) &&
+         gdn_mma::aligned16(g) && gdn_mma::aligned16(gamma) &&
+         gdn_mma::aligned16(dx) && gdn_mma::aligned16(dn) &&
+         n < (int64_t{1} << 31);
+}
+
+template <bool kInverse>
+cudaError_t launch_dx_bf16(const void *x, const void *g, const void *gamma_t,
+                           const void *gamma, const void *beta, void *dx,
+                           void *dn, void *dn_sums, int64_t n, int C,
+                           cudaStream_t stream) {
+  const bool tma = dx_wide_route(x, g, gamma, dx, dn, n, C);
+  if (tma && C == 192)
+    return launch_dx_wide_as<kInverse, 192>(x, g, gamma, beta, dx, dn,
+                                            dn_sums, n, stream);
+  if (tma && C == 128)
+    return launch_dx_wide_as<kInverse, 128>(x, g, gamma, beta, dx, dn,
+                                            dn_sums, n, stream);
+  return launch_dx_mma<kInverse>(x, g, gamma_t, gamma, beta, dx, dn, dn_sums,
+                                 n, C, stream);
+}
+
 // The cluster size of the bf16 partials: the most ranks (up to kMaxSplit)
 // that keep the grid within 132 CTAs, the H100's SM count. A rule on n and
 // C alone, so the sums' order, and with it their bytes, never depends on
@@ -1081,34 +1316,6 @@ int partials_split(int64_t n, int C) {
   int split = 1;
   while (split < kMaxSplit && blocks * split * 2 <= 132) split *= 2;
   return split;
-}
-
-// The TMA's view of a bf16 (n, C) operand, C % 8 == 0: 64-row x 64-column
-// boxes with the 128-byte swizzle, zeros past n and C. cuTensorMapEncodeTiled
-// is a driver function, reached through the runtime's entry point table.
-cudaError_t box_map(CUtensorMap *map, const void *p, int64_t n, int C) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
-    void *fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                         cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C),
-                              static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * 2};
-  const cuuint32_t box[2] = {64, kWideRows};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void *>(p), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 cudaError_t launch_partials_wide(const void *x, const void *dn,
@@ -1129,8 +1336,8 @@ cudaError_t launch_partials_wide(const void *x, const void *dn,
                    n < (int64_t{1} << 31);
   CUtensorMap x_map = {}, dn_map = {};
   if (tma) {
-    if ((err = box_map(&x_map, x, n, C)) != cudaSuccess) return err;
-    if ((err = box_map(&dn_map, dn, n, C)) != cudaSuccess) return err;
+    if ((err = hop::box_map(&x_map, x, n, C)) != cudaSuccess) return err;
+    if ((err = hop::box_map(&dn_map, dn, n, C)) != cudaSuccess) return err;
   }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(static_cast<unsigned>(tiles * tiles * split),
@@ -1215,7 +1422,18 @@ int lmic_gdn_bwd_chunk_rows() { return kChunkRows; }
 // f32 sums of dn, one per tile, in tile order.
 int lmic_gdn_bwd_tile_rows() { return gdn_mma::kTileRows; }
 
-// x, g, dx: (n, C) contiguous; gamma_t: gamma transposed, (C_in, C_out);
+// 1 when lmic_gdn_bwd_dx reads gamma_t for these operands (float32, and
+// bfloat16 off gdn_bwd_dx_wide_kernel's route), else 0: the caller builds
+// the transpose only then, and may pass any pointer in its place.
+int lmic_gdn_bwd_dx_reads_gamma_t(const void *x, const void *g,
+                                  const void *gamma, const void *dx,
+                                  const void *dn, int64_t n, int C,
+                                  int dtype) {
+  return !(dtype == 1 && dx_wide_route(x, g, gamma, dx, dn, n, C));
+}
+
+// x, g, dx: (n, C) contiguous; gamma_t: gamma transposed, (C_in, C_out),
+// read where lmic_gdn_bwd_dx_reads_gamma_t says so;
 // gamma: (C_out, C_in); beta: (C,); all of one type (0 = float32,
 // 1 = bfloat16). dn: (n, C) scratch, float32 for float32 and bfloat16
 // (dn rounded as the products take it) for bfloat16. dn_sums: for
@@ -1238,10 +1456,10 @@ int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
                   : launch_dx<false>(x, g, gamma_t, gamma, beta, dx, dn, n,
                                      C, s);
   } else {
-    err = inverse ? launch_dx_mma<true>(x, g, gamma_t, gamma, beta, dx, dn,
-                                        dn_sums, n, C, s)
-                  : launch_dx_mma<false>(x, g, gamma_t, gamma, beta, dx, dn,
-                                         dn_sums, n, C, s);
+    err = inverse ? launch_dx_bf16<true>(x, g, gamma_t, gamma, beta, dx, dn,
+                                         dn_sums, n, C, s)
+                  : launch_dx_bf16<false>(x, g, gamma_t, gamma, beta, dx, dn,
+                                          dn_sums, n, C, s);
   }
   return static_cast<int>(err);
 }

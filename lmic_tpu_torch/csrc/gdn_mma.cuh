@@ -1,12 +1,19 @@
 // Tensor-core building blocks of the bf16 GDN / IGDN kernels, Hopper
 // (sm_90a): the padding, the 16-byte loads and stores of both gdn_fwd.cu
-// and gdn_bwd.cu, and the 64-row CTA products of gdn_bwd.cu.
+// and gdn_bwd.cu, and the 64-row CTA products of gdn_bwd_dx_mma_kernel,
+// which takes the bf16 dx shapes outside the TMA's route (C other than 128
+// and 192, rows that are not 16-byte aligned).
 //
 // In bf16 the GDN products are bound by bytes, not operations: at
 // 262,144 x 192 the backward's three products are 58 GFLOP, 0.06 ms at the
-// H100's 989 TFLOP/s, against 0.09 ms to move x, g and dx once. So warp-
-// level tensor-core products (nvcuda::wmma 16x16x16 bf16 fragments with
-// f32 sums, compiled to HMMA) are enough, and the design is about bytes:
+// H100's 989 TFLOP/s, against 0.09 ms to move x, g and dx once. Warp-level
+// products (nvcuda::wmma 16x16x16 bf16 fragments with f32 sums, compiled
+// to HMMA) on synchronous loads do not reach that byte rate: streaming the
+// weight from L2 for every tile and waiting on every load, the mma kernel
+// took 1.744 ms of a training step at C = 192 against a 0.318 ms bound
+// (an H100 80GB HBM3 at 700 W; PERF.md).
+// The main path's widths therefore run gdn_bwd_dx_wide_kernel (TMA and
+// wgmma, csrc/gdn_hopper.cuh); this design stays for the other shapes:
 //  - a CTA of 8 warps takes kTileRows = 64 rows; x^2 for them is staged once
 //    in shared memory as bf16 ([kTileRows][Cp + 8]), squared and rounded while
 //    staging, as the TPU kernel rounds x * x in bf16;

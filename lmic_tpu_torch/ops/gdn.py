@@ -69,6 +69,7 @@ _SIGNATURES = {
         "lmic_gdn_bwd_max_channels": [_I],
         "lmic_gdn_bwd_chunk_rows": [],
         "lmic_gdn_bwd_tile_rows": [],
+        "lmic_gdn_bwd_dx_reads_gamma_t": [_P, _P, _P, _P, _P, _I64, _I, _I],
         "lmic_gdn_bwd_error_string": [_I],
     },
 }
@@ -238,7 +239,6 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
         x = x.contiguous()
     if not g.is_contiguous():
         g = g.contiguous()
-    gamma_t = gamma.t().contiguous()
     gamma = gamma.contiguous()
     beta = beta.contiguous()
     dev, dt = x.device, x.dtype
@@ -248,9 +248,14 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
     n = x.numel() // C if C else 0
     chunks = -(-n // lib.lmic_gdn_bwd_chunk_rows())
     dn, dn_sums = _dn_scratch(lib, n, C, dt, dev)
+    code, inv = _DTYPE_CODES[dt], int(bool(inverse))
+    # the bf16 kernel of the zoo's training widths reads gamma alone
+    reads_t = lib.lmic_gdn_bwd_dx_reads_gamma_t(
+        x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+        dn.data_ptr(), n, C, code)
+    gamma_t = gamma.t().contiguous() if reads_t else gamma
     partials = torch.empty((chunks, C * C + C), dtype=torch.float32,
                            device=dev)
-    code, inv = _DTYPE_CODES[dt], int(bool(inverse))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if n:

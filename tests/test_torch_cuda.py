@@ -209,6 +209,104 @@ def _check_bwd(dtype, inverse, rows, C):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# bf16 gdn_bwd on the route of gdn_bwd_dx_wide_kernel (C = 128 and 192,
+# 16-byte aligned rows; persistent CTAs, one an SM, walk the 64-row tiles):
+# around one tile (1, 63, 64, 65 rows), around one tile a CTA on a 132-SM
+# card (131, 132, 133 tiles), an odd count of tiles a CTA (3: 396 tiles)
+# and a ragged 397th tile, a ragged training layer and a whole one.
+WIDE = [(rows, C) for rows in (1, 63, 64, 65, 131 * 64, 132 * 64, 133 * 64,
+                               396 * 64, 397 * 64 - 3, 16_391, 262_144)
+        for C in (128, 192)]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", WIDE)
+def test_wide_dx_route_matches_reference(inverse, rows, C):
+    _check_bwd(torch.bfloat16, inverse, rows, C)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", [(65, 128), (133 * 64, 192),
+                                    (16_391, 192), (16_391, 128)])
+def test_wide_dx_outputs_match_plain(inverse, rows, C):
+    """gdn_bwd_dx alone through the C ABI: dx, the bf16 dn scratch and the
+    tile sums each against the plain version as chip_smoke.py forms it (run
+    from the root of the checkout), the same bytes twice."""
+    from chip_smoke import _dx_plain
+
+    lib = gdn._load("gdn_bwd.cu")
+    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=rows + C, skew=True)
+    g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
+                    ).to("cuda", torch.bfloat16)
+    gamma_t = gamma.t().contiguous()
+    dx = torch.empty_like(x)
+    dn, dn_sums = gdn._dn_scratch(lib, rows, C, x.dtype, "cuda")
+
+    def run():
+        err = lib.lmic_gdn_bwd_dx(
+            x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), dx.data_ptr(), dn.data_ptr(),
+            dn_sums.data_ptr(), rows, C, 1, int(inverse),
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, lib.lmic_gdn_bwd_error_string(err).decode()
+        torch.cuda.synchronize()
+        return [t.clone() for t in (dx, dn, dn_sums)]
+
+    got = run()
+    want = _dx_plain(x, beta, gamma, g, inverse, lib.lmic_gdn_bwd_tile_rows())
+    for name, a, b in zip(("dx", "dn", "dn_sums"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) < TOL[torch.bfloat16], name
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("C", [128, 192])
+def test_offset_view_takes_the_mma_kernel(inverse, C):
+    """A view offset by one element is off the TMA's 16-byte route:
+    gdn_bwd_dx_mma_kernel takes it, and it still matches the plain
+    version; the aligned tensor takes the wide kernel."""
+    rows = 1_000
+    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=C, skew=True)
+    g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
+                    ).to("cuda", torch.bfloat16)
+    buf = torch.empty(rows * C + 1, dtype=x.dtype, device="cuda")
+    buf[1:].copy_(x.view(-1))
+    offset = buf[1:].view(rows, C)
+    assert offset.is_contiguous() and offset.data_ptr() % 16 != 0
+    want = gdn.gdn_bwd_reference(x, beta, gamma, g, inverse)
+    from chip_smoke import _dx_kernels
+    for xi, kernel in ((offset, "gdn_bwd_dx_mma_kernel"),
+                       (x, "gdn_bwd_dx_wide_kernel")):
+        def run():
+            return gdn.gdn_bwd(xi, beta, gamma, g, inverse)
+        assert _dx_kernels(run) == [kernel]
+        got = run()
+        for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
+            assert _rel_err(a, b) < TOL[torch.bfloat16], name
+        assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+def test_dx_reads_gamma_t_off_the_wide_route_only():
+    """The wrapper builds gamma^T only where the dx launch reads it: f32,
+    and bf16 off the wide kernel's route (a width it has no instance of, a
+    base off 16 bytes)."""
+    lib = gdn._load("gdn_bwd.cu")
+    buf = torch.empty(64 * 320 + 1, dtype=torch.bfloat16, device="cuda")
+
+    def reads(C, dtype, at=0):
+        x = buf[at:at + 64 * C].view(64, C)
+        gamma = torch.empty((C, C), dtype=dtype, device="cuda")
+        return lib.lmic_gdn_bwd_dx_reads_gamma_t(
+            x.data_ptr(), x.data_ptr(), gamma.data_ptr(), x.data_ptr(),
+            x.data_ptr(), 64, C, 0 if dtype == torch.float32 else 1)
+
+    assert reads(128, torch.bfloat16) == reads(192, torch.bfloat16) == 0
+    assert reads(192, torch.bfloat16, at=1) == 1
+    assert reads(320, torch.bfloat16) == reads(37, torch.bfloat16) == 1
+    assert reads(192, torch.float32) == 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_refuse_channels_past_their_tile(dtype):
     for kernel in ("gdn_fwd", "gdn_bwd"):

@@ -162,3 +162,65 @@ def test_gdn_signatures_match_the_c_abi(source):
     for name, (ret, params) in defined.items():
         assert ret == ("const char *" if name.endswith("string") else "int")
         assert [_CTYPES[p] for p in params] == bound[name], name
+
+
+def _smoke_kernel_lists():
+    """{name: tuple of str} of the kernel lists chip_smoke.py assigns at its
+    top level, read from its source (nothing of it is imported)."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    lists = {}
+
+    def value(node):  # a tuple of strings, a list named before, or a sum
+        if isinstance(node, ast.Tuple) and all(
+                isinstance(e, ast.Constant) and isinstance(e.value, str)
+                for e in node.elts):
+            return tuple(e.value for e in node.elts)
+        if isinstance(node, ast.Name):
+            return lists.get(node.id)
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Add):
+            a, b = value(node.left), value(node.right)
+            return None if a is None or b is None else a + b
+        return None
+
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)):
+            found = value(node.value)
+            if found is not None:
+                lists[node.targets[0].id] = found
+    return lists
+
+
+@pytest.mark.parametrize("source", ["gdn_fwd.cu", "gdn_bwd.cu"])
+def test_every_gdn_kernel_is_in_one_smoke_list(source):
+    """Each `__global__` kernel of the CUDA source is named in exactly one
+    of chip_smoke.py's MMA_KERNELS (must run on the tensor cores) and
+    FP32_KERNELS (must not), so the card's SASS check covers it and cannot
+    pass over a new kernel; the wgmma and no-spill lists name kernels of
+    the sources."""
+    import os
+    import re
+
+    from lmic_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = re.sub(r"//[^\n]*", "", f.read())
+    kernels = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        text))
+    assert kernels and all(k.startswith(source[:-3] + "_") for k in kernels)
+    lists = _smoke_kernel_lists()
+    mma, fp32 = set(lists["MMA_KERNELS"]), set(lists["FP32_KERNELS"])
+    for kernel in kernels:
+        assert (kernel in mma) + (kernel in fp32) == 1, kernel
+    ours = {k for k in mma | fp32 if k.startswith(source[:-3] + "_")}
+    assert ours == kernels  # no stale name either
+    assert set(lists["WGMMA_KERNELS"]) <= mma
+    for name in lists["NO_SPILL_KERNELS"]:
+        assert name in mma | fp32, name
