@@ -9,6 +9,8 @@ runs them.
     python3 chip_probes.py sync-u8 ROOT [ROOT ...]
     python3 chip_probes.py gdn-ab ROOT [ROOT ...]
     python3 chip_probes.py gdn-host PARENT
+    python3 chip_probes.py gdn-fwd-tiles
+    python3 chip_probes.py gdn-fwd-sqrt
 
 - master-batch: the largest batch of the RGB-T master's training step
   that fits, the channel-1 master q7 (f32) against its frozen guided q7 on
@@ -49,7 +51,9 @@ runs them.
   sync-u8 runs them, each in a process of its own that imports that
   ROOT's `chip_smoke.py` and port: the kernel phase's per-step totals (ms,
   plain, bound, library) of every GDN kernel at the training rows, C = 192,
-  f32 and bf16; an on-card checksum of every f32 output (gdn_fwd, and each of
+  f32 and bf16, the bf16 `gdn_fwd` of a --remat step (each layer twice)
+  and of each layer alone (µs, GDN and IGDN, C = 192 and 128); an on-card
+  checksum of every f32 output (gdn_fwd, and each of
   gdn_bwd's three launches: dx and the dn scratch, the partials, dbeta and
   dgamma) at every f32 shape of the kernel phase, and of the bf16 partials
   and reduce on fixed seeded inputs (x, dn, tile sums), all of which must
@@ -57,13 +61,29 @@ runs them.
   16 of 256x256): step ms, peak memory, and device ms and busy share from
   a profile. Host times of separate processes differ by tens of µs on a
   host shared with others, so gdn-host compares them in one process:
-- gdn-host: the gdn_bwd library of the checkout PARENT beside this
-  tree's in one process, in turns (the launches' C ABI is the same; a
-  parent without the gamma_t query gets the wrapper to build gamma_t on
-  every call, as its own did): the host µs of one `lmic_gdn_bwd_dx` call
-  on each bf16 route and in f32, of one `gdn_bwd` call, and phase 5's AMP
-  step ms with each library in ops/gdn.py. This is the port's one
+- gdn-host: the gdn_fwd and gdn_bwd libraries of the checkout PARENT
+  beside this tree's in one process, in turns (the launches' C ABI is the
+  same; a parent without the gamma_t query gets the wrapper to build
+  gamma_t on every call, as its own did): the host µs of one
+  `lmic_gdn_fwd` call on each bf16 route and in f32, with the device µs
+  of each call beside it, of one `lmic_gdn_bwd_dx` call on each bf16
+  route and in f32, of one `gdn_bwd` call, and phase 5's AMP step ms with
+  each pair of libraries in ops/gdn.py. This is the port's one
   measurement of host cost.
+- gdn-fwd-tiles: bf16 `gdn_fwd` on its wide route at k tiles of 64 rows
+  for each of the card's SMs (k = 1, 2, 3, 4, 8, 16, 32), C = 192 and
+  128, both directions: device µs of each, and the least-squares line
+  a + b k, whose intercept a is what a launch costs beside its tiles (the
+  launch, gamma's load, the first tile's latency, the last one's store)
+  and b a tile's share; then the same launches of a copy of the kernel
+  built without gamma's load (its outputs are wrong; only its time is
+  read), whose difference is what gamma's load costs a launch: the most a
+  cluster sharing gamma's load could save.
+- gdn-fwd-sqrt: the IGDN of bf16 `gdn_fwd` on its wide route, whose
+  epilogue takes sqrt(norm) as one Newton step from norm * rsqrtf(norm),
+  against a copy of the kernel built with IEEE `sqrtf` there, at the
+  training rows (and 1,572,864), C = 192 and 128: the output elements
+  that differ, and the device µs of each, in turns.
 """
 
 from __future__ import annotations
@@ -493,6 +513,16 @@ def gdn_ab_one(root):
         kernel: {dtype: cs._totals(cases, kernel, cs.TRAIN_ROWS[:3], dtype)
                  for dtype in ("float32", "bfloat16")}
         for kernel in cases}}
+    result["remat_bf16_fwd"] = cs._totals(cases, "gdn_fwd", cs.REMAT_ROWS,
+                                          "bfloat16")
+    # each layer's GDN and IGDN µs; the aligned operands (the off-route
+    # cases carry an offset)
+    result["bf16_fwd_by_layer"] = {
+        f"{n}x{C}": [c["us"] for c in sorted(
+            (c for c in cases["gdn_fwd"] if c["shape"] == [n, C]
+             and c["dtype"] == "bfloat16" and "offset" not in c),
+            key=lambda c: c["inverse"])]
+        for C in (192, 128) for n in cs.TRAIN_ROWS[:3]}
     result["f32_checksums"] = _f32_checksums()
     result["bf16_sums_checksums"] = _bf16_sums_checksums()
     torch.cuda.empty_cache()
@@ -524,6 +554,10 @@ def gdn_ab(roots):
         log(f"gdn-ab {root}: " + json.dumps({
             "ms_per_step": {k: {d: round(v[d]["ms"], 4) for d in v}
                             for k, v in step.items()},
+            "remat_bf16_fwd_ms": round(result["remat_bf16_fwd"]["ms"], 4),
+            "bf16_fwd_us_by_layer": {
+                k: [round(u, 1) for u in v]
+                for k, v in result["bf16_fwd_by_layer"].items()},
             "amp_step": {k: round(v, 4) for k, v in amp.items()}}))
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
     with open(os.path.join(here, "chiprun_out", "gdn_ab.json"), "w") as f:
@@ -555,33 +589,37 @@ def _host_us(fn, runs=50):
     return 1e6 * t / runs
 
 
-def _bind(lib):
-    """`lib` with ops/gdn.py's ctypes signatures of gdn_bwd.cu, as `_load`
+def _bind(lib, source="gdn_bwd.cu"):
+    """`lib` with ops/gdn.py's ctypes signatures of `source`, as `_load`
     binds them. A library without `lmic_gdn_bwd_dx_reads_gamma_t` read
     gamma_t on every route, so it answers 1 and the wrapper builds the
-    transpose on every call, as that tree's wrapper did."""
-    import ctypes
-
+    transpose on every call, as that tree's wrapper did; one without the
+    per-kernel launch counts is left without them (`gdn.kernel_launches`
+    skips it)."""
     from lmic_tpu_torch.ops import gdn
 
-    for name, argtypes in gdn._SIGNATURES["gdn_bwd.cu"].items():
+    for name, argtypes in gdn._SIGNATURES[source].items():
         if name == "lmic_gdn_bwd_dx_reads_gamma_t" and not hasattr(lib, name):
             setattr(lib, name, lambda *args: 1)
             continue
+        counts = name.endswith(("_kernel_name", "_kernel_launches"))
+        if counts and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = (ctypes.c_char_p if name.endswith("string")
-                      else ctypes.c_int)
+        fn.restype = gdn._restype(name)
     return lib
 
 
 def gdn_host(parent, rounds=3, n=65_536, C=192):
-    """gdn-host: the gdn_bwd library of the checkout `parent` and this
-    tree's in one process (their launches' C ABI is the same, so
-    ops/gdn.py's wrapper takes either; see `_bind`), in turns: the host µs of one `lmic_gdn_bwd_dx` call
-    (bf16 on its TMA route and off it, through a view offset by one
-    element; f32), of one `gdn.gdn_bwd` call, and phase 5's AMP step ms
-    (median of 5 after 2 warm-up steps)."""
+    """gdn-host: the gdn_fwd and gdn_bwd libraries of the checkout `parent`
+    and this tree's in one process (their launches' C ABI is the same, so
+    ops/gdn.py's wrapper takes either; see `_bind`), in turns: the host µs
+    of one `lmic_gdn_fwd` call and one `lmic_gdn_bwd_dx` call (bf16 on its
+    TMA route and off it, through a view offset by one element; f32),
+    with the device µs of each `lmic_gdn_fwd` call, of one `gdn.gdn_bwd`
+    call, and phase 5's AMP step ms (median of 5 after 2 warm-up
+    steps)."""
     import importlib.util
 
     import torch
@@ -602,8 +640,34 @@ def gdn_host(parent, rounds=3, n=65_536, C=192):
     spec.loader.exec_module(build)  # builds under the parent's _build/
     libs = {"parent": _bind(build.load("gdn_bwd.cu")),
             "change": gdn._load("gdn_bwd.cu")}
+    fwd_libs = {"parent": _bind(build.load("gdn_fwd.cu"), "gdn_fwd.cu"),
+                "change": gdn._load("gdn_fwd.cu")}
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
+    fwd_calls, fwd_device = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        x, beta, gamma, _ = cs._gdn_inputs(gen, n, C, dt)
+        # the f32 kernel reads gamma^T, the bf16 kernels gamma
+        w = gamma.t().contiguous() if dt == torch.float32 else gamma
+        y = torch.empty_like(x)
+        spare = torch.empty(n * C + 1, dtype=dt, device="cuda")
+        routes = {"aligned": x}
+        if dt == torch.bfloat16:
+            routes["offset"] = spare[1:].view(n, C)
+        for _ in range(rounds):
+            for which, lib in fwd_libs.items():
+                for route, xi in routes.items():
+                    def call(lib=lib, xi=xi):
+                        if lib.lmic_gdn_fwd(
+                                xi.data_ptr(), w.data_ptr(),
+                                beta.data_ptr(), y.data_ptr(), n, C,
+                                gdn._DTYPE_CODES[dt], 0, stream):
+                            raise RuntimeError(f"{which} {route}")
+                    key = f"{str(dt).split('.')[-1]} {route} {which}"
+                    fwd_calls.setdefault(key, []).append(
+                        _host_us(call, runs=100))
+                    fwd_device.setdefault(key, []).append(
+                        1e3 * _time_ms(call))
     calls = {}
     for dt in (torch.bfloat16, torch.float32):
         x, beta, gamma, g = cs._gdn_inputs(gen, n, C, dt)
@@ -641,16 +705,24 @@ def gdn_host(parent, rounds=3, n=65_536, C=192):
         for which in (("parent", "change") if k % 2 == 0
                       else ("change", "parent")):
             gdn._libs["gdn_bwd.cu"] = libs[which]
+            gdn._libs["gdn_fwd.cu"] = fwd_libs[which]
             cs._steps(step, state, batch, step_gen, 2)
             ms, _ = cs._steps(step, state, batch, step_gen, 5)
             steps.setdefault(which, []).append(float(np.median(ms)))
             wrapper.setdefault(which, []).append(
                 _host_us(lambda: gdn.gdn_bwd(x, beta, gamma, g)))
     gdn._libs["gdn_bwd.cu"] = libs["change"]
-    result = {"lmic_gdn_bwd_dx_us": calls, "gdn_bwd_us": wrapper,
+    gdn._libs["gdn_fwd.cu"] = fwd_libs["change"]
+    result = {"lmic_gdn_fwd_us": fwd_calls,
+              "lmic_gdn_fwd_device_us": fwd_device,
+              "lmic_gdn_bwd_dx_us": calls, "gdn_bwd_us": wrapper,
               "amp_step_ms": steps}
     log("gdn-host: " + json.dumps(result))
-    for key, v in sorted({**{f"{k} call": v for k, v in calls.items()},
+    for key, v in sorted({**{f"{k} fwd call": v
+                             for k, v in fwd_calls.items()},
+                          **{f"{k} fwd device": v
+                             for k, v in fwd_device.items()},
+                          **{f"{k} call": v for k, v in calls.items()},
                           **{f"{k} gdn_bwd": v for k, v in wrapper.items()},
                           **{f"{k} step": v
                              for k, v in steps.items()}}.items()):
@@ -658,11 +730,137 @@ def gdn_host(parent, rounds=3, n=65_536, C=192):
             + ", ".join(f"{u:.2f}" for u in v))
 
 
+def _patched_gdn_fwd(edits):
+    """ctypes handle of a copy of gdn_fwd.cu with each (regex, text) of
+    `edits` applied once, built beside the shared headers."""
+    import ctypes
+    import glob
+    import re
+    import shutil
+    import tempfile
+
+    from lmic_tpu_torch.ops import _build, gdn
+
+    with open(os.path.join(_build.CSRC, "gdn_fwd.cu")) as f:
+        src = f.read()
+    for pattern, text in edits:
+        src, hits = re.subn(pattern, text, src, count=1, flags=re.S)
+        if hits != 1:
+            raise AssertionError(f"gdn_fwd.cu: no {pattern!r} to patch")
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    for header in glob.glob(os.path.join(_build.CSRC, "*.cuh")):
+        shutil.copy(header, tmp)
+    with open(os.path.join(tmp, "gdn_fwd.cu"), "w") as f:
+        f.write(src)
+    lib = os.path.join(tmp, "libgdn_fwd_patched.so")
+    cmd = _build._command("gdn_fwd.cu", lib)
+    cmd[cmd.index(os.path.join(_build.CSRC, "gdn_fwd.cu"))] = os.path.join(
+        tmp, "gdn_fwd.cu")
+    subprocess.run(cmd, check=True, capture_output=True)
+    handle = ctypes.CDLL(lib)
+    handle.lmic_gdn_fwd.argtypes = gdn._SIGNATURES["gdn_fwd.cu"][
+        "lmic_gdn_fwd"]
+    return handle
+
+
+def gdn_fwd_tiles(ks=(1, 2, 3, 4, 8, 16, 32)):
+    """gdn-fwd-tiles: bf16 gdn_fwd on its wide route at k 64-row tiles for
+    each SM, C = 192 and 128, both directions, with and without gamma's
+    load; device µs of each and the least-squares line a + b k."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # the wide kernel without gamma's load and the wait for it
+    no_gamma = _patched_gdn_fwd([
+        (r"\n *hop::mbar_expect\(&gamma_landed, W::kGamma\);"
+         r"\n *for \(int cb = 0;.*?&gamma_landed\);", ""),
+        (r"\n *if \(j == 0\) hop::mbar_wait\(&gamma_landed, 0\);", "")])
+    libs = {"kernel": gdn._load("gdn_fwd.cu"),
+            "without gamma's load": no_gamma}
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for C in (192, 128):
+        for inverse in (False, True):
+            us = {k: [] for k in libs}
+            for k in ks:
+                n = 64 * k * sms
+                x, beta, gamma, _ = chip_smoke._gdn_inputs(
+                    gen, n, C, torch.bfloat16)
+                y = torch.empty_like(x)
+                for which, lib in libs.items():
+                    def call(lib=lib):
+                        if lib.lmic_gdn_fwd(x.data_ptr(), gamma.data_ptr(),
+                                            beta.data_ptr(), y.data_ptr(),
+                                            n, C, 1, int(inverse), stream):
+                            raise RuntimeError(f"gdn-fwd-tiles {which}")
+                    us[which].append(1e3 * _time_ms(call))
+                del x, beta, gamma, y
+            for which, v in us.items():
+                b, a = np.polyfit(ks, v, 1)
+                key = f"C={C} {'IGDN' if inverse else 'GDN'} {which}"
+                out[key] = {"us": dict(zip(map(str, ks), v)),
+                            "a_us": float(a), "b_us": float(b)}
+                log(f"gdn-fwd-tiles {key}: "
+                    + ", ".join(f"{k} tiles/SM {u:.2f}"
+                                for k, u in zip(ks, v))
+                    + f" us; line {a:.2f} + {b:.3f} k us")
+    log("gdn-fwd-tiles: " + json.dumps({"sms": sms, **out}))
+
+
+def gdn_fwd_sqrt(rows=(262_144, 65_536, 16_384, 16_391, 1_572_864)):
+    """gdn-fwd-sqrt: the wide kernel's IGDN against a copy built with IEEE
+    sqrtf in its epilogue: differing output elements and device µs."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    ieee = _patched_gdn_fwd([
+        (r"float s = rsqrtf\(norm\);\n *if \(kInverse\) \{.*?\n *\}\n",
+         "const float s = kInverse ? sqrtf(norm) : rsqrtf(norm);\n")])
+    libs = {"kernel": gdn._load("gdn_fwd.cu"), "IEEE sqrtf": ieee}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    out, total, differ = {}, 0, 0
+    for C in (192, 128):
+        for n in rows:
+            x, beta, gamma, _ = chip_smoke._gdn_inputs(
+                gen, n, C, torch.bfloat16)
+            ys = {k: torch.empty_like(x) for k in libs}
+            calls = {}
+            for which, lib in libs.items():
+                def call(lib=lib, y=ys[which]):
+                    if lib.lmic_gdn_fwd(x.data_ptr(), gamma.data_ptr(),
+                                        beta.data_ptr(), y.data_ptr(), n, C,
+                                        1, 1, stream):
+                        raise RuntimeError(f"gdn-fwd-sqrt {which}")
+                calls[which] = call
+                call()
+            torch.cuda.synchronize()
+            diff = int((ys["kernel"] != ys["IEEE sqrtf"]).sum())
+            total, differ = total + x.numel(), differ + diff
+            us = {k: [] for k in libs}
+            for order in (list(libs), list(libs)[::-1]):
+                for which in order:
+                    us[which].append(1e3 * _time_ms(calls[which]))
+            key = f"{n}x{C}"
+            out[key] = {"differ": diff, "elements": x.numel(), "us": us}
+            log(f"gdn-fwd-sqrt {key} IGDN: {diff} of {x.numel()} elements "
+                "differ; " + ", ".join(
+                    f"{k} {min(v):.1f}-{max(v):.1f} us"
+                    for k, v in us.items()))
+            del x, beta, gamma, ys
+    log(f"gdn-fwd-sqrt: {differ} of {total} elements differ; "
+        + json.dumps(out))
+
+
 def main(argv):
     import torch
 
     probes = ("master-batch", "train-convs", "video-convs", "sync-u8",
-              "gdn-ab", "gdn-host")
+              "gdn-ab", "gdn-host", "gdn-fwd-tiles", "gdn-fwd-sqrt")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -686,6 +884,10 @@ def main(argv):
         gdn_ab(argv[1:] or [os.path.dirname(os.path.abspath(__file__))])
     elif argv[0] == "gdn-host":
         gdn_host(os.path.abspath(argv[1]))
+    elif argv[0] == "gdn-fwd-tiles":
+        gdn_fwd_tiles()
+    elif argv[0] == "gdn-fwd-sqrt":
+        gdn_fwd_sqrt()
     else:
         video_convs()
     return 0

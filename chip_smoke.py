@@ -9,7 +9,8 @@ Phases, each of which raises (exit code != 0) on any failure:
 1. environment: the card's name and power limit, the torch/CUDA/nvcc
    versions; the port's native sources are built, all at once; each GDN
    kernel's registers and spills from ptxas (a register-tiled f32 kernel
-   and the bf16 `gdn_bwd_dx_wide_kernel` must not spill); the count of
+   and the bf16 `gdn_fwd_wide_kernel` and `gdn_bwd_dx_wide_kernel` must
+   not spill); the count of
    tensor-core instructions (HMMA or HGMMA) in each GDN kernel, from
    `cuobjdump -sass`: every bf16 product kernel must have some (the
    TMA-fed wide kernels HGMMA, from wgmma), and no f32 kernel any (that
@@ -29,12 +30,14 @@ Phases, each of which raises (exit code != 0) on any failure:
    launches (`gdn_bwd_dx`, `gdn_bwd_partials`, `gdn_bwd_reduce`) on its
    own, against its own plain version, bound and library call (the dx
    composite, one cuBLAS `bmm` of the partials' chunked product, `sum(0)`
-   of the partials), each dx launch held to the kernel its route names
-   (f32 `gdn_bwd_dx_kernel`; bf16 `gdn_bwd_dx_wide_kernel` at these
-   shapes, and `gdn_bwd_dx_mma_kernel` at two bf16 shapes off the TMA
-   route, 16,391 rows at C = 192 in a view offset by one element and at
-   C = 320); bf16 `gdn_bwd_dx` logged per layer of a training step
-   (C = 192 and 128) beside its bound and composite;
+   of the partials), each dx launch and each bf16 `gdn_fwd` held to the
+   kernel its route names (f32 `gdn_bwd_dx_kernel`; bf16
+   `gdn_bwd_dx_wide_kernel` and `gdn_fwd_wide_kernel` at these shapes,
+   and `gdn_bwd_dx_mma_kernel` and `gdn_fwd_mma_kernel`, each against its
+   plain version, at two bf16 shapes off the TMA route, 16,391 rows at
+   C = 192 in a view offset by one element and at C = 320); bf16
+   `gdn_fwd` and `gdn_bwd_dx` logged per layer of a training step
+   (C = 192 and 128) beside their bounds and composites;
 3. serving: mbt2018-mean at quality 8 (N=192, M=320) from a seed, served by
    the port's HTTP server; three seeded 512x768 uint8 images go through
    POST /compress and /decompress with the launch counts set to 0 just
@@ -51,7 +54,8 @@ Phases, each of which raises (exit code != 0) on any failure:
    each backward kernel per step), the loss falling on one batch (over 10
    steps in f32, 6 in AMP), a
    profile of the GDN kernels' share (in AMP, 6 launches a step of
-   `gdn_bwd_dx_wide_kernel` and none of `gdn_bwd_dx_mma_kernel`), one
+   `gdn_fwd_wide_kernel` and of `gdn_bwd_dx_wide_kernel`, and none of
+   `gdn_fwd_mma_kernel` or `gdn_bwd_dx_mma_kernel`), one
    step's gradients on the card
    against the CPU on a narrow model with the same noise, and the trained
    model saved, reloaded, finalized and round-tripped through the codec;
@@ -190,7 +194,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    16 of 256x256, f32 and AMP, a warm-up, a profiled and 4 timed steps
    with the launch counts set to 0 just before and read just after (12
    `gdn_fwd` and 6 of each backward kernel a step: every GDN runs again
-   in its block's recompute), the loss falling, step ms and peak memory
+   in its block's recompute; the AMP step's profile 12 launches of
+   `gdn_fwd_wide_kernel`, 6 of `gdn_bwd_dx_wide_kernel` and none of the
+   mma kernels), the loss falling, step ms and peak memory
    logged, and one step against the plain step under
    `crosscheck.fixed_noise` (losses and clipped gradients within the f32
    and bf16 bars, exact launch counts); then the channel-1 master q7
@@ -375,9 +381,11 @@ def phase_environment():
 # The GDN kernels by name: the bf16 product kernels run on the tensor
 # cores (those fed by the TMA on wgmma: HGMMA); the f32 kernels (TF32 off)
 # and the reduce must not.
-MMA_KERNELS = ("gdn_fwd_mma_kernel", "gdn_bwd_dx_mma_kernel",
-               "gdn_bwd_dx_wide_kernel", "gdn_bwd_partials_wide_kernel")
-WGMMA_KERNELS = ("gdn_bwd_dx_wide_kernel", "gdn_bwd_partials_wide_kernel")
+MMA_KERNELS = ("gdn_fwd_mma_kernel", "gdn_fwd_wide_kernel",
+               "gdn_bwd_dx_mma_kernel", "gdn_bwd_dx_wide_kernel",
+               "gdn_bwd_partials_wide_kernel")
+WGMMA_KERNELS = ("gdn_fwd_wide_kernel", "gdn_bwd_dx_wide_kernel",
+                 "gdn_bwd_partials_wide_kernel")
 FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                 "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
 
@@ -387,8 +395,9 @@ FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
 # must stay in registers.
 TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                       "gdn_bwd_partials_kernel")
-# ... and so must the bf16 dx kernel's (wgmma sums, dn, g * scale)
-NO_SPILL_KERNELS = TILED_FP32_KERNELS + ("gdn_bwd_dx_wide_kernel",)
+# ... and so must the bf16 wide kernels' (wgmma sums; dn, g * scale)
+NO_SPILL_KERNELS = TILED_FP32_KERNELS + ("gdn_fwd_wide_kernel",
+                                         "gdn_bwd_dx_wide_kernel")
 
 
 def _check_registers(source, log_path):
@@ -662,12 +671,68 @@ def _reduce_plain(partials, C, dt):
     return total[C * C:].to(dt), total[:C * C].view(C, C).to(dt)
 
 
+def _record(cases, name, n, C, dtype, inverse, work, peak, mem_bw,
+            **extra):
+    """One case of `name` at n x C: `work` (run, plain, composite, bytes,
+    operations) checked against its plain version at TOL (f32 `gdn_fwd`
+    exactly) and for determinism, timed beside its bound, and appended to
+    cases[name] with `extra`."""
+    import torch
+
+    run, plain, composite, nbytes, ops = work
+    got = run()
+    want = plain()
+    torch.cuda.synchronize()
+    err, rel = _errors(got, want)
+    if not rel < TOL[dtype]:
+        raise AssertionError(
+            f"{name} {n}x{C} {dtype} inverse={inverse}: "
+            f"error {rel:.3g} >= {TOL[dtype]}")
+    if name == "gdn_fwd" and dtype == "float32" and err:
+        # the wire's kernel, which this check holds still
+        raise AssertionError(
+            f"f32 gdn_fwd {n}x{C} inverse={inverse} differs "
+            f"from its plain version by {err:.3g}")
+    if not all(torch.equal(a, b) for a, b in zip(got, run())):
+        raise AssertionError(f"{name} is not deterministic")
+    t_mem, t_ops = nbytes / mem_bw, ops / peak
+    cases[name].append({
+        "shape": [n, C], "dtype": dtype, "inverse": inverse, **extra,
+        "max_abs_err": err, "max_rel_err": rel,
+        "us": 1e3 * _time_ms(run),
+        "plain_us": 1e3 * _time_ms(plain),
+        "library_us": 1e3 * _time_ms(composite),
+        "bound_us": 1e6 * max(t_mem, t_ops),
+        "bound_by": ("operations" if t_ops > t_mem else "bytes"),
+        "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
+    })
+
+
+def _fwd_work(x, beta, gamma, gamma_t, inverse):
+    """gdn_fwd's (run, plain, composite, bytes, operations) on these
+    inputs."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    n, C = x.shape
+    rs = torch.sqrt if inverse else torch.rsqrt
+    return (
+        lambda: (gdn.gdn_fwd(x, beta, gamma, inverse),),
+        lambda: (gdn.gdn_reference(x, beta, gamma, inverse),),
+        lambda: x * rs(torch.addmm(beta, x * x, gamma_t)),
+        # x read, y written, gamma and beta read
+        (2 * n * C + C * C + C) * x.element_size(),
+        2 * n * C * C + 4 * n * C,
+    )
+
+
 def phase_kernel(peaks):
     """Both GDN kernels against their plain versions at every main-path
     shape (serving, training, the RGB-T pair's wire and its training
-    step, the batched synthesis of phase 12), and the backward's launches
-    at two bf16 shapes off the wide dx kernel's route; returns the
-    per-shape cases of each."""
+    step, the batched synthesis of phase 12), and the bf16 forward and
+    the backward's launches at two shapes off the wide kernels' route;
+    returns the per-shape cases of each."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -675,7 +740,7 @@ def phase_kernel(peaks):
     mem_bw, fp32, bf16 = peaks
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {k: [] for k in ("gdn_fwd", "gdn_bwd") + gdn.BWD_KERNELS}
-    routes = []  # each backward case's dx route, for _check_dx_routes
+    routes = []  # each bf16 forward's and each dx launch's route
     shapes = [(n, C) for C in (128, 192) for n in SERVE_ROWS + TRAIN_ROWS]
     # f32 only: the pair's wire, the master step's frozen guide and the
     # batched synthesis
@@ -693,94 +758,64 @@ def phase_kernel(peaks):
             es = x.element_size()
             peak = fp32 if es == 4 else bf16
             for inverse in (False, True):
-                rs = torch.sqrt if inverse else torch.rsqrt
-                work = {
-                    "gdn_fwd": (
-                        lambda: (gdn.gdn_fwd(x, beta, gamma, inverse),),
-                        lambda: (gdn.gdn_reference(x, beta, gamma,
-                                                   inverse),),
-                        lambda: x * rs(torch.addmm(beta, x * x, gamma_t)),
-                        # x read, y written, gamma and beta read
-                        (2 * n * C + C * C + C) * es,
-                        2 * n * C * C + 4 * n * C,
-                    ),
-                    "gdn_bwd": (
-                        lambda: gdn.gdn_bwd(x, beta, gamma, g, inverse),
-                        lambda: gdn.gdn_bwd_reference(x, beta, gamma, g,
-                                                      inverse),
-                        lambda: _bwd_composite(x, beta, gamma, gamma_t, g,
-                                               inverse),
-                        # x and g read, dx written; gamma, beta read;
-                        # dgamma, dbeta written
-                        (3 * n * C + 2 * (C * C + C)) * es,
-                        6 * n * C * C + 12 * n * C,
-                    ),
-                }
-                for name, (run, plain, composite, nbytes, ops) in \
-                        work.items():
-                    if name == "gdn_bwd" and n in fwd_only:
-                        continue
-                    if name == "gdn_bwd":
-                        kernel = ("gdn_bwd_dx_kernel" if es == 4
-                                  else "gdn_bwd_dx_wide_kernel")
-                        routes.append((n, C, dt, 0, inverse, kernel))
-                        _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
-                                          inverse, peak, mem_bw, fp32,
-                                          kernel)
-                    got = run()
-                    want = plain()
-                    torch.cuda.synchronize()
-                    err, rel = _errors(got, want)
-                    if not rel < TOL[dtype]:
-                        raise AssertionError(
-                            f"{name} {n}x{C} {dtype} inverse={inverse}: "
-                            f"error {rel:.3g} >= {TOL[dtype]}")
-                    if name == "gdn_fwd" and dtype == "float32" and err:
-                        # the wire's kernel, which this check holds still
-                        raise AssertionError(
-                            f"f32 gdn_fwd {n}x{C} inverse={inverse} differs "
-                            f"from its plain version by {err:.3g}")
-                    if not all(torch.equal(a, b) for a, b in zip(got, run())):
-                        raise AssertionError(f"{name} is not deterministic")
-                    t_mem, t_ops = nbytes / mem_bw, ops / peak
-                    cases[name].append({
-                        "shape": [n, C], "dtype": dtype, "inverse": inverse,
-                        "max_abs_err": err, "max_rel_err": rel,
-                        "us": 1e3 * _time_ms(run),
-                        "plain_us": 1e3 * _time_ms(plain),
-                        "library_us": 1e3 * _time_ms(composite),
-                        "bound_us": 1e6 * max(t_mem, t_ops),
-                        "bound_by": ("operations" if t_ops > t_mem
-                                     else "bytes"),
-                        "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
-                    })
+                # C is 128 or 192, every tensor 16-byte aligned
+                fwd = ("gdn_fwd_kernel" if es == 4
+                       else "gdn_fwd_wide_kernel")
+                if dtype == "bfloat16":
+                    routes.append((n, C, dt, 0, inverse, "gdn_fwd", fwd))
+                _record(cases, "gdn_fwd", n, C, dtype, inverse,
+                        _fwd_work(x, beta, gamma, gamma_t, inverse), peak,
+                        mem_bw, kernel=fwd)
+                if n in fwd_only:
+                    continue
+                kernel = ("gdn_bwd_dx_kernel" if es == 4
+                          else "gdn_bwd_dx_wide_kernel")
+                routes.append((n, C, dt, 0, inverse, "gdn_bwd_dx", kernel))
+                _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
+                                  inverse, peak, mem_bw, fp32, kernel)
+                _record(cases, "gdn_bwd", n, C, dtype, inverse, (
+                    lambda: gdn.gdn_bwd(x, beta, gamma, g, inverse),
+                    lambda: gdn.gdn_bwd_reference(x, beta, gamma, g,
+                                                  inverse),
+                    lambda: _bwd_composite(x, beta, gamma, gamma_t, g,
+                                           inverse),
+                    # x and g read, dx written; gamma, beta read; dgamma,
+                    # dbeta written
+                    (3 * n * C + 2 * (C * C + C)) * es,
+                    6 * n * C * C + 12 * n * C), peak, mem_bw)
             del x, beta, gamma, g, gamma_t
-    # bf16 off the wide kernel's TMA route, on gdn_bwd_dx_mma_kernel: a
-    # view offset by one element, and a width the wide kernel has no
-    # instance of
+    # bf16 off the wide kernels' TMA route, on gdn_fwd_mma_kernel and
+    # gdn_bwd_dx_mma_kernel: a view offset by one element, and a width the
+    # wide kernels have no instance of
     for n, C, offset in ((16_391, 192, 1), (16_391, 320, 0)):
         x, beta, gamma, g = _gdn_inputs(gen, n, C, torch.bfloat16)
         buf = torch.empty(n * C + offset, dtype=x.dtype, device="cuda")
         buf[offset:].copy_(x.view(-1))
         x = buf[offset:].view(n, C)
+        gamma_t = gamma.t().contiguous()
         for inverse in (False, True):
-            routes.append((n, C, x.dtype, offset, inverse,
+            routes.append((n, C, x.dtype, offset, inverse, "gdn_fwd",
+                           "gdn_fwd_mma_kernel"))
+            _record(cases, "gdn_fwd", n, C, "bfloat16", inverse,
+                    _fwd_work(x, beta, gamma, gamma_t, inverse), bf16,
+                    mem_bw, kernel="gdn_fwd_mma_kernel", offset=offset)
+            routes.append((n, C, x.dtype, offset, inverse, "gdn_bwd_dx",
                            "gdn_bwd_dx_mma_kernel"))
-            _bwd_kernel_cases(cases, x, beta, gamma, gamma.t().contiguous(),
-                              g, inverse, bf16, mem_bw, fp32,
-                              "gdn_bwd_dx_mma_kernel")
-        del x, beta, gamma, g, buf
-    _check_dx_routes(gen, routes)
+            _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse,
+                              bf16, mem_bw, fp32, "gdn_bwd_dx_mma_kernel")
+        del x, beta, gamma, g, buf, gamma_t
+    _check_routes(gen, routes)
     return cases
 
 
 DX_KERNELS = ("gdn_bwd_dx_kernel", "gdn_bwd_dx_mma_kernel",
               "gdn_bwd_dx_wide_kernel")
+FWD_KERNELS = ("gdn_fwd_kernel", "gdn_fwd_mma_kernel", "gdn_fwd_wide_kernel")
 
 
-def _dx_kernels(run):
-    """The dx kernels that `run` launches, by name, in the order they ran
-    on the device (one torch.profiler session)."""
+def _routed_kernels(run):
+    """The forward and dx kernels that `run` launches, by name, in the
+    order they ran on the device (one torch.profiler session)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -792,35 +827,59 @@ def _dx_kernels(run):
         torch.cuda.synchronize()
     ran = sorted((e.time_range.start, k) for e in prof.events()
                  if e.device_type == DeviceType.CUDA
-                 for k in DX_KERNELS if k in e.name)
+                 for k in FWD_KERNELS + DX_KERNELS if k in e.name)
     return [k for _, k in ran]
 
 
-def _check_dx_routes(gen, routes):
-    """One dx launch for each (n, C, dtype, offset, inverse, kernel) of
-    `routes`, on fresh inputs of that shape and type whose x starts
-    `offset` elements past an aligned base, all in one profiler session:
-    each must run `kernel`."""
+def _check_routes(gen, routes):
+    """One launch for each (n, C, dtype, offset, inverse, launch, kernel)
+    of `routes` (launch: "gdn_fwd" through gdn.gdn_fwd, or "gdn_bwd_dx"
+    through the C ABI), on fresh inputs of that shape and type whose x
+    starts `offset` elements past an aligned base, all in one profiler
+    session: the C ABI must count one launch of `kernel` and none of
+    another (`gdn.kernel_launches`), and the trace's records must name
+    those kernels in that order (a session may lose records, which is
+    logged, but shows none out of order)."""
     import torch
 
+    from lmic_tpu_torch.ops import gdn
+
+    counted = []
+
     def run():
-        for n, C, dt, offset, inverse, _ in routes:
+        for n, C, dt, offset, inverse, launch, _ in routes:
             x, beta, gamma, g = _gdn_inputs(gen, n, C, dt)
             buf = torch.empty(n * C + offset, dtype=dt, device="cuda")
             buf[offset:].copy_(x.view(-1))
             x = buf[offset:].view(n, C)
-            _bwd_launches(x, beta, gamma, gamma.t().contiguous(), g,
-                          inverse)["gdn_bwd_dx"]()
             torch.cuda.synchronize()
+            before = gdn.kernel_launches()
+            if launch == "gdn_fwd":
+                gdn.gdn_fwd(x, beta, gamma, inverse)
+            else:
+                _bwd_launches(x, beta, gamma, gamma.t().contiguous(), g,
+                              inverse)["gdn_bwd_dx"]()
+            torch.cuda.synchronize()
+            counted.append({k: v - before.get(k, 0) for k, v in
+                            gdn.kernel_launches().items()
+                            if v != before.get(k, 0)})
 
-    ran = _dx_kernels(run)
+    ran = _routed_kernels(run)
     want = [r[-1] for r in routes]
-    if ran != want:
-        bad = [(r[:5], k) for r, k in zip(routes, ran) if r[-1] != k]
-        raise AssertionError(f"gdn_bwd_dx routes: {len(ran)} dx launches "
-                             f"seen of {len(want)}; first wrong: {bad[:3]}")
-    log("gdn_bwd_dx routes: " + json.dumps(
-        {k: want.count(k) for k in DX_KERNELS}) + " launches as the rule says")
+    bad = [(r[:6], k) for r, k in zip(routes, counted) if k != {r[-1]: 1}]
+    if bad:
+        raise AssertionError(f"routes: {len(bad)} of {len(want)} launches "
+                             f"took another kernel; first: {bad[:3]}")
+    left = iter(want)  # each record is the next of `want`, or one past it
+    if not all(k in left for k in ran):
+        raise AssertionError(f"routes: the trace names {ran}, not the "
+                             f"launches' kernels {want} in order")
+    if len(ran) < len(want):
+        log(f"routes: the trace lost the records of "
+            f"{len(want) - len(ran)} of {len(want)} launches")
+    log("gdn_fwd and gdn_bwd_dx routes: " + json.dumps(
+        {k: want.count(k) for k in FWD_KERNELS + DX_KERNELS})
+        + " launches as the rule says")
 
 
 def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
@@ -828,7 +887,7 @@ def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
     """Each of gdn_bwd's three launches against its plain version on the
     same inputs (the kernel's own dn and partials feed the next two), timed
     on its own, with its own bound; the dx cases name `dx_kernel`, the
-    kernel their route takes, which `_check_dx_routes` holds."""
+    kernel their route takes, which `_check_routes` holds."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -896,14 +955,14 @@ def _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse, peak,
         })
 
 
-def _bf16_dx_layers(cases):
-    """bf16 gdn_bwd_dx at each layer of a training step, C = 192 and 128:
-    µs of the GDN and the IGDN launch beside the bound and the composite
-    (the library call)."""
+def _bf16_layers(cases, kernel):
+    """bf16 `kernel` ("gdn_fwd" or "gdn_bwd_dx") at each layer of a
+    training step, C = 192 and 128: µs of the GDN and the IGDN launch
+    beside the bound and the composite (the library call)."""
     layers = {}
     for C in (192, 128):
         for n in TRAIN_ROWS[:3]:
-            sel = sorted((c for c in cases["gdn_bwd_dx"]
+            sel = sorted((c for c in cases[kernel]
                           if c["shape"] == [n, C]
                           and c["dtype"] == "bfloat16"),
                          key=lambda c: c["inverse"])
@@ -1573,20 +1632,58 @@ def _steps(step, state, batch, gen, n):
 
 
 GDN_KERNELS = MMA_KERNELS + FP32_KERNELS
+# the CUDA kernels behind each launch of ops/gdn.py, by dtype and route
+CUDA_KERNELS = {
+    "gdn_fwd": ["gdn_fwd_kernel (f32)",
+                "gdn_fwd_wide_kernel (bf16, C = 128 and 192, 16-byte rows)",
+                "gdn_fwd_mma_kernel (bf16, other shapes)"],
+    "gdn_bwd_dx": ["gdn_bwd_dx_kernel (f32)",
+                   "gdn_bwd_dx_wide_kernel (bf16, C = 128 and 192, 16-byte "
+                   "rows)", "gdn_bwd_dx_mma_kernel (bf16, other shapes)"],
+    "gdn_bwd_partials": ["gdn_bwd_partials_kernel (f32)",
+                         "gdn_bwd_partials_wide_kernel (bf16)"],
+    "gdn_bwd_reduce": ["gdn_bwd_reduce_kernel"],
+}
+# launches of the bf16 forward and dx kernels in an AMP step at C = 192
+AMP_WIDE = {"gdn_fwd_wide_kernel": 6, "gdn_fwd_mma_kernel": 0,
+            "gdn_bwd_dx_wide_kernel": 6, "gdn_bwd_dx_mma_kernel": 0}
+def _hold_launches(what, counted, seen, want):
+    """The launches a call of a profiled run made of each CUDA kernel, as
+    the C ABI counted them where each launch succeeded (`counted`), must
+    be `want` ({kernel: launches}); the trace's records of them (`seen`)
+    name the kernels that ran on the device, and may miss a launch (on an
+    NVIDIA H100 a session can lose records: one of 80 lost its first 19
+    device operations, and phase 13's profiled steps lose one forward at
+    times; a loss is logged) but never show one more."""
+    if any(counted.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"{what}: launched {counted} a call, expected "
+                             f"{want}")
+    if any(v > counted.get(k, 0) for k, v in seen.items()):
+        raise AssertionError(f"{what}: the trace shows {seen} a call, more "
+                             f"than the {counted} launched")
+    lost = {k: v - seen.get(k, 0) for k, v in counted.items()
+            if k in GDN_KERNELS and seen.get(k, 0) < v}
+    if lost:
+        log(f"{what}: the trace lost the records of {lost} launches a call")
 
 
-def _profile(run, n=3, keep=12, launches=None):
+def _profile(run, n=3, keep=12, launches=None, counted=None):
     """Device time per call of `run` of the GDN kernels and of all
     kernels, the wall time per call, the device ms per call of each GDN
     kernel and of the other kernels that take the most (`keep` of them;
     None: all), and the device operations per call, from a
     torch.profiler trace of n calls. A `launches` dict gets each GDN
-    kernel's launches per call."""
+    kernel's launches per call as the trace records them, a `counted` dict
+    as the C ABI counts them (`gdn.kernel_launches`; see
+    `_hold_launches`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from lmic_tpu_torch.ops import gdn
+
     torch.cuda.synchronize()
+    before = gdn.kernel_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1594,6 +1691,10 @@ def _profile(run, n=3, keep=12, launches=None):
             run()
         torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0) / n
+    if counted is not None:
+        counted.update({k: (v - before.get(k, 0)) / n for k, v in
+                        gdn.kernel_launches().items()
+                        if v != before.get(k, 0)})
     gdn_us = total_us = 0.0
     by_kernel, ops = {}, 0
     for evt in prof.key_averages():
@@ -1726,15 +1827,14 @@ def phase_training():
             raise AssertionError(f"{mode}: loss did not fall: {losses}")
         log(f"{mode} loss over {len(losses)} steps on one batch: "
             + ", ".join(f"{v:.2f}" for v in losses))
-        per_step = {}
+        per_step, counted = {}, {}
         gdn_ms, dev_ms, wall_ms, top, _ = _profile(
-            lambda: step(state, batch, gen), launches=per_step)
-        log(f"train {mode} GDN kernel launches a step: {per_step}")
-        # bf16 at C = 192: the wide dx kernel, never the mma one
-        if mode == "amp" and (
-                per_step.get("gdn_bwd_dx_wide_kernel") != 6
-                or per_step.get("gdn_bwd_dx_mma_kernel", 0) != 0):
-            raise AssertionError(f"amp: dx kernels a step {per_step}")
+            lambda: step(state, batch, gen), launches=per_step,
+            counted=counted)
+        log(f"train {mode} GDN kernel launches a step: {counted}")
+        # bf16 at C = 192: the wide kernels, never the mma ones
+        _hold_launches(f"train {mode}", counted, per_step,
+                       AMP_WIDE if mode == "amp" else {})
         last = mets[-1]
         log(f"train {TRAIN_ARCH} q{TRAIN_QUALITY} {mode} batch "
             f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}: step ms "
@@ -1807,13 +1907,16 @@ def _log_train_convs():
     return out
 
 
-def _train_case(what, step, state, batches, gen, timed, per_step):
+def _train_case(what, step, state, batches, gen, timed, per_step,
+                kernels=None):
     """A warm-up step, a second one under the profiler, then `timed`
     steps with the launch counts set to 0 just before and read just
     after, which must be `per_step` of each kernel a step; the loss must
-    stay finite and fall on the one batch. Logs the step ms, peak memory
-    and the profiled step. Returns the launch counts of the timed
-    steps."""
+    stay finite and fall on the one batch. `kernels` maps CUDA kernel
+    names to the launches the profiled step must make (`_hold_launches`).
+    Logs the step ms,
+    peak memory and the profiled step. Returns the launch counts of the
+    timed steps."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -1826,7 +1929,12 @@ def _train_case(what, step, state, batches, gen, timed, per_step):
         metrics.append({k: float(v) for k, v in m.items()})
 
     one()
-    gdn_ms, dev_ms, wall_ms, top, ops = _profile(one, n=1, keep=None)
+    seen, counted = {}, {}
+    gdn_ms, dev_ms, wall_ms, top, ops = _profile(one, n=1, keep=None,
+                                                 launches=seen,
+                                                 counted=counted)
+    _hold_launches(f"{what}, the profiled step", counted, seen,
+                   kernels or {})
     t_warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1862,7 +1970,8 @@ def _train_case(what, step, state, batches, gen, timed, per_step):
         f"{100 * dev_ms / wall_ms:.1f} %), {ops:.0f} device operations, FFT "
         f"kernels {len(_fft_kernels(top))}; device ms of the largest "
         "kernels: " + json.dumps({k: round(v, 3) for k, v in
-                                  list(top.items())[:10]}))
+                                  list(top.items())[:10]})
+        + f"; GDN kernel launches {json.dumps(seen)}")
     return launched
 
 
@@ -3474,10 +3583,13 @@ def _remat_steps():
         state = create_train_state(module, opt)
         gen = torch.Generator(device="cuda").manual_seed(0)
         step = make_train_step(module, opt, TRAIN_LAMBDA, remat=True)
+        # AMP: each GDN twice on the wide forward, once on the wide dx
         launched = _train_case(
             f"{TRAIN_ARCH} q{TRAIN_QUALITY} {mode} --remat batch "
             f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}",
-            step, state, (batch,), gen, 4, REMAT_STEP)
+            step, state, (batch,), gen, 4, REMAT_STEP,
+            {k: 2 * v if k.startswith("gdn_fwd") else v
+             for k, v in AMP_WIDE.items()} if dtype else None)
         for k, v in launched.items():
             counts[k] += v
         with RecomputePeaks(module) as spans:  # an uncounted step
@@ -3648,26 +3760,31 @@ def main():
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     for kernel, kcases in cases.items():
         for c in kcases:
-            via = f" ({c['dx_kernel']})" if "dx_kernel" in c else ""
+            via = c.get("dx_kernel") or c.get("kernel")
+            via = (f" ({via}" + (f", offset {c['offset']}" if "offset" in c
+                                 else "") + ")") if via else ""
             log(f"{kernel} {c['shape']} {c['dtype']} inverse={c['inverse']}"
                 f"{via}: "
                 f"{c['us']:.1f} us (plain {c['plain_us']:.1f}, library "
                 f"{c['library_us']:.1f}, bound {c['bound_us']:.1f} by "
                 f"{c['bound_by']}), rel err {c['max_rel_err']:.2e}, abs err "
                 f"{c['max_abs_err']:.3g}")
-    layers = _bf16_dx_layers(cases)
-    for key, v in layers.items():
-        log(f"bf16 gdn_bwd_dx {key}: GDN / IGDN "
-            + " / ".join(f"{u:.1f}" for u in v["us"])
-            + f" us, bound {v['bound_us']:.1f} by {v['bound_by']} "
-            f"({100 * v['bound_us'] / np.mean(v['us']):.0f} % of it), "
-            "composite " + " / ".join(f"{u:.1f}" for u in v["library_us"]))
+    layers = {k: _bf16_layers(cases, k) for k in ("gdn_fwd", "gdn_bwd_dx")}
+    for kernel, by_layer in layers.items():
+        for key, v in by_layer.items():
+            log(f"bf16 {kernel} {key}: GDN / IGDN "
+                + " / ".join(f"{u:.1f}" for u in v["us"])
+                + f" us, bound {v['bound_us']:.1f} by {v['bound_by']} "
+                f"({100 * v['bound_us'] / np.mean(v['us']):.0f} % of it), "
+                "composite "
+                + " / ".join(f"{u:.1f}" for u in v["library_us"]))
     if args.kernels_only:
         log(json.dumps({"kernels_only": {
             kernel: {f"training_step_{d}": _totals(cases, kernel,
                                                    TRAIN_ROWS[:3], d)
                      for d in ("float32", "bfloat16")}
-            for kernel in cases}, "bf16_dx_by_layer": layers}))
+            for kernel in cases}, "bf16_fwd_by_layer": layers["gdn_fwd"],
+            "bf16_dx_by_layer": layers["gdn_bwd_dx"]}))
         return 0
     t0 = time.perf_counter()
     serve_launches = phase_serving()
@@ -3703,6 +3820,7 @@ def main():
         "route": "cuda",
         "source": "lmic_tpu_torch/csrc/gdn_fwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:71",
+        "cuda_kernels": CUDA_KERNELS["gdn_fwd"],
         "launches": (serve_launches + ar_launches + rgbt_launches
                      + paired_launches + eval_launches + pipe_launches
                      + pretrained_launches + launched["gdn_fwd"]),
@@ -3733,6 +3851,7 @@ def main():
                                     "float32"),
         "training_step_f32": totals("gdn_fwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
+        "training_step_bf16_by_layer": layers["gdn_fwd"],
         # a --remat step: each GDN and IGDN again in its block's recompute
         "training_step_remat_f32": totals("gdn_fwd", REMAT_ROWS, "float32"),
         "training_step_remat_bf16": totals("gdn_fwd", REMAT_ROWS,
@@ -3750,6 +3869,8 @@ def main():
         "route": "cuda",
         "source": "lmic_tpu_torch/csrc/gdn_bwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:195",
+        "cuda_kernels": [k for name in gdn.BWD_KERNELS
+                         for k in CUDA_KERNELS[name]],
         "launches": next(iter(bwd_counts.values())),
         "launches_by_kernel": bwd_counts,
         "launches_by_path": {"video_serving": video_launches,
@@ -3774,12 +3895,15 @@ def main():
         "route": "cuda",
         "source": "lmic_tpu_torch/csrc/gdn_bwd.cu",
         "replaces": "lmic_tpu/ops/pallas_gdn.py:195",
+        "cuda_kernels": CUDA_KERNELS[name],
         "launches": launched[name],
         "launches_per_step": train_counts[name] / train_steps,
         "max_abs_err": max(errors[name].values()),
         "max_abs_err_by_dtype": errors[name],
         **totals(name, TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals(name, TRAIN_ROWS[:3], "bfloat16"),
+        **({"training_step_bf16_by_layer": layers[name]}
+           if name in layers else {}),
         "training_step_master": totals(name, MASTER_STEP_ROWS, "float32"),
         "card": smi,
     } for name in gdn.BWD_KERNELS]

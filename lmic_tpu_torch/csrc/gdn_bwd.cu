@@ -92,6 +92,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "gdn_f32.cuh"
@@ -99,6 +100,27 @@
 #include "gdn_mma.cuh"
 
 namespace {
+
+// The kernels of this library, in the order lmic_gdn_bwd_kernel_name gives
+// them, and each one's launches so far, counted where its launch succeeded
+// and nowhere else: a caller reads them around a run to see which kernel
+// each launch took (a torch.profiler session can lose records).
+enum Kernel {
+  kDxF32, kPartialsF32, kDxMma, kDxWide, kPartialsWide, kReduce, kKernels
+};
+constexpr const char *kKernelNames[kKernels] = {
+    "gdn_bwd_dx_kernel",      "gdn_bwd_partials_kernel",
+    "gdn_bwd_dx_mma_kernel",  "gdn_bwd_dx_wide_kernel",
+    "gdn_bwd_partials_wide_kernel",
+    "gdn_bwd_reduce_kernel"};
+std::atomic<int64_t> launches[kKernels];
+
+// cudaGetLastError() after a launch of `kernel`, which counts it if 0
+cudaError_t counted(Kernel kernel) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) launches[kernel].fetch_add(1);
+  return err;
+}
 
 constexpr int kChunkRows = 1024;  // rows per partial dbeta/dgamma
 constexpr int kTile = 64;         // dgamma block: 64 x 64 per CTA
@@ -1168,7 +1190,7 @@ cudaError_t launch_dx_as(const void *x, const void *g, const void *gamma_t,
       static_cast<const float *>(gamma_t), static_cast<const float *>(gamma),
       static_cast<const float *>(beta), static_cast<float *>(dx),
       static_cast<float *>(dn), n, C, vec);
-  return cudaGetLastError();
+  return counted(kDxF32);
 }
 
 // The main path's widths run kernels compiled for them (as the forward's)
@@ -1203,7 +1225,7 @@ cudaError_t launch_partials_as(const void *x, const void *dn, void *partials,
   kernel<<<grid, kPartialsThreads, smem, stream>>>(
       static_cast<const float *>(x), static_cast<const float *>(dn),
       static_cast<float *>(partials), n, C, vec);
-  return cudaGetLastError();
+  return counted(kPartialsF32);
 }
 
 cudaError_t launch_partials(const void *x, const void *dn, void *partials,
@@ -1243,7 +1265,7 @@ cudaError_t launch_dx_mma(const void *x, const void *g, const void *gamma_t,
       static_cast<const T *>(gamma_t), static_cast<const T *>(gamma),
       static_cast<const T *>(beta), static_cast<T *>(dx), static_cast<T *>(dn),
       static_cast<float *>(dn_sums), n, C, vec);
-  return cudaGetLastError();
+  return counted(kDxMma);
 }
 
 template <bool kInverse, int kWidth>
@@ -1275,7 +1297,7 @@ cudaError_t launch_dx_wide_as(const void *x, const void *g, const void *gamma,
            W::kSmem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
                                static_cast<const __nv_bfloat16 *>(beta),
                                static_cast<float *>(dn_sums), n);
-  return cudaGetLastError();
+  return counted(kDxWide);
 }
 
 // The bf16 dx route, a rule on shape and alignment alone: the widths of
@@ -1360,7 +1382,7 @@ cudaError_t launch_partials_wide(const void *x, const void *dn,
                            static_cast<const float *>(dn_sums),
                            static_cast<float *>(partials), n, C, split, tma);
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return counted(kPartialsWide);
 }
 
 template <typename T, int kVec>
@@ -1386,7 +1408,7 @@ cudaError_t launch_reduce_as(const void *partials, void *dbeta, void *dgamma,
   kernel<<<static_cast<unsigned>(blocks), block, smem, stream>>>(
       static_cast<const float *>(partials), static_cast<T *>(dbeta),
       static_cast<T *>(dgamma), chunks, C);
-  return cudaGetLastError();
+  return counted(kReduce);
 }
 
 template <typename T>
@@ -1491,6 +1513,16 @@ int lmic_gdn_bwd_reduce(const void *partials, void *dbeta, void *dgamma,
     return launch_reduce<__nv_bfloat16>(partials, dbeta, dgamma, chunks, C,
                                         s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The name of kernel k of this library (null past the last) and its
+// launches so far, counted where each launch succeeded.
+const char *lmic_gdn_bwd_kernel_name(int k) {
+  return k >= 0 && k < kKernels ? kKernelNames[k] : nullptr;
+}
+
+int64_t lmic_gdn_bwd_kernel_launches(int k) {
+  return k >= 0 && k < kKernels ? launches[k].load() : 0;
 }
 
 const char *lmic_gdn_bwd_error_string(int code) {

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "gdn_fwd.cu": {
         "lmic_gdn_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
         "lmic_gdn_fwd_max_channels": [_I],
+        "lmic_gdn_fwd_kernel_name": [_I],
+        "lmic_gdn_fwd_kernel_launches": [_I],
         "lmic_gdn_error_string": [_I],
     },
     "gdn_bwd.cu": {
@@ -70,9 +72,18 @@ _SIGNATURES = {
         "lmic_gdn_bwd_chunk_rows": [],
         "lmic_gdn_bwd_tile_rows": [],
         "lmic_gdn_bwd_dx_reads_gamma_t": [_P, _P, _P, _P, _P, _I64, _I, _I],
+        "lmic_gdn_bwd_kernel_name": [_I],
+        "lmic_gdn_bwd_kernel_launches": [_I],
         "lmic_gdn_bwd_error_string": [_I],
     },
 }
+
+
+def _restype(name: str):
+    """The ctypes return type of the C ABI entry point `name`."""
+    if name.endswith(("_string", "_name")):
+        return ctypes.c_char_p
+    return ctypes.c_int64 if name.endswith("_launches") else ctypes.c_int
 
 
 def _load(source: str):
@@ -83,10 +94,29 @@ def _load(source: str):
             for name, argtypes in _SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = (ctypes.c_char_p if name.endswith("string")
-                              else ctypes.c_int)
+                fn.restype = _restype(name)
             _libs[source] = lib
     return lib
+
+
+def kernel_launches() -> dict:
+    """{CUDA kernel name: launches so far} of each GDN library loaded in
+    this process, counted by the C ABI where each launch succeeded (see
+    `lmic_gdn_fwd_kernel_launches`): the difference around a run names the
+    kernels its launches took. A library not loaded yet has launched
+    nothing and is left out."""
+    out = {}
+    for source, prefix in (("gdn_fwd.cu", "lmic_gdn_fwd"),
+                           ("gdn_bwd.cu", "lmic_gdn_bwd")):
+        lib = _libs.get(source)
+        name_of = getattr(lib, prefix + "_kernel_name", None)
+        if name_of is None:
+            continue
+        k = 0
+        while (name := name_of(k)) is not None:
+            out[name.decode()] = getattr(lib, prefix + "_kernel_launches")(k)
+            k += 1
+    return out
 
 
 def _acc(x):
@@ -174,7 +204,10 @@ def _raise_on(err, lib, what):
 
 def gdn_fwd(x, beta, gamma, inverse: bool = False):
     """Launch the forward kernel on CUDA tensors x (..., C), beta (C,) and
-    gamma (C, C) of one dtype, float32 or bfloat16."""
+    gamma (C, C) of one dtype, float32 or bfloat16. The C ABI picks the
+    kernel by shape: bf16 at C = 128 and 192 with 16-byte aligned x, gamma
+    and y runs `gdn_fwd_wide_kernel`, other bf16 shapes
+    `gdn_fwd_mma_kernel`; a failed launch or tensor-map encode raises."""
     C = _check("gdn_fwd", x, beta, gamma)
     lib = _load("gdn_fwd.cu")
     if C > max_channels("gdn_fwd", x.dtype):

@@ -209,8 +209,9 @@ def _check_bwd(dtype, inverse, rows, C):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-# bf16 gdn_bwd on the route of gdn_bwd_dx_wide_kernel (C = 128 and 192,
-# 16-byte aligned rows; persistent CTAs, one an SM, walk the 64-row tiles):
+# bf16 gdn_bwd and gdn_fwd on the routes of gdn_bwd_dx_wide_kernel and
+# gdn_fwd_wide_kernel (C = 128 and 192, 16-byte aligned rows; persistent
+# CTAs, one an SM, walk the 64-row tiles):
 # around one tile (1, 63, 64, 65 rows), around one tile a CTA on a 132-SM
 # card (131, 132, 133 tiles), an odd count of tiles a CTA (3: 396 tiles)
 # and a ragged 397th tile, a ragged training layer and a whole one.
@@ -275,16 +276,96 @@ def test_offset_view_takes_the_mma_kernel(inverse, C):
     offset = buf[1:].view(rows, C)
     assert offset.is_contiguous() and offset.data_ptr() % 16 != 0
     want = gdn.gdn_bwd_reference(x, beta, gamma, g, inverse)
-    from chip_smoke import _dx_kernels
+    from chip_smoke import _routed_kernels
     for xi, kernel in ((offset, "gdn_bwd_dx_mma_kernel"),
                        (x, "gdn_bwd_dx_wide_kernel")):
         def run():
             return gdn.gdn_bwd(xi, beta, gamma, g, inverse)
-        assert _dx_kernels(run) == [kernel]
+        assert _routed_kernels(run) == [kernel]
         got = run()
         for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
             assert _rel_err(a, b) < TOL[torch.bfloat16], name
         assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", WIDE)
+def test_wide_fwd_route_matches_reference(inverse, rows, C):
+    """bf16 gdn_fwd on the route of gdn_fwd_wide_kernel (persistent CTAs
+    walk the 64-row tiles two deep) against the plain version, the same
+    bytes twice."""
+    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=rows + C,
+                           skew=True)
+    got = gdn.gdn_fwd(x, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    want = gdn.gdn_reference(x, beta, gamma, inverse)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel_err(got, want) < TOL[torch.bfloat16]
+    assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("C", [128, 192])
+def test_offset_view_takes_the_fwd_mma_kernel(inverse, C):
+    """bf16 gdn_fwd: a view offset by one element is off the TMA's 16-byte
+    route and takes gdn_fwd_mma_kernel, and so does C = 320, a width the
+    wide kernel has no instance of; the aligned tensor takes
+    gdn_fwd_wide_kernel. Each matches the plain version, the same bytes
+    twice."""
+    from chip_smoke import _routed_kernels
+
+    rows = 1_000
+    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=C, skew=True)
+    buf = torch.empty(rows * C + 1, dtype=x.dtype, device="cuda")
+    buf[1:].copy_(x.view(-1))
+    offset = buf[1:].view(rows, C)
+    assert offset.is_contiguous() and offset.data_ptr() % 16 != 0
+    wide = _data(rows, 320, torch.bfloat16, seed=C, skew=True)
+    for (xi, bi, gi), kernel in (((offset, beta, gamma), "gdn_fwd_mma_kernel"),
+                                 ((x, beta, gamma), "gdn_fwd_wide_kernel"),
+                                 (wide, "gdn_fwd_mma_kernel")):
+        def run():
+            return gdn.gdn_fwd(xi, bi, gi, inverse)
+        assert _routed_kernels(run) == [kernel]
+        got = run()
+        want = gdn.gdn_reference(xi, bi, gi, inverse)
+        assert _rel_err(got, want) < TOL[torch.bfloat16], kernel
+        assert torch.equal(got, run()), kernel
+
+
+@pytest.mark.parametrize("dtype,offset,fwd,dx,partials", [
+    (torch.float32, 0, "gdn_fwd_kernel", "gdn_bwd_dx_kernel",
+     "gdn_bwd_partials_kernel"),
+    (torch.bfloat16, 0, "gdn_fwd_wide_kernel", "gdn_bwd_dx_wide_kernel",
+     "gdn_bwd_partials_wide_kernel"),
+    (torch.bfloat16, 1, "gdn_fwd_mma_kernel", "gdn_bwd_dx_mma_kernel",
+     "gdn_bwd_partials_wide_kernel"),
+])
+def test_kernel_launches_count_the_kernel_each_launch_took(dtype, offset, fwd,
+                                                          dx, partials):
+    """`gdn.kernel_launches` rises by one for the CUDA kernel each launch
+    of gdn_fwd and gdn_bwd took, and for no other, on and off the wide
+    route (a view offset by one element)."""
+    rows, C = 1_000, 192
+    x, beta, gamma = _data(rows, C, dtype, seed=3, skew=True)
+    g = torch.randn((rows, C), generator=torch.Generator().manual_seed(4)
+                    ).to("cuda", dtype)
+    buf = torch.empty(rows * C + offset, dtype=dtype, device="cuda")
+    buf[offset:].copy_(x.view(-1))
+    x = buf[offset:].view(rows, C)
+
+    def launched(run):
+        torch.cuda.synchronize()
+        before = gdn.kernel_launches()
+        run()
+        torch.cuda.synchronize()
+        return {k: v - before.get(k, 0)
+                for k, v in gdn.kernel_launches().items()
+                if v != before.get(k, 0)}
+
+    assert launched(lambda: gdn.gdn_fwd(x, beta, gamma)) == {fwd: 1}
+    assert launched(lambda: gdn.gdn_bwd(x, beta, gamma, g)) == {
+        dx: 1, partials: 1, "gdn_bwd_reduce_kernel": 1}
 
 
 def test_dx_reads_gamma_t_off_the_wide_route_only():

@@ -66,6 +66,22 @@ def test_reference_matches_pallas_interpret(dtype, inverse, monkeypatch):
     assert _rel_err(got, want) < TOL[dtype]
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("width", [128, 192])
+@pytest.mark.parametrize("rows", [63, 65, 2 * 64 + 7])
+def test_bf16_reference_matches_pallas_at_the_wide_widths(
+        rows, width, inverse, monkeypatch):
+    """The bf16 plain forward, which the card holds gdn_fwd_wide_kernel to,
+    against lmic_tpu's Pallas kernel run by the interpreter at the widths
+    of that kernel's route, around its 64-row tile."""
+    (jx, jb, jg), (tx, tb, tg) = _data(8, (rows, width), "bfloat16")
+    monkeypatch.setenv("LMIC_PALLAS", "interpret")
+    want = pallas_gdn.gdn_core(jx, jb, jg, inverse)
+    got = tgdn.gdn_reference(tx, tb, tg, inverse)
+    assert got.dtype == torch.bfloat16 and got.shape == tx.shape
+    assert _rel_err(got, want) < TOL["bfloat16"]
+
+
 def test_core_dispatch_on_cpu_and_elsewhere():
     _, (tx, tb, tg) = _data(2, (5, C), "float32")
     assert torch.equal(tgdn.gdn_core(tx, tb, tg),

@@ -126,6 +126,9 @@ def test_build_key_hashes_the_shared_cuda_headers(tmp_path, monkeypatch):
 # C parameter types -> the ctypes that ops/gdn.py binds them to
 _CTYPES = {"const void *": ctypes.c_void_p, "void *": ctypes.c_void_p,
            "int64_t": ctypes.c_int64, "int": ctypes.c_int}
+# C return types -> the restype that ops/gdn.py gives them
+_RESTYPES = {"const char *": ctypes.c_char_p, "int64_t": ctypes.c_int64,
+             "int": ctypes.c_int}
 
 
 def _extern_c(path):
@@ -160,8 +163,72 @@ def test_gdn_signatures_match_the_c_abi(source):
     bound = gdn._SIGNATURES[source]
     assert sorted(defined) == sorted(bound)
     for name, (ret, params) in defined.items():
-        assert ret == ("const char *" if name.endswith("string") else "int")
+        assert _RESTYPES[ret] == gdn._restype(name), name
         assert [_CTYPES[p] for p in params] == bound[name], name
+
+
+def _global_kernels(source):
+    """The names of the `__global__` kernels of the CUDA source `source`."""
+    import os
+    import re
+
+    from lmic_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = re.sub(r"//[^\n]*", "", f.read())
+    return set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        text))
+
+
+@pytest.mark.parametrize("source", ["gdn_fwd.cu", "gdn_bwd.cu"])
+def test_launch_counts_name_every_kernel(source):
+    """The C ABI's per-kernel launch counts (`kKernelNames`, read through
+    `lmic_gdn_*_kernel_name`) name each `__global__` kernel of the source
+    once, so `gdn.kernel_launches` cannot miss a route; and each
+    kernel's launcher returns through `counted` for it, once."""
+    import os
+    import re
+
+    from lmic_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = f.read()
+    table = re.search(r"kKernelNames\[kKernels\] = \{([^}]*)\}", text)
+    names = re.findall(r'"(\w+)"', table.group(1))
+    assert len(names) == len(set(names))
+    assert set(names) == _global_kernels(source)
+    enum = re.search(r"enum Kernel \{([^}]*)\}", text).group(1)
+    ids = [e.strip() for e in enum.split(",") if e.strip()]
+    assert ids[-1] == "kKernels" and len(ids) - 1 == len(names)
+    for k in ids[:-1]:
+        assert text.count(f"return counted({k});") == 1, k
+
+
+def test_kernel_launches_reads_each_loaded_library(monkeypatch):
+    """`gdn.kernel_launches` gives {kernel name: launches} of each GDN
+    library loaded, by index until the C ABI's name is null, and leaves
+    out a library not loaded yet or one without the counts."""
+    from lmic_tpu_torch.ops import gdn
+
+    class Lib:
+        def __init__(self, names, counts):
+            self.names, self.counts = names, counts
+
+        def name(self, k):
+            return self.names[k].encode() if k < len(self.names) else None
+
+        def launches(self, k):
+            return self.counts[k]
+
+    fwd = Lib(["gdn_fwd_kernel", "gdn_fwd_wide_kernel"], [3, 5])
+    fwd.lmic_gdn_fwd_kernel_name = fwd.name
+    fwd.lmic_gdn_fwd_kernel_launches = fwd.launches
+    monkeypatch.setattr(gdn, "_libs", {"gdn_fwd.cu": fwd})
+    assert gdn.kernel_launches() == {"gdn_fwd_kernel": 3,
+                                     "gdn_fwd_wide_kernel": 5}
+    monkeypatch.setattr(gdn, "_libs", {"gdn_bwd.cu": object()})
+    assert gdn.kernel_launches() == {}
 
 
 def _smoke_kernel_lists():
@@ -204,16 +271,7 @@ def test_every_gdn_kernel_is_in_one_smoke_list(source):
     FP32_KERNELS (must not), so the card's SASS check covers it and cannot
     pass over a new kernel; the wgmma and no-spill lists name kernels of
     the sources."""
-    import os
-    import re
-
-    from lmic_tpu_torch.ops import _build
-
-    with open(os.path.join(_build.CSRC, source)) as f:
-        text = re.sub(r"//[^\n]*", "", f.read())
-    kernels = set(re.findall(
-        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
-        text))
+    kernels = _global_kernels(source)
     assert kernels and all(k.startswith(source[:-3] + "_") for k in kernels)
     lists = _smoke_kernel_lists()
     mma, fp32 = set(lists["MMA_KERNELS"]), set(lists["FP32_KERNELS"])
