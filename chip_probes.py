@@ -11,6 +11,7 @@ runs them.
     python3 chip_probes.py gdn-host PARENT
     python3 chip_probes.py gdn-fwd-tiles
     python3 chip_probes.py gdn-fwd-sqrt
+    python3 chip_probes.py bf16-step
 
 - master-batch: the largest batch of the RGB-T master's training step
   that fits, the channel-1 master q7 (f32) against its frozen guided q7 on
@@ -84,6 +85,14 @@ runs them.
   against a copy of the kernel built with IEEE `sqrtf` there, at the
   training rows (and 1,572,864), C = 192 and 128: the output elements
   that differ, and the device µs of each, in turns.
+- bf16-step: one step of a narrow mbt2018-mean (q7, N = 32, M = 48,
+  batch 2 of 64x128, seed 0, `crosscheck.fixed_noise`) on the card
+  against the CPU: in f32, under `--bf16` as the port runs it (TF32 on
+  the rounded operands), and under `--bf16` with the rounded operands in
+  FP32 (TF32 off), each the losses' largest relative difference, the
+  clipped gradients' relative Frobenius error as one vector and the root
+  mean square of each leaf's, and the worst leaves; then the rounding's
+  own effect, the CPU's `--bf16` step against its f32 step.
 """
 
 from __future__ import annotations
@@ -110,9 +119,11 @@ from chip_smoke import (
     RecomputePeaks,
     _fft_kernels,
     _images,
+    _narrow_step,
     _profile,
     _gop_bytes,
     _gops,
+    _step_gap,
     _time_ms,
     _train_batch,
     log,
@@ -856,11 +867,40 @@ def gdn_fwd_sqrt(rows=(262_144, 65_536, 16_384, 16_391, 1_572_864)):
         + json.dumps(out))
 
 
+def bf16_step():
+    """bf16-step: a narrow `--bf16` step on the card against the CPU, with
+    the rounded operands in TF32 (the port's route) and in FP32."""
+    import contextlib
+
+    from lmic_tpu_torch.ops import precision
+
+    def compare(what, a, b):
+        loss, whole, rms, worst = _step_gap(a, b)
+        log(f"bf16-step {what}: losses within {loss:.3g}, gradients as one "
+            f"vector {whole:.3g}, each leaf's relative error's root mean "
+            f"square {rms:.3g}; worst leaves " + json.dumps(worst))
+
+    cpu32 = _narrow_step("cpu", None)
+    cpu16 = _narrow_step("cpu", "bfloat16")
+    compare("card vs CPU, f32", _narrow_step("cuda", None), cpu32)
+    compare("card vs CPU, --bf16 (TF32 on the rounded operands)",
+            _narrow_step("cuda", "bfloat16"), cpu16)
+    tf32 = precision._tf32
+    precision._tf32 = lambda t: contextlib.nullcontext()
+    try:
+        compare("card vs CPU, --bf16 (the rounded operands in FP32)",
+                _narrow_step("cuda", "bfloat16"), cpu16)
+    finally:
+        precision._tf32 = tf32
+    compare("the rounding's effect: CPU --bf16 vs CPU f32", cpu16, cpu32)
+
+
 def main(argv):
     import torch
 
     probes = ("master-batch", "train-convs", "video-convs", "sync-u8",
-              "gdn-ab", "gdn-host", "gdn-fwd-tiles", "gdn-fwd-sqrt")
+              "gdn-ab", "gdn-host", "gdn-fwd-tiles", "gdn-fwd-sqrt",
+              "bf16-step")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -888,6 +928,8 @@ def main(argv):
         gdn_fwd_tiles()
     elif argv[0] == "gdn-fwd-sqrt":
         gdn_fwd_sqrt()
+    elif argv[0] == "bf16-step":
+        bf16_step()
     else:
         video_convs()
     return 0

@@ -204,7 +204,31 @@ Phases, each of which raises (exit code != 0) on any failure:
    the caching allocator's expandable segments as `train_cli --remat`
    sets them (two steps, 18 `gdn_fwd` and 6 of each backward kernel the
    timed one; step ms, peak memory and the backward spans, from one
-   block's recompute to the next, with the highest memory logged).
+   block's recompute to the next, with the highest memory logged);
+14. matmul precision, last: lmic_tpu's bf16 matmul precision
+   (`ops/precision.py`). `eval_model --half`'s cores
+   (`eval_image_codec`, `eval_image_forward`, `eval_rgbt_pair`) under the
+   mode on three seeded 512x768 images for mbt2018-mean q8 and
+   cheng2020-anchor q3 (wavefront) and on the channel-1 RGB-T pair q7
+   (a 512x640 master, a 1024x1280 guide), the counts set to 0 just
+   before and read just after: 6 f32 `gdn_fwd_kernel` launches a round
+   trip and an estimate, 12 a pair, no other GDN kernel (the C ABI's
+   exact counts; lmic_tpu keeps the GDN at HIGHEST); each `--half`
+   stream other than the f32 one of the same codec, decoding to its
+   encoder's latents; the tables untouched and the f32 strings again
+   after the mode; the card within 2e-2 of the CPU under the mode (the
+   CPU tests' bar; transforms, wavefront steps, the pair stage by
+   stage); rounded calls, encode and decode ms in f32 and under the
+   mode, a round trip's device ms, busy share and conv/GEMM engines
+   logged. Then mbt2018-mean q7 at batch 16 of 256x256 in f32, AMP,
+   `--bf16` and `--bf16 --remat` in one process (a warm-up, a profiled
+   and 4 timed steps each; under --bf16 6 f32 `gdn_fwd_kernel` a step,
+   12 with --remat, 6 of each f32 backward kernel, no bf16 GDN kernel),
+   each step's ms, device ms, busy share and peak memory logged, and one
+   narrow --bf16 step on the card against the CPU with the same noise
+   (losses within 1e-3, the clipped gradients as one vector within a
+   quarter of the rounding's own effect, the CPU's --bf16 step against
+   its f32 step).
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -344,6 +368,21 @@ REMAT_ROWS = {r: 2 for r in TRAIN_ROWS[:3]}
 # the bars of a remat step against the plain one on the card: the card's
 # f32 and bf16 bars of the training phases
 REMAT_BARS = {"f32": (1e-4, 1e-3), "amp": (1e-3, 2e-2)}
+# phase 14, lmic_tpu's bf16 matmul precision (`eval_model --half`,
+# `train_cli --bf16`; ops/precision.py)
+HALF_CODECS = (("mbt2018-mean", 8), ("cheng2020-anchor", 3))
+HALF_IMAGES = 3
+# the CPU tests' bar under the mode (tests/test_torch_precision.py): of
+# each tensor's largest value
+HALF_BAR = 2e-2
+# the bf16 mode's narrow step on the card against the CPU's: the losses
+# within the card's bf16 bar of the training phases, the clipped
+# gradients as one vector within a quarter of the rounding's own effect
+# there (the CPU's bf16 step against its f32 step; the CPU tests' pooled
+# bar). Single leaves of h_a and h_s move by up to a sixth: summation
+# order moves an f32 sum by an ulp and flipped bf16 roundings follow, with
+# the rounded operands in FP32 as in TF32 (`chip_probes.py bf16-step`)
+BF16_STEP_BARS = (1e-3, 0.25)
 
 
 def log(*a):
@@ -388,6 +427,11 @@ WGMMA_KERNELS = ("gdn_fwd_wide_kernel", "gdn_bwd_dx_wide_kernel",
                  "gdn_bwd_partials_wide_kernel")
 FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                 "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
+# launches of each CUDA kernel a step under --bf16 (the GDN stays f32:
+# HIGHEST in lmic_tpu) and under --bf16 --remat
+BF16_STEP = {**{k: 0 for k in MMA_KERNELS},
+             **{k: 6 for k in FP32_KERNELS}}
+BF16_REMAT_STEP = {**BF16_STEP, "gdn_fwd_kernel": 12}
 
 
 # The register-tiled f32 kernels (8 x 4 accumulators a thread): the two on
@@ -1908,15 +1952,17 @@ def _log_train_convs():
 
 
 def _train_case(what, step, state, batches, gen, timed, per_step,
-                kernels=None):
+                kernels=None, exact=False, out=None):
     """A warm-up step, a second one under the profiler, then `timed`
     steps with the launch counts set to 0 just before and read just
     after, which must be `per_step` of each kernel a step; the loss must
     stay finite and fall on the one batch. `kernels` maps CUDA kernel
-    names to the launches the profiled step must make (`_hold_launches`).
-    Logs the step ms,
-    peak memory and the profiled step. Returns the launch counts of the
-    timed steps."""
+    names to the launches the profiled step must make (`_hold_launches`),
+    and with `exact` each timed step too, as the C ABI counts them.
+    Logs the step ms, peak memory and the profiled step, and puts the
+    median step ms, the profiled step's device ms and busy share and the
+    peak memory in the dict `out` when given. Returns the launch counts
+    of the timed steps."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -1937,6 +1983,7 @@ def _train_case(what, step, state, batches, gen, timed, per_step,
                    kernels or {})
     t_warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
+    before = gdn.kernel_launches()
     _reset_counts()
     ms = []
     for _ in range(timed):
@@ -1951,6 +1998,17 @@ def _train_case(what, step, state, batches, gen, timed, per_step,
     if launched != want:
         raise AssertionError(f"{what}: launches {launched} in {timed} "
                              f"steps, expected {want}")
+    if exact:
+        after = gdn.kernel_launches()
+        abi = {k: after.get(k, 0) - before.get(k, 0) for k in kernels}
+        if abi != {k: v * timed for k, v in kernels.items()}:
+            raise AssertionError(f"{what}: the C ABI counted {abi} in "
+                                 f"{timed} steps, expected {kernels} a "
+                                 "step")
+    if out is not None:
+        out.update(step_ms=float(np.median(ms)), device_ms=dev_ms,
+                   busy=dev_ms / wall_ms, peak_gib=peak / 2**30,
+                   kernels=top)
     losses = [m["loss"] for m in metrics]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: loss not finite: {losses}")
@@ -3691,6 +3749,369 @@ def phase_pretrained_and_remat():
     return served, counts
 
 
+BF16 = "bfloat16"
+
+
+def _abi_diff(before):
+    """Launches of each GDN CUDA kernel since `before`, by the C ABI."""
+    from lmic_tpu_torch.ops import gdn
+
+    after = gdn.kernel_launches()
+    return {k: after.get(k, 0) - before.get(k, 0) for k in GDN_KERNELS}
+
+
+def _hold_abi(what, counted, per_pass, passes):
+    """The C ABI's launches (`counted`) of `passes` passes: `per_pass`
+    f32 `gdn_fwd_kernel` each, and no other GDN kernel (no backward, no
+    bf16 kernel: the GDN is HIGHEST in lmic_tpu, f32 under the mode)."""
+    want = {k: 0 for k in GDN_KERNELS}
+    want["gdn_fwd_kernel"] = per_pass * passes
+    if counted != want:
+        raise AssertionError(f"{what}: the C ABI counted {counted}, "
+                             f"expected {want}")
+
+
+def _engines(top):
+    """The conv and GEMM kernels of a profile, by name (cuDNN's and
+    cuBLAS's engines; TF32 ones carry `tf32` in their names), with those
+    that transform the operands (FFT, Winograd) apart."""
+    names = [k for k in top if any(w in k.lower() for w in (
+        "conv", "gemm", "xmma", "tf32", "fft", "winograd", "cutlass"))]
+    return names, [k for k in names
+                   if "fft" in k.lower() or "winograd" in k.lower()]
+
+
+def _half_cpu_agreement(arch, quality, codec):
+    """The card's transforms under the bf16 mode against the CPU's under
+    the mode, same seed, on a 64x128 image: y, z and g_s of the CPU's
+    rounded latents, within HALF_BAR of the largest value; for an AR
+    codec every wavefront step's scales and means on the CPU's coded
+    latents too. Returns the largest error."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import precision
+    from lmic_tpu_torch.utils.crosscheck import wavefront_step_agreement
+
+    cpu = zoo.create_model(arch, quality, seed=0, device="cpu")
+    cpu.update()
+    x = _images(1, (1, 64, 128, 3), seed=7)[0]
+    worst = 0.0
+    with torch.inference_mode(), precision.matmul_precision(BF16):
+        y_ref, z_ref = cpu.module.analyze(cpu._pixels(x))
+        y_hat = torch.round(y_ref)
+        y, z = codec.module.analyze(codec._pixels(x))
+        pairs = ((y, y_ref), (z, z_ref), (codec.module.g_s(
+            y_hat.to(codec.device)), cpu.module.g_s(y_hat)))
+        for a, b in pairs:
+            worst = max(worst, ((a.float().cpu() - b).abs().max()
+                                / b.abs().max()).item())
+        if hasattr(codec, "_step_for"):
+            err, flips, n = wavefront_step_agreement(codec, cpu, x)
+            log(f"--half {arch} q{quality}: CUDA vs CPU wavefront steps "
+                f"within {err:.3g}, {flips} of {n} scale indexes differ")
+            worst = max(worst, err)
+    if not worst <= HALF_BAR:
+        raise AssertionError(f"--half {arch}: CUDA vs CPU {worst:.3g}")
+    return worst
+
+
+def _half_codec(arch, quality, images):
+    """`eval_model --half`'s cores on one codec from seed 0: the f32
+    round trips, then under the mode `eval_image_codec` and
+    `eval_image_forward` on each image with the counts set to 0 just
+    before and read just after (6 f32 `gdn_fwd_kernel` a round trip and
+    an estimate, nothing else), the strings other than f32's and decoding
+    to the encoder's latents, the tables untouched, the card against the
+    CPU. Returns the `gdn_fwd` launches of the counted calls."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.models.joint import JointARCodec
+    from lmic_tpu_torch.ops import gdn, precision
+    from lmic_tpu_torch.utils.eval_model import (
+        eval_image_codec,
+        eval_image_forward,
+    )
+
+    codec = zoo.create_model(arch, quality, seed=0, device="cuda")
+    codec.update()
+    tables = [getattr(codec, k).table.cdf.copy()
+              for k in ("eb_state", "gc_state")]
+    xs = [img.astype(np.float32) / 255 for img in images]
+    f32 = [codec.compress(x)["strings"] for x in xs]
+    f32_ms = [eval_image_codec(codec, x) for x in xs]
+    f32_dev = _profile(lambda: eval_image_codec(codec, xs[0]), n=1)[1]
+    with precision.matmul_precision(BF16):
+        eval_image_codec(codec, xs[0])  # the mode's first launches
+        precision.reset_rounded_calls()
+        torch.cuda.synchronize()
+        before = gdn.kernel_launches()
+        _reset_counts()
+        half_ms = [eval_image_codec(codec, x) for x in xs]
+        rounded = precision.rounded_calls() / len(xs)
+        estimates = [eval_image_forward(codec, x) for x in xs]
+        torch.cuda.synchronize()
+        launched = gdn.LAUNCHES["gdn_fwd"]
+        _hold_abi(f"--half {arch}", _abi_diff(before), 6, 2 * len(xs))
+        if launched != 12 * len(xs):
+            raise AssertionError(f"--half {arch}: gdn_fwd launched "
+                                 f"{launched}")
+        for x, want in zip(xs, f32):
+            out = codec.compress(x)
+            if out["strings"] == want:
+                raise AssertionError(f"--half {arch}: the f32 strings")
+            if isinstance(codec, JointARCodec):
+                _ar_roundtrip_checks(codec, x, out["strings"])
+            else:
+                _roundtrip_checks(codec, x, out["strings"], out["shape"])
+        gdn_ms, dev_ms, wall_ms, top, ops = _profile(
+            lambda: eval_image_codec(codec, xs[0]), n=1, keep=None)
+    if not all(np.array_equal(a, getattr(codec, k).table.cdf)
+               for a, k in zip(tables, ("eb_state", "gc_state"))):
+        raise AssertionError(f"--half {arch}: the tables moved")
+    if codec.compress(xs[0])["strings"] != f32[0]:
+        raise AssertionError(f"{arch}: f32 strings after --half differ")
+    worst = _half_cpu_agreement(arch, quality, codec)
+    engines, transforming = _engines(top)
+
+    def med(ms, key):
+        return float(np.median([1e3 * m[key] for m in ms]))
+
+    log(f"--half {arch} q{quality} on {len(xs)} 512x768 images: "
+        f"{rounded:.0f} rounded calls a round trip; encode / decode ms "
+        f"f32 {med(f32_ms, 'encoding_time'):.2f} / "
+        f"{med(f32_ms, 'decoding_time'):.2f}, --half "
+        f"{med(half_ms, 'encoding_time'):.2f} / "
+        f"{med(half_ms, 'decoding_time'):.2f}; bpp f32 "
+        f"{np.mean([m['bpp'] for m in f32_ms]):.4f} --half "
+        f"{np.mean([m['bpp'] for m in half_ms]):.4f}, PSNR f32 "
+        f"{np.mean([m['psnr'] for m in f32_ms]):.3f} --half "
+        f"{np.mean([m['psnr'] for m in half_ms]):.3f} dB; estimate bpp "
+        f"{np.mean([m['bpp'] for m in estimates]):.4f}; a round trip's "
+        f"device ms f32 {f32_dev:.2f}, --half {dev_ms:.2f} of {wall_ms:.2f} "
+        f"(busy "
+        f"{100 * dev_ms / wall_ms:.1f} %), GDN {gdn_ms:.3f} ms, {ops:.0f} "
+        f"device operations; CUDA vs CPU within {worst:.3g}; conv and "
+        f"GEMM engines {json.dumps(engines)}")
+    if transforming:
+        log(f"--half {arch}: engines that transform the operands: "
+            f"{transforming}")
+    return launched
+
+
+def _half_rgbt(images):
+    """The RGB-T pair q7 (channel 1) under the mode: `eval_rgbt_pair` on a
+    512x640 master and a 1024x1280 guide with the counts set to 0 just
+    before and read just after (12 f32 `gdn_fwd_kernel`), the checks of
+    phase 7 (`_rgbt_checks`: exact latents, the guide's reconstruct) on
+    strings other than f32's, the tables untouched, the card against the
+    CPU stage by stage. Returns the `gdn_fwd` launches counted."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn, precision
+    from lmic_tpu_torch.utils.crosscheck import rgbt_agreement
+    from lmic_tpu_torch.utils.eval_model import eval_rgbt_pair
+    from lmic_tpu_torch.utils.serve import load_rgbt_codecs
+
+    (guided, master), _ = load_rgbt_codecs(RGBT_QUALITY, 1, seed=0,
+                                           device="cuda")
+    tables = [getattr(c, k).table.cdf.copy() for c in (guided, master)
+              for k in ("eb_state", "gc_state")]
+    x = _images(1, RGBT_MASTER, seed=31)[0].astype(np.float32) / 255
+    guide = _images(1, RGBT_GUIDE, seed=32)[0].astype(np.float32) / 255
+    f32 = _rgbt_checks(guided, master, x, guide)[0]["strings"]
+    f32_m = eval_rgbt_pair(guided, master, x, guide)
+    f32_dev = _profile(lambda: eval_rgbt_pair(guided, master, x, guide),
+                       n=1)[1]
+    with precision.matmul_precision(BF16):
+        eval_rgbt_pair(guided, master, x, guide)
+        precision.reset_rounded_calls()
+        torch.cuda.synchronize()
+        before = gdn.kernel_launches()
+        _reset_counts()
+        half_m = eval_rgbt_pair(guided, master, x, guide)
+        torch.cuda.synchronize()
+        launched = gdn.LAUNCHES["gdn_fwd"]
+        rounded = precision.rounded_calls()
+        _hold_abi("--half RGB-T", _abi_diff(before), 12, 1)
+        if launched != 12:
+            raise AssertionError(f"--half RGB-T: gdn_fwd launched "
+                                 f"{launched}")
+        out = _rgbt_checks(guided, master, x, guide)[0]
+        if out["strings"] == f32:
+            raise AssertionError("--half RGB-T: the f32 strings")
+        gdn_ms, dev_ms, wall_ms, top, ops = _profile(
+            lambda: eval_rgbt_pair(guided, master, x, guide), n=1,
+            keep=None)
+        cpu, _ = load_rgbt_codecs(RGBT_QUALITY, 1, seed=0, device="cpu")
+        factor = master.module.downsampling_factor
+        gH, gW = master.expected_guide_hw(factor, factor)
+        worst = rgbt_agreement(
+            (guided, master), cpu,
+            _images(1, (1, factor, factor, 1), seed=41)[0],
+            _images(1, (1, gH, gW, 3), seed=42)[0])
+    if not all(np.array_equal(a, getattr(c, k).table.cdf) for a, (c, k) in
+               zip(tables, [(c, k) for c in (guided, master)
+                            for k in ("eb_state", "gc_state")])):
+        raise AssertionError("--half RGB-T: the tables moved")
+    if not worst <= HALF_BAR:
+        raise AssertionError(f"--half RGB-T: CUDA vs CPU {worst:.3g}")
+    engines, transforming = _engines(top)
+    log(f"--half RGB-T q{RGBT_QUALITY} (512x640 master, 1024x1280 guide): "
+        f"{rounded} rounded calls a pair; encode / decode ms f32 "
+        f"{1e3 * f32_m['encoding_time']:.2f} / "
+        f"{1e3 * f32_m['decoding_time']:.2f}, --half "
+        f"{1e3 * half_m['encoding_time']:.2f} / "
+        f"{1e3 * half_m['decoding_time']:.2f}; bpp f32 {f32_m['bpp']:.4f} "
+        f"--half {half_m['bpp']:.4f}; device ms f32 {f32_dev:.2f}, --half "
+        f"{dev_ms:.2f} of {wall_ms:.2f} (busy {100 * dev_ms / wall_ms:.1f} "
+        f"%), GDN "
+        f"{gdn_ms:.3f} ms, {ops:.0f} device operations; CUDA vs CPU stage "
+        f"by stage within {worst:.3g}; conv and GEMM engines "
+        f"{json.dumps(engines)}")
+    if transforming:
+        log(f"--half RGB-T: engines that transform the operands: "
+            f"{transforming}")
+    return launched
+
+
+def _narrow_step(device, mode):
+    """One step of a narrow mbt2018-mean (q7, N = 32, M = 48) from seed 0
+    on a seeded batch of 2 of 64x128 on `device` under
+    `crosscheck.fixed_noise`, in the matmul precision `mode`: (metrics,
+    {name: clipped gradient, f64 on the CPU})."""
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils.crosscheck import fixed_noise
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    x = _train_batch((2, 64, 128, 3), seed=11).to(device)
+    module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
+                              device=device, N=32, M=48).module
+    opt = make_optimizer()
+    with fixed_noise():
+        _, m = make_train_step(module, opt, TRAIN_LAMBDA,
+                               matmul_precision=mode)(
+            create_train_state(module, opt), x)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.detach().double().cpu()
+             for n, p in module.named_parameters()})
+
+
+def _step_gap(a, b):
+    """Step `a` against step `b` (`_narrow_step`'s): the losses' largest
+    relative difference, the clipped gradients' relative Frobenius error
+    as one vector, the root mean square of each leaf's, and the six
+    leaves with the largest max|a - b| / max|b|."""
+    (m_a, g_a), (m_b, g_b) = a, b
+    loss = max(abs(m_a[k] - m_b[k]) / abs(m_b[k]) for k in m_b)
+    whole = float(np.sqrt(sum((g_a[n] - g_b[n]).norm().item() ** 2
+                              for n in g_b)
+                          / sum(g_b[n].norm().item() ** 2 for n in g_b)))
+    rms = float(np.sqrt(np.mean([((g_a[n] - g_b[n]).norm()
+                                  / g_b[n].norm()).item() ** 2
+                                 for n in g_b])))
+    leaves = sorted(((((g_a[n] - g_b[n]).abs().max()
+                       / g_b[n].abs().max()).item(), n) for n in g_b),
+                    reverse=True)[:6]
+    return loss, whole, rms, {n: round(e, 4) for e, n in leaves}
+
+
+def _bf16_steps():
+    """mbt2018-mean q7 at batch 16 of 256x256: f32, AMP, --bf16 and --bf16
+    --remat steps from seed 0 in one process (a warm-up, a profiled and 4
+    timed steps each; under --bf16 the C ABI's exact launches, BF16_STEP
+    and BF16_REMAT_STEP a step), then one narrow --bf16 step on the card
+    against the CPU with the same noise (`_narrow_step`).
+    Returns the launch counts of the timed steps."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn, precision
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    batch = _train_batch(TRAIN_BATCH, seed=1)
+    counts = {k: 0 for k in gdn.LAUNCHES}
+    results = {}
+    for mode, dtype, remat, mp, per_step, kernels in (
+            ("f32", None, False, None, 6, None),
+            ("amp", torch.bfloat16, False, None, 6, AMP_WIDE),
+            ("bf16", None, False, BF16, 6, BF16_STEP),
+            ("bf16 --remat", None, True, BF16, 12, BF16_REMAT_STEP)):
+        module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
+                                  device="cuda", dtype=dtype).module
+        opt = make_optimizer()
+        state = create_train_state(module, opt)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step = make_train_step(module, opt, TRAIN_LAMBDA, remat=remat,
+                               matmul_precision=mp)
+        precision.reset_rounded_calls()
+        out = {}
+        launched = _train_case(
+            f"{TRAIN_ARCH} q{TRAIN_QUALITY} {mode} batch "
+            f"{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}", step,
+            state, (batch,), gen, 4,
+            {"gdn_fwd": per_step, "gdn_bwd_dx": 6, "gdn_bwd_partials": 6,
+             "gdn_bwd_reduce": 6}, kernels, exact=mp is not None, out=out)
+        out["rounded"] = precision.rounded_calls() / 6
+        results[mode] = out
+        if mp is not None:
+            for k, v in launched.items():
+                counts[k] += v
+        del module, state, opt, step
+        torch.cuda.empty_cache()
+    engines, transforming = _engines(results["bf16"]["kernels"])
+    for out in results.values():
+        del out["kernels"]
+    log("mbt2018-mean q7 step, one process (step ms median, the profiled "
+        "step's device ms and busy share, peak GiB, rounded calls a "
+        "step): " + json.dumps({k: {n: round(v, 4) for n, v in out.items()}
+                                for k, out in results.items()}))
+    log(f"--bf16 step's conv and GEMM engines: {json.dumps(engines)}")
+    if transforming:
+        log(f"--bf16 step: engines that transform the operands: "
+            f"{transforming}")
+    cpu = _narrow_step("cpu", BF16)
+    loss_err, grad_err, _, worst = _step_gap(_narrow_step("cuda", BF16),
+                                             cpu)
+    effect = _step_gap(cpu, _narrow_step("cpu", None))[1]
+    loss_bar, grad_ratio = BF16_STEP_BARS
+    if not (loss_err <= loss_bar and grad_err <= grad_ratio * effect):
+        raise AssertionError(
+            f"--bf16 step on the card vs the CPU: loss {loss_err:.3g}, "
+            f"gradients {grad_err:.3g} (the rounding's {effect:.3g})")
+    log(f"--bf16 step on the card vs the CPU (N=32, M=48, same noise): "
+        f"losses within {loss_err:.3g}, gradients as one vector within "
+        f"{grad_err:.3g} against the rounding's own {effect:.3g}; worst "
+        f"leaves {json.dumps(worst)}")
+    return counts
+
+
+def phase_matmul_precision():
+    """Phase 14 (see the module doc): lmic_tpu's bf16 matmul precision,
+    `eval_model --half` on mbt2018-mean q8, cheng2020-anchor q3 and the
+    RGB-T pair q7, then `train_cli --bf16` (and `--remat`) beside f32 and
+    AMP. Returns (the eval calls' `gdn_fwd` launches, the --bf16 steps'
+    launch counts)."""
+    t_phase = time.perf_counter()
+    images = _images(HALF_IMAGES, seed=51)
+    launches = sum(_half_codec(arch, q, images) for arch, q in HALF_CODECS)
+    launches += _half_rgbt(images)
+    t_eval = time.perf_counter() - t_phase
+    counts = _bf16_steps()
+    log(f"matmul precision phase: {time.perf_counter() - t_phase:.1f} s "
+        f"(--half {t_eval:.1f} s)")
+    return launches, counts
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -3778,6 +4199,17 @@ def main():
                 f"({100 * v['bound_us'] / np.mean(v['us']):.0f} % of it), "
                 "composite "
                 + " / ".join(f"{u:.1f}" for u in v["library_us"]))
+    # the bf16 forward and dx off the wide kernels' route (a view offset by
+    # one element, C = 320): kernel, plain version, composite, bound
+    off_route = {k: [{"shape": c["shape"], "inverse": c["inverse"],
+                      **{m: round(c[m], 2) for m in (
+                          "us", "plain_us", "library_us", "bound_us")}}
+                     for c in cases[k]
+                     if (c.get("kernel") or c.get("dx_kernel") or ""
+                         ).endswith("_mma_kernel")]
+                 for k in ("gdn_fwd", "gdn_bwd_dx")}
+    for kernel, rows in off_route.items():
+        log(f"bf16 {kernel} off the wide route: {json.dumps(rows)}")
     if args.kernels_only:
         log(json.dumps({"kernels_only": {
             kernel: {f"training_step_{d}": _totals(cases, kernel,
@@ -3802,6 +4234,8 @@ def main():
     pipe_launches = phase_pipelines_and_bundles()
     pretrained_launches, more_training["remat_training"] = \
         phase_pretrained_and_remat()
+    precision_launches, more_training["bf16_training"] = \
+        phase_matmul_precision()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
@@ -3809,7 +4243,7 @@ def main():
     errors = {k: _max_abs_err_by_dtype(v) for k, v in cases.items()}
     # every training path: mbt2018-mean (phase 5), the AR family and the
     # RGB-T pair (phase 8), the paired `_R` arch (phase 9), --remat
-    # (phase 13)
+    # (phase 13), --bf16 and --bf16 --remat (phase 14)
     training = {"training": train_counts, **more_training}
     launched = {k: sum(c[k] for c in training.values()) for k in gdn.LAUNCHES}
     bwd_counts = {k: launched[k] for k in gdn.BWD_KERNELS}
@@ -3823,7 +4257,8 @@ def main():
         "cuda_kernels": CUDA_KERNELS["gdn_fwd"],
         "launches": (serve_launches + ar_launches + rgbt_launches
                      + paired_launches + eval_launches + pipe_launches
-                     + pretrained_launches + launched["gdn_fwd"]),
+                     + pretrained_launches + precision_launches
+                     + launched["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
                              "rgbt_serving": rgbt_launches,
@@ -3832,6 +4267,7 @@ def main():
                              "eval_and_files": eval_launches,
                              "pipelines_and_bundles": pipe_launches,
                              "pretrained_serving": pretrained_launches,
+                             "matmul_precision": precision_launches,
                              **{p: c["gdn_fwd"]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
@@ -3852,6 +4288,7 @@ def main():
         "training_step_f32": totals("gdn_fwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
         "training_step_bf16_by_layer": layers["gdn_fwd"],
+        "bf16_off_route": off_route["gdn_fwd"],
         # a --remat step: each GDN and IGDN again in its block's recompute
         "training_step_remat_f32": totals("gdn_fwd", REMAT_ROWS, "float32"),
         "training_step_remat_bf16": totals("gdn_fwd", REMAT_ROWS,
@@ -3877,6 +4314,7 @@ def main():
                              "eval_and_files": 0,
                              "pipelines_and_bundles": 0,
                              "pretrained_serving": 0,
+                             "matmul_precision": 0,
                              **{p: c[gdn.BWD_KERNELS[0]]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts[gdn.BWD_KERNELS[0]] / train_steps,
@@ -3902,8 +4340,8 @@ def main():
         "max_abs_err_by_dtype": errors[name],
         **totals(name, TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals(name, TRAIN_ROWS[:3], "bfloat16"),
-        **({"training_step_bf16_by_layer": layers[name]}
-           if name in layers else {}),
+        **({"training_step_bf16_by_layer": layers[name],
+            "bf16_off_route": off_route[name]} if name in layers else {}),
         "training_step_master": totals(name, MASTER_STEP_ROWS, "float32"),
         "card": smi,
     } for name in gdn.BWD_KERNELS]

@@ -24,6 +24,13 @@ dtype with the f32 parameters, as the codec (wire) path does.
 The JAX Deconv is an input-dilated correlation; nn.ConvTranspose2d with the
 flipped, transposed kernel (zoo/convert.py) computes the same function, in
 another summation order.
+
+Every conv and product here that lmic_tpu leaves at its default precision
+goes through `ops/precision.py` (Conv on all its routes, Deconv,
+MaskedConv2d, and `Conv2d`/`ConvTranspose2d`/`Linear` for the raw ones):
+the plain op, or under `precision.matmul_precision("bfloat16")` (`--bf16`,
+`--half`) one on bf16-rounded operands. The GDN keeps f32 (HIGHEST in
+lmic_tpu).
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lmic_tpu_torch.layers import remat
-from lmic_tpu_torch.ops import NonNegativeParametrizer
+from lmic_tpu_torch.ops import NonNegativeParametrizer, precision
 from lmic_tpu_torch.ops.gdn import gdn_core
 
 
@@ -48,7 +55,7 @@ def _conv_gemm(x, weight, bias, padding):
     computation of torch's own non-cuDNN path), NCHW out."""
     B, _, H, W = x.shape
     cols = F.unfold(x, weight.shape[2:], padding=padding)  # (B, C*k*k, H*W)
-    out = weight.flatten(1) @ cols + bias[:, None]
+    out = precision.matmul(weight.flatten(1), cols) + bias[:, None]
     return out.view(B, -1, H, W)
 
 
@@ -86,8 +93,8 @@ class Conv(nn.Conv2d):
             return _conv_gemm(x, weight, bias, self.padding)
         if self._subsample:
             s = self._subsample
-            return F.conv2d(x[:, :, ::s, ::s], weight, bias)
-        return self._conv_forward(x, weight, bias)
+            return precision.conv2d(x[:, :, ::s, ::s], weight, bias)
+        return precision.conv2d(x, weight, bias, self.stride, self.padding)
 
 
 class Deconv(nn.ConvTranspose2d):
@@ -103,9 +110,35 @@ class Deconv(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, weight, bias = _cast(self.dtype, x, self.weight, self.bias)
-        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
-                                  self.output_padding, self.groups,
-                                  self.dilation)
+        return precision.conv_transpose2d(x, weight, bias, self.stride,
+                                          self.padding, self.output_padding)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` through `precision.conv2d` (the layers that lmic_tpu
+    builds as a raw `nn.Conv`: ESA's VALID conv, the Swin patch
+    embeds)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return precision.conv2d(x, self.weight, self.bias, self.stride,
+                                self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """`nn.ConvTranspose2d` through `precision.conv_transpose2d` (the
+    Swin aligners' recovery)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return precision.conv_transpose2d(
+            x, self.weight, self.bias, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` through `precision.linear` (flax's `nn.Dense`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return precision.linear(x, self.weight, self.bias)
 
 
 class GDN(nn.Module):
@@ -263,9 +296,9 @@ class MaskedConv2d(nn.Conv2d):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*_cast(self.dtype, x,
-                                         self.weight * self.mask,
-                                         self.bias))
+        return precision.conv2d(*_cast(self.dtype, x,
+                                       self.weight * self.mask, self.bias),
+                                padding=self.padding)
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
@@ -392,7 +425,7 @@ class ESA(nn.Module):
         super().__init__()
         f = N // 4
         self.conv1 = Conv(N, f, 1, 1)
-        self.conv2 = nn.Conv2d(f, f, 3, stride=2, padding=0)
+        self.conv2 = Conv2d(f, f, 3, stride=2, padding=0)
         self.conv_max = conv3x3(f, f)
         self.conv3 = conv3x3(f, f)
         self.conv3_ = conv3x3(f, f)
@@ -418,8 +451,8 @@ class SELayer(nn.Module):
     def __init__(self, channel: int, reduction: int = 16):
         super().__init__()
         self.fc = nn.Sequential(
-            nn.Linear(channel, channel // reduction, bias=False), nn.ReLU(),
-            nn.Linear(channel // reduction, channel, bias=False),
+            Linear(channel, channel // reduction, bias=False), nn.ReLU(),
+            Linear(channel // reduction, channel, bias=False),
             nn.Sigmoid(),
         )
 

@@ -35,6 +35,8 @@ import threading
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from lmic_tpu_torch.ops import precision
+
 _STATE = threading.local()
 
 
@@ -66,11 +68,17 @@ def run(fn, *args):
     """`fn(*args)` as one block: checkpointed under `rematerialize()` when
     a gradient is being recorded and no block encloses it, else plainly.
     The recompute runs in the backward's thread, where `_inside` marks it
-    as a block too, so its inner blocks run plainly there as well."""
+    as a block too, so its inner blocks run plainly there as well, and
+    where it re-enters the matmul precision of the forward
+    (`ops/precision.py`), so it rebuilds the same tensors."""
     if (torch.is_grad_enabled() and getattr(_STATE, "on", False)
             and _depth() == 0):
-        return checkpoint(_inside, fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+        mode = precision.current()
+        return checkpoint(
+            _inside, fn, *args, use_reentrant=False,
+            preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                precision.matmul_precision(mode)))
     return fn(*args)
 
 

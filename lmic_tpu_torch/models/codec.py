@@ -27,6 +27,11 @@ the copy's CUDA event (never on the whole device) and runs the host rANS.
 The same modules serve the synchronous uint8 calls and are what
 `utils/aot.py` exports. Float input keeps the plain path, symbols crossing
 in the narrowest integer type that holds them.
+
+Every path reads the bf16 matmul precision (`ops/precision.py`,
+`eval_model --half`) in its layers at each call, never when its modules
+are built, so one codec codes in f32 and under the mode in one process;
+the tables do not depend on it (the bottleneck's density stays f32).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from lmic_tpu_torch.entropy.entropy_models import (
     eb_update,
     get_scale_table,
 )
+from lmic_tpu_torch.ops import precision
 from lmic_tpu_torch.utils.determinism import set_wire_determinism
 
 _NARROW = (torch.int8, torch.int16, torch.int32)
@@ -429,8 +435,12 @@ class CompressionCodec:
 
     def _decompress_async(self, body, strings, shape):
         """`body(strings, shape)` -> a finalizer, run inline or on the
-        worker thread (`_decode_threaded`)."""
-        if not self._decode_threaded():
+        worker thread (`_decode_threaded`). Under the bf16 matmul
+        precision it runs inline: the mode is the calling thread's, and
+        its rounded ops switch TF32 for the whole process
+        (`ops/precision.py`), under the feet of the caller's next
+        encode."""
+        if not self._decode_threaded() or precision.current() is not None:
             return body(strings, shape)
         fut = self._host_worker.submit(body, strings, shape)
         return lambda: fut.result()()

@@ -58,6 +58,7 @@ from lmic_tpu_torch.models.codec import (
     _to_device,
 )
 from lmic_tpu_torch.models.image import MeanScaleHyperprior
+from lmic_tpu_torch.ops import precision
 from lmic_tpu_torch.ops.math import from_amp
 from lmic_tpu_torch.utils.determinism import set_wire_determinism
 
@@ -243,6 +244,10 @@ def make_wavefront_step(module, sched: WavefrontSchedule, scale_table):
       `h1 = pre1[pix] + ctx @ w1_ctx`, the two tail layers and the scale
       indexes. Returns (scales, means, indexes), each (R, M). `t` is a
       host integer; the step queues device work and never waits for it.
+
+    Under the bf16 mode (`ops/precision.py`, `eval_model --half`) every
+    product but the taps' rounds its operands, as lmic_tpu's do; each call
+    reads the mode, so encode and decode must run in the same one.
     """
     M = module.M
     weight = module.context_prediction.weight.permute(2, 3, 1, 0)  # HWIO
@@ -256,7 +261,8 @@ def make_wavefront_step(module, sched: WavefrontSchedule, scale_table):
     b1, b2, b3 = (ep[i].bias for i in (0, 2, 4))
     # concat order in param_fuse is [hyper, ctx]
     w1_hyper, w1_ctx = w1[:2 * M], w1[2 * M:]
-    pre_bias = b1 + ctx_bias @ w1_ctx
+    mm = precision.matmul  # lmic_tpu's default-precision products
+    pre_bias = b1 + mm(ctx_bias, w1_ctx)
     table = torch.as_tensor(np.asarray(scale_table, np.float32),
                             device=tap_kernel.device)
     gc = entropy_models.GaussianConditional()
@@ -264,15 +270,17 @@ def make_wavefront_step(module, sched: WavefrontSchedule, scale_table):
 
     def prepare(params):
         hwc = params[0].permute(1, 2, 0).reshape(H * W, 2 * M)
-        return hwc @ w1_hyper + pre_bias
+        return mm(hwc, w1_hyper) + pre_bias
 
     def step(t: int, y_hat_pad, pre1):
         taps = y_hat_pad[sched.taps[t]].view(R, -1)
-        ctx = taps @ tap_kernel  # (R, 2M); its bias is in pre_bias
-        h1 = pre1[sched.pix[t]] + ctx @ w1_ctx
+        # (R, 2M), its bias in pre_bias; f32 in every mode (HIGHEST in
+        # lmic_tpu, joint.py:223-225)
+        ctx = taps @ tap_kernel
+        h1 = pre1[sched.pix[t]] + mm(ctx, w1_ctx)
         a1 = F.leaky_relu(h1, 0.01)
-        a2 = F.leaky_relu(a1 @ w2 + b2, 0.01)
-        fused = a2 @ w3 + b3
+        a2 = F.leaky_relu(mm(a1, w2) + b2, 0.01)
+        fused = mm(a2, w3) + b3
         scales, means = fused[:, :M], fused[:, M:]
         return scales, means, gc.build_indexes(table, scales)
 

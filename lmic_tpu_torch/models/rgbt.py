@@ -22,10 +22,14 @@ The Swin pieces run on (B, H, W, C) tokens as lmic_tpu's do, in plain
 torch products and `softmax` in lmic_tpu's order of operations (no
 `scaled_dot_product_attention`); lmic_tpu has no hand kernel for them.
 The patch embeds (k = s = 2, no padding) and the recovery (a transposed
-k = s = 2 conv, padding 0, output padding 0) are plain `nn.Conv2d` /
-`nn.ConvTranspose2d`: `layers.Conv`/`Deconv` pad k//2 and add s - 1 of
+k = s = 2 conv, padding 0, output padding 0) are `layers.Conv2d` /
+`ConvTranspose2d`: `layers.Conv`/`Deconv` pad k//2 and add s - 1 of
 output padding, and these stride-2 layers need neither their compute
 dtype (the pair's wire is f32) nor the GEMM route of stride-1 convs.
+Under the bf16 mode (`ops/precision.py`, `eval_model --half`) the Swin
+pieces' dense layers, `q @ k^T`, `attn @ v`, the patch embeds and the
+recovery round their operands as lmic_tpu's do; the softmax, the norms
+and the bias tables stay f32.
 
 `SpatialAligner` reproduces the reference's raw `view(B, C, H', W')` of
 the (B, L, C) token sequence (master.py:738-739), a layout scramble that
@@ -46,8 +50,11 @@ from torch import nn
 from lmic_tpu_torch.layers import (
     GDN,
     Conv,
+    Conv2d,
+    ConvTranspose2d,
     Deconv,
     GDNStack,
+    Linear,
     ResidualBlock,
     conv1x1,
     remat,
@@ -57,6 +64,7 @@ from lmic_tpu_torch.models.joint import (
     JointARCodec,
     JointAutoregressiveHierarchicalPriors,
 )
+from lmic_tpu_torch.ops import precision
 from lmic_tpu_torch.ops.math import from_amp
 from lmic_tpu_torch.utils.determinism import set_wire_determinism
 
@@ -213,9 +221,9 @@ class WindowCrossAttention(nn.Module):
         self.window_size, self.num_heads = window_size, num_heads
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros(((2 * window_size - 1) ** 2, num_heads)))
-        self.qkv1 = nn.Linear(dim, dim)
-        self.qkv2 = nn.Linear(dim, 2 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv1 = Linear(dim, dim)
+        self.qkv2 = Linear(dim, 2 * dim)
+        self.proj = Linear(dim, dim)
         self.register_buffer(
             "relative_position_index",
             torch.from_numpy(_relative_position_index(window_size).reshape(
@@ -232,7 +240,8 @@ class WindowCrossAttention(nn.Module):
         kv = self.qkv2(guided).reshape(B_, N, 2, nh, head_dim).permute(
             2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]
-        attn = (q * scale) @ k.transpose(-2, -1)  # (B_, nh, N, N)
+        # (B_, nh, N, N)
+        attn = precision.matmul(q * scale, k.transpose(-2, -1))
         rel_bias = self.relative_position_bias_table[
             self.relative_position_index].reshape(N, N, nh)
         attn = attn + rel_bias.permute(2, 0, 1)[None]
@@ -241,7 +250,8 @@ class WindowCrossAttention(nn.Module):
             attn = (attn.reshape(B_ // nW, nW, nh, N, N)
                     + mask[None, :, None, :, :]).reshape(B_, nh, N, N)
         attn = torch.softmax(attn, dim=-1)
-        return self.proj((attn @ v).transpose(1, 2).reshape(B_, N, C))
+        return self.proj(precision.matmul(attn, v).transpose(1, 2).reshape(
+            B_, N, C))
 
 
 class Mlp(nn.Module):
@@ -249,8 +259,8 @@ class Mlp(nn.Module):
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
@@ -313,7 +323,7 @@ class _PatchEmbed(nn.Module):
 
     def __init__(self, in_channels: int, embed_dim: int, patch: int):
         super().__init__()
-        self.proj = nn.Conv2d(in_channels, embed_dim, patch, stride=patch)
+        self.proj = Conv2d(in_channels, embed_dim, patch, stride=patch)
 
     def forward(self, x):
         return self.proj(x)
@@ -330,7 +340,7 @@ class SpatialAligner(nn.Module):
         self.patch_embeding2 = _PatchEmbed(in_channels, 96, 2)
         self.blocks = nn.ModuleList(
             SwinCrossBlock(96, 3, 4, 2 * i) for i in range(2))
-        self.recovery = nn.ConvTranspose2d(96, out_channels, 2, stride=2)
+        self.recovery = ConvTranspose2d(96, out_channels, 2, stride=2)
 
     def forward(self, x, guided):
         out = self.patch_embeding1(x).permute(0, 2, 3, 1)  # (B, H', W', C)

@@ -49,6 +49,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from lmic_tpu_torch.ops import precision
+
 # Per-family format version of this package's bundles (torch.export
 # programs; lmic_tpu's, StableHLO, are format 2 and refused by name).
 FAMILY_FORMAT = {"factorized": 1, "hyperprior": 1, "video": 1}
@@ -150,7 +152,14 @@ def export_serving_bundle(codec, out_dir, input_shape) -> str:
     W, C) for the image families, (B, T, H, W, C) for ssf2020 — into
     `out_dir`, on the codec's device. The codec must be `update()`d; the
     graphs are the live codec's own device functions, so the bundle codes
-    the live codec's bytes."""
+    the live codec's bytes. It refuses to run under the bf16 matmul
+    precision (`ops/precision.py`): a bundle would bake that mode in
+    unseen, and lmic_tpu exports none under `--half`."""
+    if precision.current() is not None:
+        raise RuntimeError(
+            f"export_serving_bundle under matmul precision "
+            f"{precision.current()!r}: a bundle would code that mode's "
+            "strings silently; export outside the mode")
     codec._check_updated()
     family = _family(codec)
     if family == "video":

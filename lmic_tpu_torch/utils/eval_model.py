@@ -19,6 +19,15 @@ Usage:
 
 The device work runs on --device (CUDA by default); PIL is needed only to
 read the image files.
+
+`--half` is lmic_tpu's bf16 matmul precision for the coding graph
+(lmic_tpu/utils/eval_model.py:331-340): after the tables are built (or
+loaded) in f32, every eval call runs under `ops/precision.py`'s mode, so
+the transforms' and the entropy parameters' convs and products take
+bf16-rounded operands (the GDN and the bottleneck stay f32). A stream
+written under `--half` decodes only under `--half`, as in lmic_tpu. The
+metrics sum in f64 in every mode (utils/metrics.py), so MS-SSIM's filter
+is not rounded.
 """
 
 from __future__ import annotations
@@ -35,17 +44,12 @@ import numpy as np
 import torch
 
 from lmic_tpu_torch import zoo
+from lmic_tpu_torch.ops.precision import matmul_precision
 from lmic_tpu_torch.utils.determinism import set_wire_determinism
 from lmic_tpu_torch.utils.metrics import ms_ssim, psnr
 
 # beta and gamma: 64 f32 each, sent beside the master's strings
 RGBT_SIDE_BITS = 64 * 2 * 4 * 8
-
-_HALF = ("--half is not ported (ROADMAP.md, queue A, item 8): lmic_tpu's "
-         "jax.default_matmul_precision('bfloat16') rounds only the inputs "
-         "of matmuls and convolutions and keeps every other op of the graph "
-         "in f32, and torch has no switch that does the same")
-
 
 def pad_to_multiple(x: np.ndarray, p: int = 64):
     """Centre-pad (B, H, W, C) with zeros to multiples of p (the
@@ -211,7 +215,10 @@ def parse_args(argv):
                         "output)")
     p.add_argument("--entropy-estimation", action="store_true")
     p.add_argument("--output", default=None, help="JSON results path")
-    p.add_argument("--half", action="store_true", help="not ported")
+    p.add_argument("--half", action="store_true",
+                   help="bf16 matmul precision for the coding graph (the "
+                        "transforms and the entropy parameters); streams "
+                        "written under --half decode only under --half")
     # RGB-T paired mode (reference __main__rgbt.py): --arch master (or a
     # `_D` arch) with checkpoints for both codecs; the dataset directory
     # holds the master modality, the guide's is found by swapping RGB and
@@ -240,6 +247,12 @@ def _load_or_update(codec, checkpoint):
     return codec
 
 
+def _precision(args):
+    """The mode of the eval calls: bf16 under `--half`, entered after the
+    codecs' tables are built or loaded, as lmic_tpu enters it."""
+    return matmul_precision("bfloat16" if args.half else None)
+
+
 def run_rgbt(args) -> List[Dict[str, float]]:
     from lmic_tpu_torch.datasets.image import ImageFolderTest, _resize_np
 
@@ -266,26 +279,26 @@ def run_rgbt(args) -> List[Dict[str, float]]:
                          channel=args.channel, test_ids=test_ids)
     pair_eval = eval_rd_pair if rd_pair else eval_rgbt_pair
     results = []
-    for i in range(len(ds)):
-        x, guided = ds[i]
-        if rd_pair:
-            guided = _resize_np(guided, x.shape[:2])  # same-size pair
-        m = pair_eval(guided_codec, master_codec, x[None], guided[None],
-                      entropy_estimation=args.entropy_estimation)
-        if i == 0 and not args.entropy_estimation:
-            # the first call paid the first launches and allocations: redo
-            # it so the recorded times measure coding
-            m = pair_eval(guided_codec, master_codec, x[None], guided[None])
-        results.append(m)
-        print(f"[{i}] " + " ".join(f"{k}={v:.4f}" for k, v in m.items()),
-              flush=True)
+    with _precision(args):
+        for i in range(len(ds)):
+            x, guided = ds[i]
+            if rd_pair:
+                guided = _resize_np(guided, x.shape[:2])  # same-size pair
+            m = pair_eval(guided_codec, master_codec, x[None], guided[None],
+                          entropy_estimation=args.entropy_estimation)
+            if i == 0 and not args.entropy_estimation:
+                # the first call paid the first launches and allocations:
+                # redo it so the recorded times measure coding
+                m = pair_eval(guided_codec, master_codec, x[None],
+                              guided[None])
+            results.append(m)
+            print(f"[{i}] " + " ".join(f"{k}={v:.4f}"
+                                       for k, v in m.items()), flush=True)
     return results
 
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.half:
-        raise SystemExit(_HALF)
     if args.rgbt:
         results = run_rgbt(args)
     else:
@@ -298,20 +311,21 @@ def main(argv=None):
             if f.suffix.lower() in {".png", ".jpg", ".jpeg"}
         )
         results = []
-        for i, f in enumerate(files):
-            x = load_image(f, args.channel)
-            if args.entropy_estimation:
-                m = eval_image_forward(codec, x)
-            else:
-                m = eval_image_codec(codec, x)
-                if i == 0:
-                    # the first call paid the first launches and
-                    # allocations: redo it so the times measure coding
+        with _precision(args):
+            for i, f in enumerate(files):
+                x = load_image(f, args.channel)
+                if args.entropy_estimation:
+                    m = eval_image_forward(codec, x)
+                else:
                     m = eval_image_codec(codec, x)
-            results.append(m)
-            print(f"{f.name}: " + " ".join(f"{k}={v:.4f}"
-                                           for k, v in m.items()),
-                  flush=True)
+                    if i == 0:
+                        # the first call paid the first launches and
+                        # allocations: redo it so the times measure coding
+                        m = eval_image_codec(codec, x)
+                results.append(m)
+                print(f"{f.name}: " + " ".join(f"{k}={v:.4f}"
+                                               for k, v in m.items()),
+                      flush=True)
 
     agg = {k: float(np.mean([r[k] for r in results]))
            for k in results[0]} if results else {}

@@ -19,7 +19,8 @@ optimizers and the step count. The step draws its quantization noise from
 an explicit `torch.Generator` on the batch's device. `remat=True` is
 lmic_tpu's `--remat`: the forward keeps only the inputs of its transform
 blocks and the backward recomputes them (layers/remat.py), the same
-gradients for less memory.
+gradients for less memory. `matmul_precision="bfloat16"` is its
+`--bf16` (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from torch import nn
 
 from lmic_tpu_torch.layers.remat import rematerialize
+from lmic_tpu_torch.ops.precision import matmul_precision as precision
 
 # fork's lambda table, indexed by quality - 1 (examples/train.py:65)
 LAMBDA_TABLE = (256, 512, 1024, 2048, 4096, 8192, 10240)
@@ -190,9 +192,14 @@ def expandable_segments(device) -> bool:
 
 
 def make_train_step(module: nn.Module, optimizer: DualOptimizer,
-                    lmbda: float, remat: bool = False) -> Callable:
+                    lmbda: float, remat: bool = False,
+                    matmul_precision: Optional[str] = None) -> Callable:
     """Build the train step (with `remat`, rematerializing the transform
-    blocks).
+    blocks). `matmul_precision="bfloat16"` is lmic_tpu's `--bf16`: the
+    module's training forward runs under `ops/precision.py`'s mode (its
+    convs and products on bf16-rounded operands, their backward too),
+    the RD and aux losses outside it, as in lmic_tpu/utils/train.py:
+    126-133.
 
     step(state, batch, generator) -> (state, metrics). `batch` is
     (B, C, H, W) in [0, 1] on the module's device (channels_last memory);
@@ -205,7 +212,7 @@ def make_train_step(module: nn.Module, optimizer: DualOptimizer,
     def train_step(state: TrainState, batch: torch.Tensor,
                    generator: Optional[torch.Generator] = None):
         def loss_fn():
-            with rematerialize(remat):
+            with rematerialize(remat), precision(matmul_precision):
                 out = module(batch, training=True, generator=generator)
             return rd_aux_loss(module, out, batch, lmbda)
 

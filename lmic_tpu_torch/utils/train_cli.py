@@ -16,7 +16,13 @@ unless `--device cpu`. Its two recipes:
   and its reconstruction and decoder maps condition the master's step.
 
 `--amp` runs the transforms in bf16 (params, quantization noise and
-likelihoods stay f32) for the archs in AMP_ARCHS. `--remat` recomputes
+likelihoods stay f32) for the archs in AMP_ARCHS. `--bf16` is lmic_tpu's
+bf16 matmul precision: every conv and product of the training forward that
+lmic_tpu leaves at its default precision, and of its backward, takes
+bf16-rounded operands with f32 sums (ops/precision.py; the GDN, the
+bottleneck and the losses stay f32), for every arch that trains alone; it
+combines with `--amp` and `--remat`. The master trains in f32 only, as
+lmic_tpu's master step does whatever the flags say. `--remat` recomputes
 the transform blocks in the backward instead of keeping their
 activations (layers/remat.py), for every arch and both recipes: the same
 step in less memory; on CUDA it also gives the caching allocator
@@ -29,8 +35,7 @@ Usage:
       -d /path/FLIR/train/thermal_8_bit --guided-checkpoint guided.ckpt
 
 The `*_D` archs have no training recipe, as in lmic_tpu. Not ported yet
-(each raises, see ROADMAP.md): `--bf16` and `--devices` (queue A, item
-8).
+(it raises, see ROADMAP.md): `--devices` (queue A, item 8).
 """
 
 from __future__ import annotations
@@ -73,8 +78,6 @@ AMP_ARCHS = {
 
 # flags of lmic_tpu's CLI that the port does not take yet
 _NOT_PORTED = {
-    "bf16": "--bf16 (bf16 matmul precision) is not ported: use --amp; "
-            "ROADMAP.md queue A, item 8",
     "devices": "--devices (data parallel over local devices) is not "
                "ported; ROADMAP.md queue A, item 8",
 }
@@ -143,7 +146,11 @@ def parse_args(argv):
     p.add_argument("--device", default=None,
                    help="torch device (default: CUDA; raises without a GPU "
                         "unless 'cpu' is given)")
-    p.add_argument("--bf16", action="store_true", help="not ported")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 matmul precision: the training forward's "
+                        "convs and products (and their gradients) on "
+                        "bf16-rounded operands with f32 sums; not for "
+                        "--arch master")
     p.add_argument("--remat", action="store_true",
                    help="recompute the transform blocks in the backward "
                         "instead of keeping their activations (less "
@@ -266,7 +273,9 @@ def train_single(args):
 
     optimizer, state, start_epoch, best_loss = _train_state(
         args, module, args.steps_per_epoch or max(1, len(dl)))
-    step_fn = make_train_step(module, optimizer, lmbda, remat=args.remat)
+    step_fn = make_train_step(
+        module, optimizer, lmbda, remat=args.remat,
+        matmul_precision="bfloat16" if args.bf16 else None)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     def run_step(batch):
@@ -338,6 +347,12 @@ def main(argv=None):
             f"--amp supports {sorted(AMP_ARCHS)}; {args.arch} trains in "
             "f32 only"
         )
+    if args.bf16 and args.arch == "master":
+        # lmic_tpu's make_master_train_step ignores the flag (ROADMAP.md
+        # C, differences that are not faults)
+        raise SystemExit(
+            "--bf16 is not taken by the master recipe, which trains in f32 "
+            "only (lmic_tpu's master step ignores the flag; ROADMAP.md C)")
     try:
         if args.arch == "master":
             train_master(args)

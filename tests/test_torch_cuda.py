@@ -1039,3 +1039,45 @@ def test_from_torch_on_card(tmp_path, monkeypatch):
     torch.cuda.synchronize()
     assert gdn.LAUNCHES["gdn_fwd"] == n0 + 6
     assert enc["strings"] == source.compress(x)["strings"]
+
+
+# -- bf16 matmul precision (ops/precision.py) --------------------------------
+
+def _rounded_case(kind, device):
+    """One rounded op of `kind` on `device`, forward and backward, on
+    seeded inputs: (output, input gradients)."""
+    from lmic_tpu_torch.ops import precision
+
+    g = torch.Generator().manual_seed(21)
+    shapes = {"conv2d": ((2, 48, 32, 40), (64, 48, 5, 5)),
+              "conv_transpose2d": ((2, 48, 16, 20), (48, 64, 5, 5)),
+              "linear": ((8, 64, 96), (80, 96)),
+              "matmul": ((4, 3, 64, 32), (4, 3, 32, 64))}[kind]
+    a, b = (torch.randn(s, generator=g).to(device).requires_grad_()
+            for s in shapes)
+    bias = (torch.randn(shapes[1][1 if kind == "conv_transpose2d" else 0],
+                        generator=g).to(device).requires_grad_()
+            if kind != "matmul" else None)
+    args = {"conv2d": (a, b, bias, 2, 2),
+            "conv_transpose2d": (a, b, bias, 2, 2, 1),
+            "linear": (a, b, bias), "matmul": (a, b)}[kind]
+    with precision.matmul_precision("bfloat16"):
+        y = getattr(precision, kind)(*args)
+    y.backward(torch.randn(y.shape, generator=g).to(device))
+    return [y] + [t.grad for t in (a, b, bias) if t is not None]
+
+
+@pytest.mark.parametrize("kind", ["conv2d", "conv_transpose2d", "linear",
+                                  "matmul"])
+def test_rounded_ops_on_card_match_the_cpu(kind):
+    """Each rounded op, forward and backward, on the card (TF32 on for the
+    call: exact products of bf16 operands, f32 sums) against the CPU's f32
+    op on the same rounded operands: f32 sums in another order only. The
+    TF32 switches are as they were after the call."""
+    switches = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    got = _rounded_case(kind, "cuda")
+    assert switches == (torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32)
+    for a, b in zip(got, _rounded_case(kind, "cpu")):
+        assert _rel_err(a.cpu(), b) < TOL[torch.float32]

@@ -340,7 +340,8 @@ def test_video_eval_golden(tmp_path_factory, tmp_path, quality):
 def test_eval_main_output_and_warm_redo(tmp_path, monkeypatch):
     """`--output` appends one summary a run; the real coder's first image
     is coded twice (the recorded times leave out the first launches);
-    `--half` refuses with a pointer to ROADMAP."""
+    `--half` codes and decodes under the bf16 matmul precision, other
+    numbers than f32's."""
     from lmic_tpu_torch import zoo as tzoo
 
     monkeypatch.setitem(tzoo.cfgs, "mbt2018-mean", {1: (N, M)})
@@ -364,5 +365,12 @@ def test_eval_main_output_and_warm_redo(tmp_path, monkeypatch):
         "q=1 rans", "q=1 entropy-estimation"]
     assert set(docs[0]["results"]) == {"psnr", "ms-ssim", "bpp",
                                        "encoding_time", "decoding_time"}
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
         eval_model.main(argv + ["--half"])
+    assert len(calls) == 6
+    with open(out) as f:
+        half = json.load(f)[-1]["results"]
+    assert half["bpp"] > 0 and np.isfinite(half["psnr"])
+    assert (half["bpp"], half["psnr"]) != (docs[0]["results"]["bpp"],
+                                           docs[0]["results"]["psnr"])

@@ -308,6 +308,103 @@ def table_drift(got, want):
             int(diff.max()))
 
 
+# -- bf16 matmul precision: lmic_tpu's graph with its rounding made explicit
+
+# the ops `jax.default_matmul_precision("bfloat16")` rounds when their
+# precision is None (XLA on the CPU ignores the setting)
+_ROUNDED_OPS = ("dot_general", "conv_general_dilated")
+# call-like higher-order primitives: (the param holding the body, whether
+# its first operands are the body's consts); evaluated through
+_CALLS = {"jit": "jaxpr", "pjit": "jaxpr", "closed_call": "call_jaxpr",
+          "core_call": "call_jaxpr", "custom_jvp_call": "call_jaxpr",
+          "custom_vjp_call": "call_jaxpr",
+          "custom_vjp_call_jaxpr": "fun_jaxpr", "checkpoint": "jaxpr",
+          "remat": "jaxpr", "remat2": "jaxpr"}
+
+
+def _jaxprs_in(params):
+    from jax.extend.core import ClosedJaxpr, Jaxpr
+
+    for v in params.values():
+        for item in (v if isinstance(v, (tuple, list)) else (v,)):
+            if isinstance(item, ClosedJaxpr):
+                yield item.jaxpr
+            elif isinstance(item, Jaxpr):
+                yield item
+
+
+def _rounds(jaxpr) -> bool:
+    """Whether `jaxpr` holds a default-precision product, at any depth."""
+    return any(
+        (e.primitive.name in _ROUNDED_OPS and e.params["precision"] is None)
+        or any(_rounds(j) for j in _jaxprs_in(e.params))
+        for e in jaxpr.eqns)
+
+
+def _round_bf16_jax(x):
+    if x.dtype != jnp.float32:
+        return x
+    # not astype(bf16).astype(f32): XLA may drop that pair of converts
+    return jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=7)
+
+
+def _eval_rounded(jaxpr, consts, args, rounded):
+    from jax.extend.core import ClosedJaxpr, Literal
+
+    env = {}
+
+    def read(v):
+        return v.val if isinstance(v, Literal) else env[v]
+
+    env.update(zip(jaxpr.constvars, consts))
+    env.update(zip(jaxpr.invars, args))
+    for e in jaxpr.eqns:
+        vals = [read(v) for v in e.invars]
+        name = e.primitive.name
+        if name in _ROUNDED_OPS and e.params["precision"] is None:
+            rounded.append((name, int(np.prod(e.outvars[0].aval.shape))))
+            outs = e.primitive.bind(*map(_round_bf16_jax, vals), **e.params)
+        elif name in _CALLS:
+            body = e.params[_CALLS[name]]
+            if isinstance(body, ClosedJaxpr):
+                outs = _eval_rounded(body.jaxpr, body.consts, vals, rounded)
+            else:
+                outs = _eval_rounded(body, (), vals, rounded)
+        else:
+            if any(_rounds(j) for j in _jaxprs_in(e.params)):
+                raise NotImplementedError(
+                    f"{name} holds a default-precision product: the bf16 "
+                    "reference does not evaluate through it")
+            outs = e.primitive.bind(*vals, **e.params)
+        if not e.primitive.multiple_results and name not in _CALLS:
+            outs = [outs]
+        for v, o in zip(e.outvars, outs):
+            env[v] = o
+    return [read(v) for v in jaxpr.outvars]
+
+
+def bf16_reference(fn, *args):
+    """`fn(*args)` as lmic_tpu computes it on a TPU under
+    `jax.default_matmul_precision("bfloat16")`, on the CPU: the jaxpr of
+    `fn` evaluated (under one `jax.jit`) with the f32 operands of every
+    `dot_general`/`conv_general_dilated` whose precision is None rounded
+    to bf16 (round to nearest even); HIGHEST ops stay f32. It goes into
+    jit, custom_jvp/custom_vjp calls and checkpoints, and raises on any
+    other higher-order primitive holding such an op. Returns (fn's
+    output, (name, output elements) of each op it rounded)."""
+    closed = jax.make_jaxpr(fn)(*args)
+    flat = jax.tree.leaves(args)
+    rounded = []
+
+    def run(*flat_args):
+        rounded.clear()
+        return _eval_rounded(closed.jaxpr, closed.consts, flat_args, rounded)
+
+    outs = jax.jit(run)(*flat)
+    out_tree = jax.tree.structure(jax.eval_shape(fn, *args))
+    return jax.tree.unflatten(out_tree, outs), list(rounded)
+
+
 def nchw(a):
     """NHWC numpy -> NCHW channels_last torch tensor."""
     return torch.from_numpy(np.array(a)).permute(0, 3, 1, 2)
