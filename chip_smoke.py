@@ -229,6 +229,29 @@ Phases, each of which raises (exit code != 0) on any failure:
    (losses within 1e-3, the clipped gradients as one vector within a
    quarter of the rounding's own effect, the CPU's --bf16 step against
    its f32 step).
+15. data parallelism, last (`lmic_tpu_torch/parallel/`): phase 5's step
+   (mbt2018-mean q7, batch 16 of 256x256), f32 and AMP, each mode in
+   process groups of its own: two steps under DistributedDataParallel in
+   a one-rank NCCL group in this process, bit for bit the plain steps
+   (metrics, gradients, parameters), with both steps' ms; then two ranks
+   spawned on the one card under gloo (NCCL refuses two ranks on one
+   GPU), 8 rows each of the same global batch and the rows of the same
+   noise (`crosscheck.fixed_noise`), held to the one-rank step on the
+   whole 16: losses within lmic_tpu's 2e-5, the all-reduced gradient as
+   one vector within 1e-5 in f32 and two bf16 roundings in AMP, the
+   ranks' parameters bit-equal after each step, 6 launches of each GDN
+   kernel a step per rank by the C ABI (AMP on the wide kernels); each
+   rank's step ms, device ms and the all-reduce's share of it, and peak
+   memory logged. Then `shard_codec` over a two-slot mesh [cuda:0,
+   cuda:0]: mbt2018-mean q8 on four 512x768 images (18 `gdn_fwd` a round
+   trip: 12 per image, 6 for the synthesis's two row blocks), mbt2018 q8
+   on two (a thread a slot; 9) and ssf2020 on two 3-frame 512x768
+   sequences (0), strings byte-identical to the one-slot codec's,
+   images/s both ways; a bundle exported from the sharded mbt2018-mean
+   codec served over the two-slot mesh with its strings, a mesh of three
+   refused; `check_homogeneous([cuda:0, cpu])` refused; and, logged and
+   not held, mbt2018-mean q8 coded on the card and decoded on the CPU and
+   the reverse (ROADMAP C).
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -383,6 +406,25 @@ HALF_BAR = 2e-2
 # order moves an f32 sum by an ulp and flipped bf16 roundings follow, with
 # the rounded operands in FP32 as in TF32 (`chip_probes.py bf16-step`)
 BF16_STEP_BARS = (1e-3, 0.25)
+
+# phase 15, data parallelism (lmic_tpu_torch/parallel/): phase 5's step
+# (mbt2018-mean q7, batch 16 of 256x256), checked over DP_STEPS steps in
+# a one-rank NCCL group (bit for bit the plain step) and on two gloo
+# ranks on the one card (8 rows each) against the one-rank step on the
+# whole batch, then DP_TIMED steps per rank, the last profiled; lmic_tpu's
+# bar for its sharded step on the losses (tests/test_train.py:126), and
+# on the all-reduced gradient as one vector 1e-5 in f32; in AMP each
+# rank's weight gradients come out of their bf16 convs rounded to bf16
+# before the all-reduce (the whole batch's once, after its sum), so the
+# gradient is held to two bf16 roundings, 2 * 2^-9
+DP_STEPS, DP_TIMED = 2, 3
+DP_LOSS_RTOL = 2e-5
+DP_GRAD_RTOL = {"f32": 1e-5, "amp": 2.0 ** -8}
+# the fan-out over a two-slot mesh on the one card: mbt2018-mean q8 on
+# four 512x768 images, mbt2018 q8 on two, ssf2020 on two 3-frame
+# sequences at 512x768 (cut from phase 10's 1920x1152 for time)
+FAN_IMAGES, FAN_AR_IMAGES = 4, 2
+FAN_GOPS = (2, 3, 512, 768, 3)
 
 
 def log(*a):
@@ -4112,6 +4154,300 @@ def phase_matmul_precision():
     return launches, counts
 
 
+def _dp_step_ms(dtype, batch, data_parallel):
+    """Median ms of DP_TIMED steps of phase 5's step (after a warm-up), in
+    this process, with or without DDP (one rank), on the host clock."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
+                              device="cuda", dtype=dtype).module
+    opt = make_optimizer()
+    step = make_train_step(module, opt, TRAIN_LAMBDA,
+                           data_parallel=data_parallel)
+    state = create_train_state(module, opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _steps(step, state, batch, gen, 1)
+    ms, _ = _steps(step, state, batch, gen, DP_TIMED)
+    return float(np.median(ms))
+
+
+def _dp_kernels(what, kernel_launches, launches, dtype, steps):
+    """The launches of one rank's checked steps: 6 a step of each wrapper
+    (`launches`) and of its CUDA kernels as the C ABI counts them
+    (`kernel_launches`), the AMP step's forward and dx on the wide
+    kernels (`AMP_WIDE`)."""
+    for name, n in launches.items():
+        by_kernel = sum(v for k, v in kernel_launches.items()
+                        if k.startswith(name + "_"))
+        if n != 6 * steps or by_kernel != 6 * steps:
+            raise AssertionError(f"{what}: launches {launches}, by kernel "
+                                 f"{kernel_launches}; want {6 * steps} each")
+    if dtype is not None:
+        for k, v in AMP_WIDE.items():
+            if kernel_launches.get(k, 0) != v * steps:
+                raise AssertionError(f"{what}: by kernel {kernel_launches}")
+
+
+def _dp_training():
+    """Part 1 of phase 15: the DDP step in f32 and AMP. Returns the
+    launch counts of the DDP runs (the one-rank group's and both ranks')."""
+    import torch
+
+    from lmic_tpu_torch import parallel
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils import crosscheck
+
+    x = _train_batch(TRAIN_BATCH, seed=61)
+    counts = {k: 0 for k in gdn.LAUNCHES}
+    two = parallel.Mesh(["cuda:0", "cuda:0"])
+    args = (TRAIN_ARCH, TRAIN_QUALITY, x.cpu(), TRAIN_LAMBDA, "cuda")
+    for mode, dtype in (("f32", None), ("amp", torch.bfloat16)):
+        t0 = time.perf_counter()
+        plain = crosscheck.data_parallel_steps(*args, steps=DP_STEPS,
+                                               dtype=dtype)
+        with parallel.process_group("nccl"):
+            one = crosscheck.data_parallel_steps(
+                *args, steps=DP_STEPS, dtype=dtype, data_parallel=True)
+            ddp_ms = _dp_step_ms(dtype, x, True)
+        plain_ms = _dp_step_ms(dtype, x, False)
+        if not (one["metrics"] == plain["metrics"]
+                and torch.equal(one["grads"], plain["grads"])
+                and one["param_sha256"] == plain["param_sha256"]):
+            raise AssertionError(
+                f"{mode}: the one-rank NCCL step is not the plain step: "
+                f"{one['metrics']} vs {plain['metrics']}")
+        _dp_kernels(f"{mode} one-rank NCCL", one["kernel_launches"],
+                    {k: one["launches"][k] for k in gdn.LAUNCHES}, dtype,
+                    DP_STEPS)
+        for k in counts:
+            counts[k] += one["launches"][k]
+        log(f"data parallel {mode}: one-rank NCCL DDP == plain step bit for "
+            f"bit over {DP_STEPS} steps (metrics, gradients, parameters); "
+            f"step ms {ddp_ms:.2f} under DDP vs {plain_ms:.2f} plain")
+        with tempfile.TemporaryDirectory() as tmp:
+            t1 = time.perf_counter()
+            parallel.launch(crosscheck.data_parallel_rank, two, *args[:4],
+                            DP_STEPS, dtype, DP_TIMED, tmp, backend="gloo")
+            t_launch = time.perf_counter() - t1
+            ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                     for r in range(two.size)]
+        loss_err = max(abs(r["metrics"][i]["loss"] - m["loss"])
+                       / abs(m["loss"]) for r in ranks
+                       for i, m in enumerate(one["metrics"]))
+        grad_err = float((ranks[0]["grads"] - one["grads"]).norm()
+                         / one["grads"].norm())
+        param_err = float((ranks[0]["params"] - one["params"]).norm()
+                          / one["params"].norm())
+        same = ranks[0]["param_sha256"] == ranks[1]["param_sha256"]
+        for r, res in enumerate(ranks):
+            _dp_kernels(f"{mode} gloo rank {r}", res["kernel_launches"],
+                        res["launches"], dtype, DP_STEPS)
+            for k in counts:
+                counts[k] += res["launches"][k]
+            log(f"data parallel {mode} gloo rank {r} of 2 "
+                f"({TRAIN_BATCH[0] // 2} rows of "
+                f"{TRAIN_BATCH[1]}x{TRAIN_BATCH[2]}): step ms "
+                f"{json.dumps([round(v, 2) for v in res['step_wall_ms']])}, "
+                f"device ms {res['step_device_ms']:.2f} of the profiled "
+                f"step, all-reduce share of device time "
+                f"{100 * res['allreduce_device_share']:.1f} % (gloo's host "
+                f"copies), peak memory {res['peak_gib']:.2f} GiB, GDN "
+                f"launches by kernel {res['kernel_launches']}")
+        n_params = one["params"].numel()
+        log(f"data parallel {mode}: two gloo ranks vs the one-rank step on "
+            f"the whole {TRAIN_BATCH[0]}: losses within {loss_err:.3g} (bar "
+            f"{DP_LOSS_RTOL}), gradient as one vector within "
+            f"{grad_err:.3g} (bar {DP_GRAD_RTOL[mode]:.3g}), parameters "
+            f"after "
+            f"{DP_STEPS} steps within {param_err:.3g}, ranks' parameters "
+            f"bit-equal after each step: {same}; {n_params} parameters, "
+            f"{4 * n_params / 2**20:.1f} MiB all-reduced a step; spawn and "
+            f"run {t_launch:.1f} s; mode {time.perf_counter() - t0:.1f} s")
+        if not same:
+            raise AssertionError(f"{mode}: the ranks' parameters differ")
+        if not (loss_err <= DP_LOSS_RTOL
+                and grad_err <= DP_GRAD_RTOL[mode]):
+            raise AssertionError(
+                f"{mode}: two gloo ranks vs one: losses {loss_err:.3g}, "
+                f"gradient {grad_err:.3g}")
+    return counts
+
+
+def _fan_case(what, single, fanned, x, launches_of):
+    """Round trips of `x` through the one-slot codec and the fanned-out
+    one (a warm-up each, then one timed), strings byte-identical; logs
+    images/s of each and the fanned-out round trip's GDN launches.
+    `launches_of` is the fan-out's exact `gdn_fwd` launches a round trip.
+    Returns them."""
+    rates = {}
+    outs = {}
+    for name, codec in (("one slot", single), ("two slots", fanned)):
+        rt = _fan_round_trip(codec, x)
+        rt()
+        (strings, pixels), counts, ms = _counted(rt)
+        rates[name] = len(x) / (ms / 1e3)
+        outs[name] = strings, pixels
+        if name == "two slots":
+            _only_fwd(what, counts, launches_of)
+    (s1, p1), (s2, p2) = outs["one slot"], outs["two slots"]
+    if s1 != s2:
+        raise AssertionError(f"{what}: fanned-out strings differ")
+    diff = int(np.abs(p1.astype(np.int16) - p2.astype(np.int16)).max())
+    log(f"fan-out {what}: strings byte-identical to one slot; pixels max "
+        f"level difference {diff}; images/s one slot "
+        f"{rates['one slot']:.2f}, two slots {rates['two slots']:.2f}; "
+        f"{launches_of} gdn_fwd a round trip")
+    return launches_of
+
+
+def _fan_round_trip(codec, x):
+    """A round trip of `x`: (strings, uint8 pixels)."""
+    def run():
+        if x.ndim == 5:  # video: (frames' strings, shapes)
+            strings, shapes = codec.compress(x)
+            return strings, codec.decompress(strings, shapes, u8=True)
+        out = codec.compress(x)
+        return (out["strings"],
+                codec.decompress(out["strings"], out["shape"],
+                                 u8=True)["x_hat"])
+    return run
+
+
+def _cross_platform():
+    """ROADMAP C's open question, logged and not held (lmic_tpu's contract
+    is the same platform on both sides): mbt2018-mean q8 encoded on the
+    card and decoded on the CPU, and the reverse, the card codec's tables
+    on both. For each direction: the scale indexes the decoder derives
+    that differ from the encoder's, whether the y symbols decode as
+    encoded, and the largest pixel difference from the encoder side's
+    own decode (or the error a desynced stream raised)."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.entropy import coder as rans
+
+    x = _images(1, seed=65)[0]
+    card = zoo.create_model(SERVE_ARCH, QUALITY, seed=0, device="cuda")
+    card.update(force=True)
+    cpu = zoo.create_model(SERVE_ARCH, QUALITY, seed=0, device="cpu")
+    cpu.eb_state, cpu.gc_state = card.eb_state, card.gc_state
+    outs = {"card": card.compress(x), "cpu": cpu.compress(x)}
+    report = {"strings_equal": outs["card"]["strings"]
+              == outs["cpu"]["strings"]}
+    for enc_name, enc, dec in (("card", card, cpu), ("cpu", cpu, card)):
+        out = outs[enc_name]
+        y_strings, z_strings = out["strings"]
+        z_sym = enc.eb_state.decode_symbols(z_strings, tuple(out["shape"]))
+        with torch.inference_mode():
+            idx = [c._params_for_wire_z(z_sym)[0] for c in (enc, dec)]
+        side = {"index_flips": int((idx[0] != idx[1]).sum())}
+        try:
+            sym = [rans.decode_batch(y_strings, i.reshape(1, -1),
+                                     enc.gc_state.table) for i in idx]
+            side["symbols_equal"] = bool(np.array_equal(*sym))
+            pix = [c.decompress(out["strings"], out["shape"],
+                                u8=True)["x_hat"] for c in (enc, dec)]
+            side["pixels_max_diff"] = int(np.abs(
+                pix[0].astype(np.int16) - pix[1]).max())
+        except (RuntimeError, ValueError) as e:  # a desynced stream
+            side["decode_error"] = str(e)[:200]
+        report[f"{enc_name}->{'cpu' if enc is card else 'card'}"] = side
+    log(f"ROADMAP C, a stream coded on one platform decoded on the other "
+        f"(mbt2018-mean q{QUALITY}, 512x768, the card's tables on both; "
+        f"not a gate): {json.dumps(report)}")
+    return report
+
+
+def _dp_serving():
+    """Parts 2-4 of phase 15: the fan-out over a two-slot mesh, a bundle
+    exported from the sharded codec, a mixed device set. Returns the
+    fanned-out round trips' `gdn_fwd` launches."""
+    import torch
+
+    from lmic_tpu_torch import parallel, zoo
+    from lmic_tpu_torch.utils.aot import load_serving_bundle
+
+    two = parallel.Mesh(["cuda:0", "cuda:0"])
+
+    def pair(make):
+        single, fanned = make(), make()
+        for c in (single, fanned):
+            c.update(force=True)
+        return single, parallel.shard_codec(fanned, two)
+
+    launches = 0
+    single, sharded = pair(lambda: zoo.create_model(SERVE_ARCH, QUALITY,
+                                                    seed=0, device="cuda"))
+    x = np.concatenate(_images(FAN_IMAGES, seed=62))
+    # 3 GDN an image to encode; the synthesis splits the batch into two
+    # row blocks, 3 IGDN each
+    launches += _fan_case(f"{SERVE_ARCH} q{QUALITY}, {FAN_IMAGES} images",
+                          single, sharded, x, 3 * FAN_IMAGES + 3 * 2)
+    xa = np.concatenate(_images(FAN_AR_IMAGES, seed=63))
+    launches += _fan_case(
+        f"{AR_SERVE_ARCH} q{AR_QUALITY}, {FAN_AR_IMAGES} images",
+        *pair(lambda: zoo.create_model(AR_SERVE_ARCH, AR_QUALITY, seed=0,
+                                       device="cuda")),
+        xa, 3 * FAN_AR_IMAGES + 3)
+    gops = np.concatenate(_gops(FAN_GOPS[0], shape=(1, *FAN_GOPS[1:]),
+                                seed=64))
+    launches += _fan_case(
+        f"ssf2020, {FAN_GOPS[0]} sequences of {FAN_GOPS[1]} "
+        f"{FAN_GOPS[2]}x{FAN_GOPS[3]} frames",
+        *pair(lambda: zoo.create_video_model(seed=0, device="cuda")),
+        gops, 0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sharded")
+        secs, mib = _export(sharded, path, x.shape)
+        served = load_serving_bundle(path, mesh=two)
+        want = sharded.compress(x)
+        got, counts, _ = _counted(served.compress, x)
+        _only_fwd("sharded bundle", counts, 3 * FAN_IMAGES)
+        launches += 3 * FAN_IMAGES
+        if got["strings"] != want["strings"]:
+            raise AssertionError("the sharded bundle's strings differ")
+        try:
+            load_serving_bundle(path, mesh=parallel.Mesh(["cuda:0"] * 3))
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("a bundle for 2 devices took a mesh of 3")
+        log(f"sharded bundle: exported in {secs:.1f} s ({mib:.1f} MiB, "
+            f"nr_devices {served.bundle_meta['nr_devices']}), served over "
+            f"the two-slot mesh with the live codec's strings; a mesh of 3 "
+            f"refused: {refused}")
+    try:
+        parallel.check_homogeneous([torch.device("cuda", 0), "cpu"])
+    except ValueError as e:
+        log(f"check_homogeneous([cuda:0, cpu]) refused: {e}")
+    else:
+        raise AssertionError("check_homogeneous took a mixed device set")
+    _cross_platform()
+    return launches
+
+
+def phase_data_parallel():
+    """Phase 15 (see the module doc): data parallelism. Returns the
+    launch counts of its main path, {wrapper: launches}: the DDP runs'
+    and, under `gdn_fwd`, the fan-out's and the sharded bundle's."""
+    t_phase = time.perf_counter()
+    _reset_counts()
+    counts = _dp_training()
+    t_train = time.perf_counter() - t_phase
+    counts["gdn_fwd"] += _dp_serving()
+    log(f"data parallel phase: {time.perf_counter() - t_phase:.1f} s "
+        f"(training {t_train:.1f} s); launches {counts}")
+    return counts
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -4236,6 +4572,7 @@ def main():
         phase_pretrained_and_remat()
     precision_launches, more_training["bf16_training"] = \
         phase_matmul_precision()
+    more_training["data_parallel"] = phase_data_parallel()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)

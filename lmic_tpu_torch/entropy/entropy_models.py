@@ -18,7 +18,6 @@ import math
 from typing import Optional, Sequence
 
 import numpy as np
-import scipy.stats
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -267,6 +266,10 @@ class GaussianConditional:
         """Per-scale pmf rows, evaluated on the CPU in f32. Returns numpy
         (pmf, tail_mass, pmf_length, offset). Reference:
         entropy_models.py:655-678."""
+        # imported here: scipy.stats takes seconds to import, and the
+        # processes that only train (data-parallel ranks) build no tables
+        import scipy.stats
+
         scale_table = np.asarray(scale_table, dtype=np.float32)
         multiplier = -scipy.stats.norm.ppf(self.tail_mass / 2)
         pmf_center = np.ceil(scale_table * multiplier).astype(np.int32)

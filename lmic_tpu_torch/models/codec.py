@@ -36,6 +36,7 @@ the tables do not depend on it (the bottleneck's density stays f32).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -308,6 +309,19 @@ class _SynthU8(nn.Module):
         return _u8_pixels(self.module.g_s(_cl(y_hat)))
 
 
+def _gather(outs, device):
+    """Per-item or per-block results (tensors, or tuples of tensors or
+    None) concatenated along the batch, in order, on `device` (None:
+    where they are)."""
+    def cat(parts):
+        return torch.cat([p if device is None else p.to(device)
+                          for p in parts])
+
+    if isinstance(outs[0], tuple):
+        return tuple(None if o[0] is None else cat(o) for o in zip(*outs))
+    return cat(outs)
+
+
 class _PerItem:
     """Run a B = 1 device graph once per batch item and concatenate.
 
@@ -317,27 +331,70 @@ class _PerItem:
     1-ulp scale difference flips a Gaussian bucket and desyncs the stream.
     `post`, when given, is a batched layout-only stage applied to the
     concatenated results. `inner` stays exposed for export (utils/aot.py
-    exports it at B = 1 and re-wraps it on load)."""
+    exports it at B = 1 and re-wraps it on load).
+
+    Multi-device serving (`parallel.shard_codec`) `place`s it on a mesh:
+    items go round-robin over the mesh's devices, each through that
+    device's copy of `inner` (the same graph and weights, so a
+    homogeneous device set computes the same numbers), and the results
+    concatenate on the first device."""
 
     def __init__(self, inner, post=None):
         self.inner = inner
         self.post = post
+        self.devices = None
+        self._replicas = None
+
+    def place(self, devices, replicas):
+        """Run item i on `devices[i % n]` through `replicas[i % n]`."""
+        self.devices, self._replicas = list(devices), list(replicas)
 
     def __call__(self, *args):
         B = args[0].shape[0]
-        if B == 1:
+        devs = self.devices
+        if B == 1 and not devs:
             out = self.inner(*args)
         else:
-            outs = [self.inner(*(a[i:i + 1] for a in args))
-                    for i in range(B)]
-            if isinstance(outs[0], tuple):
-                out = tuple(None if o[0] is None else torch.cat(o)
-                            for o in zip(*outs))
-            else:
-                out = torch.cat(outs)
+            outs = []
+            for i in range(B):
+                sl = [a[i:i + 1] for a in args]
+                inner = self.inner
+                if devs:
+                    dev = devs[i % len(devs)]
+                    sl = [a.to(dev) for a in sl]
+                    inner = self._replicas[i % len(devs)]
+                outs.append(inner(*sl))
+            out = _gather(outs, devs[0] if devs else None)
         if self.post is None:
             return out
         return self.post(*out) if isinstance(out, tuple) else self.post(out)
+
+
+class _Sharded:
+    """A batch-safe graph (elementwise, or per-row like the synthesis)
+    over a mesh: its batch splits into contiguous row blocks in order,
+    one a device (`parallel.rank_rows`), each through that device's copy
+    (`replicas`); the results concatenate on the first device. `None`
+    arguments (the scale-only hyperprior's means) pass through."""
+
+    def __init__(self, devices, replicas):
+        self.devices, self.replicas = list(devices), list(replicas)
+
+    @property
+    def inner(self):
+        """The graph of one block, on the first device (what a bundle
+        exports)."""
+        return self.replicas[0]
+
+    def __call__(self, *args):
+        from lmic_tpu_torch.parallel import rank_rows
+
+        n = len(self.devices)
+        outs = [rep(*(None if a is None else rank_rows(a, r, n).to(dev)
+                      for a in args))
+                for r, (dev, rep) in enumerate(zip(self.devices,
+                                                   self.replicas))]
+        return _gather(outs, self.devices[0])
 
 
 class CompressionCodec:
@@ -401,12 +458,15 @@ class CompressionCodec:
         tables: the device functions it makes hold their medians and scale
         table, and the tables can be replaced (`update`, a deployment
         checkpoint, tables carried across)."""
-        built = self.__dict__.setdefault("_built_for", {})
+        built = self.__dict__.get("_built_for", {})
         tables = built.get(build)
         if (tables is None or tables[0] is not self.eb_state
                 or tables[1] is not self.gc_state):
             getattr(self, build)()
-            built[build] = (self.eb_state, self.gc_state)
+            # a new dict: a shallow copy of the codec (a fan-out view)
+            # must not mark the original's functions as built
+            self._built_for = {**built,
+                               build: (self.eb_state, self.gc_state)}
 
     @staticmethod
     def _check_u8(x: np.ndarray, what: str):
@@ -444,6 +504,73 @@ class CompressionCodec:
             return body(strings, shape)
         fut = self._host_worker.submit(body, strings, shape)
         return lambda: fut.result()()
+
+
+class _FanOut:
+    """Multi-device serving of the codecs whose batch items are coded
+    whole and independently (the AR images, the video sequences): each
+    item runs on one device, round-robin, one worker thread a device
+    (lmic_tpu's `fanout` and `_fanout_map`, models/joint.py:347-375, and
+    video's `_chunk_map`, models/video.py:566-600). Every device runs the
+    same per-item graphs on the same weights, so a homogeneous device set
+    codes the bytes of one device."""
+
+    _fanout_devices = None
+
+    def fanout(self, devices):
+        """Serve batches across `devices` (a homogeneous set; a device
+        may stand in it more than once, a slot each). The weights are
+        copied to each other device now (`parallel.replicate`)."""
+        from lmic_tpu_torch.parallel import Mesh, replicate
+
+        mesh = Mesh(devices)
+        self._fanout_devices = mesh.devices
+        self._fanout_modules = dict(zip(mesh.devices,
+                                        replicate(mesh, self.module)))
+        return self
+
+    def _on(self, device):
+        """This codec on `device`: itself where its weights live, else a
+        shallow copy holding `fanout`'s copy of the weights and the same
+        tables."""
+        module = self._fanout_modules[device]
+        if module is self.module:
+            return self
+        view = copy.copy(self)
+        view.device, view.module = device, module
+        view.__dict__.pop("_built_for", None)
+        return view
+
+    def _fanout_map(self, n_items: int, fn):
+        """[fn(i, codec) for each item], `codec` this one on item i's
+        device, device i mod n of the fan-out's n. The items of a device
+        run in order on a worker thread of their own (kernel launches,
+        copies and the host rANS release the GIL). Without a fan-out, for
+        one item, or under the bf16 matmul precision (the mode is the
+        calling thread's, and its rounded ops switch TF32 process-wide,
+        `ops/precision.py`), the items run in order on the calling
+        thread."""
+        devs = self._fanout_devices
+        if not devs:
+            return [fn(i, self) for i in range(n_items)]
+        n = min(len(devs), n_items)
+        if n < 2 or precision.current() is not None:
+            return [fn(i, self._on(devs[i % n])) for i in range(n_items)]
+        out = [None] * n_items
+
+        def slot(s):
+            codec = self._on(devs[s])
+            on_card = (torch.cuda.device(devs[s]) if devs[s].type == "cuda"
+                       else contextlib.nullcontext())
+            with on_card, torch.inference_mode():
+                for i in range(s, n_items, n):
+                    out[i] = fn(i, codec)
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=n) as pool:
+            list(pool.map(slot, range(n)))
+        return out
 
 
 class FactorizedPriorCodec(CompressionCodec):

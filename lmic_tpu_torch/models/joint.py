@@ -36,6 +36,7 @@ its symbols with the host rANS decoder, and sends them back.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import List, Optional
 
@@ -50,6 +51,7 @@ from lmic_tpu_torch.layers import Conv, MaskedConv2d, remat
 from lmic_tpu_torch.models.codec import (
     HyperpriorCodec,
     _AnalyzeU8,
+    _FanOut,
     _Fetch,
     _PackSymbols,
     _PerItem,
@@ -312,7 +314,7 @@ def _latent(y_hat_pad, sched: WavefrontSchedule):
 # ---------------------------------------------------------------------------
 
 
-class JointARCodec(HyperpriorCodec):
+class JointARCodec(_FanOut, HyperpriorCodec):
     """Codec wrapper for mbt2018 and the cheng2020 models, which share its
     entropy path (lmic_tpu/models/joint.py:319-620).
 
@@ -327,6 +329,12 @@ class JointARCodec(HyperpriorCodec):
     dec_z_ms, dec_loop_ms and its parts dec_loop_device_ms (the steps, the
     copies and the waits) and dec_loop_rans_ms (host rANS),
     dec_synthesis_ms.
+
+    With `fanout(devices)` (`parallel.shard_codec`) the images of a batch
+    run their hyper params and wavefront loops on the fan-out's devices,
+    one worker thread a device (`_fanout_map`); the strings are those of
+    one device. dec_loop_device_ms and dec_loop_rans_ms then sum over the
+    threads.
     """
 
     def _hyper_params(self, z_sym: np.ndarray):
@@ -335,6 +343,19 @@ class JointARCodec(HyperpriorCodec):
         (the counterpart of lmic_tpu's `_params_on_scan_device`)."""
         z_hat = self._upload(z_sym) + self._medians(self.eb_state)
         return self.module.hyper_to_params(z_hat)
+
+    def _steps(self, H: int, W: int, order: str):
+        """codec -> `codec._step_for(H, W, order)`, built once per codec
+        (each fan-out device has its own) and shared by its items."""
+        built, lock = {}, threading.Lock()
+
+        def step_on(codec):
+            with lock:
+                if id(codec) not in built:
+                    built[id(codec)] = codec._step_for(H, W, order)
+                return built[id(codec)]
+
+        return step_on
 
     def _step_for(self, H: int, W: int, order: str = "wavefront"):
         if order not in ORDERS:
@@ -375,16 +396,18 @@ class JointARCodec(HyperpriorCodec):
         "y_hat_latent": what decode must reproduce exactly."""
         t0 = time.perf_counter()
         M, H, W = ys[0].shape[1:]
-        sched, prepare, step = self._step_for(H, W, order)
-        syms, idxs, y_hats = [], [], []
-        for i, y in enumerate(ys):
-            params = self._hyper_params(z_sym[i:i + 1])
-            sym, idx, y_hat_pad = self._encode_wavefronts(
-                sched, prepare, step, y, params)
-            syms.append(_symbols_to_host(sym))
-            idxs.append(idx.cpu().numpy())
-            if keep_y_hat:
-                y_hats.append(_latent(y_hat_pad, sched))
+        step_on = self._steps(H, W, order)
+
+        def encode_one(i, codec):
+            sched, prepare, step = step_on(codec)
+            params = codec._hyper_params(z_sym[i:i + 1])
+            sym, idx, y_hat_pad = codec._encode_wavefronts(
+                sched, prepare, step, ys[i].to(codec.device), params)
+            y_hat = (_latent(y_hat_pad, sched).to(self.device)
+                     if keep_y_hat else None)
+            return _symbols_to_host(sym), idx.cpu().numpy(), y_hat
+
+        syms, idxs, y_hats = zip(*self._fanout_map(len(ys), encode_one))
         t0 = self._stat("enc_loop_ms", t0)
         z_strings = self._encode_z(z_sym)
         y_strings = rans.encode_batch(np.stack(syms), np.stack(idxs),
@@ -481,17 +504,20 @@ class JointARCodec(HyperpriorCodec):
         z_sym = self.eb_state.decode_symbols(z_strings, tuple(shape))
         t0 = self._stat("dec_z_ms", t0)
         H, W = 4 * int(shape[0]), 4 * int(shape[1])
-        sched, prepare, step = self._step_for(H, W, order)
-        times = [0.0, 0.0]
-        y_hat = torch.cat([
-            _latent(self._decode_wavefronts(
-                sched, prepare, step, s,
-                self._hyper_params(z_sym[i:i + 1]), times), sched)
-            for i, s in enumerate(y_strings)
-        ])
+        step_on = self._steps(H, W, order)
+        times = np.zeros((len(y_strings), 2))
+
+        def decode_one(i, codec):
+            sched, prepare, step = step_on(codec)
+            y_hat_pad = codec._decode_wavefronts(
+                sched, prepare, step, y_strings[i],
+                codec._hyper_params(z_sym[i:i + 1]), times[i])
+            return _latent(y_hat_pad, sched).to(self.device)
+
+        y_hat = torch.cat(self._fanout_map(len(y_strings), decode_one))
         self._stat("dec_loop_ms", t0)
-        self.stats["dec_loop_device_ms"] = 1e3 * times[0]
-        self.stats["dec_loop_rans_ms"] = 1e3 * times[1]
+        self.stats["dec_loop_device_ms"] = 1e3 * float(times[:, 0].sum())
+        self.stats["dec_loop_rans_ms"] = 1e3 * float(times[:, 1].sum())
         return y_hat
 
     @torch.inference_mode()

@@ -44,6 +44,7 @@ from lmic_tpu_torch.layers import Conv, Deconv, qrelu
 from lmic_tpu_torch.models.codec import (
     CompressionCodec,
     _cl,
+    _FanOut,
     _Fetch,
     _narrowest_int,
     _only,
@@ -497,7 +498,7 @@ def _gop_parts(strings, shapes):
     return parts
 
 
-class ScaleSpaceFlowCodec(CompressionCodec):
+class ScaleSpaceFlowCodec(_FanOut, CompressionCodec):
     """The GOP coding wrapper: the frame chain on the device, three
     sub-codec states, host rANS.
 
@@ -518,6 +519,12 @@ class ScaleSpaceFlowCodec(CompressionCodec):
     `decompress_async` split each path at its last copy to the host. The
     per-frame paths (`_compress_chunk_sync`, `_decompress_chunk_sync`,
     over `encode_keyframe` ... `decode_inter`) compute the same bytes.
+
+    A multi-sequence batch runs one B = 1 chain a sequence; with
+    `fanout(devices)` (`parallel.shard_codec`) the sequences go
+    round-robin over the devices, one worker thread a device
+    (`_chunk_map`), each chain whole on its device: the bytes and frames
+    of one device.
     """
 
     SUB_CODECS = ("img", "motion", "res")
@@ -554,6 +561,16 @@ class ScaleSpaceFlowCodec(CompressionCodec):
     def _check_updated(self):
         if not self.hp_states:
             raise RuntimeError("Uninitialized CDFs. Run update() first")
+
+    def _on(self, device):
+        view = super()._on(device)
+        if view is not self:  # the GOP graphs hold the tables' tensors
+            view.install_tables({w: (st.eb_state, st.gc_state)
+                                 for w, st in self.hp_states.items()})
+        return view
+
+    # lmic_tpu's name for the per-sequence fan-out
+    _chunk_map = _FanOut._fanout_map
 
     def _check_frame_dims(self, frames: np.ndarray):
         if frames.ndim != 5 or frames.shape[-1] != 3:
@@ -631,8 +648,9 @@ class ScaleSpaceFlowCodec(CompressionCodec):
         set_wire_determinism()
         if frames.shape[0] == 1:
             return self._compress_chunk(frames)
-        parts = [self._compress_chunk(frames[i:i + 1])
-                 for i in range(frames.shape[0])]
+        parts = self._chunk_map(
+            frames.shape[0],
+            lambda i, codec: codec._compress_chunk(frames[i:i + 1]))
         return ([_merge_strings([p[0][t] for p in parts])
                  for t in range(frames.shape[1])], parts[0][1])
 
@@ -732,10 +750,9 @@ class ScaleSpaceFlowCodec(CompressionCodec):
         B = len(parts[0][1][0])
         if B == 1:
             return self._decompress_chunk(strings, shapes, u8)
-        return np.concatenate([
-            self._decompress_chunk(
-                [_slice_strings(s, i, i + 1) for s in strings], shapes, u8)
-            for i in range(B)])
+        return np.concatenate(self._chunk_map(
+            B, lambda i, codec: codec._decompress_chunk(
+                [_slice_strings(s, i, i + 1) for s in strings], shapes, u8)))
 
     def decompress_async(self, strings, shapes, u8: bool = True):
         """Run the host halves of one sequence's GOP decode inline (z and y

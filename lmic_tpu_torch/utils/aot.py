@@ -30,8 +30,9 @@ interchangeable: each loader refuses the other's.
 
 Bundle layout:
     meta.json   format version, family, (B, H, W, C), N/M widths, the
-                downsampling factor, fn list, the device type the graphs
-                were exported on, torch version
+                downsampling factor, fn list, the mesh size of a sharded
+                codec (`nr_devices`, 1 otherwise), the device type the
+                graphs were exported on, torch version
     state.npz   EB/GC integer CDF tables, medians, scale tables
     fns/*.pt2   one `torch.export.save`d program per device graph (B = 1
                 per-image graphs get a `__one` suffix, dtype variants
@@ -87,8 +88,15 @@ def _plan(codec, family, input_shape):
     on the shapes, dtypes and memory layouts it is served with. The
     per-image graphs (`_PerItem`s in the live codec) export their shared
     B = 1 inner module as `__one` (the loader re-wraps it); the batched
-    layout and synthesis graphs export at the bundle's B."""
-    from lmic_tpu_torch.models.codec import _PerItem
+    layout and synthesis graphs export at the bundle's B; on a sharded
+    codec (`parallel.shard_codec`) the batch-safe ones export the graph
+    of one row block, at B over the mesh size."""
+    from lmic_tpu_torch.models.codec import _PerItem, _Sharded
+
+    def block(fn, *args):
+        n = len(fn.devices) if isinstance(fn, _Sharded) else 1
+        return (fn.inner if n > 1 else fn,
+                tuple(a[:a.shape[0] // n] for a in args))
 
     B, H, W, C = input_shape
     x = torch.zeros((B, H, W, C), dtype=torch.uint8, device=codec.device)
@@ -100,8 +108,8 @@ def _plan(codec, family, input_shape):
             "_enc_u8_packed__one": (enc.inner, (x1,)),
             "_enc_u8_packed__post": (enc.post, (sym8, ovf)),
             "_enc_u8__one": (codec._enc_u8.inner, (x1,)),
-            "_dec_u8__i8": (codec._dec_u8, (sym8,)),
-            "_dec_u8__i16": (codec._dec_u8, (sym8.to(torch.int16),)),
+            "_dec_u8__i8": block(codec._dec_u8, sym8),
+            "_dec_u8__i16": block(codec._dec_u8, sym8.to(torch.int16)),
         }
     y, z8, zovf = codec._analyze_u8(x)
     idx, means = codec._params_from_zsym(z8)
@@ -111,10 +119,10 @@ def _plan(codec, family, input_shape):
         "_analyze_u8__one": (codec._analyze_u8.inner, (x1,)),
         "_params_from_zsym__one": (codec._params_from_zsym.inner,
                                    (z8[:1],)),
-        "_ysym": (codec._ysym, (y,) + m),
+        "_ysym": block(codec._ysym, y, *m),
         "_pack_enc": (codec._pack_enc, (z8, idx, y8, zovf, yovf)),
-        "_synth_u8__i8": (codec._synth_u8, (y8,) + m),
-        "_synth_u8__i16": (codec._synth_u8, (y16,) + m),
+        "_synth_u8__i8": block(codec._synth_u8, y8, *m),
+        "_synth_u8__i16": block(codec._synth_u8, y16, *m),
     }
 
 
@@ -225,6 +233,7 @@ def export_serving_bundle(codec, out_dir, input_shape) -> str:
     np.savez(os.path.join(out_dir, "state.npz"), **state)
 
     module = codec.module
+    spec = getattr(codec, "_shard_spec", None)
     meta = {
         "format": FAMILY_FORMAT[family],
         "family": family,
@@ -234,6 +243,7 @@ def export_serving_bundle(codec, out_dir, input_shape) -> str:
         "downsampling_factor": int(
             getattr(module, "downsampling_factor", 0)),
         "fns": list(plan),
+        "nr_devices": 1 if spec is None else spec.size,
         "device": codec.device.type,
         "torch_version": torch.__version__,
     }
@@ -422,18 +432,42 @@ def _load_video_bundle(codec, fns, state):
     codec.install_tables = _frozen
 
 
-def load_serving_bundle(path, device=None):
+def _modules_on(program, devices):
+    """The program's module on each of `devices`, one module a distinct
+    device: the program as loaded where it was saved (and on devices of
+    no tensor), moved for any other (`torch.export` programs keep their
+    constants on the device they were exported on)."""
+    from torch.export.passes import move_to_device_pass
+
+    here = next((t.device for t in (*program.state_dict.values(),
+                                    *program.constants.values())
+                 if isinstance(t, torch.Tensor)), None)
+    mods = {}
+    for d in devices:
+        if d not in mods:
+            mods[d] = (program if here is None or here == d
+                       else move_to_device_pass(program, d)).module()
+    return [mods[d] for d in devices]
+
+
+def load_serving_bundle(path, device=None, mesh=None):
     """Reconstitute a serving codec from an exported bundle: a
     `FactorizedPriorCodec`/`HyperpriorCodec`/`ScaleSpaceFlowCodec` whose
     device functions are the loaded programs — uint8 fast path only,
     fixed to the bundle's input shape, on `device` (CUDA by default),
-    which must be the device type the bundle was exported on."""
+    which must be the device type the bundle was exported on.
+
+    A bundle exported from a `shard_codec`-sharded codec records the mesh
+    size (`nr_devices`) and serves over a `mesh` of that size (default:
+    `parallel.make_mesh(nr_devices)`), as the live sharded codec does; a
+    mesh of another size, or a mesh for an unsharded bundle, is refused."""
     from lmic_tpu_torch import default_device
     from lmic_tpu_torch.models.codec import (
         CompressionCodec,
         FactorizedPriorCodec,
         HyperpriorCodec,
         _PerItem,
+        _Sharded,
     )
     from lmic_tpu_torch.models.video import ScaleSpaceFlowCodec
     # registers the operator lmic_tpu_torch::gdn_fwd that the graphs call
@@ -462,6 +496,27 @@ def load_serving_bundle(path, device=None):
             "not interchangeable with per-sequence codecs; re-export with "
             "B=1 and fan out at the caller"
         )
+    nr_devices = int(meta.get("nr_devices", 1))
+    if nr_devices == 1:
+        if mesh is not None:
+            raise ValueError(
+                "bundle was exported from an unsharded codec; it runs on "
+                "one device (shard the live codec before export for a "
+                "bundle that serves over a mesh)")
+    else:
+        if mesh is None:
+            from lmic_tpu_torch.parallel import make_mesh
+
+            mesh = make_mesh(nr_devices, device=device)
+        if mesh.size != nr_devices:
+            raise ValueError(
+                f"bundle was exported for {nr_devices} devices; got a "
+                f"{mesh.size}-device mesh")
+        if device is None:
+            device = mesh.devices[0]
+        elif torch.device(device).type != mesh.devices[0].type:
+            raise ValueError(f"a {mesh.devices[0].type} mesh for a bundle "
+                             f"loaded on {torch.device(device).type}")
     device = default_device(device)
     if device.type != meta.get("device"):
         raise ValueError(
@@ -472,10 +527,12 @@ def load_serving_bundle(path, device=None):
             "this device"
         )
     set_wire_determinism()
+    # each graph's module on each mesh device (one device unsharded)
     fns = {}
     for name in meta["fns"]:
         program = torch.export.load(os.path.join(fns_dir, name + ".pt2"))
-        fns[name] = program.module()
+        fns[name] = (_modules_on(program, mesh.devices) if mesh is not None
+                     else [program.module()])
     state = dict(np.load(os.path.join(path, "state.npz")))
 
     family = meta["family"]
@@ -487,26 +544,41 @@ def load_serving_bundle(path, device=None):
         _ModuleShim(meta["N"], meta["M"], meta["downsampling_factor"]),
         device,
     )
+
+    def per_item(name, post=None):
+        # the B = 1 graphs: round-robin over a mesh, as the live codec's
+        fn = _PerItem(fns[name][0], post=post)
+        if mesh is not None:
+            fn.place(mesh.devices, fns[name])
+        return fn
+
+    def batched(graph):
+        # graph(k): the graph on device k; over a mesh, one row block each
+        if mesh is None:
+            return graph(0)
+        return _Sharded(mesh.devices, [graph(k) for k in range(mesh.size)])
+
+    def by_dtype(prefix):
+        return lambda k: _Graph({torch.int8: fns[prefix + "__i8"][k],
+                                 torch.int16: fns[prefix + "__i16"][k]},
+                                True)
+
     if family == "video":
-        _load_video_bundle(codec, fns, state)
+        _load_video_bundle(codec, {k: v[0] for k, v in fns.items()}, state)
+        codec.fanout = _frozen
     else:
         codec.eb_state, codec.gc_state = _tables(state, "")
         if family == "factorized":
-            codec._enc_u8_packed = _PerItem(
-                fns["_enc_u8_packed__one"],
-                post=fns["_enc_u8_packed__post"])
-            codec._enc_u8 = _PerItem(fns["_enc_u8__one"])
-            codec._dec_u8 = _Graph({torch.int8: fns["_dec_u8__i8"],
-                                    torch.int16: fns["_dec_u8__i16"]}, True)
+            codec._enc_u8_packed = per_item(
+                "_enc_u8_packed__one", post=fns["_enc_u8_packed__post"][0])
+            codec._enc_u8 = per_item("_enc_u8__one")
+            codec._dec_u8 = batched(by_dtype("_dec_u8"))
         else:
-            codec._analyze_u8 = _PerItem(fns["_analyze_u8__one"])
-            codec._params_from_zsym = _PerItem(
-                fns["_params_from_zsym__one"])
-            codec._ysym = _Graph(fns["_ysym"])
-            codec._pack_enc = _Graph(fns["_pack_enc"])
-            codec._synth_u8 = _Graph({torch.int8: fns["_synth_u8__i8"],
-                                      torch.int16: fns["_synth_u8__i16"]},
-                                     True)
+            codec._analyze_u8 = per_item("_analyze_u8__one")
+            codec._params_from_zsym = per_item("_params_from_zsym__one")
+            codec._ysym = batched(lambda k: _Graph(fns["_ysym"][k]))
+            codec._pack_enc = _Graph(fns["_pack_enc"][0])
+            codec._synth_u8 = batched(by_dtype("_synth_u8"))
         # everything that would rebuild a graph is frozen, and the plain
         # path (a symbol past the exported dtypes) needs the live codec
         codec._build_u8_fns = _frozen

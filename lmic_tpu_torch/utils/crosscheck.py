@@ -36,18 +36,26 @@ from lmic_tpu_torch.utils.train import (
 
 
 @contextlib.contextmanager
-def fixed_noise(seed: int = 0):
+def fixed_noise(seed: int = 0, rank: int = 0, world: int = 1):
     """Within the block, training noise is drawn from numpy (`seed`, and
-    the order in which shapes first appear), not from the generator."""
+    the order in which shapes first appear), not from the generator. As
+    rank `rank` of `world` data-parallel ranks, each draw is of the global
+    batch's shape and the rank takes its rows of it (its block of the
+    batch dim: the first of an NCHW tensor, the last of the bottleneck's
+    (C, 1, B*H*W) values), so the ranks together add the noise of one
+    process stepping on the whole batch."""
     cache: Dict[tuple, torch.Tensor] = {}
 
     def quantize_noise(x, generator=None):
-        key = tuple(x.shape)
+        dim = 2 if x.dim() == 3 else 0
+        n = x.shape[dim]
+        key = x.shape[:dim] + (n * world,) + x.shape[dim + 1:]
         if key not in cache:
             rng = np.random.default_rng([seed, len(cache)])
             cache[key] = torch.from_numpy(
                 rng.uniform(-0.5, 0.5, key).astype(np.float32))
-        return x + cache[key].to(x.device, x.dtype)
+        noise = cache[key].narrow(dim, rank * n, n)
+        return x + noise.to(x.device, x.dtype)
 
     original = entropy_models.quantize_noise
     entropy_models.quantize_noise = quantize_noise
@@ -156,6 +164,128 @@ def master_step_agreement(quality: int, channel: int, x: torch.Tensor,
         return metrics, master
 
     return _step_agreement(tuple(zip(devices, remat)), step_on)
+
+
+def data_parallel_steps(arch: str, quality: int, x: torch.Tensor,
+                        lmbda: float, device, steps: int = 2,
+                        dtype: Optional[torch.dtype] = None, rank: int = 0,
+                        world: int = 1, data_parallel: bool = False,
+                        **widths) -> Dict[str, object]:
+    """`steps` train steps of `arch` (weights from seed 0, `dtype` the
+    compute dtype, `widths` as `N=`/`M=`) on `device`, on rank `rank`'s
+    rows of the NCHW global batch `x`, under `fixed_noise(rank=, world=)`;
+    with `data_parallel`, under DistributedDataParallel in the current
+    process group (`parallel.launch` or `parallel.process_group`).
+
+    Returns the metrics of each step ({name: float}, the ranks' means),
+    the first step's gradients as one f32 vector on the host (after the
+    all-reduce and the clip), a sha256 of the parameters' bytes after
+    each step, the parameters after the last step as one vector, and the
+    GDN kernel launches by CUDA kernel (`gdn.kernel_launches`) and by
+    wrapper (`gdn.LAUNCHES`)."""
+    import hashlib
+
+    from lmic_tpu_torch import parallel
+
+    module = zoo.create_model(arch, quality, seed=0, device=device,
+                              dtype=dtype, **widths).module
+    opt = make_optimizer()
+    step = make_train_step(module, opt, lmbda, data_parallel=data_parallel)
+    state = create_train_state(module, opt)
+    batch = parallel.rank_rows(x, rank, world).to(device).contiguous(
+        memory_format=torch.channels_last)
+
+    def flat(tensors):
+        return torch.cat([t.detach().float().reshape(-1).cpu()
+                          for t in tensors])
+
+    out = {"metrics": [], "param_sha256": []}
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    kernels, wrappers = gdn.kernel_launches(), dict(gdn.LAUNCHES)
+    with fixed_noise(rank=rank, world=world):
+        for i in range(steps):
+            state, metrics = step(state, batch)
+            out["metrics"].append({k: float(v) for k, v in metrics.items()})
+            if i == 0:
+                out["grads"] = flat(p.grad for p in module.parameters())
+            params = flat(module.parameters())
+            out["param_sha256"].append(
+                hashlib.sha256(params.numpy().tobytes()).hexdigest())
+    out["params"] = params
+    after = gdn.kernel_launches()
+    out["kernel_launches"] = {k: v - kernels.get(k, 0)
+                              for k, v in after.items()
+                              if v != kernels.get(k, 0)}
+    out["launches"] = {k: v - wrappers[k] for k, v in gdn.LAUNCHES.items()}
+    return out
+
+
+def data_parallel_rank(rank: int, world: int, device, arch: str,
+                       quality: int, x: torch.Tensor, lmbda: float,
+                       steps: int, dtype, timed: int, out_dir: str):
+    """One rank of a data-parallel run (`parallel.launch`'s entry):
+    `data_parallel_steps` under DDP, then `timed` steps on the rank's
+    rows with the rank's own noise generator, each timed on the host
+    clock between two synchronizes, the last under torch.profiler. On
+    CUDA also that step's device ms, the share of it that the all-reduce
+    takes (NCCL's kernels, or the copies through host memory that gloo
+    stages CUDA tensors in) and the peak memory; on the CPU these are
+    None. Writes the results to `out_dir`/rank<r>.pt."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmic_tpu_torch import parallel
+
+    res = data_parallel_steps(arch, quality, x, lmbda, device, steps, dtype,
+                              rank, world, data_parallel=True)
+    if rank:
+        del res["params"]
+    on_card = torch.device(device).type == "cuda"
+    module = zoo.create_model(arch, quality, seed=0, device=device,
+                              dtype=dtype).module
+    opt = make_optimizer()
+    step = make_train_step(module, opt, lmbda, data_parallel=True)
+    state = create_train_state(module, opt)
+    batch = parallel.rank_rows(x, rank, world).to(device).contiguous(
+        memory_format=torch.channels_last)
+    gen = torch.Generator(device=device).manual_seed(
+        parallel.rank_seed(0, rank))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    wall = []
+    for i in range(timed):
+        last = i == timed - 1
+        sync()
+        t0 = time.perf_counter()
+        with (profile(activities=activities) if last
+              else contextlib.nullcontext()) as prof:
+            state, _ = step(state, batch, gen)
+            sync()
+        wall.append(1e3 * (time.perf_counter() - t0))
+    res.update(step_wall_ms=wall, step_device_ms=None,
+               allreduce_device_share=None, peak_gib=None)
+    if on_card:
+        total = comm = 0.0
+        for evt in prof.key_averages():
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or evt.is_user_annotation):
+                continue
+            total += evt.self_device_time_total
+            if "nccl" in evt.key.lower() or "memcpy" in evt.key.lower():
+                comm += evt.self_device_time_total
+        res.update(step_device_ms=total / 1e3,
+                   allreduce_device_share=comm / total if total else None,
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
 
 
 def wavefront_step_agreement(codec, ref, x):

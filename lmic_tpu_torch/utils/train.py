@@ -20,7 +20,9 @@ an explicit `torch.Generator` on the batch's device. `remat=True` is
 lmic_tpu's `--remat`: the forward keeps only the inputs of its transform
 blocks and the backward recomputes them (layers/remat.py), the same
 gradients for less memory. `matmul_precision="bfloat16"` is its
-`--bf16` (ops/precision.py).
+`--bf16` (ops/precision.py). `data_parallel=True` is its data parallelism
+over a mesh: one process a device under DistributedDataParallel
+(parallel/), each rank stepping on its rows of the global batch.
 """
 
 from __future__ import annotations
@@ -193,7 +195,8 @@ def expandable_segments(device) -> bool:
 
 def make_train_step(module: nn.Module, optimizer: DualOptimizer,
                     lmbda: float, remat: bool = False,
-                    matmul_precision: Optional[str] = None) -> Callable:
+                    matmul_precision: Optional[str] = None,
+                    data_parallel: bool = False) -> Callable:
     """Build the train step (with `remat`, rematerializing the transform
     blocks). `matmul_precision="bfloat16"` is lmic_tpu's `--bf16`: the
     module's training forward runs under `ops/precision.py`'s mode (its
@@ -207,16 +210,31 @@ def make_train_step(module: nn.Module, optimizer: DualOptimizer,
     updated in place (parameters and optimizer moments) and returned;
     the metrics are 0-d tensors on the device, so the step does not wait
     for the card.
+
+    With `data_parallel`, in a process group (`parallel.launch`), the
+    forward runs under DistributedDataParallel (`parallel.data_parallel`)
+    on this rank's rows: the backward all-reduces the mean gradient
+    before the clip and both Adams, so every rank takes the update of the
+    global batch, and the metrics are their means over the ranks.
     """
+    forward = module
+    if data_parallel:
+        from lmic_tpu_torch import parallel
+
+        forward = parallel.data_parallel(module,
+                                         next(module.parameters()).device)
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    generator: Optional[torch.Generator] = None):
         def loss_fn():
             with rematerialize(remat), precision(matmul_precision):
-                out = module(batch, training=True, generator=generator)
+                out = forward(batch, training=True, generator=generator)
             return rd_aux_loss(module, out, batch, lmbda)
 
-        return train_update(state, optimizer, loss_fn)
+        state, metrics = train_update(state, optimizer, loss_fn)
+        if data_parallel:
+            metrics = parallel.mean_over_ranks(metrics)
+        return state, metrics
 
     return train_step
 

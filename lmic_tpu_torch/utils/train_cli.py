@@ -1,8 +1,8 @@
 """Training CLI: the examples/train.py recipes for the port's image codecs.
 
 Counterpart of lmic_tpu/utils/train_cli.py (`make_master_train_step`,
-`parse_args`, `train_single`, `train_master`, `main`), on one device: CUDA
-unless `--device cpu`. Its two recipes:
+`parse_args`, `train_single`, `train_master`, `main`), on CUDA unless
+`--device cpu`. Its two recipes:
 
 - single-model training of any zoo arch the port has (the image codecs,
   the AR codecs mbt2018 and cheng2020-*, the RGB-T guide `guided` and
@@ -34,8 +34,17 @@ Usage:
   python -m lmic_tpu_torch.utils.train_cli --arch master -q 3 --channel 1 \\
       -d /path/FLIR/train/thermal_8_bit --guided-checkpoint guided.ckpt
 
-The `*_D` archs have no training recipe, as in lmic_tpu. Not ported yet
-(it raises, see ROADMAP.md): `--devices` (queue A, item 8).
+`--devices N` trains data-parallel over the first N local devices (all of
+them by default, as lmic_tpu does; one with `--device cpu`): one process
+a device, spawned by this command, each stepping under
+DistributedDataParallel on its contiguous rows of the global batch (the
+batch size must divide by N), NCCL on CUDA and gloo on the CPU
+(`parallel.launch`). Each rank seeds its noise from the seed and its rank;
+rank 0 alone prints and writes checkpoints; every rank resumes from
+`--checkpoint` onto its own device; the test loss is the mean over the
+ranks. With one device it is the plain step, with no process group.
+
+The `*_D` archs have no training recipe, as in lmic_tpu.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from lmic_tpu_torch import default_device, zoo
+from lmic_tpu_torch import default_device, parallel, zoo
 from lmic_tpu_torch.layers.remat import rematerialize
 from lmic_tpu_torch.utils import checkpoint as ckpt
 from lmic_tpu_torch.utils.train import (
@@ -76,22 +85,23 @@ AMP_ARCHS = {
     "guided",
 }
 
-# flags of lmic_tpu's CLI that the port does not take yet
-_NOT_PORTED = {
-    "devices": "--devices (data parallel over local devices) is not "
-               "ported; ROADMAP.md queue A, item 8",
-}
-
 
 def make_master_train_step(master_module, guided_module, optimizer,
-                           lmbda: float, remat: bool = False):
+                           lmbda: float, remat: bool = False,
+                           data_parallel: bool = False):
     """The master step (reference train.py:208-274): the frozen guide's
     eval forward without gradients feeds the master's training forward
     (with `remat`, rematerializing the master's transform blocks), then
-    RD + aux, one backward, the clip and both Adams.
+    RD + aux, one backward, the clip and both Adams. With
+    `data_parallel`, the master alone runs under DistributedDataParallel
+    (`train.make_train_step`); the frozen guide stays outside it.
 
     step(state, master_batch, guided_batch, generator) -> (state,
     metrics); the batches are NCHW in [0, 1] on the modules' device."""
+    forward = master_module
+    if data_parallel:
+        forward = parallel.data_parallel(
+            master_module, next(master_module.parameters()).device)
 
     def step(state, master_batch, guided_batch, generator=None):
         with torch.no_grad():
@@ -104,11 +114,14 @@ def make_master_train_step(master_module, guided_module, optimizer,
 
         def loss_fn():
             with rematerialize(remat):
-                out = master_module(master_batch, guided_hat, hidden,
-                                    training=True, generator=generator)
+                out = forward(master_batch, guided_hat, hidden,
+                              training=True, generator=generator)
             return rd_aux_loss(master_module, out, master_batch, lmbda)
 
-        return train_update(state, optimizer, loss_fn)
+        state, metrics = train_update(state, optimizer, loss_fn)
+        if data_parallel:
+            metrics = parallel.mean_over_ranks(metrics)
+        return state, metrics
 
     return step
 
@@ -155,7 +168,10 @@ def parse_args(argv):
                    help="recompute the transform blocks in the backward "
                         "instead of keeping their activations (less "
                         "memory, about a third more compute)")
-    p.add_argument("--devices", type=int, default=None, help="not ported")
+    p.add_argument("--devices", type=int, default=None,
+                   help="train data-parallel on the first N local devices "
+                        "(default: all; one with --device cpu); the batch "
+                        "size must divide by N")
     return p.parse_args(argv)
 
 
@@ -193,11 +209,14 @@ def _train_state(args, module, steps_per_epoch):
 
 
 def _epochs(args, arch, state, dl, run_step, start_epoch, best_loss,
-            eval_loss=None):
+            eval_loss=None, rank: int = 0):
     """The epoch loop: `run_step(batch)` -> metrics for each batch of `dl`,
     a log line every `--log-every` steps, the epoch's loss (`eval_loss()`
     when given and not None, else the mean of the logged losses), and a
-    checkpoint (with its best copy) after each epoch."""
+    checkpoint (with its best copy) after each epoch. Under data
+    parallelism the metrics are the ranks' means, so every rank tracks
+    the same best loss; rank 0 alone prints and writes."""
+    say = print if rank == 0 else (lambda *a, **k: None)
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         running = []
@@ -208,7 +227,7 @@ def _epochs(args, arch, state, dl, run_step, start_epoch, best_loss,
             if i % args.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 running.append(m["loss"])
-                print(
+                say(
                     f"epoch {epoch} it {i}: loss={m['loss']:.4f} "
                     f"mse={m['mse_loss']:.6f} "
                     f"bpp={m['bpp_loss']:.4f} "
@@ -217,27 +236,35 @@ def _epochs(args, arch, state, dl, run_step, start_epoch, best_loss,
                 )
         epoch_loss = eval_loss() if eval_loss is not None else None
         if epoch_loss is not None:
-            print(f"epoch {epoch} test loss={epoch_loss:.4f}", flush=True)
+            say(f"epoch {epoch} test loss={epoch_loss:.4f}", flush=True)
         else:  # no test split, or one smaller than a batch
             epoch_loss = float(np.mean(running)) if running else float("inf")
         is_best = epoch_loss < best_loss
         best_loss = min(epoch_loss, best_loss)
-        ckpt.save_checkpoint(
-            args.save_path, state,
-            {"epoch": epoch, "best_loss": best_loss, "arch": arch,
-             "quality": args.quality},
-            is_best=is_best,
-        )
-        print(f"epoch {epoch} done in {time.time()-t0:.1f}s "
+        if rank == 0:
+            ckpt.save_checkpoint(
+                args.save_path, state,
+                {"epoch": epoch, "best_loss": best_loss, "arch": arch,
+                 "quality": args.quality},
+                is_best=is_best,
+            )
+        say(f"epoch {epoch} done in {time.time()-t0:.1f}s "
               f"loss={epoch_loss:.4f}{' (best)' if is_best else ''}",
               flush=True)
     return state
 
 
-def train_single(args):
+def _rows(batch, rank: int, world: int, device):
+    """This rank's rows of a global numpy batch, NCHW on `device`."""
+    return _to_device(parallel.rank_rows(batch, rank, world), device)
+
+
+def train_single(args, rank: int = 0, world: int = 1, device=None):
+    """Single-model training; with `world` > 1 as rank `rank` of a
+    process group (`main` spawns the ranks), on `device`."""
     from lmic_tpu_torch.datasets import DataLoader, ImageFolder, ImageFolderT
 
-    device = default_device(args.device)
+    device = default_device(device or args.device)
     if args.remat:
         expandable_segments(device)
     lmbda = LAMBDA_TABLE[args.quality - 1]
@@ -267,33 +294,42 @@ def train_single(args):
         eval_fn = make_eval_step(module, lmbda)
 
         def eval_loss():
-            losses = [float(eval_fn(_to_device(b, device))["loss"])
+            losses = [eval_fn(_rows(b, rank, world, device))["loss"]
                       for b in test_dl]
-            return float(np.mean(losses)) if losses else None
+            if not losses:
+                return None
+            if world > 1:  # each rank's rows: the mean over the ranks
+                losses = list(parallel.mean_over_ranks(
+                    dict(enumerate(losses))).values())
+            return float(np.mean([float(v) for v in losses]))
 
     optimizer, state, start_epoch, best_loss = _train_state(
         args, module, args.steps_per_epoch or max(1, len(dl)))
     step_fn = make_train_step(
         module, optimizer, lmbda, remat=args.remat,
-        matmul_precision="bfloat16" if args.bf16 else None)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+        matmul_precision="bfloat16" if args.bf16 else None,
+        data_parallel=world > 1)
+    generator = torch.Generator(device=device).manual_seed(
+        parallel.rank_seed(args.seed, rank))
 
     def run_step(batch):
         nonlocal state
-        state, metrics = step_fn(state, _to_device(batch, device), generator)
+        state, metrics = step_fn(state, _rows(batch, rank, world, device),
+                                 generator)
         return metrics
 
     return _epochs(args, args.arch, state, dl, run_step, start_epoch,
-                   best_loss, eval_loss)
+                   best_loss, eval_loss, rank)
 
 
-def train_master(args):
+def train_master(args, rank: int = 0, world: int = 1, device=None):
     """The master against a frozen guide (lmic_tpu train_cli.py:264-374):
     the guide is the complementary modality (`guided`, first conv at
-    stride 2) with the params of `--guided-checkpoint`."""
+    stride 2) with the params of `--guided-checkpoint`. With `world` > 1
+    as rank `rank` of a process group, on `device`."""
     from lmic_tpu_torch.datasets import DataLoader, ImageFolderRGB
 
-    device = default_device(args.device)
+    device = default_device(device or args.device)
     if args.remat:
         expandable_segments(device)
     lmbda = LAMBDA_TABLE[args.quality - 1]
@@ -304,7 +340,7 @@ def train_master(args):
     ).module
     if args.guided_checkpoint:
         ckpt.load_train_params(args.guided_checkpoint, guided)
-    else:
+    elif rank == 0:
         print("WARNING: training master against a randomly initialized "
               "guide (pass --guided-checkpoint)", flush=True)
     guided.eval().requires_grad_(False)
@@ -317,17 +353,28 @@ def train_master(args):
     optimizer, state, start_epoch, best_loss = _train_state(
         args, master, args.steps_per_epoch or max(1, len(dl)))
     step_fn = make_master_train_step(master, guided, optimizer, lmbda,
-                                     remat=args.remat)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+                                     remat=args.remat,
+                                     data_parallel=world > 1)
+    generator = torch.Generator(device=device).manual_seed(
+        parallel.rank_seed(args.seed, rank))
 
     def run_step(batch):
         nonlocal state
-        x, guide = (_to_device(b, device) for b in batch)
+        x, guide = (_rows(b, rank, world, device) for b in batch)
         state, metrics = step_fn(state, x, guide, generator)
         return metrics
 
     return _epochs(args, "master", state, dl, run_step, start_epoch,
-                   best_loss)
+                   best_loss, rank=rank)
+
+
+def _train(rank: int, world: int, device, args):
+    """One rank's training (`parallel.launch`'s entry for each process),
+    or the whole of it with `world` 1."""
+    if args.arch == "master":
+        train_master(args, rank, world, device)
+    else:
+        train_single(args, rank, world, device)
 
 
 def main(argv=None):
@@ -339,9 +386,6 @@ def main(argv=None):
             "has no standalone training recipe (the reference provides "
             "none either) — train the '_R' model instead"
         )
-    for flag, why in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(why)
     if args.amp and args.arch not in AMP_ARCHS:
         raise SystemExit(
             f"--amp supports {sorted(AMP_ARCHS)}; {args.arch} trains in "
@@ -353,11 +397,21 @@ def main(argv=None):
         raise SystemExit(
             "--bf16 is not taken by the master recipe, which trains in f32 "
             "only (lmic_tpu's master step ignores the flag; ROADMAP.md C)")
+    n_devices = args.devices
+    if (n_devices is None and args.device is not None
+            and torch.device(args.device).index is not None):
+        n_devices = 1  # one device, named by --device
+    mesh = parallel.make_mesh(n_devices, device=args.device)
+    if args.batch_size % mesh.size:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} does not split over "
+            f"{mesh.size} devices (--devices): each device takes an equal "
+            "block of rows")
     try:
-        if args.arch == "master":
-            train_master(args)
+        if mesh.size == 1:
+            _train(0, 1, args.device, args)
         else:
-            train_single(args)
+            parallel.launch(_train, mesh, args)
     except Exception:
         # long training runs leave a postmortem trail beside the checkpoint
         # (reference examples/train.py:481-491)

@@ -1081,3 +1081,25 @@ def test_rounded_ops_on_card_match_the_cpu(kind):
                         torch.backends.cudnn.allow_tf32)
     for a, b in zip(got, _rounded_case(kind, "cpu")):
         assert _rel_err(a.cpu(), b) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "amp"])
+def test_one_rank_nccl_step_equals_the_plain_step(dtype):
+    """Two steps under DistributedDataParallel in a one-rank NCCL group
+    against the plain steps, the same weights and noise: the metrics, the
+    first step's gradients and the parameters after each step bit for
+    bit, and 6 `gdn_fwd` and 6 of each backward kernel a step."""
+    from lmic_tpu_torch import parallel
+    from lmic_tpu_torch.utils.crosscheck import data_parallel_steps
+
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (4, 64, 128, 3), dtype=np.float32)).permute(0, 3, 1, 2)
+    args = ("mbt2018-mean", 1, x, 1024, "cuda")
+    plain = data_parallel_steps(*args, dtype=dtype, N=32, M=48)
+    with parallel.process_group("nccl"):
+        ddp = data_parallel_steps(*args, dtype=dtype, data_parallel=True,
+                                  N=32, M=48)
+    assert ddp["metrics"] == plain["metrics"]
+    assert torch.equal(ddp["grads"], plain["grads"])
+    assert ddp["param_sha256"] == plain["param_sha256"]
+    assert ddp["launches"] == {k: 12 for k in gdn.LAUNCHES}

@@ -1,5 +1,6 @@
-"""lmic_tpu_torch and its scripts for the card (chip_smoke.py,
-chip_probes.py) stand alone: no module imports jax,
+"""lmic_tpu_torch, its scripts for the card (chip_smoke.py,
+chip_probes.py) and the tests' spawned data-parallel worker
+(tests/torch_parallel_worker.py) stand alone: no module imports jax,
 flax or lmic_tpu, and importing every port module loads no JAX."""
 
 import ast
@@ -13,7 +14,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "lmic_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lmic_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "chip_probes.py"]
+                                        ROOT / "chip_probes.py",
+                                        ROOT / "tests" /
+                                        "torch_parallel_worker.py"]
 
 
 def _imports(path):

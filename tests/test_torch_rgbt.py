@@ -11,14 +11,18 @@ forwards within 1e-5 of the largest value, max|a-b| / max(1, max|b|)
 the guide's one-pass reconstruct equal to its decompress and the master's
 decoder latents equal to its encoder's, bit for bit."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from lmic_tpu import parallel as jparallel
 from lmic_tpu.models import rgbt as jr
 from lmic_tpu.zoo.pretrained import import_reference_state_dict
+from lmic_tpu_torch import parallel
 from lmic_tpu_torch import zoo as tzoo
 from lmic_tpu_torch.models import rgbt as tr
 from lmic_tpu_torch.models.codec import _symbols_to_host
@@ -290,6 +294,44 @@ def test_master_strings_byte_identical(pair):
     _close(rec, jm.decompress(want, g)["x_hat"])
     u8 = pm.decompress(got, _port_guide(g), u8=True)["x_hat"]
     assert u8.dtype == np.uint8 and u8.shape == xm.shape
+
+
+def test_pair_fans_out_over_a_mesh(pair, role):
+    """`shard_codec` over two CPU entries fans the pair's images out
+    (JointARCodec.fanout): the guide's strings, maps and pixels and the
+    master's strings, beta/gamma and pixels of one device, and the strings
+    of lmic_tpu's pair sharded over a two-device mesh on the same guide
+    reconstruction (tests/test_rgbt.py:211, 275)."""
+    jg, pg, jm, pm = (pair[k] for k in ("jg", "pg", "jm", "pm"))
+    (mH, mW), (gH, gW) = RGBT_GEOMETRY[role]
+    xg = pixels((2, gH, gW, 4 - role), seed=7)
+    xm = pixels((2, mH, mW, role), seed=8)
+    mesh = parallel.make_mesh(2, device="cpu")
+    fan_g = parallel.shard_codec(copy.copy(pg), mesh)
+    fan_m = parallel.shard_codec(copy.copy(pm), mesh)
+    assert fan_g._fanout_devices == fan_m._fanout_devices == mesh.devices
+    want_g = pg.compress(xg, hidden=False)
+    got_g = fan_g.compress(xg, hidden=False)
+    assert got_g["strings"] == want_g["strings"]
+    dec = pg.decompress(want_g["strings"], want_g["shape"])
+    got_dec = fan_g.decompress(got_g["strings"], got_g["shape"])
+    assert torch.equal(got_dec["x_hat"], dec["x_hat"])
+    for k, v in dec["hidden"].items():
+        assert torch.equal(got_dec["hidden"][k], v)
+    guide = nhwc(dec["x_hat"])
+    want_m = pm.compress(xm, guide)
+    got_m = fan_m.compress(xm, guide)
+    assert got_m["strings"] == want_m["strings"]
+    for k in ("beta", "gamma"):
+        assert torch.equal(torch.as_tensor(got_m[k]),
+                           torch.as_tensor(want_m[k]))
+    np.testing.assert_array_equal(fan_m.decompress(got_m, dec)["x_hat"],
+                                  pm.decompress(want_m, dec)["x_hat"])
+    jmesh = jparallel.make_mesh(2)
+    jfan_g = jparallel.shard_codec(copy.copy(jg), jmesh)
+    jfan_m = jparallel.shard_codec(copy.copy(jm), jmesh)
+    assert jfan_g.compress(xg, hidden=False)["strings"] == got_g["strings"]
+    assert jfan_m.compress(xm, guide)["strings"] == got_m["strings"]
 
 
 def test_master_decode_reproduces_encoder_y_hat(pair):

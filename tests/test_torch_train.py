@@ -454,8 +454,10 @@ def test_clis_refuse_what_is_not_ported(tmp_path):
     # the master trains in f32 only, as lmic_tpu's master step does
     with pytest.raises(SystemExit, match="ROADMAP"):
         train_cli.main(base + ["--bf16", "--arch", "master"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(base + ["--devices", "2"])
+    # --devices trains data-parallel (tests/test_torch_parallel.py); a
+    # batch that does not split over the devices is refused
+    with pytest.raises(SystemExit, match="does not split over 3"):
+        train_cli.main(base + ["--devices", "3", "--batch-size", "4"])
     # the '_D' archs have no training recipe, in lmic_tpu either
     with pytest.raises(SystemExit, match="no standalone training recipe"):
         train_cli.main(base + ["--arch", "guided_D"])

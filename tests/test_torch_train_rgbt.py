@@ -450,3 +450,38 @@ def test_master_step_agreement_on_one_device():
     assert loss_err == 0 and grad_err == 0
     assert launched == {k: 0 for k in gdn.LAUNCHES}
     assert tem.quantize_noise is original
+
+
+def test_master_step_under_ddp_is_the_plain_step():
+    """`make_master_train_step(..., data_parallel=True)` in a one-rank
+    gloo group: the master alone under DistributedDataParallel (every
+    parameter gets its gradient in the one backward), the frozen guide
+    outside it; the metrics and the master's gradients those of the
+    plain step bit for bit, and the guide gets no gradient."""
+    from lmic_tpu_torch import parallel
+    from lmic_tpu_torch.utils.crosscheck import fixed_noise
+
+    xm, xg = (_nchw(b) for b in _batches(1))
+
+    def step(data_parallel):
+        guided = tzoo.create_model("guided", 1, seed=0, channel=3,
+                                   first_stride=2, device="cpu",
+                                   **WIDTHS).module
+        guided.eval().requires_grad_(False)
+        master = tzoo.create_model("master", 1, seed=1, channel=1,
+                                   device="cpu", **WIDTHS).module
+        opt = ttrain.make_optimizer()
+        run = train_cli.make_master_train_step(
+            master, guided, opt, LMBDA, data_parallel=data_parallel)
+        with fixed_noise():
+            _, metrics = run(ttrain.create_train_state(master, opt), xm,
+                             xg)
+        assert all(p.grad is None for p in guided.parameters())
+        return ({k: float(v) for k, v in metrics.items()},
+                [p.grad for p in master.parameters()])
+
+    plain = step(False)
+    with parallel.process_group("gloo"):
+        ddp = step(True)
+    assert ddp[0] == plain[0]
+    assert all(torch.equal(a, b) for a, b in zip(ddp[1], plain[1]))

@@ -5,12 +5,16 @@ encoder's in-loop reconstructions, the whole-GOP paths equal to the
 per-frame ones, uint8 and float input, multi-sequence batches, the
 geometry guard, symbols outside int8, and the deployment checkpoint."""
 
+import copy
+
 import jax
 import numpy as np
 import pytest
 import torch
 
+from lmic_tpu import parallel as jparallel
 from lmic_tpu.models.video import ScaleSpaceFlowCodec as JaxVideoCodec
+from lmic_tpu_torch import parallel
 from lmic_tpu_torch import zoo as tzoo
 from lmic_tpu_torch.utils import checkpoint as ckpt
 from lmic_tpu_torch.utils import update_model_cli
@@ -129,6 +133,29 @@ def test_two_sequences_equal_two_single_calls(codecs):
     np.testing.assert_array_equal(
         pc.decompress(strings, shapes, u8=True),
         np.concatenate([pc.decompress(*p, u8=True) for p in parts]))
+
+
+def test_sequences_fan_out_over_a_mesh(codecs):
+    """`shard_codec` over two CPU entries runs each sequence's chain on
+    its own entry: the strings and frames of one device, through the
+    synchronous and the async pair, and the strings of lmic_tpu's codec
+    sharded over a two-device mesh (tests/test_video_model.py:91, 114)."""
+    jc, pc, _ = codecs
+    x = np.concatenate([pixels(VIDEO_GOP, seed=10),
+                        pixels(VIDEO_GOP, seed=11)])
+    strings, shapes = pc.compress(x)
+    fan = parallel.shard_codec(copy.copy(pc),
+                               parallel.make_mesh(2, device="cpu"))
+    assert fan._fanout_devices == [torch.device("cpu")] * 2
+    assert fan.compress(x) == (strings, shapes)
+    assert fan.compress_async(x)() == (strings, shapes)
+    want = pc.decompress(strings, shapes, u8=True)
+    np.testing.assert_array_equal(fan.decompress(strings, shapes, u8=True),
+                                  want)
+    np.testing.assert_array_equal(
+        fan.decompress_async(strings, shapes, u8=True)(), want)
+    jfan = jparallel.shard_codec(copy.copy(jc), jparallel.make_mesh(2))
+    assert jfan.compress(x) == (strings, shapes)
 
 
 def test_frames_not_multiples_of_128_are_refused(codecs):
