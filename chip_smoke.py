@@ -252,6 +252,27 @@ Phases, each of which raises (exit code != 0) on any failure:
    refused; `check_homogeneous([cuda:0, cpu])` refused; and, logged and
    not held, mbt2018-mean q8 coded on the card and decoded on the CPU and
    the reverse (ROADMAP C).
+16. apps and ablation, last: phase 3's round trip (mbt2018-mean q8,
+   three 512x768 images, direct calls) inside `utils/profiling.py`'s
+   `device_trace` and `annotate`, each leg in a `Timings` section and the
+   encode through `timed`: exactly 18 `gdn_fwd` launches by the C ABI, a
+   Chrome trace holding the annotation and at least one GDN kernel record
+   (their count logged, not held: records can be lost), and each
+   section's wall ms at least the CUDA-event device ms of its work. Then
+   phase 5's step (mbt2018-mean q7, batch 16 of 256x256) in f32 and AMP,
+   10 steps timed on the host clock and by CUDA events and 3 profiled,
+   with `LMIC_ABLATE_GDN` unset and then set in the process (unset again
+   in a `finally`): 6 `gdn_fwd` and 6 of each backward launch a plain
+   step, 0 of every GDN kernel an ablated one, by the wrappers and the C
+   ABI; the device's busy ms (the profile's kernel sum), the event span,
+   wall ms and peak memory of the four cases and GDN's share logged; one
+   round trip after it launches 6 again. Then the apps' device work on
+   the card against the CPU: `video_bench._sequence_metrics` on a 3-frame 1920x1080 YUV420 pair
+   (psnr within 1e-4 dB, ms-ssim within 1e-5; ms a frame logged),
+   `bench_codecs._metrics_vs` on a 768x512 pair at the same bars, and
+   `layers.GDN1` forward, inverse and backward at C = 192 on 65,536 rows
+   within 1e-5; `X264().availability_error()` logged. No PIL or msgpack
+   path runs (the card's machine may lack both).
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -425,6 +446,21 @@ DP_GRAD_RTOL = {"f32": 1e-5, "amp": 2.0 ** -8}
 # sequences at 512x768 (cut from phase 10's 1920x1152 for time)
 FAN_IMAGES, FAN_AR_IMAGES = 4, 2
 FAN_GOPS = (2, 3, 512, 768, 3)
+
+# phase 16, apps and ablation: phase 3's round trip of APPS_IMAGES images
+# profiled through utils/profiling.py (the annotation below names it in
+# the trace); phase 5's step, ABLATION_TIMED steps each with and without
+# LMIC_ABLATE_GDN, in f32 and AMP; the apps' device work on the card
+# against the CPU at the CPU tests' bars: video_bench's sequence metrics
+# on a 3-frame 1080p YUV420 pair, bench_codecs' metrics on a 768x512
+# pair, GDN1 at C = 192 on GDN1_ROWS rows
+APPS_IMAGES = 3
+APPS_ANNOTATION = "apps_round_trip"
+ABLATION_TIMED = 10
+APPS_CLIP = (3, 1080, 1920)  # frames, H, W
+APPS_ARRAY = (512, 768, 3)
+GDN1_ROWS, GDN1_C = 65_536, 192
+APPS_BARS = {"psnr": 1e-4, "ms-ssim": 1e-5, "gdn1": 1e-5}
 
 
 def log(*a):
@@ -4448,6 +4484,290 @@ def phase_data_parallel():
     return counts
 
 
+def _apps_round_trip(codec, images):
+    """Part 1 of phase 16: the round trip of phase 3 through
+    `utils/profiling.py` (a device trace, an annotation, a `Timings`
+    section a leg, `timed`), with each section's wall ms held to at least
+    the CUDA-event device ms of its work. Returns the launch counts."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils import profiling
+
+    timings = profiling.Timings()
+    device_ms = {"compress": 0.0, "decompress": 0.0}
+    enc_s = []
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        _reset_counts()
+        before = gdn.kernel_launches()
+        with profiling.device_trace(tmp), \
+                profiling.annotate(APPS_ANNOTATION):
+            for x in images:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                # each section ends once the card has reached its end event
+                with timings.section("compress"):
+                    ev[0].record()
+                    out, s = profiling.timed(codec.compress, x)
+                    ev[1].record()
+                    ev[1].synchronize()
+                enc_s.append(s)
+                with timings.section("decompress"):
+                    ev[2].record()
+                    rec = codec.decompress(out["strings"], out["shape"],
+                                           u8=True)
+                    ev[3].record()
+                    ev[3].synchronize()
+                device_ms["compress"] += ev[0].elapsed_time(ev[1])
+                device_ms["decompress"] += ev[2].elapsed_time(ev[3])
+                if rec["x_hat"].shape != x.shape:
+                    raise AssertionError(f"apps: decoded {rec['x_hat'].shape}")
+        counts = dict(gdn.LAUNCHES)
+        counted = _abi_diff(before)
+        traces = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        if len(traces) != 1:
+            raise AssertionError(f"apps: device_trace wrote {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_mib = os.path.getsize(traces[0]) / 2**20
+    if counts.pop("gdn_fwd") != 6 * len(images) or any(counts.values()):
+        raise AssertionError(f"apps: launched {gdn.LAUNCHES}")
+    _hold_abi("apps round trip", counted, 6, len(images))
+    names = [e.get("name", "") for e in events]
+    if APPS_ANNOTATION not in names:
+        raise AssertionError("apps: the trace lacks the annotation")
+    records = sum(1 for n in names if any(k in n for k in GDN_KERNELS))
+    if not records:
+        raise AssertionError("apps: the trace holds no GDN kernel record")
+    report = timings.report()
+    for name, dev in device_ms.items():
+        wall = 1e3 * report[name]["total_s"]
+        if report[name]["count"] != len(images) or not wall >= dev:
+            raise AssertionError(f"apps: {name} wall {wall:.3f} ms, device "
+                                 f"{dev:.3f} ms, {report[name]}")
+    log(f"apps round trip ({SERVE_ARCH} q{QUALITY}, {len(images)} images "
+        f"of {IMAGE[1]}x{IMAGE[2]}), ms: "
+        + json.dumps({k: {"wall": round(1e3 * report[k]["total_s"], 3),
+                          "device": round(v, 3)}
+                      for k, v in device_ms.items()})
+        + f"; timed compress ms {[round(1e3 * s, 2) for s in enc_s]}; "
+        f"trace {trace_mib:.1f} MiB, {len(events)} events, {records} GDN "
+        f"kernel records for {6 * len(images)} launches (records may be "
+        f"lost; the C ABI's count is held)\n{timings}")
+    return 6 * len(images)
+
+
+def _step_times(step, state, batch, gen, n):
+    """n steps' wall ms (host clock between synchronizes) and device-span
+    ms (CUDA events recorded around each step: the span from the step's
+    first device operation to its last, idle gaps included)."""
+    import torch
+
+    wall, span = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step(state, batch, gen)
+        end.record()
+        end.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        span.append(start.elapsed_time(end))
+    return wall, span
+
+
+def _ablation_steps():
+    """Part 2 of phase 16: GDN's share of phase 5's step, measured with
+    `LMIC_ABLATE_GDN`. Returns the launch counts of the plain steps."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    batch = _train_batch(TRAIN_BATCH, seed=1)
+    counts = {k: 0 for k in gdn.LAUNCHES}
+    rows = {}
+    for mode, dtype in (("f32", None), ("amp", torch.bfloat16)):
+        module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
+                                  device="cuda", dtype=dtype).module
+        opt = make_optimizer()
+        state = create_train_state(module, opt)
+        step = make_train_step(module, opt, TRAIN_LAMBDA)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for ablated in (False, True):
+            if ablated:
+                os.environ["LMIC_ABLATE_GDN"] = "1"
+            try:
+                _steps(step, state, batch, gen, 1)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                before = gdn.kernel_launches()
+                wall, span = _step_times(step, state, batch, gen,
+                                         ABLATION_TIMED)
+                peak = torch.cuda.max_memory_allocated()
+                gdn_ms, busy_ms, prof_wall, top, _ = _profile(
+                    lambda: step(state, batch, gen))
+                launched = dict(gdn.LAUNCHES)
+                counted = _abi_diff(before)
+            finally:
+                os.environ.pop("LMIC_ABLATE_GDN", None)
+            steps = ABLATION_TIMED + 3  # timed and profiled
+            want = 0 if ablated else 6 * steps
+            by_kernel = {k: sum(v for c, v in counted.items()
+                                if c.startswith(k + "_")) for k in launched}
+            if any(v != want for v in launched.values()) or \
+                    any(v != want for v in by_kernel.values()):
+                raise AssertionError(
+                    f"{mode} ablated={ablated}: launched {launched}, by "
+                    f"kernel {counted}; want {want} each")
+            if not ablated:
+                for k, v in launched.items():
+                    counts[k] += v
+            rows[(mode, ablated)] = {
+                "wall_ms": float(np.median(wall)),
+                "span_ms": float(np.median(span)), "busy_ms": busy_ms,
+                "peak_gib": peak / 2**30}
+            log(f"ablation {TRAIN_ARCH} q{TRAIN_QUALITY} {mode} "
+                f"{'LMIC_ABLATE_GDN=1' if ablated else 'plain'}: wall ms "
+                f"{json.dumps([round(v, 3) for v in wall])}, device span "
+                f"ms (CUDA events) {json.dumps([round(v, 3) for v in span])}"
+                f", peak {peak / 2**30:.3f} GiB; profile of 3 steps: device "
+                f"busy {busy_ms:.3f} ms a step (GDN kernels {gdn_ms:.3f}), "
+                f"wall {prof_wall:.3f}; largest kernels "
+                + json.dumps({k: round(v, 3) for k, v in top.items()}))
+        del module, state, opt, step
+        torch.cuda.empty_cache()
+        plain, ablated = rows[(mode, False)], rows[(mode, True)]
+        log(f"GDN's share of the {mode} step, plain - ablated: "
+            + ", ".join(
+                f"{key[:-3]} {plain[key] - ablated[key]:.3f} of "
+                f"{plain[key]:.3f} ms "
+                f"({100 * (1 - ablated[key] / plain[key]):.1f} %)"
+                for key in ("busy_ms", "span_ms", "wall_ms"))
+            + f", peak {plain['peak_gib'] - ablated['peak_gib']:.3f} of "
+            f"{plain['peak_gib']:.3f} GiB")
+    return counts
+
+
+def _apps_device_work():
+    """Part 3 of phase 16: the apps' device work on the card against the
+    CPU: video_bench's sequence metrics, bench_codecs' metrics, GDN1."""
+    import torch
+
+    from lmic_tpu_torch.datasets.rawvideo import RawVideoSequence
+    from lmic_tpu_torch.layers import GDN1
+    from lmic_tpu_torch.utils import bench_codecs, profiling, video_bench
+
+    T, H, W = APPS_CLIP
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, d, f"clip_{W}x{H}_30_yuv420.yuv")
+                 for d in ("ref", "rec")]
+        for p in paths:
+            os.makedirs(os.path.dirname(p))
+        _write_yuv_clip(paths[0], T, H, W, seed=16)
+        raw = np.fromfile(paths[0], np.uint8)
+        noise = np.random.default_rng(16).integers(-6, 7, raw.shape)
+        np.clip(raw + noise, 0, 255).astype(np.uint8).tofile(paths[1])
+        ref, rec = (RawVideoSequence.from_file(p) for p in paths)
+        got = {}
+        video_bench._sequence_metrics(ref, rec, device="cuda")  # warm-up
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[device] = video_bench._sequence_metrics(ref, rec,
+                                                        device=device)
+            ms = 1e3 * (time.perf_counter() - t0) / T
+            log(f"video_bench sequence metrics on {device}, {T} frames of "
+                f"{W}x{H}: {ms:.1f} ms a frame; "
+                + json.dumps({k: round(v, 6) for k, v in got[device].items()}))
+    for k, v in got["cpu"].items():
+        bar = APPS_BARS["ms-ssim" if k.startswith("ms-ssim") else "psnr"]
+        if not abs(got["cuda"][k] - v) < bar:
+            raise AssertionError(f"video_bench {k}: card {got['cuda'][k]} "
+                                 f"against CPU {v}")
+
+    rng = np.random.default_rng(17)
+    arr = rng.random(APPS_ARRAY, dtype=np.float32)
+    rec_arr = np.clip(arr + rng.normal(0, 0.02, APPS_ARRAY), 0, 1).astype(
+        np.float32)
+    m = {d: bench_codecs._metrics_vs(arr, rec_arr, 12_345, 0.0, 0.0,
+                                     device=d) for d in ("cuda", "cpu")}
+    if m["cuda"]["bpp"] != m["cpu"]["bpp"] or not (
+            abs(m["cuda"]["psnr"] - m["cpu"]["psnr"]) < APPS_BARS["psnr"]
+            and abs(m["cuda"]["ms-ssim"] - m["cpu"]["ms-ssim"])
+            < APPS_BARS["ms-ssim"]):
+        raise AssertionError(f"bench_codecs metrics: {m}")
+    log(f"bench_codecs metrics of a {APPS_ARRAY[1]}x{APPS_ARRAY[0]} pair, "
+        f"card / CPU: " + json.dumps({d: {k: round(v, 7) for k, v in
+                                          m[d].items()} for d in m}))
+
+    worst = {}
+    for inverse in (False, True):
+        gen = torch.Generator().manual_seed(18 + inverse)
+        layer = GDN1(GDN1_C, inverse=inverse)
+        with torch.no_grad():
+            layer.beta.add_(torch.rand(GDN1_C, generator=gen) * 0.5)
+            layer.gamma.add_(torch.rand(GDN1_C, GDN1_C, generator=gen) * 0.1)
+        x = torch.randn(GDN1_ROWS, GDN1_C, generator=gen)
+        g = torch.randn(GDN1_ROWS, GDN1_C, generator=gen)
+        outs = {}
+        for device in ("cuda", "cpu"):
+            layer.to(device).zero_grad()
+            xd = x.detach().to(device).requires_grad_()  # a leaf on each
+            timings = profiling.Timings()
+            with timings.section("gdn1", sync=xd):
+                y, s = profiling.timed(layer, xd)
+                y.backward(g.to(device))
+            outs[device] = [t.detach().cpu() for t in (
+                y, xd.grad, layer.beta.grad, layer.gamma.grad)]
+        for name, a, b in zip(("y", "dx", "dbeta", "dgamma"),
+                              outs["cuda"], outs["cpu"]):
+            err = ((a - b).abs().max() / max(1.0, b.abs().max())).item()
+            worst[f"{'IGDN1' if inverse else 'GDN1'} {name}"] = err
+            if not err < APPS_BARS["gdn1"]:
+                raise AssertionError(f"GDN1 inverse={inverse} {name}: card "
+                                     f"against CPU {err:.3g}")
+    log(f"GDN1 at C = {GDN1_C} on {GDN1_ROWS} rows, card against CPU: "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+    log(f"video_bench X264().availability_error(): "
+        f"{video_bench.X264().availability_error()!r}")
+
+
+def phase_apps_and_ablation():
+    """Phase 16 (see the module doc): the apps, profiling and the GDN
+    ablation. Returns the launch counts of its main path: `gdn_fwd`'s on
+    the apps' round trips, and each wrapper's in the plain steps of the
+    ablation's A/B."""
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+
+    t_phase = time.perf_counter()
+    codec = zoo.create_model(SERVE_ARCH, QUALITY, seed=0, device="cuda")
+    codec.update()
+    images = _images(APPS_IMAGES)
+    codec.decompress(**codec.compress(images[0]), u8=True)  # warm-up
+    apps = _apps_round_trip(codec, images)
+    training = _ablation_steps()
+    # the switch is off again: one round trip launches the GDN as before
+    _reset_counts()
+    before = gdn.kernel_launches()
+    codec.decompress(**codec.compress(images[0]), u8=True)
+    if gdn.LAUNCHES["gdn_fwd"] != 6:
+        raise AssertionError(f"after the ablation: launched {gdn.LAUNCHES}")
+    _hold_abi("round trip after the ablation", _abi_diff(before), 6, 1)
+    apps += 6
+    _apps_device_work()
+    log(f"apps and ablation phase: {time.perf_counter() - t_phase:.1f} s")
+    return apps, training
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -4573,6 +4893,7 @@ def main():
     precision_launches, more_training["bf16_training"] = \
         phase_matmul_precision()
     more_training["data_parallel"] = phase_data_parallel()
+    apps_launches, more_training["gdn_ablation"] = phase_apps_and_ablation()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
@@ -4580,7 +4901,8 @@ def main():
     errors = {k: _max_abs_err_by_dtype(v) for k, v in cases.items()}
     # every training path: mbt2018-mean (phase 5), the AR family and the
     # RGB-T pair (phase 8), the paired `_R` arch (phase 9), --remat
-    # (phase 13), --bf16 and --bf16 --remat (phase 14)
+    # (phase 13), --bf16 and --bf16 --remat (phase 14), DDP (phase 15), the
+    # plain steps of the GDN ablation (phase 16)
     training = {"training": train_counts, **more_training}
     launched = {k: sum(c[k] for c in training.values()) for k in gdn.LAUNCHES}
     bwd_counts = {k: launched[k] for k in gdn.BWD_KERNELS}
@@ -4595,7 +4917,7 @@ def main():
         "launches": (serve_launches + ar_launches + rgbt_launches
                      + paired_launches + eval_launches + pipe_launches
                      + pretrained_launches + precision_launches
-                     + launched["gdn_fwd"]),
+                     + apps_launches + launched["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
                              "rgbt_serving": rgbt_launches,
@@ -4605,6 +4927,7 @@ def main():
                              "pipelines_and_bundles": pipe_launches,
                              "pretrained_serving": pretrained_launches,
                              "matmul_precision": precision_launches,
+                             "apps": apps_launches,
                              **{p: c["gdn_fwd"]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
@@ -4652,6 +4975,7 @@ def main():
                              "pipelines_and_bundles": 0,
                              "pretrained_serving": 0,
                              "matmul_precision": 0,
+                             "apps": 0,
                              **{p: c[gdn.BWD_KERNELS[0]]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts[gdn.BWD_KERNELS[0]] / train_steps,

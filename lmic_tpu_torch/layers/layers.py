@@ -1,7 +1,7 @@
 """Layers of the image codecs: Conv, Deconv, GDN/IGDN, and the sub-pixel,
 masked-context, residual and attention blocks of the AR family.
 
-Counterpart of lmic_tpu/layers/layers.py:32-168, 207-345, 347-371 (qrelu),
+Counterpart of lmic_tpu/layers/layers.py:32-201, 207-345, 347-371 (qrelu),
 374-414 (ESA, SELayer). Activations are
 NCHW in `torch.channels_last` memory format. Padding follows the reference:
 
@@ -10,6 +10,7 @@ NCHW in `torch.channels_last` memory format. Padding follows the reference:
                 output_padding=s-1)                           -> H*s
 - GDN/IGDN:     y = x / sqrt(beta + x^2 @ gamma^T) (inverse: * sqrt), the
                 channel product in the CUDA kernels of ops/gdn.py on the GPU.
+- GDN1:         y = x / (beta + |x| @ gamma^T) (inverse: *), plain torch.
 - MaskedConv2d: PixelCNN mask A/B multiplied into the kernel at call time.
 - The residual and attention blocks keep CompressAI's submodule names
   (`conv1`, `conv2`, `gdn`, `skip`, `subpel_conv`, `conv`, `igdn`,
@@ -35,6 +36,7 @@ lmic_tpu).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -172,12 +174,48 @@ class GDN(nn.Module):
         x = x.to(dtype)
         beta = self.beta_reparam(self.beta).to(dtype)
         gamma = self.gamma_reparam(self.gamma).to(dtype)
+        if os.environ.get("LMIC_ABLATE_GDN") == "1":
+            # for timing only, as in lmic_tpu (layers.py:157-164): the step
+            # with GDN as the identity, so GDN's share of it is a measured
+            # delta. Never set it in training, serving or a wire test: it
+            # changes the model. It is read at each call, so a bundle
+            # exported while it is set holds the identity.
+            return x
         # the kernel reads (N*H*W, C) rows: channels_last makes the NHWC
         # view contiguous; convs may hand back NCHW, so check, never assume
         if not x.is_contiguous(memory_format=torch.channels_last):
             x = x.contiguous(memory_format=torch.channels_last)
         y = gdn_core(x.permute(0, 2, 3, 1), beta, gamma, self.inverse)
         return y.permute(0, 3, 1, 2)
+
+
+class GDN1(nn.Module):
+    """Simplified GDN (reference layers/gdn.py:95-121):
+    y_i = x_i / (beta_i + sum_j gamma_ij |x_j|)  (inverse: * instead of /).
+
+    x: (..., C), channels last, as lmic_tpu's. `beta`/`gamma` under the
+    reference's names and init, as in `GDN`; the channel product in full
+    f32 (`precision.highest_matmul`: lmic_tpu's HIGHEST). No model uses
+    it, so it has no kernel."""
+
+    def __init__(self, in_channels: int, inverse: bool = False,
+                 beta_min: float = 1e-6, gamma_init: float = 0.1):
+        super().__init__()
+        self.inverse = bool(inverse)
+        self.beta_reparam = NonNegativeParametrizer(minimum=beta_min)
+        self.gamma_reparam = NonNegativeParametrizer()
+        self.beta = nn.Parameter(
+            self.beta_reparam.init(torch.ones(in_channels))
+        )
+        self.gamma = nn.Parameter(
+            self.gamma_reparam.init(gamma_init * torch.eye(in_channels))
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        beta = self.beta_reparam(self.beta)
+        gamma = self.gamma_reparam(self.gamma)
+        norm = precision.highest_matmul(torch.abs(x), gamma.t()) + beta
+        return x * norm if self.inverse else x * (1.0 / norm)
 
 
 class GDNStack(nn.Sequential):

@@ -97,15 +97,15 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _tf32(t: torch.Tensor):
-    """TF32 on for cuBLAS and cuDNN while a rounded op of `t`'s device
+def _tf32(t: torch.Tensor, on: bool = True):
+    """TF32 on (or off) for cuBLAS and cuDNN while an op of `t`'s device
     runs, if that is the card; the old switches come back after."""
     if not t.is_cuda:
         yield
         return
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
     prev = matmul.allow_tf32, cudnn.allow_tf32
-    matmul.allow_tf32 = cudnn.allow_tf32 = True
+    matmul.allow_tf32 = cudnn.allow_tf32 = on
     try:
         yield
     finally:
@@ -201,6 +201,35 @@ class _Matmul(torch.autograd.Function):
             if ctx.needs_input_grad[2]:
                 db = (a2.mT @ gr).sum_to_size(b2.shape).reshape(br.shape)
         return None, da, db
+
+
+class _Highest(torch.autograd.Function):
+    """`a @ b` (a: (..., K), b: (K, N)) in full f32, TF32 off on the card
+    for the forward's and the backward's products whatever the switches
+    say: lmic_tpu's `Precision.HIGHEST`, never rounded under the mode."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _tf32(a, on=False):
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        with _tf32(g, on=False):
+            if ctx.needs_input_grad[0]:
+                da = g @ b.t()
+            if ctx.needs_input_grad[1]:
+                db = (a.reshape(-1, a.shape[-1]).t()
+                      @ g.reshape(-1, g.shape[-1]))
+        return da, db
+
+
+def highest_matmul(a, b):
+    """`a @ b` at lmic_tpu's HIGHEST precision (see `_Highest`)."""
+    return _Highest.apply(a, b)
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,

@@ -1103,3 +1103,91 @@ def test_one_rank_nccl_step_equals_the_plain_step(dtype):
     assert torch.equal(ddp["grads"], plain["grads"])
     assert ddp["param_sha256"] == plain["param_sha256"]
     assert ddp["launches"] == {k: 12 for k in gdn.LAUNCHES}
+
+
+def test_timings_and_timed_synchronize_a_cuda_tensor():
+    """`Timings.section(sync=)` and `timed` wait for the card: a ~100 ms
+    spin kernel queued before them is inside the wall time they read."""
+    from lmic_tpu_torch.utils import profiling
+
+    x = torch.ones(4, device="cuda")
+    t = profiling.Timings()
+    with t.section("spin", sync={"out": [x]}):
+        torch.cuda._sleep(200_000_000)  # cycles: ~100 ms at H100 clocks
+    _, s = profiling.timed(lambda: (torch.cuda._sleep(200_000_000), x)[1])
+    assert t.report()["spin"]["total_s"] > 0.03 and s > 0.03
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn1_on_card_matches_cpu(inverse):
+    """GDN1 forward and backward on the card (TF32 off for its product
+    whatever the switches say) against the CPU within 1e-5."""
+    from lmic_tpu_torch.layers import GDN1
+
+    gen = torch.Generator().manual_seed(3)
+    layer = GDN1(192, inverse=inverse)
+    with torch.no_grad():
+        layer.gamma.add_(torch.rand((192, 192), generator=gen) * 0.1)
+    x = torch.randn((4096, 192), generator=gen)
+    w = torch.randn((4096, 192), generator=gen)
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    outs = []
+    try:
+        matmul.allow_tf32 = True  # the layer turns it off for its product
+        for device in ("cpu", "cuda"):
+            layer.zero_grad()
+            xd = x.detach().to(device).requires_grad_()  # a leaf on each
+            y = layer.to(device)(xd)
+            (y * w.to(device)).sum().backward()
+            outs.append([t.detach().cpu() for t in
+                         (y, xd.grad, layer.beta.grad, layer.gamma.grad)])
+        assert matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = before
+    for name, want, got in zip(("y", "x", "beta", "gamma"), *outs):
+        assert _rel_err(got, want) < 1e-5, name
+
+
+def test_ablate_gdn_launches_nothing(monkeypatch):
+    """LMIC_ABLATE_GDN=1: a forward and backward through GDN layers on the
+    card launches no GDN kernel; unset, 1 forward and 1 of each backward
+    launch a layer, as before."""
+    layers = torch.nn.Sequential(GDN(64), GDN(64, inverse=True)).cuda()
+    x = torch.randn((2, 64, 16, 16), device="cuda").contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+
+    def launches():
+        before = dict(gdn.LAUNCHES)
+        layers(x).sum().backward()
+        torch.cuda.synchronize()
+        return {k: gdn.LAUNCHES[k] - before[k] for k in before}
+
+    monkeypatch.setenv("LMIC_ABLATE_GDN", "1")
+    assert launches() == {k: 0 for k in gdn.LAUNCHES}
+    monkeypatch.delenv("LMIC_ABLATE_GDN")
+    assert launches() == {k: 2 for k in gdn.LAUNCHES}
+
+
+def test_sequence_metrics_on_card_match_cpu(tmp_path):
+    """video_bench's sequence metrics of a 3-frame 128x128 pair on the card
+    against the CPU: psnr within 1e-4 dB, ms-ssim within 1e-5."""
+    from lmic_tpu_torch.datasets.rawvideo import RawVideoSequence
+    from lmic_tpu_torch.utils import video_bench
+
+    n = 3 * (128 * 128 + 2 * 64 * 64)
+    rng = np.random.default_rng(4)
+    ref = rng.integers(0, 256, n, dtype=np.uint8)
+    rec = np.clip(ref + rng.integers(-6, 7, n), 0, 255).astype(np.uint8)
+    seqs = []
+    for name, raw in (("ref", ref), ("rec", rec)):
+        (tmp_path / name).mkdir()
+        path = tmp_path / name / "clip_128x128_30_yuv420.yuv"
+        raw.tofile(path)
+        seqs.append(RawVideoSequence.from_file(str(path)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # fewer MS-SSIM scales below 161
+        got, want = (video_bench._sequence_metrics(*seqs, device=d)
+                     for d in ("cuda", "cpu"))
+    for k, v in want.items():
+        assert abs(got[k] - v) < (1e-5 if k == "ms-ssim-rgb" else 1e-4), k
