@@ -7,11 +7,13 @@ runs them.
     python3 chip_probes.py train-convs
     python3 chip_probes.py video-convs
     python3 chip_probes.py sync-u8 ROOT [ROOT ...]
-    python3 chip_probes.py gdn-ab ROOT [ROOT ...]
+    python3 chip_probes.py gdn-ab [--off-route] ROOT [ROOT ...]
     python3 chip_probes.py gdn-host PARENT
     python3 chip_probes.py gdn-fwd-tiles
     python3 chip_probes.py gdn-fwd-sqrt
+    python3 chip_probes.py gdn-fwd-stream
     python3 chip_probes.py bf16-step
+    python3 chip_probes.py amp-narrow
 
 - master-batch: the largest batch of the RGB-T master's training step
   that fits, the channel-1 master q7 (f32) against its frozen guided q7 on
@@ -60,12 +62,17 @@ runs them.
   and reduce on fixed seeded inputs (x, dn, tile sums), all of which must
   agree across the ROOTs; and phase 5's AMP step (mbt2018-mean q7, batch
   16 of 256x256): step ms, peak memory, and device ms and busy share from
-  a profile. Host times of separate processes differ by tens of µs on a
+  a profile; and the bf16 `gdn_fwd` off the wide route (C = 320 and 256
+  at 16,391 and 262,144 rows, both directions) through the ROOT's own
+  wrapper and route: device µs and the CUDA kernel it took (its C ABI's
+  counts). With --off-route each process runs that last part alone.
+  Host times of separate processes differ by tens of µs on a
   host shared with others, so gdn-host compares them in one process:
 - gdn-host: the gdn_fwd and gdn_bwd libraries of the checkout PARENT
-  beside this tree's in one process, in turns (the launches' C ABI is the
-  same; a parent without the gamma_t query gets the wrapper to build
-  gamma_t on every call, as its own did): the host µs of one
+  beside this tree's in one process, in turns (a parent without the
+  gamma_t query gets the wrapper to build gamma_t on every call, as its
+  own did; one without the forward's scratch query takes no scratch):
+  the host µs of one
   `lmic_gdn_fwd` call on each bf16 route and in f32, with the device µs
   of each call beside it, of one `lmic_gdn_bwd_dx` call on each bf16
   route and in f32, of one `gdn_bwd` call, and phase 5's AMP step ms with
@@ -85,6 +92,17 @@ runs them.
   against a copy of the kernel built with IEEE `sqrtf` there, at the
   training rows (and 1,572,864), C = 192 and 128: the output elements
   that differ, and the device µs of each, in turns.
+- gdn-fwd-stream: bf16 `gdn_fwd` on `gdn_fwd_stream_kernel` (C = 320 and
+  256 at 262,144 rows, 320 and 1024 at 16,391) against copies of the
+  kernel built with another ring and output tiles (2 stages; 4 stages and
+  one output tile, the store read before a block's first x is kept),
+  without the producer's registers handed to the consumers, or with the
+  products x * bf16(scale) in f32 and rounded by a conversion,
+  in turns: device µs of each, and the outputs, which must be equal byte
+  for byte (the same sums in the same order); and a copy without the
+  products and a copy whose epilogue stores x as y (timing only: their
+  outputs are wrong), the time the rest takes without each. Fewer stages in flight that cost
+  time say the kernel waits on its loads' latency.
 - bf16-step: one step of a narrow mbt2018-mean (q7, N = 32, M = 48,
   batch 2 of 64x128, seed 0, `crosscheck.fixed_noise`) on the card
   against the CPU: in f32, under `--bf16` as the port runs it (TF32 on
@@ -93,6 +111,15 @@ runs them.
   clipped gradients' relative Frobenius error as one vector and the root
   mean square of each leaf's, and the worst leaves; then the rounding's
   own effect, the CPU's `--bf16` step against its f32 step.
+- amp-narrow: the AMP step of a narrow mbt2018-mean (`_narrow_step`,
+  bf16 compute) at N = 40, 32 and 192 (M = 48) on the card against the
+  CPU, by `chip_smoke._amp_leaf_gaps` and `_step_gap`, twice: with the
+  GDN kernels, and with the card running the plain versions in their
+  place (ops/gdn.py's `gdn_fwd` and `gdn_bwd` swapped for
+  `gdn_reference` and `gdn_bwd_reference` in this process); the
+  hyper-path leaves over the CPU AMP test's bar (2e-2 + twice the CPU's
+  AMP effect); and the kernels' step against the plain versions' on the
+  card.
 """
 
 from __future__ import annotations
@@ -505,7 +532,37 @@ def _amp_step(timed=5):
             "busy": dev_ms / wall_ms}
 
 
-def gdn_ab_one(root):
+OFF_ROUTE_FWD = ((16_391, 320), (262_144, 320), (16_391, 256),
+                 (262_144, 256))
+
+
+def _off_route_fwd():
+    """{shape and direction: {"kernel", "us"}} of bf16 gdn_fwd at each of
+    OFF_ROUTE_FWD through this process's port: the CUDA kernel its route
+    took by the C ABI's counts, and the device µs a launch."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for n, C in OFF_ROUTE_FWD:
+        x, beta, gamma, _ = chip_smoke._gdn_inputs(gen, n, C, torch.bfloat16)
+        for inverse in (False, True):
+            torch.cuda.synchronize()
+            before = gdn.kernel_launches()
+            gdn.gdn_fwd(x, beta, gamma, inverse)
+            torch.cuda.synchronize()
+            took = [k for k, v in gdn.kernel_launches().items()
+                    if v != before.get(k, 0)]
+            out[f"{n}x{C} {'IGDN' if inverse else 'GDN'}"] = {
+                "kernel": took, "us": 1e3 * _time_ms(
+                    lambda: gdn.gdn_fwd(x, beta, gamma, inverse))}
+        del x, beta, gamma
+    return out
+
+
+def gdn_ab_one(root, off_route=False):
     """gdn-ab for the checkout `root`, whose chip_smoke.py this process has
     imported: one JSON line."""
     import torch
@@ -518,6 +575,9 @@ def gdn_ab_one(root):
         if not where.startswith(os.path.abspath(root) + os.sep):
             raise AssertionError(f"{mod.__name__} imported from {where}")
     set_wire_determinism()
+    if off_route:
+        log(json.dumps({"root": root, "off_route_fwd": _off_route_fwd()}))
+        return
     cs = chip_smoke
     cases = cs.phase_kernel(cs._peaks(torch.cuda.get_device_name(0)))
     result = {"root": root, "step": {
@@ -538,12 +598,14 @@ def gdn_ab_one(root):
     result["bf16_sums_checksums"] = _bf16_sums_checksums()
     torch.cuda.empty_cache()
     result["amp_step"] = _amp_step()
+    result["off_route_fwd"] = _off_route_fwd()
     log(json.dumps(result))
 
 
-def gdn_ab(roots):
+def gdn_ab(roots, off_route=False):
     """gdn-ab for each ROOT, A B B A, each in a process of its own; the f32
-    checksums must agree across the ROOTs and runs."""
+    checksums must agree across the ROOTs and runs (with `off_route`, the
+    off-route forward alone, which keeps no checksum)."""
     here = os.path.dirname(os.path.abspath(__file__))
     results = []
     for root in list(roots) + list(roots)[::-1]:
@@ -554,13 +616,18 @@ def gdn_ab(roots):
                 f"spec_from_file_location('chip_probes', {__file__!r}); "
                 "probes = importlib.util.module_from_spec(spec); "
                 "spec.loader.exec_module(probes); "
-                f"probes.gdn_ab_one({root!r})")
+                f"probes.gdn_ab_one({root!r}, {off_route!r})")
         proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode:
             raise AssertionError(f"gdn-ab {root}: {proc.stderr[-3000:]}")
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         results.append(result)
+        log(f"gdn-ab {root} off-route bf16 gdn_fwd: " + json.dumps({
+            k: [v["kernel"], round(v["us"], 2)]
+            for k, v in result["off_route_fwd"].items()}))
+        if off_route:
+            continue
         step, amp = result["step"], result["amp_step"]
         log(f"gdn-ab {root}: " + json.dumps({
             "ms_per_step": {k: {d: round(v[d]["ms"], 4) for d in v}
@@ -573,6 +640,8 @@ def gdn_ab(roots):
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
     with open(os.path.join(here, "chiprun_out", "gdn_ab.json"), "w") as f:
         json.dump(results, f, indent=1)
+    if off_route:
+        return
     for sums in ("f32_checksums", "bf16_sums_checksums"):
         for key in results[0][sums]:
             if len({json.dumps(r[sums][key]) for r in results}) != 1:
@@ -602,16 +671,32 @@ def _host_us(fn, runs=50):
 
 def _bind(lib, source="gdn_bwd.cu"):
     """`lib` with ops/gdn.py's ctypes signatures of `source`, as `_load`
-    binds them. A library without `lmic_gdn_bwd_dx_reads_gamma_t` read
+    binds them. A forward library without `lmic_gdn_fwd_scratch_bytes`
+    gets one that answers 0 and an `lmic_gdn_fwd` that drops the scratch
+    argument. A library without `lmic_gdn_bwd_dx_reads_gamma_t` read
     gamma_t on every route, so it answers 1 and the wrapper builds the
     transpose on every call, as that tree's wrapper did; one without the
     per-kernel launch counts is left without them (`gdn.kernel_launches`
     skips it)."""
     from lmic_tpu_torch.ops import gdn
 
+    adapted = ()
+    if source == "gdn_fwd.cu" and not hasattr(lib,
+                                              "lmic_gdn_fwd_scratch_bytes"):
+        # a forward without the stream kernel's copies takes no scratch
+        # argument and needs none
+        fwd = lib.lmic_gdn_fwd
+        args = gdn._SIGNATURES[source]["lmic_gdn_fwd"]
+        fwd.argtypes = args[:-2] + args[-1:]
+        fwd.restype = gdn._restype("lmic_gdn_fwd")
+        lib.lmic_gdn_fwd = lambda *a: fwd(*a[:-2], a[-1])
+        lib.lmic_gdn_fwd_scratch_bytes = lambda *args: 0
+        adapted = ("lmic_gdn_fwd", "lmic_gdn_fwd_scratch_bytes")
     for name, argtypes in gdn._SIGNATURES[source].items():
         if name == "lmic_gdn_bwd_dx_reads_gamma_t" and not hasattr(lib, name):
             setattr(lib, name, lambda *args: 1)
+            continue
+        if name in adapted:
             continue
         counts = name.endswith(("_kernel_name", "_kernel_launches"))
         if counts and not hasattr(lib, name):
@@ -624,8 +709,8 @@ def _bind(lib, source="gdn_bwd.cu"):
 
 def gdn_host(parent, rounds=3, n=65_536, C=192):
     """gdn-host: the gdn_fwd and gdn_bwd libraries of the checkout `parent`
-    and this tree's in one process (their launches' C ABI is the same, so
-    ops/gdn.py's wrapper takes either; see `_bind`), in turns: the host µs
+    and this tree's in one process (`_bind` gives the parent's the C ABI
+    ops/gdn.py's wrapper calls), in turns: the host µs
     of one `lmic_gdn_fwd` call and one `lmic_gdn_bwd_dx` call (bf16 on its
     TMA route and off it, through a view offset by one element; f32),
     with the device µs of each `lmic_gdn_fwd` call, of one `gdn.gdn_bwd`
@@ -668,11 +753,19 @@ def gdn_host(parent, rounds=3, n=65_536, C=192):
         for _ in range(rounds):
             for which, lib in fwd_libs.items():
                 for route, xi in routes.items():
-                    def call(lib=lib, xi=xi):
+                    nbytes = lib.lmic_gdn_fwd_scratch_bytes(
+                        xi.data_ptr(), w.data_ptr(), y.data_ptr(), n, C,
+                        gdn._DTYPE_CODES[dt])
+                    scratch = torch.empty(nbytes, dtype=torch.uint8,
+                                          device="cuda")
+
+                    def call(lib=lib, xi=xi, scratch=scratch):
                         if lib.lmic_gdn_fwd(
                                 xi.data_ptr(), w.data_ptr(),
                                 beta.data_ptr(), y.data_ptr(), n, C,
-                                gdn._DTYPE_CODES[dt], 0, stream):
+                                gdn._DTYPE_CODES[dt], 0,
+                                scratch.data_ptr() if nbytes else None,
+                                stream):
                             raise RuntimeError(f"{which} {route}")
                     key = f"{str(dt).split('.')[-1]} {route} {which}"
                     fwd_calls.setdefault(key, []).append(
@@ -805,7 +898,8 @@ def gdn_fwd_tiles(ks=(1, 2, 3, 4, 8, 16, 32)):
                     def call(lib=lib):
                         if lib.lmic_gdn_fwd(x.data_ptr(), gamma.data_ptr(),
                                             beta.data_ptr(), y.data_ptr(),
-                                            n, C, 1, int(inverse), stream):
+                                            n, C, 1, int(inverse), None,
+                                            stream):
                             raise RuntimeError(f"gdn-fwd-tiles {which}")
                     us[which].append(1e3 * _time_ms(call))
                 del x, beta, gamma, y
@@ -845,7 +939,7 @@ def gdn_fwd_sqrt(rows=(262_144, 65_536, 16_384, 16_391, 1_572_864)):
                 def call(lib=lib, y=ys[which]):
                     if lib.lmic_gdn_fwd(x.data_ptr(), gamma.data_ptr(),
                                         beta.data_ptr(), y.data_ptr(), n, C,
-                                        1, 1, stream):
+                                        1, 1, None, stream):
                         raise RuntimeError(f"gdn-fwd-sqrt {which}")
                 calls[which] = call
                 call()
@@ -865,6 +959,72 @@ def gdn_fwd_sqrt(rows=(262_144, 65_536, 16_384, 16_391, 1_572_864)):
             del x, beta, gamma, ys
     log(f"gdn-fwd-sqrt: {differ} of {total} elements differ; "
         + json.dumps(out))
+
+
+STREAM_VARIANTS = {
+    "2 stages": [(r"kStreamStages = 3;", "kStreamStages = 2;")],
+    "4 stages, 1 output tile": [(r"kStreamStages = 3;", "kStreamStages = 4;"),
+                                (r"kStreamTiles = 2;", "kStreamTiles = 1;")],
+    "f32 products": [(r"\*p = hop::mul2\(xw, bits2\((.*?)\)\);",
+                      r"const unsigned sw = bits2(\1); *p = bits2("
+                      r"__floats2bfloat162_rn(__uint_as_float(xw << 16) * "
+                      r"__uint_as_float(sw << 16), __uint_as_float(xw & "
+                      r"0xffff0000u) * __uint_as_float(sw & 0xffff0000u)));")],
+    "no setmaxnreg": [(r"\n *hop::setmaxnreg_dec<kStreamProducerRegs>\(\);",
+                       ""),
+                      (r"\n *hop::setmaxnreg_inc<kStreamConsumerRegs>\(\);",
+                       "")],
+}
+# timing only (their outputs are wrong): without the products, and with
+# the epilogue storing x as y
+STREAM_TIMING = {
+    "no products": [(r"hop::wgmma_rs<64 \* kB>\(.*?\);", "")],
+    "no epilogue arithmetic": [
+        (r"\*p = hop::mul2\(xw, bits2\(.*?\)\);", "*p = xw;")],
+}
+
+
+def gdn_fwd_stream(shapes=((262_144, 320), (262_144, 256), (16_391, 320),
+                           (16_391, 1024))):
+    """gdn-fwd-stream: gdn_fwd_stream_kernel against copies built with
+    STREAM_VARIANTS' rings: device µs in turns, equal outputs."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    libs = {"kernel": gdn._load("gdn_fwd.cu")}
+    libs.update({k: _patched_gdn_fwd(v) for k, v in
+                 {**STREAM_VARIANTS, **STREAM_TIMING}.items()})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for n, C in shapes:
+        x, beta, gamma, _ = chip_smoke._gdn_inputs(gen, n, C, torch.bfloat16)
+        ys = {k: torch.empty_like(x) for k in libs}
+        calls = {}
+        for which, lib in libs.items():
+            def call(lib=lib, y=ys[which]):
+                if lib.lmic_gdn_fwd(x.data_ptr(), gamma.data_ptr(),
+                                    beta.data_ptr(), y.data_ptr(), n, C, 1,
+                                    0, None, stream):
+                    raise RuntimeError(f"gdn-fwd-stream {which}")
+            calls[which] = call
+            call()
+        torch.cuda.synchronize()
+        for which, y in ys.items():
+            if which not in STREAM_TIMING and not torch.equal(y,
+                                                              ys["kernel"]):
+                raise AssertionError(f"gdn-fwd-stream {which} {n}x{C}: "
+                                     "other bytes than the kernel's")
+        us = {k: [] for k in libs}
+        for order in (list(libs), list(libs)[::-1]):
+            for which in order:
+                us[which].append(1e3 * _time_ms(calls[which]))
+        out[f"{n}x{C}"] = us
+        log(f"gdn-fwd-stream {n}x{C} GDN: " + ", ".join(
+            f"{k} {min(v):.1f}-{max(v):.1f} us" for k, v in us.items()))
+        del x, beta, gamma, ys
+    log("gdn-fwd-stream: " + json.dumps(out))
 
 
 def bf16_step():
@@ -895,12 +1055,58 @@ def bf16_step():
     compare("the rounding's effect: CPU --bf16 vs CPU f32", cpu16, cpu32)
 
 
+def amp_narrow(widths=((40, 48), (32, 48), (192, 48))):
+    """amp-narrow: the narrow AMP step on the card against the CPU, with
+    the GDN kernels and with the plain versions on the card."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    bf16 = torch.bfloat16
+    for N, M in widths:
+        card = _narrow_step("cuda", None, bf16, N=N, M=M)
+        card_f32 = _narrow_step("cuda", None, None, N=N, M=M)
+        cpu = _narrow_step("cpu", None, bf16, N=N, M=M)
+        cpu_f32 = _narrow_step("cpu", None, None, N=N, M=M)
+        kernels = (gdn.gdn_fwd, gdn.gdn_bwd)
+        gdn.gdn_fwd, gdn.gdn_bwd = gdn.gdn_reference, gdn.gdn_bwd_reference
+        try:
+            plain = _narrow_step("cuda", None, bf16, N=N, M=M)
+        finally:
+            gdn.gdn_fwd, gdn.gdn_bwd = kernels
+
+        def worst(run, ref):
+            loss, leaves = chip_smoke._amp_leaf_gaps(run, ref, card_f32,
+                                                     cpu_f32)
+            top = sorted(leaves.items(), key=lambda kv: -kv[1][0] / kv[1][1])
+            return {"loss": loss, "whole": _step_gap(run, ref)[1],
+                    "leaves (error, bar)": {k: [round(e, 5), round(b, 5)]
+                                            for k, (e, b) in top[:4]}}
+
+        def fro(a, b):
+            return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+        # the hyper-path leaves over the CPU AMP test's bar there
+        # (tests/test_torch_train.py: 2e-2 + twice the CPU's AMP effect)
+        over = {n: [round(fro(card[1][n], b), 5),
+                    round(2e-2 + 2 * fro(b, cpu_f32[1][n]), 5)]
+                for n, b in cpu[1].items()
+                if n.startswith(("h_a.", "h_s.")) and fro(card[1][n], b)
+                >= 2e-2 + 2 * fro(b, cpu_f32[1][n])}
+        log(f"amp-narrow N = {N}, M = {M}: " + json.dumps({
+            "kernels vs the CPU": worst(card, cpu),
+            "over the CPU test's hyper-path bar (error, bar)": over,
+            "plain versions on the card vs the CPU": worst(plain, cpu),
+            "kernels vs the plain versions on the card": worst(card,
+                                                               plain)}))
+
+
 def main(argv):
     import torch
 
     probes = ("master-batch", "train-convs", "video-convs", "sync-u8",
               "gdn-ab", "gdn-host", "gdn-fwd-tiles", "gdn-fwd-sqrt",
-              "bf16-step")
+              "gdn-fwd-stream", "bf16-step", "amp-narrow")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -921,15 +1127,21 @@ def main(argv):
     elif argv[0] == "sync-u8":
         sync_u8(argv[1:] or [os.path.dirname(os.path.abspath(__file__))])
     elif argv[0] == "gdn-ab":
-        gdn_ab(argv[1:] or [os.path.dirname(os.path.abspath(__file__))])
+        roots = [a for a in argv[1:] if a != "--off-route"]
+        gdn_ab(roots or [os.path.dirname(os.path.abspath(__file__))],
+               "--off-route" in argv[1:])
     elif argv[0] == "gdn-host":
         gdn_host(os.path.abspath(argv[1]))
     elif argv[0] == "gdn-fwd-tiles":
         gdn_fwd_tiles()
     elif argv[0] == "gdn-fwd-sqrt":
         gdn_fwd_sqrt()
+    elif argv[0] == "gdn-fwd-stream":
+        gdn_fwd_stream()
     elif argv[0] == "bf16-step":
         bf16_step()
+    elif argv[0] == "amp-narrow":
+        amp_narrow()
     else:
         video_convs()
     return 0

@@ -9,12 +9,12 @@ Phases, each of which raises (exit code != 0) on any failure:
 1. environment: the card's name and power limit, the torch/CUDA/nvcc
    versions; the port's native sources are built, all at once; each GDN
    kernel's registers and spills from ptxas (a register-tiled f32 kernel
-   and the bf16 `gdn_fwd_wide_kernel` and `gdn_bwd_dx_wide_kernel` must
-   not spill); the count of
+   and the bf16 `gdn_fwd_wide_kernel`, `gdn_fwd_stream_kernel` and
+   `gdn_bwd_dx_wide_kernel` must not spill); the count of
    tensor-core instructions (HMMA or HGMMA) in each GDN kernel, from
    `cuobjdump -sass`: every bf16 product kernel must have some (the
-   TMA-fed wide kernels HGMMA, from wgmma), and no f32 kernel any (that
-   would be TF32);
+   TMA-fed wide and stream kernels HGMMA, from wgmma), and no f32 kernel
+   any (that would be TF32);
 2. kernels: the CUDA GDN forward (`gdn_fwd`) and backward (`gdn_bwd`,
    three launches) against their plain versions on the card at the main
    paths' shapes (serving: 98,304 / 24,576 / 6,144 / 6,151 rows; training:
@@ -32,12 +32,14 @@ Phases, each of which raises (exit code != 0) on any failure:
    composite, one cuBLAS `bmm` of the partials' chunked product, `sum(0)`
    of the partials), each dx launch and each bf16 `gdn_fwd` held to the
    kernel its route names (f32 `gdn_bwd_dx_kernel`; bf16
-   `gdn_bwd_dx_wide_kernel` and `gdn_fwd_wide_kernel` at these shapes,
-   and `gdn_bwd_dx_mma_kernel` and `gdn_fwd_mma_kernel`, each against its
-   plain version, at two bf16 shapes off the TMA route, 16,391 rows at
-   C = 192 in a view offset by one element and at C = 320); bf16
-   `gdn_fwd` and `gdn_bwd_dx` logged per layer of a training step
-   (C = 192 and 128) beside their bounds and composites;
+   `gdn_bwd_dx_wide_kernel` and `gdn_fwd_wide_kernel` at these shapes;
+   off the wide routes, each against its plain version,
+   `gdn_fwd_stream_kernel` at C = 256 and 320 at the training rows, at
+   C = 8, 37, 64, 512 and 1024 at 16,391 rows and at 16,391 x 192 in a
+   view offset by one element, and `gdn_bwd_dx_mma_kernel` at that view
+   and at 16,391 x 320); bf16 `gdn_fwd` and `gdn_bwd_dx` logged per layer
+   of a training step (C = 192 and 128) beside their bounds and
+   composites;
 3. serving: mbt2018-mean at quality 8 (N=192, M=320) from a seed, served by
    the port's HTTP server; three seeded 512x768 uint8 images go through
    POST /compress and /decompress with the launch counts set to 0 just
@@ -55,7 +57,7 @@ Phases, each of which raises (exit code != 0) on any failure:
    steps in f32, 6 in AMP), a
    profile of the GDN kernels' share (in AMP, 6 launches a step of
    `gdn_fwd_wide_kernel` and of `gdn_bwd_dx_wide_kernel`, and none of
-   `gdn_fwd_mma_kernel` or `gdn_bwd_dx_mma_kernel`), one
+   `gdn_fwd_stream_kernel` or `gdn_bwd_dx_mma_kernel`), one
    step's gradients on the card
    against the CPU on a narrow model with the same noise, and the trained
    model saved, reloaded, finalized and round-tripped through the codec;
@@ -196,7 +198,7 @@ Phases, each of which raises (exit code != 0) on any failure:
    `gdn_fwd` and 6 of each backward kernel a step: every GDN runs again
    in its block's recompute; the AMP step's profile 12 launches of
    `gdn_fwd_wide_kernel`, 6 of `gdn_bwd_dx_wide_kernel` and none of the
-   mma kernels), the loss falling, step ms and peak memory
+   off-route kernels), the loss falling, step ms and peak memory
    logged, and one step against the plain step under
    `crosscheck.fixed_noise` (losses and clipped gradients within the f32
    and bf16 bars, exact launch counts); then the channel-1 master q7
@@ -273,6 +275,21 @@ Phases, each of which raises (exit code != 0) on any failure:
    `layers.GDN1` forward, inverse and backward at C = 192 on 65,536 rows
    within 1e-5; `X264().availability_error()` logged. No PIL or msgpack
    path runs (the card's machine may lack both).
+17. off-route training, last: mbt2018-mean q7 built at N = M = 320 (a
+   width a user's arch has and the wide kernels do not take) from seed
+   0, lambda 10240, bf16 AMP at batch 16 of 256x256 through
+   `train.make_train_step`: a warm-up, a profiled and 4 timed steps with
+   the launch counts set to 0 just before and read just after (6 of each
+   wrapper's launches a step; by the C ABI 6 of `gdn_fwd_stream_kernel`
+   and of `gdn_bwd_dx_mma_kernel` a step and none of the wide kernels),
+   the loss falling over the 6 steps; step ms, device ms, busy share, the
+   GDN kernels' device ms and peak memory logged; then one AMP step at N
+   = 40, M = 48 on the card against the CPU with the same noise
+   (`_narrow_step`), at the bars of the CPU tests' AMP step: losses within
+   1e-4, every clipped gradient leaf within 2e-2 of its largest value,
+   the hyper path's in relative Frobenius norm within 2e-2 plus AMP's own
+   effect on that leaf on each device, the f32 steps within 1e-4 (losses,
+   and the gradients as one vector).
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -498,11 +515,11 @@ def phase_environment():
 # The GDN kernels by name: the bf16 product kernels run on the tensor
 # cores (those fed by the TMA on wgmma: HGMMA); the f32 kernels (TF32 off)
 # and the reduce must not.
-MMA_KERNELS = ("gdn_fwd_mma_kernel", "gdn_fwd_wide_kernel",
+MMA_KERNELS = ("gdn_fwd_stream_kernel", "gdn_fwd_wide_kernel",
                "gdn_bwd_dx_mma_kernel", "gdn_bwd_dx_wide_kernel",
                "gdn_bwd_partials_wide_kernel")
-WGMMA_KERNELS = ("gdn_fwd_wide_kernel", "gdn_bwd_dx_wide_kernel",
-                 "gdn_bwd_partials_wide_kernel")
+WGMMA_KERNELS = ("gdn_fwd_stream_kernel", "gdn_fwd_wide_kernel",
+                 "gdn_bwd_dx_wide_kernel", "gdn_bwd_partials_wide_kernel")
 FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                 "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
 # launches of each CUDA kernel a step under --bf16 (the GDN stays f32:
@@ -517,8 +534,10 @@ BF16_REMAT_STEP = {**BF16_STEP, "gdn_fwd_kernel": 12}
 # must stay in registers.
 TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                       "gdn_bwd_partials_kernel")
-# ... and so must the bf16 wide kernels' (wgmma sums; dn, g * scale)
+# ... and so must the bf16 wide and stream kernels' (wgmma sums; dn,
+# g * scale)
 NO_SPILL_KERNELS = TILED_FP32_KERNELS + ("gdn_fwd_wide_kernel",
+                                         "gdn_fwd_stream_kernel",
                                          "gdn_bwd_dx_wide_kernel")
 
 
@@ -849,12 +868,24 @@ def _fwd_work(x, beta, gamma, gamma_t, inverse):
     )
 
 
+# bf16 gdn_fwd off the wide route, on gdn_fwd_stream_kernel, as (rows, C,
+# offset of x in elements): the widths of a user's arch (C = 256 and 320)
+# at a training step's rows, one to five column blocks at 16,391 rows (C =
+# 37 and the view offset by one element on the explicit copies)
+STREAM_CASES = ([(n, C, 0) for C in (256, 320) for n in TRAIN_ROWS]
+                + [(16_391, C, 0) for C in (8, 37, 64, 512, 1024)]
+                + [(16_391, 192, 1)])
+# bf16 gdn_bwd_dx off its wide route, on gdn_bwd_dx_mma_kernel
+DX_MMA_CASES = [(16_391, 192, 1), (16_391, 320, 0)]
+
+
 def phase_kernel(peaks):
     """Both GDN kernels against their plain versions at every main-path
     shape (serving, training, the RGB-T pair's wire and its training
-    step, the batched synthesis of phase 12), and the bf16 forward and
-    the backward's launches at two shapes off the wide kernels' route;
-    returns the per-shape cases of each."""
+    step, the batched synthesis of phase 12), the bf16 forward at the
+    shapes of STREAM_CASES and the backward's launches at the two of
+    DX_MMA_CASES, off the wide kernels' routes; returns the per-shape
+    cases of each."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -906,25 +937,30 @@ def phase_kernel(peaks):
                     (3 * n * C + 2 * (C * C + C)) * es,
                     6 * n * C * C + 12 * n * C), peak, mem_bw)
             del x, beta, gamma, g, gamma_t
-    # bf16 off the wide kernels' TMA route, on gdn_fwd_mma_kernel and
-    # gdn_bwd_dx_mma_kernel: a view offset by one element, and a width the
-    # wide kernels have no instance of
-    for n, C, offset in ((16_391, 192, 1), (16_391, 320, 0)):
+    # bf16 off the wide kernels' TMA route: the forward on
+    # gdn_fwd_stream_kernel (STREAM_CASES) and dx on gdn_bwd_dx_mma_kernel
+    # (a view offset by one element, and a width the wide kernels have no
+    # instance of)
+    for n, C, offset in STREAM_CASES + DX_MMA_CASES:
         x, beta, gamma, g = _gdn_inputs(gen, n, C, torch.bfloat16)
         buf = torch.empty(n * C + offset, dtype=x.dtype, device="cuda")
         buf[offset:].copy_(x.view(-1))
         x = buf[offset:].view(n, C)
         gamma_t = gamma.t().contiguous()
         for inverse in (False, True):
-            routes.append((n, C, x.dtype, offset, inverse, "gdn_fwd",
-                           "gdn_fwd_mma_kernel"))
-            _record(cases, "gdn_fwd", n, C, "bfloat16", inverse,
-                    _fwd_work(x, beta, gamma, gamma_t, inverse), bf16,
-                    mem_bw, kernel="gdn_fwd_mma_kernel", offset=offset)
-            routes.append((n, C, x.dtype, offset, inverse, "gdn_bwd_dx",
-                           "gdn_bwd_dx_mma_kernel"))
-            _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse,
-                              bf16, mem_bw, fp32, "gdn_bwd_dx_mma_kernel")
+            if (n, C, offset) in STREAM_CASES:
+                routes.append((n, C, x.dtype, offset, inverse, "gdn_fwd",
+                               "gdn_fwd_stream_kernel"))
+                _record(cases, "gdn_fwd", n, C, "bfloat16", inverse,
+                        _fwd_work(x, beta, gamma, gamma_t, inverse), bf16,
+                        mem_bw, kernel="gdn_fwd_stream_kernel",
+                        offset=offset)
+            if (n, C, offset) in DX_MMA_CASES:
+                routes.append((n, C, x.dtype, offset, inverse, "gdn_bwd_dx",
+                               "gdn_bwd_dx_mma_kernel"))
+                _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
+                                  inverse, bf16, mem_bw, fp32,
+                                  "gdn_bwd_dx_mma_kernel")
         del x, beta, gamma, g, buf, gamma_t
     _check_routes(gen, routes)
     return cases
@@ -932,7 +968,8 @@ def phase_kernel(peaks):
 
 DX_KERNELS = ("gdn_bwd_dx_kernel", "gdn_bwd_dx_mma_kernel",
               "gdn_bwd_dx_wide_kernel")
-FWD_KERNELS = ("gdn_fwd_kernel", "gdn_fwd_mma_kernel", "gdn_fwd_wide_kernel")
+FWD_KERNELS = ("gdn_fwd_kernel", "gdn_fwd_stream_kernel",
+               "gdn_fwd_wide_kernel")
 
 
 def _routed_kernels(run):
@@ -1758,7 +1795,7 @@ GDN_KERNELS = MMA_KERNELS + FP32_KERNELS
 CUDA_KERNELS = {
     "gdn_fwd": ["gdn_fwd_kernel (f32)",
                 "gdn_fwd_wide_kernel (bf16, C = 128 and 192, 16-byte rows)",
-                "gdn_fwd_mma_kernel (bf16, other shapes)"],
+                "gdn_fwd_stream_kernel (bf16, other shapes, C <= 1024)"],
     "gdn_bwd_dx": ["gdn_bwd_dx_kernel (f32)",
                    "gdn_bwd_dx_wide_kernel (bf16, C = 128 and 192, 16-byte "
                    "rows)", "gdn_bwd_dx_mma_kernel (bf16, other shapes)"],
@@ -1767,8 +1804,11 @@ CUDA_KERNELS = {
     "gdn_bwd_reduce": ["gdn_bwd_reduce_kernel"],
 }
 # launches of the bf16 forward and dx kernels in an AMP step at C = 192
-AMP_WIDE = {"gdn_fwd_wide_kernel": 6, "gdn_fwd_mma_kernel": 0,
+AMP_WIDE = {"gdn_fwd_wide_kernel": 6, "gdn_fwd_stream_kernel": 0,
             "gdn_bwd_dx_wide_kernel": 6, "gdn_bwd_dx_mma_kernel": 0}
+# ... and in phase 17's AMP step at N = M = 320, off the wide routes
+AMP_OFF_ROUTE = {"gdn_fwd_stream_kernel": 6, "gdn_fwd_wide_kernel": 0,
+                 "gdn_bwd_dx_mma_kernel": 6, "gdn_bwd_dx_wide_kernel": 0}
 def _hold_launches(what, counted, seen, want):
     """The launches a call of a profiled run made of each CUDA kernel, as
     the C ABI counted them where each launch succeeded (`counted`), must
@@ -2085,8 +2125,8 @@ def _train_case(what, step, state, batches, gen, timed, per_step,
                                  "step")
     if out is not None:
         out.update(step_ms=float(np.median(ms)), device_ms=dev_ms,
-                   busy=dev_ms / wall_ms, peak_gib=peak / 2**30,
-                   kernels=top)
+                   gdn_ms=gdn_ms, busy=dev_ms / wall_ms,
+                   peak_gib=peak / 2**30, kernels=top)
     losses = [m["loss"] for m in metrics]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: loss not finite: {losses}")
@@ -4054,11 +4094,12 @@ def _half_rgbt(images):
     return launched
 
 
-def _narrow_step(device, mode):
-    """One step of a narrow mbt2018-mean (q7, N = 32, M = 48) from seed 0
-    on a seeded batch of 2 of 64x128 on `device` under
-    `crosscheck.fixed_noise`, in the matmul precision `mode`: (metrics,
-    {name: clipped gradient, f64 on the CPU})."""
+def _narrow_step(device, mode, dtype=None, N=32, M=48):
+    """One step of a narrow mbt2018-mean (q7, N = 32, M = 48 unless given)
+    from seed 0 on a seeded batch of 2 of 64x128 on `device` under
+    `crosscheck.fixed_noise`, in the matmul precision `mode` and the
+    compute dtype `dtype` (bfloat16 for AMP): (metrics, {name: clipped
+    gradient, f64 on the CPU})."""
     from lmic_tpu_torch import zoo
     from lmic_tpu_torch.utils.crosscheck import fixed_noise
     from lmic_tpu_torch.utils.train import (
@@ -4069,7 +4110,7 @@ def _narrow_step(device, mode):
 
     x = _train_batch((2, 64, 128, 3), seed=11).to(device)
     module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
-                              device=device, N=32, M=48).module
+                              device=device, dtype=dtype, N=N, M=M).module
     opt = make_optimizer()
     with fixed_noise():
         _, m = make_train_step(module, opt, TRAIN_LAMBDA,
@@ -4767,6 +4808,114 @@ def phase_apps_and_ablation():
     log(f"apps and ablation phase: {time.perf_counter() - t_phase:.1f} s")
     return apps, training
 
+# Phase 17: mbt2018-mean q7 built at a width with no wide kernel, so every
+# GDN of its AMP step runs off the wide routes (AMP_OFF_ROUTE), and a
+# narrow off-route width for the card against the CPU
+OFF_ROUTE_WIDTHS = {"N": 320, "M": 320}
+OFF_ROUTE_NARROW = {"N": 40, "M": 48}
+OFF_ROUTE_TIMED = 4  # after a warm-up and a profiled step: 6 losses
+
+
+def _amp_leaf_gaps(card, cpu, card_f32, cpu_f32):
+    """An AMP step on the card against the same step on the CPU
+    (`_narrow_step`'s, with their f32 steps): (the losses' largest
+    relative difference, {leaf: (error, bar)}), by the bars of
+    tests/test_torch_train.py's AMP test: max|a - b| / max|b| within 2e-2,
+    and for the hyper path's leaves (h_a, h_s), whose ReLU and lower-bound
+    gates bf16 rounding flips, the relative Frobenius error within 2e-2
+    plus AMP's own effect on that leaf on each device (the AMP step
+    against the f32 step there), which bounds the gap where the two f32
+    steps agree; the f32 steps' own gap is `_step_gap`'s."""
+    (m_a, g_a), (m_b, g_b) = card, cpu
+    g_af, g_bf = card_f32[1], cpu_f32[1]
+
+    def fro(a, b):
+        return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+    loss = max(abs(m_a[k] - m_b[k]) / abs(m_b[k]) for k in m_b)
+    leaves = {}
+    for n, b in g_b.items():
+        a = g_a[n]
+        if n.startswith(("h_a.", "h_s.")):
+            leaves[n] = (fro(a, b),
+                         2e-2 + fro(b, g_bf[n]) + fro(a, g_af[n]))
+        else:
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            leaves[n] = (err / scale if scale else err, 2e-2)
+    return loss, leaves
+
+
+def phase_off_route_training():
+    """Phase 17 (see the module doc): an AMP training step of mbt2018-mean
+    q7 at N = M = 320 on gdn_fwd_stream_kernel and gdn_bwd_dx_mma_kernel.
+    Returns the launch counts of its timed steps and the step's
+    measurements (`_train_case`'s `out`)."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
+                              device="cuda", dtype=torch.bfloat16,
+                              **OFF_ROUTE_WIDTHS).module
+    opt = make_optimizer()
+    state = create_train_state(module, opt)
+    step = make_train_step(module, opt, TRAIN_LAMBDA)
+    batch = _train_batch(TRAIN_BATCH, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    what = (f"{TRAIN_ARCH} q{TRAIN_QUALITY} N = {OFF_ROUTE_WIDTHS['N']}, "
+            f"M = {OFF_ROUTE_WIDTHS['M']} amp")
+    launched = _train_case(what, step, state, (batch,), gen,
+                           OFF_ROUTE_TIMED, {k: 6 for k in gdn.LAUNCHES},
+                           kernels=AMP_OFF_ROUTE, exact=True, out=out)
+    log(f"train {what}: step ms {out['step_ms']:.2f} (median of "
+        f"{OFF_ROUTE_TIMED}), device {out['device_ms']:.2f} ms, GDN kernels "
+        f"{out['gdn_ms']:.3f} ms ({100 * out['gdn_ms'] / out['device_ms']:.1f}"
+        f" %), busy {100 * out['busy']:.1f} %, peak memory "
+        f"{out['peak_gib']:.2f} GiB; GDN kernels' device ms: " + json.dumps(
+            {k: round(v, 3) for k, v in out["kernels"].items()
+             if k in GDN_KERNELS}))
+    del module, opt, state, step, batch
+    torch.cuda.empty_cache()
+    before = dict(gdn.LAUNCHES)
+    card = _narrow_step("cuda", None, torch.bfloat16, **OFF_ROUTE_NARROW)
+    torch.cuda.synchronize()
+    narrow = {k: gdn.LAUNCHES[k] - before[k] for k in before}
+    if narrow != {k: 6 for k in gdn.LAUNCHES}:
+        raise AssertionError(f"the narrow AMP step launched {narrow}")
+    card_f32 = _narrow_step("cuda", None, None, **OFF_ROUTE_NARROW)
+    cpu_f32 = _narrow_step("cpu", None, None, **OFF_ROUTE_NARROW)
+    f32_loss, f32_grads, _, _ = _step_gap(card_f32, cpu_f32)
+    loss_err, leaves = _amp_leaf_gaps(
+        card, _narrow_step("cpu", None, torch.bfloat16, **OFF_ROUTE_NARROW),
+        card_f32, cpu_f32)
+    worst = dict(sorted(leaves.items(), key=lambda kv: -kv[1][0] / kv[1][1])
+                 [:6])
+    log(f"AMP training step on the card vs the CPU ({OFF_ROUTE_NARROW}, "
+        f"same noise): losses within {loss_err:.3g} (bar 1e-4); the leaves "
+        "nearest their bars (error, bar): " + json.dumps(
+            {k: [round(e, 5), round(b, 5)] for k, (e, b) in worst.items()})
+        + f"; the f32 steps: losses within {f32_loss:.3g}, gradients as "
+        f"one vector {f32_grads:.3g}")
+    over = {k: v for k, v in leaves.items() if not v[0] < v[1]}
+    if not (loss_err < 1e-4 and f32_loss < 1e-4 and f32_grads < 1e-4) \
+            or over:
+        raise AssertionError(f"the AMP step at {OFF_ROUTE_NARROW} on the "
+                             f"card vs the CPU: loss {loss_err:.3g}, "
+                             f"leaves over their bars {over}; the f32 "
+                             f"steps {f32_loss:.3g}, {f32_grads:.3g}")
+    log(f"off-route training phase: {time.perf_counter() - t_phase:.1f} s")
+    return launched, out
+
 
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
@@ -4855,14 +5004,15 @@ def main():
                 f"({100 * v['bound_us'] / np.mean(v['us']):.0f} % of it), "
                 "composite "
                 + " / ".join(f"{u:.1f}" for u in v["library_us"]))
-    # the bf16 forward and dx off the wide kernels' route (a view offset by
-    # one element, C = 320): kernel, plain version, composite, bound
+    # the bf16 forward and dx off the wide kernels' routes (STREAM_CASES,
+    # DX_MMA_CASES): kernel, plain version, composite, bound
     off_route = {k: [{"shape": c["shape"], "inverse": c["inverse"],
+                      "offset": c.get("offset", 0),
                       **{m: round(c[m], 2) for m in (
                           "us", "plain_us", "library_us", "bound_us")}}
                      for c in cases[k]
-                     if (c.get("kernel") or c.get("dx_kernel") or ""
-                         ).endswith("_mma_kernel")]
+                     if (c.get("kernel") or c.get("dx_kernel")) in (
+                         "gdn_fwd_stream_kernel", "gdn_bwd_dx_mma_kernel")]
                  for k in ("gdn_fwd", "gdn_bwd_dx")}
     for kernel, rows in off_route.items():
         log(f"bf16 {kernel} off the wide route: {json.dumps(rows)}")
@@ -4894,6 +5044,8 @@ def main():
         phase_matmul_precision()
     more_training["data_parallel"] = phase_data_parallel()
     apps_launches, more_training["gdn_ablation"] = phase_apps_and_ablation()
+    more_training["off_route_training"], off_route_step = \
+        phase_off_route_training()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
@@ -4902,7 +5054,8 @@ def main():
     # every training path: mbt2018-mean (phase 5), the AR family and the
     # RGB-T pair (phase 8), the paired `_R` arch (phase 9), --remat
     # (phase 13), --bf16 and --bf16 --remat (phase 14), DDP (phase 15), the
-    # plain steps of the GDN ablation (phase 16)
+    # plain steps of the GDN ablation (phase 16), the off-route AMP step
+    # (phase 17)
     training = {"training": train_counts, **more_training}
     launched = {k: sum(c[k] for c in training.values()) for k in gdn.LAUNCHES}
     bwd_counts = {k: launched[k] for k in gdn.BWD_KERNELS}
@@ -4949,6 +5102,14 @@ def main():
         "training_step_bf16": totals("gdn_fwd", TRAIN_ROWS[:3], "bfloat16"),
         "training_step_bf16_by_layer": layers["gdn_fwd"],
         "bf16_off_route": off_route["gdn_fwd"],
+        # gdn_fwd_stream_kernel at phase 17's layers (C = 320), and the
+        # step itself
+        "training_step_bf16_c320": totals("gdn_fwd", TRAIN_ROWS[:3],
+                                          "bfloat16", 320),
+        "training_step_bf16_c256": totals("gdn_fwd", TRAIN_ROWS[:3],
+                                          "bfloat16", 256),
+        "off_route_amp_step": {k: off_route_step[k] for k in (
+            "step_ms", "device_ms", "gdn_ms", "busy", "peak_gib")},
         # a --remat step: each GDN and IGDN again in its block's recompute
         "training_step_remat_f32": totals("gdn_fwd", REMAT_ROWS, "float32"),
         "training_step_remat_bf16": totals("gdn_fwd", REMAT_ROWS,

@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 GDN / IGDN kernels, Hopper
-// (sm_90a): the padding, the 16-byte loads and stores of both gdn_fwd.cu
-// and gdn_bwd.cu, and the 64-row CTA products of gdn_bwd_dx_mma_kernel,
+// (sm_90a): the padding and the 16-byte loads and stores of gdn_bwd.cu
+// (gdn_fwd.cu takes aligned16, pack2 and kSmemLimit from here), and the
+// 64-row CTA products of gdn_bwd_dx_mma_kernel,
 // which takes the bf16 dx shapes outside the TMA's route (C other than 128
 // and 192, rows that are not 16-byte aligned).
 //

@@ -8,10 +8,11 @@ and channel-last activations `(..., C)`:
 - a CUDA tensor goes to the hand-written kernels: `gdn_fwd`
   (csrc/gdn_fwd.cu) forward and `gdn_bwd` (csrc/gdn_bwd.cu) backward, f32
   on the FP32 cores and bf16 (AMP) on the tensor cores; they never fall
-  back to the plain versions, and they raise on a dtype or shape the
-  kernels do not take (`max_channels` gives the widest C of each);
-- a CPU tensor goes to `gdn_reference` / `gdn_bwd_reference`, the same
-  formulas in plain torch.
+  back to the plain versions, and they raise on a shape the kernels do
+  not take (`max_channels` gives the widest C of each);
+- a CPU tensor, and a CUDA tensor of a dtype the kernels do not take (f16,
+  f64: lmic_tpu's `_gdn_jnp` path), goes to `gdn_reference` /
+  `gdn_bwd_reference`, the same formulas in plain torch.
 
 The forward is reached through the operator `lmic_tpu_torch::gdn_fwd`
 (`gdn_fwd_op`, a `torch.library.custom_op` with both implementations and
@@ -57,8 +58,9 @@ _libs = {}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "gdn_fwd.cu": {
-        "lmic_gdn_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+        "lmic_gdn_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
         "lmic_gdn_fwd_max_channels": [_I],
+        "lmic_gdn_fwd_scratch_bytes": [_P, _P, _P, _I64, _I, _I],
         "lmic_gdn_fwd_kernel_name": [_I],
         "lmic_gdn_fwd_kernel_launches": [_I],
         "lmic_gdn_error_string": [_I],
@@ -83,7 +85,9 @@ def _restype(name: str):
     """The ctypes return type of the C ABI entry point `name`."""
     if name.endswith(("_string", "_name")):
         return ctypes.c_char_p
-    return ctypes.c_int64 if name.endswith("_launches") else ctypes.c_int
+    if name.endswith(("_launches", "_bytes")):
+        return ctypes.c_int64
+    return ctypes.c_int
 
 
 def _load(source: str):
@@ -207,7 +211,9 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
     gamma (C, C) of one dtype, float32 or bfloat16. The C ABI picks the
     kernel by shape: bf16 at C = 128 and 192 with 16-byte aligned x, gamma
     and y runs `gdn_fwd_wide_kernel`, other bf16 shapes
-    `gdn_fwd_mma_kernel`; a failed launch or tensor-map encode raises."""
+    `gdn_fwd_stream_kernel` (on zero-padded copies in a scratch buffer
+    allocated here where C % 8 != 0 or a base is off 16 bytes); a failed
+    launch or tensor-map encode raises."""
     C = _check("gdn_fwd", x, beta, gamma)
     lib = _load("gdn_fwd.cu")
     if C > max_channels("gdn_fwd", x.dtype):
@@ -221,10 +227,17 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
     n = x.numel() // C if C else 0
     if n == 0:
         return y
+    code = _DTYPE_CODES[x.dtype]
+    # the TMA's copies of operands it cannot address (C % 8, bases)
+    nbytes = lib.lmic_gdn_fwd_scratch_bytes(x.data_ptr(), w.data_ptr(),
+                                            y.data_ptr(), n, C, code)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+               if nbytes else None)
     with torch.cuda.device(x.device):
         err = lib.lmic_gdn_fwd(
             x.data_ptr(), w.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            n, C, _DTYPE_CODES[x.dtype], int(bool(inverse)),
+            n, C, code, int(bool(inverse)),
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
@@ -335,9 +348,18 @@ def _gdn_fwd_fake(x, beta, gamma, inverse):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
+def _plain_dtype(x):
+    """A dtype the kernels do not take (f16, f64, ...): lmic_tpu's
+    `gdn_core` sends it to `_gdn_jnp`, the port to the plain versions on
+    the tensor's own device. Decided by dtype alone, before any launch."""
+    return x.dtype not in _DTYPE_CODES
+
+
 def _forward(x, beta, gamma, inverse):
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"gdn_core: no GDN path for device {x.device}")
+    if _plain_dtype(x):
+        return gdn_reference(x, beta, gamma, bool(inverse))
     return gdn_fwd_op(x, beta, gamma, bool(inverse))
 
 
@@ -355,7 +377,7 @@ class GDNCore(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, beta, gamma = ctx.saved_tensors
-        if x.device.type == "cuda":
+        if x.device.type == "cuda" and not _plain_dtype(x):
             dx, dbeta, dgamma = gdn_bwd(x, beta, gamma, g, ctx.inverse)
         else:
             dx, dbeta, dgamma = gdn_bwd_reference(x, beta, gamma, g,

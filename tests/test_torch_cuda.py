@@ -304,33 +304,117 @@ def test_wide_fwd_route_matches_reference(inverse, rows, C):
     assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
 
 
+def _launched(run):
+    """{CUDA kernel: launches} that `run` made, by the C ABI's counts."""
+    torch.cuda.synchronize()
+    before = gdn.kernel_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0)
+                 for k, v in gdn.kernel_launches().items()
+                 if v != before.get(k, 0)}
+
+
+# bf16 gdn_fwd off the wide route, on gdn_fwd_stream_kernel: widths whose
+# 64-column boxes make one column block (8, 37, 64), two (256, 320: 2 + 2
+# and 3 + 2 boxes) and more (512: 3 + 3 + 2; 1024: 4 x 3 + 2 x 2), C = 37
+# on zero-padded copies; one row, one ragged 128-row tile, a ragged count
+# of tiles, a training layer (2,048 tiles, 16 a CTA).
+STREAM = [(rows, C) for C in (8, 37, 64, 256, 320, 512, 1024)
+          for rows in (1, 63, 16_391, 262_144)]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", STREAM)
+def test_stream_fwd_matches_reference(inverse, rows, C):
+    """bf16 gdn_fwd on gdn_fwd_stream_kernel against the plain version,
+    each launch on that kernel by the C ABI's counts, the same bytes
+    twice."""
+    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=rows + C,
+                           skew=True)
+    got, launched = _launched(lambda: gdn.gdn_fwd(x, beta, gamma, inverse))
+    assert launched == {"gdn_fwd_stream_kernel": 1}
+    want = gdn.gdn_reference(x, beta, gamma, inverse)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel_err(got, want) < TOL[torch.bfloat16]
+    assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("C", [128, 192])
-def test_offset_view_takes_the_fwd_mma_kernel(inverse, C):
+def test_offset_view_takes_the_fwd_stream_kernel(inverse, C):
     """bf16 gdn_fwd: a view offset by one element is off the TMA's 16-byte
-    route and takes gdn_fwd_mma_kernel, and so does C = 320, a width the
-    wide kernel has no instance of; the aligned tensor takes
-    gdn_fwd_wide_kernel. Each matches the plain version, the same bytes
-    twice."""
+    route and takes gdn_fwd_stream_kernel (on an aligned copy), and so do
+    C = 320 and C = 37, widths the wide kernel has no instance of, and a
+    gamma offset by one element; the aligned tensors take
+    gdn_fwd_wide_kernel. Each launch's kernel is the C ABI's count (a
+    torch.profiler session may lose a record, on the H100 here the wide
+    kernel's after the copies' sessions, but names no other kernel). Each
+    matches the plain version, the same bytes twice."""
     from chip_smoke import _routed_kernels
 
     rows = 1_000
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        buf[1:].copy_(t.view(-1))
+        view = buf[1:].view(t.shape)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
     x, beta, gamma = _data(rows, C, torch.bfloat16, seed=C, skew=True)
-    buf = torch.empty(rows * C + 1, dtype=x.dtype, device="cuda")
-    buf[1:].copy_(x.view(-1))
-    offset = buf[1:].view(rows, C)
-    assert offset.is_contiguous() and offset.data_ptr() % 16 != 0
-    wide = _data(rows, 320, torch.bfloat16, seed=C, skew=True)
-    for (xi, bi, gi), kernel in (((offset, beta, gamma), "gdn_fwd_mma_kernel"),
-                                 ((x, beta, gamma), "gdn_fwd_wide_kernel"),
-                                 (wide, "gdn_fwd_mma_kernel")):
+    cases = (((offset(x), beta, gamma), "gdn_fwd_stream_kernel"),
+             ((x, beta, offset(gamma)), "gdn_fwd_stream_kernel"),
+             ((x, beta, gamma), "gdn_fwd_wide_kernel"),
+             (_data(rows, 320, torch.bfloat16, seed=C, skew=True),
+              "gdn_fwd_stream_kernel"),
+             (_data(rows, 37, torch.bfloat16, seed=C, skew=True),
+              "gdn_fwd_stream_kernel"))
+    for (xi, bi, gi), kernel in cases:
         def run():
             return gdn.gdn_fwd(xi, bi, gi, inverse)
-        assert _routed_kernels(run) == [kernel]
-        got = run()
+        assert set(_routed_kernels(run)) <= {kernel}
+        got, launched = _launched(run)
+        assert launched == {kernel: 1}
         want = gdn.gdn_reference(xi, bi, gi, inverse)
         assert _rel_err(got, want) < TOL[torch.bfloat16], kernel
         assert torch.equal(got, run()), kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dtypes_the_kernels_do_not_take_run_the_plain_versions(dtype,
+                                                               inverse):
+    """f16 and f64 CUDA tensors through gdn_core, forward and backward,
+    equal the plain versions on the card and launch no kernel (lmic_tpu's
+    gdn_core sends them to its jnp path); f32 and bf16 still launch their
+    kernels."""
+    x, beta, gamma = _data(300, 40, dtype, seed=5, skew=True)
+    g = torch.randn((300, 40), generator=torch.Generator().manual_seed(6)
+                    ).to("cuda", dtype)
+    before, abi = dict(gdn.LAUNCHES), gdn.kernel_launches()
+    xg = x.clone().requires_grad_()
+    bg = beta.clone().requires_grad_()
+    gg = gamma.clone().requires_grad_()
+    y = gdn.gdn_core(xg, bg, gg, inverse)
+    with torch.no_grad():
+        y_plain = gdn.gdn_core(x, beta, gamma, inverse)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert gdn.LAUNCHES == before and gdn.kernel_launches() == abi
+    assert y.dtype == dtype and y.device.type == "cuda"
+    want = gdn.gdn_reference(x, beta, gamma, inverse)
+    assert torch.equal(y.detach(), want) and torch.equal(y_plain, want)
+    for got, w in zip((xg.grad, bg.grad, gg.grad),
+                      gdn.gdn_bwd_reference(x, beta, gamma, g, inverse)):
+        assert got.dtype == dtype and torch.equal(got, w)
+    for kernel_dtype in (torch.float32, torch.bfloat16):
+        xk, bk, gk = (t.to(kernel_dtype) for t in (x, beta, gamma))
+        xk.requires_grad_()
+        n0 = dict(gdn.LAUNCHES)
+        gdn.gdn_core(xk, bk, gk, inverse).backward(g.to(kernel_dtype))
+        torch.cuda.synchronize()
+        assert all(gdn.LAUNCHES[k] == n0[k] + 1 for k in gdn.LAUNCHES)
 
 
 @pytest.mark.parametrize("dtype,offset,fwd,dx,partials", [
@@ -338,7 +422,7 @@ def test_offset_view_takes_the_fwd_mma_kernel(inverse, C):
      "gdn_bwd_partials_kernel"),
     (torch.bfloat16, 0, "gdn_fwd_wide_kernel", "gdn_bwd_dx_wide_kernel",
      "gdn_bwd_partials_wide_kernel"),
-    (torch.bfloat16, 1, "gdn_fwd_mma_kernel", "gdn_bwd_dx_mma_kernel",
+    (torch.bfloat16, 1, "gdn_fwd_stream_kernel", "gdn_bwd_dx_mma_kernel",
      "gdn_bwd_partials_wide_kernel"),
 ])
 def test_kernel_launches_count_the_kernel_each_launch_took(dtype, offset, fwd,
@@ -393,6 +477,12 @@ def test_kernels_refuse_channels_past_their_tile(dtype):
     for kernel in ("gdn_fwd", "gdn_bwd"):
         widest = gdn.max_channels(kernel, dtype)
         assert widest >= 320, kernel  # every GDN width of the zoo
+        if (kernel, dtype) == ("gdn_fwd", torch.bfloat16):
+            assert widest >= 1024  # gdn_fwd_stream_kernel
+            x, beta, gamma = _data(70, widest, dtype, skew=True)
+            got = gdn.gdn_fwd(x, beta, gamma)
+            assert _rel_err(got, gdn.gdn_reference(x, beta, gamma)) \
+                < TOL[dtype]
         x, beta, gamma = _data(4, widest + 1, dtype)
         before = dict(gdn.LAUNCHES)
         with pytest.raises(ValueError, match="exceed"):

@@ -82,6 +82,24 @@ def test_bf16_reference_matches_pallas_at_the_wide_widths(
     assert _rel_err(got, want) < TOL["bfloat16"]
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("width", [37, 256, 320, 1024])
+@pytest.mark.parametrize("rows", [63, 65, 135])
+def test_bf16_reference_matches_pallas_at_the_stream_widths(
+        rows, width, inverse, monkeypatch):
+    """The bf16 plain forward, which the card holds gdn_fwd_stream_kernel
+    to, against lmic_tpu's Pallas kernel run by the interpreter at widths
+    of that kernel's route: C not a multiple of 8 (its padded copies), two
+    column blocks (256, 320) and six (1024), around 64-row boxes and past
+    a 128-row tile."""
+    (jx, jb, jg), (tx, tb, tg) = _data(9, (rows, width), "bfloat16")
+    monkeypatch.setenv("LMIC_PALLAS", "interpret")
+    want = pallas_gdn.gdn_core(jx, jb, jg, inverse)
+    got = tgdn.gdn_reference(tx, tb, tg, inverse)
+    assert got.dtype == torch.bfloat16 and got.shape == tx.shape
+    assert _rel_err(got, want) < TOL["bfloat16"]
+
+
 def test_core_dispatch_on_cpu_and_elsewhere():
     _, (tx, tb, tg) = _data(2, (5, C), "float32")
     assert torch.equal(tgdn.gdn_core(tx, tb, tg),

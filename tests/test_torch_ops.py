@@ -282,3 +282,26 @@ def test_every_gdn_kernel_is_in_one_smoke_list(source):
     assert set(lists["WGMMA_KERNELS"]) <= mma
     for name in lists["NO_SPILL_KERNELS"]:
         assert name in mma | fp32, name
+
+
+def test_package_data_ships_every_native_source():
+    """An installed wheel builds the kernels from the package's own csrc/:
+    every file there (the .cu sources, the .cuh headers they include and
+    `_build._inputs` hashes, the .cc coder) matches a pattern of
+    pyproject.toml's package data for `lmic_tpu_torch.csrc`."""
+    import fnmatch
+    import os
+    import tomllib
+
+    from lmic_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    patterns = data["lmic_tpu_torch.csrc"]
+    files = sorted(os.listdir(_build.CSRC))
+    hashed = {os.path.basename(p) for p in _build._inputs("gdn_fwd.cu")}
+    assert any(f.endswith(".cuh") for f in hashed) and hashed <= set(files)
+    missing = [f for f in files
+               if not any(fnmatch.fnmatch(f, p) for p in patterns)]
+    assert not missing, missing
