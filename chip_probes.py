@@ -12,6 +12,7 @@ runs them.
     python3 chip_probes.py gdn-fwd-tiles
     python3 chip_probes.py gdn-fwd-sqrt
     python3 chip_probes.py gdn-fwd-stream
+    python3 chip_probes.py gdn-dx-stream
     python3 chip_probes.py bf16-step
     python3 chip_probes.py amp-narrow
 
@@ -65,13 +66,16 @@ runs them.
   a profile; and the bf16 `gdn_fwd` off the wide route (C = 320 and 256
   at 16,391 and 262,144 rows, both directions) through the ROOT's own
   wrapper and route: device µs and the CUDA kernel it took (its C ABI's
-  counts). With --off-route each process runs that last part alone.
+  counts), and so the bf16 `gdn_bwd_dx` there (one launch through the
+  ROOT's C ABI). With --off-route each process runs those parts alone,
+  then phase 17's AMP step (the same step at N = M = 320, whose GDN runs
+  on the off-route kernels): step ms, peak memory, device ms, GDN ms and
+  busy share.
   Host times of separate processes differ by tens of µs on a
   host shared with others, so gdn-host compares them in one process:
 - gdn-host: the gdn_fwd and gdn_bwd libraries of the checkout PARENT
   beside this tree's in one process, in turns (a parent without the
-  gamma_t query gets the wrapper to build gamma_t on every call, as its
-  own did; one without the forward's scratch query takes no scratch):
+  forward's or the dx pass's scratch query takes no scratch there):
   the host µs of one
   `lmic_gdn_fwd` call on each bf16 route and in f32, with the device µs
   of each call beside it, of one `lmic_gdn_bwd_dx` call on each bf16
@@ -103,6 +107,16 @@ runs them.
   products and a copy whose epilogue stores x as y (timing only: their
   outputs are wrong), the time the rest takes without each. Fewer stages in flight that cost
   time say the kernel waits on its loads' latency.
+- gdn-dx-stream: bf16 `gdn_bwd_dx` on `gdn_bwd_dx_stream_kernel` (GDN;
+  C = 320 and 256 at 262,144 rows, 320 and 1024 at 16,391) against copies
+  of the kernel built with 2 stages, with the workspace read after pass
+  2's products instead of beside them, or with the workspace read and
+  written through L2 only, in turns: device µs of each, and their dx, dn
+  and tile sums,
+  which must be within the bf16 bar of the kernel's (whether the bytes
+  are equal is logged); and copies without the products, without either
+  pass's elementwise arithmetic and without the workspace's stores and
+  loads (timing only: their outputs are wrong).
 - bf16-step: one step of a narrow mbt2018-mean (q7, N = 32, M = 48,
   batch 2 of 64x128, seed 0, `crosscheck.fixed_noise`) on the card
   against the CPU: in f32, under `--bf16` as the port runs it (TF32 on
@@ -130,6 +144,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -502,9 +517,10 @@ def _bf16_sums_checksums():
     return out
 
 
-def _amp_step(timed=5):
-    """Phase 5's AMP training step: step ms (median), peak memory, and the
-    device ms, GDN ms and busy share of a profiled step."""
+def _amp_step(timed=5, widths=None):
+    """Phase 5's AMP training step (phase 17's with `widths`, its N and
+    M): step ms (median), peak memory, and the device ms, GDN ms and busy
+    share of a profiled step."""
     import torch
 
     from lmic_tpu_torch import zoo
@@ -517,7 +533,8 @@ def _amp_step(timed=5):
     cs = chip_smoke
     batch = _train_batch(cs.TRAIN_BATCH, seed=1)
     module = zoo.create_model(cs.TRAIN_ARCH, cs.TRAIN_QUALITY, seed=0,
-                              device="cuda", dtype=torch.bfloat16).module
+                              device="cuda", dtype=torch.bfloat16,
+                              **(widths or {})).module
     opt = make_optimizer()
     state = create_train_state(module, opt)
     step = make_train_step(module, opt, cs.TRAIN_LAMBDA)
@@ -562,6 +579,35 @@ def _off_route_fwd():
     return out
 
 
+def _off_route_dx():
+    """{shape and direction: {"kernel", "us"}} of bf16 gdn_bwd_dx at each
+    of OFF_ROUTE_FWD through this process's chip_smoke and port, one
+    launch through the C ABI as the kernel phase times it: the CUDA kernel
+    its route took by the C ABI's counts, and the device µs a launch."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for n, C in OFF_ROUTE_FWD:
+        x, beta, gamma, g = chip_smoke._gdn_inputs(gen, n, C, torch.bfloat16)
+        for inverse in (False, True):
+            run = chip_smoke._bwd_launches(x, beta, gamma,
+                                           gamma.t().contiguous(), g,
+                                           inverse)["gdn_bwd_dx"]
+            torch.cuda.synchronize()
+            before = gdn.kernel_launches()
+            run()
+            torch.cuda.synchronize()
+            took = [k for k, v in gdn.kernel_launches().items()
+                    if v != before.get(k, 0)]
+            out[f"{n}x{C} {'IGDN' if inverse else 'GDN'}"] = {
+                "kernel": took, "us": 1e3 * _time_ms(run)}
+        del x, beta, gamma, g
+    return out
+
+
 def gdn_ab_one(root, off_route=False):
     """gdn-ab for the checkout `root`, whose chip_smoke.py this process has
     imported: one JSON line."""
@@ -576,7 +622,12 @@ def gdn_ab_one(root, off_route=False):
             raise AssertionError(f"{mod.__name__} imported from {where}")
     set_wire_determinism()
     if off_route:
-        log(json.dumps({"root": root, "off_route_fwd": _off_route_fwd()}))
+        result = {"root": root, "off_route_fwd": _off_route_fwd(),
+                  "off_route_dx": _off_route_dx()}
+        torch.cuda.empty_cache()
+        result["off_route_step"] = _amp_step(
+            widths=chip_smoke.OFF_ROUTE_WIDTHS)
+        log(json.dumps(result))
         return
     cs = chip_smoke
     cases = cs.phase_kernel(cs._peaks(torch.cuda.get_device_name(0)))
@@ -599,13 +650,15 @@ def gdn_ab_one(root, off_route=False):
     torch.cuda.empty_cache()
     result["amp_step"] = _amp_step()
     result["off_route_fwd"] = _off_route_fwd()
+    result["off_route_dx"] = _off_route_dx()
     log(json.dumps(result))
 
 
 def gdn_ab(roots, off_route=False):
     """gdn-ab for each ROOT, A B B A, each in a process of its own; the f32
     checksums must agree across the ROOTs and runs (with `off_route`, the
-    off-route forward alone, which keeps no checksum)."""
+    off-route forward and dx and phase 17's step alone, which keep no
+    checksum)."""
     here = os.path.dirname(os.path.abspath(__file__))
     results = []
     for root in list(roots) + list(roots)[::-1]:
@@ -623,10 +676,13 @@ def gdn_ab(roots, off_route=False):
             raise AssertionError(f"gdn-ab {root}: {proc.stderr[-3000:]}")
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         results.append(result)
-        log(f"gdn-ab {root} off-route bf16 gdn_fwd: " + json.dumps({
-            k: [v["kernel"], round(v["us"], 2)]
-            for k, v in result["off_route_fwd"].items()}))
+        for part in ("fwd", "dx"):
+            log(f"gdn-ab {root} off-route bf16 gdn_{part}: " + json.dumps({
+                k: [v["kernel"], round(v["us"], 2)]
+                for k, v in result[f"off_route_{part}"].items()}))
         if off_route:
+            log(f"gdn-ab {root} phase 17's AMP step: " + json.dumps(
+                {k: round(v, 4) for k, v in result["off_route_step"].items()}))
             continue
         step, amp = result["step"], result["amp_step"]
         log(f"gdn-ab {root}: " + json.dumps({
@@ -673,11 +729,10 @@ def _bind(lib, source="gdn_bwd.cu"):
     """`lib` with ops/gdn.py's ctypes signatures of `source`, as `_load`
     binds them. A forward library without `lmic_gdn_fwd_scratch_bytes`
     gets one that answers 0 and an `lmic_gdn_fwd` that drops the scratch
-    argument. A library without `lmic_gdn_bwd_dx_reads_gamma_t` read
-    gamma_t on every route, so it answers 1 and the wrapper builds the
-    transpose on every call, as that tree's wrapper did; one without the
-    per-kernel launch counts is left without them (`gdn.kernel_launches`
-    skips it)."""
+    argument; so does a backward library without
+    `lmic_gdn_bwd_dx_scratch_bytes` for `lmic_gdn_bwd_dx`. One without
+    the per-kernel launch counts is left without them
+    (`gdn.kernel_launches` skips it)."""
     from lmic_tpu_torch.ops import gdn
 
     adapted = ()
@@ -692,10 +747,18 @@ def _bind(lib, source="gdn_bwd.cu"):
         lib.lmic_gdn_fwd = lambda *a: fwd(*a[:-2], a[-1])
         lib.lmic_gdn_fwd_scratch_bytes = lambda *args: 0
         adapted = ("lmic_gdn_fwd", "lmic_gdn_fwd_scratch_bytes")
+    if source == "gdn_bwd.cu" and not hasattr(
+            lib, "lmic_gdn_bwd_dx_scratch_bytes"):
+        # a backward without the stream dx kernel's workspace takes no
+        # scratch argument and needs none
+        dx = lib.lmic_gdn_bwd_dx
+        args = gdn._SIGNATURES[source]["lmic_gdn_bwd_dx"]
+        dx.argtypes = args[:-2] + args[-1:]
+        dx.restype = gdn._restype("lmic_gdn_bwd_dx")
+        lib.lmic_gdn_bwd_dx = lambda *a: dx(*a[:-2], a[-1])
+        lib.lmic_gdn_bwd_dx_scratch_bytes = lambda *args: 0
+        adapted = ("lmic_gdn_bwd_dx", "lmic_gdn_bwd_dx_scratch_bytes")
     for name, argtypes in gdn._SIGNATURES[source].items():
-        if name == "lmic_gdn_bwd_dx_reads_gamma_t" and not hasattr(lib, name):
-            setattr(lib, name, lambda *args: 1)
-            continue
         if name in adapted:
             continue
         counts = name.endswith(("_kernel_name", "_kernel_launches"))
@@ -785,13 +848,21 @@ def gdn_host(parent, rounds=3, n=65_536, C=192):
         for _ in range(rounds):
             for which, lib in libs.items():
                 for route, xi in routes.items():
-                    def call(lib=lib, xi=xi):
+                    nbytes = lib.lmic_gdn_bwd_dx_scratch_bytes(
+                        xi.data_ptr(), g.data_ptr(), gamma.data_ptr(),
+                        dx.data_ptr(), dn.data_ptr(), n, C,
+                        gdn._DTYPE_CODES[dt])
+                    scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8,
+                                          device="cuda")
+
+                    def call(lib=lib, xi=xi, scratch=scratch):
                         if lib.lmic_gdn_bwd_dx(
                                 xi.data_ptr(), g.data_ptr(),
                                 gamma_t.data_ptr(), gamma.data_ptr(),
                                 beta.data_ptr(), dx.data_ptr(),
                                 dn.data_ptr(), dn_sums.data_ptr(), n, C,
-                                gdn._DTYPE_CODES[dt], 0, stream):
+                                gdn._DTYPE_CODES[dt], 0, scratch.data_ptr(),
+                                stream):
                             raise RuntimeError(f"{which} {route}")
                     key = f"{str(dt).split('.')[-1]} {route} {which}"
                     calls.setdefault(key, []).append(
@@ -834,9 +905,10 @@ def gdn_host(parent, rounds=3, n=65_536, C=192):
             + ", ".join(f"{u:.2f}" for u in v))
 
 
-def _patched_gdn_fwd(edits):
-    """ctypes handle of a copy of gdn_fwd.cu with each (regex, text) of
-    `edits` applied once, built beside the shared headers."""
+def _patched(edits, source="gdn_fwd.cu"):
+    """ctypes handle of a copy of csrc/`source` with each (regex, text) of
+    `edits` applied once, built beside the shared headers and bound as
+    ops/gdn.py binds the source's library."""
     import ctypes
     import glob
     import re
@@ -845,25 +917,27 @@ def _patched_gdn_fwd(edits):
 
     from lmic_tpu_torch.ops import _build, gdn
 
-    with open(os.path.join(_build.CSRC, "gdn_fwd.cu")) as f:
+    with open(os.path.join(_build.CSRC, source)) as f:
         src = f.read()
     for pattern, text in edits:
         src, hits = re.subn(pattern, text, src, count=1, flags=re.S)
         if hits != 1:
-            raise AssertionError(f"gdn_fwd.cu: no {pattern!r} to patch")
+            raise AssertionError(f"{source}: no {pattern!r} to patch")
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
     for header in glob.glob(os.path.join(_build.CSRC, "*.cuh")):
         shutil.copy(header, tmp)
-    with open(os.path.join(tmp, "gdn_fwd.cu"), "w") as f:
+    with open(os.path.join(tmp, source), "w") as f:
         f.write(src)
-    lib = os.path.join(tmp, "libgdn_fwd_patched.so")
-    cmd = _build._command("gdn_fwd.cu", lib)
-    cmd[cmd.index(os.path.join(_build.CSRC, "gdn_fwd.cu"))] = os.path.join(
-        tmp, "gdn_fwd.cu")
+    lib = os.path.join(tmp, "libpatched.so")
+    cmd = _build._command(source, lib)
+    cmd[cmd.index(os.path.join(_build.CSRC, source))] = os.path.join(
+        tmp, source)
     subprocess.run(cmd, check=True, capture_output=True)
     handle = ctypes.CDLL(lib)
-    handle.lmic_gdn_fwd.argtypes = gdn._SIGNATURES["gdn_fwd.cu"][
-        "lmic_gdn_fwd"]
+    for name, argtypes in gdn._SIGNATURES[source].items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = gdn._restype(name)
     return handle
 
 
@@ -878,7 +952,7 @@ def gdn_fwd_tiles(ks=(1, 2, 3, 4, 8, 16, 32)):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the wide kernel without gamma's load and the wait for it
-    no_gamma = _patched_gdn_fwd([
+    no_gamma = _patched([
         (r"\n *hop::mbar_expect\(&gamma_landed, W::kGamma\);"
          r"\n *for \(int cb = 0;.*?&gamma_landed\);", ""),
         (r"\n *if \(j == 0\) hop::mbar_wait\(&gamma_landed, 0\);", "")])
@@ -922,8 +996,9 @@ def gdn_fwd_sqrt(rows=(262_144, 65_536, 16_384, 16_391, 1_572_864)):
 
     from lmic_tpu_torch.ops import gdn
 
-    ieee = _patched_gdn_fwd([
-        (r"float s = rsqrtf\(norm\);\n *if \(kInverse\) \{.*?\n *\}\n",
+    ieee = _patched([
+        (r"float s = rsqrtf\(norm\);\n *if \(kInverse\) s = "
+         r"hop::sqrt_from_rsqrt\(norm, s\);\n",
          "const float s = kInverse ? sqrtf(norm) : rsqrtf(norm);\n")])
     libs = {"kernel": gdn._load("gdn_fwd.cu"), "IEEE sqrtf": ieee}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -993,7 +1068,7 @@ def gdn_fwd_stream(shapes=((262_144, 320), (262_144, 256), (16_391, 320),
     from lmic_tpu_torch.ops import gdn
 
     libs = {"kernel": gdn._load("gdn_fwd.cu")}
-    libs.update({k: _patched_gdn_fwd(v) for k, v in
+    libs.update({k: _patched(v) for k, v in
                  {**STREAM_VARIANTS, **STREAM_TIMING}.items()})
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -1025,6 +1100,92 @@ def gdn_fwd_stream(shapes=((262_144, 320), (262_144, 256), (16_391, 320),
             f"{k} {min(v):.1f}-{max(v):.1f} us" for k, v in us.items()))
         del x, beta, gamma, ys
     log("gdn-fwd-stream: " + json.dumps(out))
+
+
+DX_STREAM_VARIANTS = {
+    "2 stages": [(r"kDsStages = 3;", "kDsStages = 2;")],
+    "workspace read after the products": [
+        (r"(  float4 gs\[8 \* kB\];\n#pragma unroll\n  for .*? gs\[i\] = "
+         r"\*ds_work_at\(work, i\);\n)(  float acc\[32 \* kB\];\n  "
+         r"ds_dn_loop<kB>\(.*?\);\n)", r"\2\1")],
+    "workspace through L2 only": [
+        (r"\*ds_work_at\(work, i\) = (make_float4\(.*?\));",
+         r"__stcg(ds_work_at(work, i), \1);"),
+        (r"gs\[i\] = \*ds_work_at\(work, i\);",
+         "gs[i] = __ldcg(ds_work_at(work, i));")],
+}
+# timing only (their outputs are wrong): without the products, without
+# the elementwise arithmetic of either pass, without the workspace
+DX_STREAM_TIMING = {
+    "no products": [(r"hop::wgmma_rs<64 \* kB>\(.*?\);", ""),
+                    (r"hop::wgmma_ss<64 \* kB, 1>\(.*?\);", "")],
+    "no epilogue arithmetic": [
+        (r"(ds_elementwise\(float norm.*?\{\n)  const float rs = "
+         r"rsqrtf\(norm\);.*?\n  \}\n", r"\1  *d = gv;\n  *sg = xv + norm;\n"),
+        (r"\*p = hop::pack2\(\(h \? s\.z.*?\);", "*p = xw;")],
+    "no workspace": [
+        (r"\*ds_work_at\(work, i\) = make_float4\(.*?\);", "(void)gs;"),
+        (r"gs\[i\] = \*ds_work_at\(work, i\);",
+         "gs[i] = make_float4(0.f, 0.f, 0.f, 0.f);")],
+}
+
+
+def gdn_dx_stream(shapes=((262_144, 320), (262_144, 256), (16_391, 320),
+                          (16_391, 1024))):
+    """gdn-dx-stream: bf16 gdn_bwd_dx on gdn_bwd_dx_stream_kernel (GDN)
+    against copies built as DX_STREAM_VARIANTS and DX_STREAM_TIMING say:
+    device µs in turns; the variants' dx, dn and tile sums against the
+    kernel's (equal bytes, or within the bf16 bar)."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    edits = {**DX_STREAM_VARIANTS, **DX_STREAM_TIMING}
+    with ThreadPoolExecutor(len(edits)) as pool:  # one compiler each
+        built = pool.map(lambda e: _patched(e, "gdn_bwd.cu"), edits.values())
+        libs = {"kernel": gdn._load("gdn_bwd.cu"), **dict(zip(edits, built))}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for n, C in shapes:
+        x, beta, gamma, g = chip_smoke._gdn_inputs(gen, n, C, torch.bfloat16)
+        outs, calls = {}, {}
+        for which, lib in libs.items():
+            dx = torch.empty_like(x)
+            dn, sums = gdn._dn_scratch(lib, n, C, x.dtype, "cuda")
+            nbytes = lib.lmic_gdn_bwd_dx_scratch_bytes(
+                x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+                dn.data_ptr(), n, C, 1)
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+
+            def call(lib=lib, dx=dx, dn=dn, sums=sums, scratch=scratch):
+                if lib.lmic_gdn_bwd_dx(
+                        x.data_ptr(), g.data_ptr(), None, gamma.data_ptr(),
+                        beta.data_ptr(), dx.data_ptr(), dn.data_ptr(),
+                        sums.data_ptr(), n, C, 1, 0, scratch.data_ptr(),
+                        stream):
+                    raise RuntimeError(f"gdn-dx-stream {which}")
+            outs[which], calls[which] = (dx, dn, sums), call
+            call()
+        torch.cuda.synchronize()
+        same = {}
+        for which in DX_STREAM_VARIANTS:
+            same[which] = all(torch.equal(a, b) for a, b in
+                              zip(outs[which], outs["kernel"]))
+            _, rel = chip_smoke._errors(outs[which], outs["kernel"])
+            if not rel < chip_smoke.TOL["bfloat16"]:
+                raise AssertionError(f"gdn-dx-stream {which} {n}x{C}: "
+                                     f"error {rel:.3g}")
+        us = {k: [] for k in libs}
+        for order in (list(libs), list(libs)[::-1]):
+            for which in order:
+                us[which].append(1e3 * _time_ms(calls[which]))
+        out[f"{n}x{C}"] = {"us": us, "equal_bytes": same}
+        log(f"gdn-dx-stream {n}x{C} GDN: " + ", ".join(
+            f"{k} {min(v):.1f}-{max(v):.1f} us" for k, v in us.items())
+            + f"; the same bytes as the kernel: {same}")
+        del x, beta, gamma, g, outs, calls
+    log("gdn-dx-stream: " + json.dumps(out))
 
 
 def bf16_step():
@@ -1106,7 +1267,7 @@ def main(argv):
 
     probes = ("master-batch", "train-convs", "video-convs", "sync-u8",
               "gdn-ab", "gdn-host", "gdn-fwd-tiles", "gdn-fwd-sqrt",
-              "gdn-fwd-stream", "bf16-step", "amp-narrow")
+              "gdn-fwd-stream", "gdn-dx-stream", "bf16-step", "amp-narrow")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -1138,6 +1299,8 @@ def main(argv):
         gdn_fwd_sqrt()
     elif argv[0] == "gdn-fwd-stream":
         gdn_fwd_stream()
+    elif argv[0] == "gdn-dx-stream":
+        gdn_dx_stream()
     elif argv[0] == "bf16-step":
         bf16_step()
     elif argv[0] == "amp-narrow":

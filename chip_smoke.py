@@ -9,12 +9,12 @@ Phases, each of which raises (exit code != 0) on any failure:
 1. environment: the card's name and power limit, the torch/CUDA/nvcc
    versions; the port's native sources are built, all at once; each GDN
    kernel's registers and spills from ptxas (a register-tiled f32 kernel
-   and the bf16 `gdn_fwd_wide_kernel`, `gdn_fwd_stream_kernel` and
-   `gdn_bwd_dx_wide_kernel` must not spill); the count of
+   and the bf16 `gdn_fwd_wide_kernel`, `gdn_fwd_stream_kernel`,
+   `gdn_bwd_dx_wide_kernel` and `gdn_bwd_dx_stream_kernel` must not
+   spill); the count of
    tensor-core instructions (HMMA or HGMMA) in each GDN kernel, from
-   `cuobjdump -sass`: every bf16 product kernel must have some (the
-   TMA-fed wide and stream kernels HGMMA, from wgmma), and no f32 kernel
-   any (that would be TF32);
+   `cuobjdump -sass`: every bf16 product kernel must have HGMMA (from
+   wgmma), and no f32 kernel any (that would be TF32);
 2. kernels: the CUDA GDN forward (`gdn_fwd`) and backward (`gdn_bwd`,
    three launches) against their plain versions on the card at the main
    paths' shapes (serving: 98,304 / 24,576 / 6,144 / 6,151 rows; training:
@@ -33,11 +33,12 @@ Phases, each of which raises (exit code != 0) on any failure:
    of the partials), each dx launch and each bf16 `gdn_fwd` held to the
    kernel its route names (f32 `gdn_bwd_dx_kernel`; bf16
    `gdn_bwd_dx_wide_kernel` and `gdn_fwd_wide_kernel` at these shapes;
-   off the wide routes, each against its plain version,
-   `gdn_fwd_stream_kernel` at C = 256 and 320 at the training rows, at
-   C = 8, 37, 64, 512 and 1024 at 16,391 rows and at 16,391 x 192 in a
-   view offset by one element, and `gdn_bwd_dx_mma_kernel` at that view
-   and at 16,391 x 320); bf16 `gdn_fwd` and `gdn_bwd_dx` logged per layer
+   off the wide routes, each against its plain version and its
+   composite, `gdn_fwd_stream_kernel` and `gdn_bwd_dx_stream_kernel` (with
+   the whole `gdn_bwd` against `gdn_bwd_reference`) at C = 256 and 320 at
+   the training rows, at C = 8, 37, 64, 512 and 1024 at 16,391 rows and
+   at 16,391 x 192 in a view offset by one element); bf16 `gdn_fwd` and
+   `gdn_bwd_dx` logged per layer
    of a training step (C = 192 and 128) beside their bounds and
    composites;
 3. serving: mbt2018-mean at quality 8 (N=192, M=320) from a seed, served by
@@ -57,7 +58,7 @@ Phases, each of which raises (exit code != 0) on any failure:
    steps in f32, 6 in AMP), a
    profile of the GDN kernels' share (in AMP, 6 launches a step of
    `gdn_fwd_wide_kernel` and of `gdn_bwd_dx_wide_kernel`, and none of
-   `gdn_fwd_stream_kernel` or `gdn_bwd_dx_mma_kernel`), one
+   `gdn_fwd_stream_kernel` or `gdn_bwd_dx_stream_kernel`), one
    step's gradients on the card
    against the CPU on a narrow model with the same noise, and the trained
    model saved, reloaded, finalized and round-tripped through the codec;
@@ -281,7 +282,8 @@ Phases, each of which raises (exit code != 0) on any failure:
    `train.make_train_step`: a warm-up, a profiled and 4 timed steps with
    the launch counts set to 0 just before and read just after (6 of each
    wrapper's launches a step; by the C ABI 6 of `gdn_fwd_stream_kernel`
-   and of `gdn_bwd_dx_mma_kernel` a step and none of the wide kernels),
+   and of `gdn_bwd_dx_stream_kernel` a step and none of the wide
+   kernels),
    the loss falling over the 6 steps; step ms, device ms, busy share, the
    GDN kernels' device ms and peak memory logged; then one AMP step at N
    = 40, M = 48 on the card against the CPU with the same noise
@@ -512,14 +514,12 @@ def phase_environment():
     return smi
 
 
-# The GDN kernels by name: the bf16 product kernels run on the tensor
-# cores (those fed by the TMA on wgmma: HGMMA); the f32 kernels (TF32 off)
-# and the reduce must not.
+# The GDN kernels by name: the bf16 product kernels, all fed by the TMA,
+# run on the tensor cores through wgmma (HGMMA); the f32 kernels (TF32
+# off) and the reduce must not use the tensor cores.
 MMA_KERNELS = ("gdn_fwd_stream_kernel", "gdn_fwd_wide_kernel",
-               "gdn_bwd_dx_mma_kernel", "gdn_bwd_dx_wide_kernel",
+               "gdn_bwd_dx_stream_kernel", "gdn_bwd_dx_wide_kernel",
                "gdn_bwd_partials_wide_kernel")
-WGMMA_KERNELS = ("gdn_fwd_stream_kernel", "gdn_fwd_wide_kernel",
-                 "gdn_bwd_dx_wide_kernel", "gdn_bwd_partials_wide_kernel")
 FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                 "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
 # launches of each CUDA kernel a step under --bf16 (the GDN stays f32:
@@ -538,7 +538,8 @@ TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
 # g * scale)
 NO_SPILL_KERNELS = TILED_FP32_KERNELS + ("gdn_fwd_wide_kernel",
                                          "gdn_fwd_stream_kernel",
-                                         "gdn_bwd_dx_wide_kernel")
+                                         "gdn_bwd_dx_wide_kernel",
+                                         "gdn_bwd_dx_stream_kernel")
 
 
 def _check_registers(source, log_path):
@@ -577,8 +578,7 @@ def _check_registers(source, log_path):
 def _check_tensor_cores(source, lib):
     """Count tensor-core instructions (HMMA from mma.sync and wmma, HGMMA
     from wgmma) per kernel in `lib` (cuobjdump -sass); raise if a bf16
-    product kernel has none, a wgmma kernel has no HGMMA, or another GDN
-    kernel has one."""
+    product kernel has no HGMMA or another GDN kernel has either."""
     from lmic_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -603,9 +603,7 @@ def _check_tensor_cores(source, lib):
     log(f"HMMA/HGMMA instructions in {source}: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
     for name, found in counts.items():
-        if name in MMA_KERNELS and not all(sum(f) for f in found):
-            raise AssertionError(f"{name} has no tensor-core instruction")
-        if name in WGMMA_KERNELS and not all(f[1] for f in found):
+        if name in MMA_KERNELS and not all(f[1] for f in found):
             raise AssertionError(f"{name} has no HGMMA (wgmma) instruction")
         if name not in MMA_KERNELS and any(sum(f) for f in found):
             raise AssertionError(f"{name} runs on the tensor cores")
@@ -707,6 +705,10 @@ def _bwd_launches(x, beta, gamma, gamma_t, g, inverse):
     dgamma = torch.empty((C, C), dtype=x.dtype, device="cuda")
     code = gdn._DTYPE_CODES[x.dtype]
     stream = torch.cuda.current_stream().cuda_stream
+    nbytes = lib.lmic_gdn_bwd_dx_scratch_bytes(
+        x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+        dn.data_ptr(), n, C, code)
+    scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device="cuda")
 
     def check(err, what):
         if err:
@@ -717,8 +719,8 @@ def _bwd_launches(x, beta, gamma, gamma_t, g, inverse):
         check(lib.lmic_gdn_bwd_dx(
             x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), dx.data_ptr(), dn.data_ptr(),
-            dn_sums.data_ptr(), n, C, code, int(inverse), stream),
-            "gdn_bwd_dx")
+            dn_sums.data_ptr(), n, C, code, int(inverse), scratch.data_ptr(),
+            stream), "gdn_bwd_dx")
         # f32 has no tile sums: its partials sum the f32 scratch
         return (dx, dn) if x.dtype == torch.float32 else (dx, dn, dn_sums)
 
@@ -868,24 +870,23 @@ def _fwd_work(x, beta, gamma, gamma_t, inverse):
     )
 
 
-# bf16 gdn_fwd off the wide route, on gdn_fwd_stream_kernel, as (rows, C,
-# offset of x in elements): the widths of a user's arch (C = 256 and 320)
-# at a training step's rows, one to five column blocks at 16,391 rows (C =
-# 37 and the view offset by one element on the explicit copies)
+# bf16 gdn_fwd and gdn_bwd off the wide routes, on gdn_fwd_stream_kernel
+# and gdn_bwd_dx_stream_kernel, as (rows, C, offset of x in elements): the
+# widths of a user's arch (C = 256 and 320) at a training step's rows, one
+# to six column blocks at 16,391 rows (C = 37 and the view offset by one
+# element on the explicit copies)
 STREAM_CASES = ([(n, C, 0) for C in (256, 320) for n in TRAIN_ROWS]
                 + [(16_391, C, 0) for C in (8, 37, 64, 512, 1024)]
                 + [(16_391, 192, 1)])
-# bf16 gdn_bwd_dx off its wide route, on gdn_bwd_dx_mma_kernel
-DX_MMA_CASES = [(16_391, 192, 1), (16_391, 320, 0)]
 
 
 def phase_kernel(peaks):
     """Both GDN kernels against their plain versions at every main-path
     shape (serving, training, the RGB-T pair's wire and its training
     step, the batched synthesis of phase 12), the bf16 forward at the
-    shapes of STREAM_CASES and the backward's launches at the two of
-    DX_MMA_CASES, off the wide kernels' routes; returns the per-shape
-    cases of each."""
+    shapes of STREAM_CASES and the backward (its launches and the whole)
+    there too, off the wide kernels' routes; returns the per-shape cases
+    of each."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -937,36 +938,42 @@ def phase_kernel(peaks):
                     (3 * n * C + 2 * (C * C + C)) * es,
                     6 * n * C * C + 12 * n * C), peak, mem_bw)
             del x, beta, gamma, g, gamma_t
-    # bf16 off the wide kernels' TMA route: the forward on
-    # gdn_fwd_stream_kernel (STREAM_CASES) and dx on gdn_bwd_dx_mma_kernel
-    # (a view offset by one element, and a width the wide kernels have no
-    # instance of)
-    for n, C, offset in STREAM_CASES + DX_MMA_CASES:
+    # bf16 off the wide kernels' TMA route (STREAM_CASES): the forward on
+    # gdn_fwd_stream_kernel and dx on gdn_bwd_dx_stream_kernel, with the
+    # whole backward
+    for n, C, offset in STREAM_CASES:
         x, beta, gamma, g = _gdn_inputs(gen, n, C, torch.bfloat16)
         buf = torch.empty(n * C + offset, dtype=x.dtype, device="cuda")
         buf[offset:].copy_(x.view(-1))
         x = buf[offset:].view(n, C)
         gamma_t = gamma.t().contiguous()
         for inverse in (False, True):
-            if (n, C, offset) in STREAM_CASES:
-                routes.append((n, C, x.dtype, offset, inverse, "gdn_fwd",
-                               "gdn_fwd_stream_kernel"))
-                _record(cases, "gdn_fwd", n, C, "bfloat16", inverse,
-                        _fwd_work(x, beta, gamma, gamma_t, inverse), bf16,
-                        mem_bw, kernel="gdn_fwd_stream_kernel",
-                        offset=offset)
-            if (n, C, offset) in DX_MMA_CASES:
-                routes.append((n, C, x.dtype, offset, inverse, "gdn_bwd_dx",
-                               "gdn_bwd_dx_mma_kernel"))
-                _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
-                                  inverse, bf16, mem_bw, fp32,
-                                  "gdn_bwd_dx_mma_kernel")
+            routes.append((n, C, x.dtype, offset, inverse, "gdn_fwd",
+                           "gdn_fwd_stream_kernel"))
+            _record(cases, "gdn_fwd", n, C, "bfloat16", inverse,
+                    _fwd_work(x, beta, gamma, gamma_t, inverse), bf16,
+                    mem_bw, kernel="gdn_fwd_stream_kernel",
+                    offset=offset)
+            routes.append((n, C, x.dtype, offset, inverse, "gdn_bwd_dx",
+                           "gdn_bwd_dx_stream_kernel"))
+            _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g,
+                              inverse, bf16, mem_bw, fp32,
+                              "gdn_bwd_dx_stream_kernel")
+            _record(cases, "gdn_bwd", n, C, "bfloat16", inverse, (
+                lambda: gdn.gdn_bwd(x, beta, gamma, g, inverse),
+                lambda: gdn.gdn_bwd_reference(x, beta, gamma, g,
+                                              inverse),
+                lambda: _bwd_composite(x, beta, gamma, gamma_t, g,
+                                       inverse),
+                (3 * n * C + 2 * (C * C + C)) * 2,
+                6 * n * C * C + 12 * n * C), bf16, mem_bw,
+                kernel="gdn_bwd_dx_stream_kernel", offset=offset)
         del x, beta, gamma, g, buf, gamma_t
     _check_routes(gen, routes)
     return cases
 
 
-DX_KERNELS = ("gdn_bwd_dx_kernel", "gdn_bwd_dx_mma_kernel",
+DX_KERNELS = ("gdn_bwd_dx_kernel", "gdn_bwd_dx_stream_kernel",
               "gdn_bwd_dx_wide_kernel")
 FWD_KERNELS = ("gdn_fwd_kernel", "gdn_fwd_stream_kernel",
                "gdn_fwd_wide_kernel")
@@ -1798,17 +1805,18 @@ CUDA_KERNELS = {
                 "gdn_fwd_stream_kernel (bf16, other shapes, C <= 1024)"],
     "gdn_bwd_dx": ["gdn_bwd_dx_kernel (f32)",
                    "gdn_bwd_dx_wide_kernel (bf16, C = 128 and 192, 16-byte "
-                   "rows)", "gdn_bwd_dx_mma_kernel (bf16, other shapes)"],
+                   "rows)", "gdn_bwd_dx_stream_kernel (bf16, other shapes, "
+                   "C <= 1024)"],
     "gdn_bwd_partials": ["gdn_bwd_partials_kernel (f32)",
                          "gdn_bwd_partials_wide_kernel (bf16)"],
     "gdn_bwd_reduce": ["gdn_bwd_reduce_kernel"],
 }
 # launches of the bf16 forward and dx kernels in an AMP step at C = 192
 AMP_WIDE = {"gdn_fwd_wide_kernel": 6, "gdn_fwd_stream_kernel": 0,
-            "gdn_bwd_dx_wide_kernel": 6, "gdn_bwd_dx_mma_kernel": 0}
+            "gdn_bwd_dx_wide_kernel": 6, "gdn_bwd_dx_stream_kernel": 0}
 # ... and in phase 17's AMP step at N = M = 320, off the wide routes
 AMP_OFF_ROUTE = {"gdn_fwd_stream_kernel": 6, "gdn_fwd_wide_kernel": 0,
-                 "gdn_bwd_dx_mma_kernel": 6, "gdn_bwd_dx_wide_kernel": 0}
+                 "gdn_bwd_dx_stream_kernel": 6, "gdn_bwd_dx_wide_kernel": 0}
 def _hold_launches(what, counted, seen, want):
     """The launches a call of a profiled run made of each CUDA kernel, as
     the C ABI counted them where each launch succeeded (`counted`), must
@@ -1994,7 +2002,7 @@ def phase_training():
             lambda: step(state, batch, gen), launches=per_step,
             counted=counted)
         log(f"train {mode} GDN kernel launches a step: {counted}")
-        # bf16 at C = 192: the wide kernels, never the mma ones
+        # bf16 at C = 192: the wide kernels, never the stream ones
         _hold_launches(f"train {mode}", counted, per_step,
                        AMP_WIDE if mode == "amp" else {})
         last = mets[-1]
@@ -4848,7 +4856,8 @@ def _amp_leaf_gaps(card, cpu, card_f32, cpu_f32):
 
 def phase_off_route_training():
     """Phase 17 (see the module doc): an AMP training step of mbt2018-mean
-    q7 at N = M = 320 on gdn_fwd_stream_kernel and gdn_bwd_dx_mma_kernel.
+    q7 at N = M = 320 on gdn_fwd_stream_kernel and
+    gdn_bwd_dx_stream_kernel.
     Returns the launch counts of its timed steps and the step's
     measurements (`_train_case`'s `out`)."""
     import torch
@@ -5004,15 +5013,16 @@ def main():
                 f"({100 * v['bound_us'] / np.mean(v['us']):.0f} % of it), "
                 "composite "
                 + " / ".join(f"{u:.1f}" for u in v["library_us"]))
-    # the bf16 forward and dx off the wide kernels' routes (STREAM_CASES,
-    # DX_MMA_CASES): kernel, plain version, composite, bound
+    # the bf16 forward and dx off the wide kernels' routes (STREAM_CASES):
+    # kernel, plain version, composite, bound
     off_route = {k: [{"shape": c["shape"], "inverse": c["inverse"],
                       "offset": c.get("offset", 0),
                       **{m: round(c[m], 2) for m in (
                           "us", "plain_us", "library_us", "bound_us")}}
                      for c in cases[k]
                      if (c.get("kernel") or c.get("dx_kernel")) in (
-                         "gdn_fwd_stream_kernel", "gdn_bwd_dx_mma_kernel")]
+                         "gdn_fwd_stream_kernel",
+                         "gdn_bwd_dx_stream_kernel")]
                  for k in ("gdn_fwd", "gdn_bwd_dx")}
     for kernel, rows in off_route.items():
         log(f"bf16 {kernel} off the wide route: {json.dumps(rows)}")
@@ -5145,6 +5155,11 @@ def main():
         # one f32 training step: 6 calls of the three kernels each
         **totals("gdn_bwd", TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals("gdn_bwd", TRAIN_ROWS[:3], "bfloat16"),
+        # off the wide dx route at phase 17's layers (C = 320), and at 256
+        "training_step_bf16_c320": totals("gdn_bwd", TRAIN_ROWS[:3],
+                                          "bfloat16", 320),
+        "training_step_bf16_c256": totals("gdn_bwd", TRAIN_ROWS[:3],
+                                          "bfloat16", 256),
         # the master's step (batch 4 of 512x640): 327,680 / 81,920 / 20,480
         "training_step_master": totals("gdn_bwd", MASTER_STEP_ROWS,
                                        "float32"),
@@ -5162,6 +5177,10 @@ def main():
         "max_abs_err_by_dtype": errors[name],
         **totals(name, TRAIN_ROWS[:3], "float32"),
         "training_step_bf16": totals(name, TRAIN_ROWS[:3], "bfloat16"),
+        "training_step_bf16_c320": totals(name, TRAIN_ROWS[:3], "bfloat16",
+                                          320),
+        "training_step_bf16_c256": totals(name, TRAIN_ROWS[:3], "bfloat16",
+                                          256),
         **({"training_step_bf16_by_layer": layers[name],
             "bf16_off_route": off_route[name]} if name in layers else {}),
         "training_step_master": totals(name, MASTER_STEP_ROWS, "float32"),

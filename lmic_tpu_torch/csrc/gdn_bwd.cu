@@ -24,13 +24,12 @@
 // dbeta/dgamma into an output block that every sequential grid step
 // revisits; CUDA blocks run in no order. So the design is three launches,
 // no atomics, and the same bytes on every run:
-//  1. gdn_bwd_dx: a CTA per 64-row tile (the bf16 wide kernel: a
-//     persistent CTA walks tiles). It recomputes the norm (f32 and the
-//     bf16 mma kernel: with the forward kernel's sums, csrc/gdn_fwd.cu, the
-//     same products added in the same order; the bf16 wide kernel in
-//     wgmma's order); forms dn and g*scale elementwise; writes dn to an
-//     (n, C) scratch; stages dn rounded to the input type, and forms
-//     dx = g*scale + 2x (dn . gamma).
+//  1. gdn_bwd_dx: a CTA per 64-row tile (the bf16 kernels: persistent
+//     CTAs walk tiles). It recomputes the norm (f32: with the forward
+//     kernel's sums, csrc/gdn_fwd.cu, the same products added in the same
+//     order; bf16: in wgmma's order); forms dn and g*scale elementwise;
+//     writes dn to an (n, C) scratch; stages dn rounded to the input type,
+//     and forms dx = g*scale + 2x (dn . gamma).
 //     float32 (gdn_bwd_dx_kernel): bound by the FP32 operations of its
 //     two products, 4*n*C^2 (577 us at 262,144 x 192 at 67 TFLOP/s). Both
 //     run the register-tiled main loop of csrc/gdn_f32.cuh (x^2, then dn,
@@ -44,18 +43,18 @@
 //     bfloat16: bound by bytes. dn is rounded to bf16 once, for the bf16
 //     scratch and for product 2, and the f32 dn's sum over each 64-row
 //     tile goes to a (ceil(n / 64), C) f32 buffer of tile sums, in a fixed
-//     order (the TPU kernel's per-tile dbeta). C = 128 and 192 with
-//     16-byte aligned rows (the zoo's AMP training paths) run
+//     order (the TPU kernel's per-tile dbeta). Both kernels are fed by the
+//     TMA and multiply on wgmma (csrc/gdn_hopper.cuh). C = 128 and 192
+//     with 16-byte aligned rows (the zoo's AMP training paths) run
 //     gdn_bwd_dx_wide_kernel: persistent CTAs keep gamma in shared memory,
-//     x and g arrive by TMA one tile ahead, both products run on wgmma
-//     with the norm, dn and g*scale in registers, and dn and dx leave by
-//     TMA (csrc/gdn_hopper.cuh). Every other shape runs
-//     gdn_bwd_dx_mma_kernel: 8 warps, x^2 staged as bf16, product 1 panel
-//     by panel (gamma^T in 64-column panels, csrc/gdn_mma.cuh) into an f32
-//     norm tile in shared memory, dn staged over x^2 and g*scale over the
-//     norm, product 2 panel by panel (gamma), each panel's sums through
-//     shared memory to the dx epilogue; 103 KB of shared memory at
-//     C = 192.
+//     x and g arrive one tile ahead, both products run with the norm, dn
+//     and g*scale in registers, and dn and dx leave by TMA. Every other
+//     shape, any C up to 1024, runs gdn_bwd_dx_stream_kernel: a producer
+//     warp streams 64-column k-slices of x and gamma, then of dn (read
+//     back from the scratch) and gamma, two warpgroups sum 128 rows x up
+//     to 192 columns a block, and g*scale waits in a per-CTA f32
+//     workspace between the products; C not a multiple of 8 and bases off
+//     16 bytes run it on explicit, zero-padded copies.
 //  2. gdn_bwd_partials: each 1024-row chunk's partial sums of dgamma and
 //     dbeta.
 //     float32 (gdn_bwd_partials_kernel): one CTA per (chunk, 64x64 block of
@@ -97,7 +96,6 @@
 
 #include "gdn_f32.cuh"
 #include "gdn_hopper.cuh"
-#include "gdn_mma.cuh"
 
 namespace {
 
@@ -106,11 +104,11 @@ namespace {
 // and nowhere else: a caller reads them around a run to see which kernel
 // each launch took (a torch.profiler session can lose records).
 enum Kernel {
-  kDxF32, kPartialsF32, kDxMma, kDxWide, kPartialsWide, kReduce, kKernels
+  kDxF32, kPartialsF32, kDxStream, kDxWide, kPartialsWide, kReduce, kKernels
 };
 constexpr const char *kKernelNames[kKernels] = {
-    "gdn_bwd_dx_kernel",      "gdn_bwd_partials_kernel",
-    "gdn_bwd_dx_mma_kernel",  "gdn_bwd_dx_wide_kernel",
+    "gdn_bwd_dx_kernel",         "gdn_bwd_partials_kernel",
+    "gdn_bwd_dx_stream_kernel",  "gdn_bwd_dx_wide_kernel",
     "gdn_bwd_partials_wide_kernel",
     "gdn_bwd_reduce_kernel"};
 std::atomic<int64_t> launches[kKernels];
@@ -507,135 +505,10 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
-template <bool kInverse>
-__global__ void __launch_bounds__(gdn_mma::kMmaThreads, 2)
-    gdn_bwd_dx_mma_kernel(const __nv_bfloat16 *__restrict__ x,
-                          const __nv_bfloat16 *__restrict__ g,
-                          const __nv_bfloat16 *__restrict__ gamma_t,
-                          const __nv_bfloat16 *__restrict__ gamma,
-                          const __nv_bfloat16 *__restrict__ beta,
-                          __nv_bfloat16 *__restrict__ dx,
-                          __nv_bfloat16 *__restrict__ dn,
-                          float *__restrict__ dn_sums, int64_t n, int C,
-                          bool vec) {
-  using namespace gdn_mma;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Cp = padded(C);
-  const int lda = tile_ld(Cp);
-  const int ldt = Cp + 4;
-  bf16 *a = reinterpret_cast<bf16 *>(smem);  // [kTileRows][lda]: x^2, then dn
-  // [kTileRows][ldt]: the norm's sums, then g*scale
-  float *t = reinterpret_cast<float *>(a + kTileRows * lda);
-  // [Cp][kPanelLd]: a panel of gamma^T or gamma, then [kTileRows][kAccLd] f32:
-  // a panel's sums
-  bf16 *p = reinterpret_cast<bf16 *>(t + kTileRows * ldt);
-  float *sums = reinterpret_cast<float *>(p);
-
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTileRows;
-  const int rows = static_cast<int>(
-      n - row0 < kTileRows ? n - row0 : static_cast<int64_t>(kTileRows));
-
-  // product 1: the norm's sums, the same bf16 products as
-  // gdn_fwd_mma_kernel's, added over k = 0..Cp-1 in the same order
-  stage_squares(a, x, row0, rows, C, Cp, vec);
-  for (int o0 = 0; o0 < C; o0 += kPanel) {
-    __syncthreads();  // every warp is done reading the previous panel
-    stage_panel(p, gamma_t, o0, C, Cp, vec);
-    __syncthreads();
-    FragC acc[2];
-    panel_product(acc, a, p, Cp);
-    store_block(t, ldt, o0, Cp, acc);
-  }
-  __syncthreads();
-
-  // elementwise: dn and g * scale (over the norm). dn is rounded to bf16
-  // once, for the scratch and over x^2 for product 2; padding and rows past
-  // n stage dn = 0. Thread (cg, rp) takes the 8 columns from 8 cg of rows
-  // rp, rp + R, ..., and sums its f32 dn over them in row order; the R sums
-  // of a column are then added in rp order into the tile's dbeta partial.
-  const int groups = Cp / 8;
-  const int R = kMmaThreads / groups;
-  const int cg = threadIdx.x % groups;
-  const int rp = threadIdx.x / groups;
-  const int c = cg * 8;
-  float col[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int r = rp; rp < R && r < kTileRows; r += R) {
-    const int valid = r < rows ? C - c : 0;
-    float d[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (valid > 0) {
-      const int64_t at = (row0 + r) * C + c;
-      float xv[8], gv[8], bv[8];
-      load8(x + at, valid, vec, xv);
-      load8(g + at, valid, vec, gv);
-      load8(beta + c, valid, vec, bv);
-      float *tr = t + r * ldt + c;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (k >= valid) continue;
-        const float norm = tr[k] + bv[k];
-        const float rs = rsqrtf(norm);
-        float s;
-        if (kInverse) {
-          d[k] = 0.5f * gv[k] * xv[k] * rs;
-          s = sqrtf(norm);
-        } else {
-          d[k] = -0.5f * gv[k] * xv[k] * (rs * rs * rs);
-          s = rs;
-        }
-        tr[k] = gv[k] * s;
-      }
-      store8(dn + at, valid, vec, d);  // rounded as pack8 rounds it
-    }
-    *reinterpret_cast<uint4 *>(a + r * lda + c) = pack8(d);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) col[k] += d[k];
-  }
-  // the R row sums of each column meet in the panel region, which product
-  // 1 is done with and product 2 stages only after its first barrier
-  float *part = reinterpret_cast<float *>(p);  // [R][Cp]: at most 8 KB
-  if (rp < R) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) part[rp * Cp + c + k] = col[k];
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < C; o += kMmaThreads) {
-    float s = 0.f;
-    for (int q = 0; q < R; ++q) s += part[q * Cp + o];
-    dn_sums[static_cast<int64_t>(blockIdx.x) * C + o] = s;
-  }
-
-  // product 2: dx = g * scale + 2 x (dn . gamma), panel by panel
-  for (int i0 = 0; i0 < C; i0 += kPanel) {
-    __syncthreads();  // dn is staged; the previous epilogue is done
-    stage_panel(p, gamma, i0, C, Cp, vec);
-    __syncthreads();
-    FragC acc[2];
-    panel_product(acc, a, p, Cp);
-    __syncthreads();  // every warp is done reading the panel
-    store_block(sums, kAccLd, 0, kPanel, acc);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTileRows * (kPanel / 8); e += kMmaThreads) {
-      const int r = e / (kPanel / 8);
-      const int c = (e % (kPanel / 8)) * 8;
-      const int valid = r < rows ? C - i0 - c : 0;
-      if (valid <= 0) continue;
-      const int64_t at = (row0 + r) * C + i0 + c;
-      float xv[8], out[8];
-      load8(x + at, valid, vec, xv);
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        out[k] = t[r * ldt + i0 + c + k] +
-                 2.0f * xv[k] * sums[r * kAccLd + c + k];
-      store8(dx + at, valid, vec, out);
-    }
-  }
-}
-
 // The bf16 dx pass at the widths of the zoo's AMP training paths (C = 128
 // and 192), for Hopper: the dx and per-tile dbeta part of
-// lmic_tpu/ops/pallas_gdn.py::_bwd_kernel. It computes what
-// gdn_bwd_dx_mma_kernel computes (dx, the bf16 dn scratch, each 64-row
-// tile's f32 sum of dn) with the same precision, and is bound by bytes:
+// lmic_tpu/ops/pallas_gdn.py::_bwd_kernel. It computes dx, the bf16 dn
+// scratch and each 64-row tile's f32 sum of dn, and is bound by bytes:
 // x and g read, dx and dn written
 // (8 bytes a row-channel) against the 4*C bf16 tensor-core operations of
 // its two products a row-channel, 96 operations a byte at C = 192, 3x
@@ -671,9 +544,8 @@ __global__ void __launch_bounds__(gdn_mma::kMmaThreads, 2)
 //    warpgroup's 4 warps in order through shared memory. One CTA computes
 //    a tile from its own rows alone, so no byte depends on the grid or the
 //    card; there are no atomics.
-// The norm sums its bf16 products in wgmma's order, not in
-// gdn_fwd_mma_kernel's mma.sync order: the backward's norm may differ from
-// the forward's in its last f32 bits, well inside the bf16 bar. 225 KB of
+// The norm sums its bf16 products in wgmma's order, k = 0..C-1 in steps
+// of 16, as gdn_fwd_wide_kernel sums the forward's. 225 KB of
 // shared memory at C = 192: gamma 72 KB, two stages of x and g 96 KB, x^2
 // 24 KB, dn 24 KB, the warps' sums 3 KB.
 constexpr int kDxStages = 2;  // this tile's x and g, and the next one's
@@ -689,7 +561,7 @@ struct DxWide {
                                   (2 * kDxStages + 2) * kTileBytes +
                                   kBoxes * 4 * 64 * sizeof(float) + 1024;
   static_assert(kWidth % 64 == 0, "whole boxes");
-  static_assert(kSmem <= gdn_mma::kSmemLimit, "fits a CTA");
+  static_assert(kSmem <= hop::kSmemLimit, "fits a CTA");
   static_assert(kThreads >= kWidth, "a thread a tile sum");
 };
 
@@ -840,7 +712,7 @@ __global__ void __launch_bounds__(DxWide<kWidth>::kThreads, 1)
           gs[i] = live ? sg : 0.f;
         }
         *reinterpret_cast<unsigned *>(dns + off) =
-            gdn_mma::pack2(acc[4 * t + 2 * h], acc[4 * t + 2 * h + 1]);
+            hop::pack2(acc[4 * t + 2 * h], acc[4 * t + 2 * h + 1]);
       }
     // each column's sum of the f32 dn over the tile: the thread's two
     // rows, the 8 lanes of the column (all get the same bits), the warps
@@ -893,7 +765,7 @@ __global__ void __launch_bounds__(DxWide<kWidth>::kThreads, 1)
         unsigned *p = reinterpret_cast<unsigned *>(xt + off);
         const unsigned xw = *p;
         const int i = 4 * t + 2 * h;
-        *p = gdn_mma::pack2(
+        *p = hop::pack2(
             gs[i] + 2.0f * __uint_as_float(xw << 16) * acc[i],
             gs[i + 1] + 2.0f * __uint_as_float(xw & 0xffff0000u) * acc[i + 1]);
       }
@@ -909,6 +781,560 @@ __global__ void __launch_bounds__(DxWide<kWidth>::kThreads, 1)
     }
   }
   if (threadIdx.x == 0) hop::bulk_wait<0>();  // the stores are done
+}
+
+// The bf16 dx pass at every shape gdn_bwd_dx_wide_kernel does not take
+// (other widths, any C up to kDsMaxChannels; bases off 16 bytes): the dx
+// and per-tile dbeta part of lmic_tpu/ops/pallas_gdn.py::_bwd_kernel where
+// gamma does not fit beside the tiles. It computes what the wide kernel
+// computes (dx, the bf16 dn scratch, each 64-row tile's f32 sum of dn)
+// with the same precision. Its two products are (n x C) . (C x C) matrix
+// products, 4*n*C^2 operations against 8*n*C bytes of x, g, dx and dn, so
+// up to C of a few hundred it is bound by bytes (200 us at 262,144 x 320
+// at 3.35 TB/s) and past that by the tensor cores. gamma (200 KB at
+// C = 320, 2 MB at 1024) does not stay in shared memory: it streams, as in
+// gdn_fwd_stream_kernel, whose pieces this kernel is built from.
+//  - A CTA takes a tile of kDsRows = 128 rows, a consumer warpgroup of 64
+//    rows each (so each warpgroup owns one 64-row tile of dn's sums), in
+//    two passes over the column blocks of its output (C's 64-column boxes
+//    split as evenly as can be into blocks of at most three,
+//    hop::column_block). Persistent CTAs, no more than the card's SMs, walk
+//    the row tiles b, b + grid, ...; each output element is summed by one
+//    CTA in one order, so every launch gives the same bytes, whatever the
+//    grid.
+//  - A producer warpgroup keeps the TMA loads ahead of the sums in a ring
+//    of kDsStages stages under a "landed" and a "free" mbarrier each; one
+//    thread issues every box, and the warpgroup hands its registers to the
+//    consumers (setmaxnreg). Pass 1 streams 64-column k-slices of x (the
+//    tile's two 64-row boxes) and of gamma's rows o of the block, K-major;
+//    pass 2 k-slices of the tile's bf16 dn, read back from the scratch, and
+//    of gamma's columns i of the block, MN-major (a box row o holds 64
+//    values of i). Rows past n and columns past C come in as zeros and add
+//    exact zeros.
+//  - Pass 1, the norm, a block at a time: wgmma m64nNk16 over k = 0..C-1
+//    in order, A = x^2 from registers (each warp loads its 16 rows of the
+//    slice by ldmatrix and squares them: x * x rounded once to bf16), B
+//    gamma's rows from the stage. wgmma reads A's registers until the
+//    product completes, so a stage is freed once its product is waited
+//    for. In the k-slices of the block's own columns each thread keeps the
+//    raw x at the positions its sums hold in its warpgroup's x tile, as
+//    gdn_fwd_stream_kernel does, and the warpgroup's first thread loads
+//    the block's g by TMA into its g tile. The elementwise pass on the
+//    accumulators: norm = sums + beta, dn and g*scale in f32; dn rounded
+//    once to bf16 over g in the g tile and stored by TMA to the scratch;
+//    the f32 dn's sum over the warpgroup's 64 rows (a thread's two rows, a
+//    shuffle over the 8 lanes of a column, the 4 warps in order through
+//    shared memory) to the tile sums; g*scale, which must wait until pass
+//    2 reaches the block, to a per-CTA f32 workspace in device memory
+//    (kDsRows x 64*boxes floats, 160 KB a CTA at C = 320, which stays in
+//    L2), written and read back by the same thread in 16-byte accesses, a
+//    warp's 512 contiguous bytes.
+//  - Once both warpgroups' dn stores of the tile have completed (each
+//    first thread waits for its bulk groups, fences the async proxy and
+//    arrives on an mbarrier), the producer streams dn back (the tile's 80
+//    KB at C = 320 is still in L2).
+//  - Pass 2, dn . gamma, a block at a time: wgmma with both operands in
+//    shared memory (A dn K-major, B gamma's columns MN-major) over
+//    k = o = 0..C-1 in order. The warpgroup's first thread loads the
+//    block's x by TMA into the x tile, and each thread's loads of its
+//    g*scale from the workspace run beside the products (96 registers at
+//    three boxes, beside the 96 of the sums); the epilogue takes x from
+//    the tile, forms
+//    dx = g*scale + 2 x (dn . gamma) in f32, rounds it once to bf16 over x
+//    and the first thread stores it by TMA (nothing past n or C written).
+//  - HBM: x and g are read, dx and dn written once; the rest comes from
+//    L2: x once more per column block, dn once per column block, gamma
+//    twice per row tile, the workspace once each way.
+//  - The ring's depth and the workspace's place in the pass are timed
+//    against this design by chip_probes.py gdn-dx-stream; PERF.md keeps the
+//    times of the other design, the norm's product recomputed for each
+//    block in pass 2 instead of the workspace.
+// The IGDN's sqrt(norm) is one Newton step from norm * rsqrtf(norm)
+// (hop::sqrt_from_rsqrt), as the forward kernels take it.
+// It follows the TPU kernel's bf16 casts: x^2 rounded to bf16, gamma in
+// bf16, f32 sums, beta added in f32, dn rounded to bf16 for the product
+// (dbeta's tile sums add the f32 dn), dx rounded once.
+//
+// The TMA needs 16-byte aligned bases and rows (C % 8 == 0). Other shapes
+// run the same kernel on explicit copies in the scratch the caller
+// allocates (lmic_gdn_bwd_dx_scratch_bytes, which also holds the
+// workspace): x, g and gamma copied into rows of round8(C) elements with
+// zeros past C, which add exact zeros, and dx and dn copied back from
+// such rows; beta and the tile sums are read and written by plain accesses
+// (beta 1 past C).
+constexpr int kDsRows = 128;  // rows a tile: two warpgroups of 64
+constexpr int kDsMaxBoxes = hop::kBlockBoxes;
+constexpr int kDsStages = 3;
+constexpr int kDsConsumers = 256;
+// + a producer warpgroup, of which one thread issues the loads: its
+// registers go to the consumers (setmaxnreg), whose sums and g*scale take
+// up to 192 a thread. The launch holds 168 a thread (65,536 / 384, in
+// steps of 8), and an increase waits until the pool has the registers:
+// 128 x 40 + 256 x 232 = 384 x 168
+constexpr int kDsThreads = kDsConsumers + 128;
+constexpr int kDsProducerRegs = 40, kDsConsumerRegs = 232;
+static_assert(128 * kDsProducerRegs + kDsConsumers * kDsConsumerRegs <=
+                  kDsThreads * (65536 / kDsThreads / 8 * 8),
+              "setmaxnreg takes no more registers than the launch holds");
+constexpr int kDsMaxChannels = 1024;  // beta staged in shared memory
+// a stage: 2 boxes of x or dn, up to 3 of gamma; the x and the g tiles:
+// each warpgroup's 64 rows of up to 3 boxes
+constexpr int kDsStage = (2 + kDsMaxBoxes) * hop::kBox;
+constexpr int kDsTile = 2 * kDsMaxBoxes * hop::kBox;
+// room to align to 1 KB, the ring, the x and g tiles, beta
+constexpr size_t kDsSmem = 1024 + kDsStages * kDsStage + 2 * kDsTile +
+                           kDsMaxChannels * 4;
+static_assert(kDsSmem <= hop::kSmemLimit, "fits a CTA");
+static_assert(kDsRows == 2 * hop::kTileRows,
+              "a warpgroup's rows are one tile of dn's sums");
+// rows a launch takes: TMA row coordinates are ints
+constexpr int64_t kDsLaunchRows = (int64_t{1} << 31) - kDsRows;
+
+// The workspace floats of a CTA: g*scale of a row tile at every column.
+__host__ __device__ inline int64_t ds_work_floats(int C) {
+  return static_cast<int64_t>(kDsRows) * 64 * ((C + 63) / 64);
+}
+
+// Pass 1's k-loop for one column block of kB boxes, for this consumer
+// thread: the norm's sums into acc over the stages from `*it` on. With xt,
+// the raw x of the block's own columns is kept there at the positions the
+// sums hold.
+template <int kB>
+__device__ __forceinline__ void ds_norm_loop(float (&acc)[32 * kB],
+                                             unsigned char *ring,
+                                             uint64_t *landed,
+                                             uint64_t *freed, int *it,
+                                             int boxes, int box0,
+                                             unsigned char *xt) {
+  constexpr int kBox = hop::kBox;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rw = 16 * (warp % 4);  // this warp's rows in the warpgroup's 64
+  // the row whose 16 bytes this lane gives ldmatrix, and its unit's parity
+  const int ra = rw + lane % 16, ka = lane / 16;
+#pragma unroll
+  for (int i = 0; i < 32 * kB; ++i) acc[i] = 0.f;
+  for (int ks = 0; ks < boxes; ++ks, ++*it) {
+    const int s = *it % kDsStages;
+    unsigned char *st = ring + s * kDsStage;
+    hop::mbar_wait(landed + s, (*it / kDsStages) & 1);
+    // A: the warp's 16 rows of the slice, a k16 step q in a[q]: a[q][2 e
+    // + h] holds row rw + g + 8 h, columns 16 q + 8 e + 2 t4 and + 1
+    const unsigned char *xs = st + wg * kBox;
+    unsigned a[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      hop::ldmatrix_x4(a[q],
+                       xs + ra * 128 + (((2 * q + ka) ^ (ra % 8)) * 16));
+    const int bi = ks - box0;
+    if (xt && bi >= 0 && bi < kB) {
+      // the block's own columns: keep x where the elementwise pass reads
+      // it, box bi, n8 tile 2 q + e of the sums (conflict-free: a warp's 8
+      // rows write 8 different 16-byte units)
+      unsigned char *ob = xt + bi * kBox;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<unsigned *>(
+                ob + (rw + g + 8 * h) * 128 + (((2 * q + e) ^ g) * 16) +
+                4 * t4) = a[q][2 * e + h];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[q][i] = hop::square2(a[q][i]);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      hop::wgmma_rs<64 * kB>(acc, a[q],
+                             hop::desc_k(st + 2 * kBox + q * 32));
+    hop::wgmma_commit();
+    // wgmma reads A's registers until the product completes, and the
+    // next slice's ldmatrix may take the same registers: wait for it
+    // here, then the stage is free
+    hop::wgmma_wait<0>();
+    if (lane == 0) hop::mbar_arrive(freed + s);
+  }
+  hop::fence_operands(acc);
+}
+
+// Pass 2's k-loop for one column block of kB boxes: dn . gamma into acc
+// over the stages from `*it` on, both operands in shared memory.
+template <int kB>
+__device__ __forceinline__ void ds_dn_loop(float (&acc)[32 * kB],
+                                           unsigned char *ring,
+                                           uint64_t *landed, uint64_t *freed,
+                                           int *it, int boxes) {
+  constexpr int kBox = hop::kBox;
+  const int lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+#pragma unroll
+  for (int i = 0; i < 32 * kB; ++i) acc[i] = 0.f;
+  for (int ks = 0; ks < boxes; ++ks, ++*it) {
+    const int s = *it % kDsStages;
+    unsigned char *st = ring + s * kDsStage;
+    hop::mbar_wait(landed + s, (*it / kDsStages) & 1);
+    // A: the warpgroup's 64 rows of dn, k = o in 16-column steps (32
+    // bytes of a box row); B: gamma's rows o of the slice, 8-row atoms
+    // along k, its kB boxes along i one box apart
+    hop::wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      hop::wgmma_ss<64 * kB, 1>(
+          acc, hop::desc_k(st + wg * kBox + q * 32),
+          hop::desc_mn(st + 2 * kBox + q * 2 * hop::kAtom, kBox));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    if (lane == 0) hop::mbar_arrive(freed + s);
+  }
+  hop::fence_operands(acc);
+}
+
+// g * scale and dn from the norm's sum n (+ beta) at one position: GDN
+// dn = -g x n^-3/2 / 2, scale = n^-1/2; IGDN dn = g x n^-1/2 / 2,
+// scale = n^1/2
+template <bool kInverse>
+__device__ __forceinline__ void ds_elementwise(float norm, float xv,
+                                               float gv, float *d,
+                                               float *sg) {
+  const float rs = rsqrtf(norm);
+  if (kInverse) {
+    *d = 0.5f * gv * xv * rs;
+    *sg = gv * hop::sqrt_from_rsqrt(norm, rs);
+  } else {
+    *d = -0.5f * gv * xv * (rs * rs * rs);
+    *sg = gv * rs;
+  }
+}
+
+// This thread's float4 i of a warpgroup's share of a block of the
+// workspace: g*scale of its sums 4 i .. 4 i + 3 (a warp's 512 contiguous
+// bytes).
+__device__ __forceinline__ float4 *ds_work_at(const float *work, int i) {
+  return reinterpret_cast<float4 *>(const_cast<float *>(work) +
+                                    (i * 128 + threadIdx.x % 128) * 4);
+}
+
+// Pass 1 of one column block of kB boxes, for this consumer thread: the
+// norm's k-loop (x of the block's own columns kept in xt), then, once the
+// block's g is in gt (`side` at `parity`), the elementwise pass: dn rounded
+// to bf16 over g in gt, g*scale to `work` (this warpgroup's share of the
+// block), and, once every thread of the warpgroup
+// (barrier `bar`) has read its x from xt, each column's sum of the f32 dn
+// over each warp's 16 rows to xt as [warp][64 kB] floats. Rows from
+// `valid` on give zeros.
+template <bool kInverse, int kB>
+__device__ __forceinline__ void ds_norm_block(
+    unsigned char *ring, uint64_t *landed, uint64_t *freed, int *it,
+    int boxes, int box0, unsigned char *xt, unsigned char *gt,
+    uint64_t *side, unsigned parity, const float *bs, float *work, int valid,
+    int bar) {
+  constexpr int kBox = hop::kBox;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rw = 16 * (warp % 4);
+  float acc[32 * kB];
+  ds_norm_loop<kB>(acc, ring, landed, freed, it, boxes, box0, xt);
+  hop::mbar_wait(side, parity);
+
+  // sum 4 i + 2 h + e is row rw + g + 8 h, column 8 i + 2 t4 + e of the
+  // block
+#pragma unroll
+  for (int i = 0; i < 8 * kB; ++i) {
+    const float2 bo =
+        *reinterpret_cast<const float2 *>(bs + 64 * box0 + 8 * i + 2 * t4);
+    float gs[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = (i / 8) * kBox + (rw + g + 8 * h) * 128 +
+                      (((i % 8) ^ g) * 16) + 4 * t4;
+      const unsigned xw = *reinterpret_cast<const unsigned *>(xt + off);
+      unsigned *gp = reinterpret_cast<unsigned *>(gt + off);
+      const unsigned gw = *gp;
+      const bool live = rw + g + 8 * h < valid;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // bf16 -> f32 is exact: the bits shifted into the high half
+        const int k = 4 * i + 2 * h + e;
+        float d, sg;
+        ds_elementwise<kInverse>(
+            acc[k] + (e ? bo.y : bo.x),
+            __uint_as_float(e ? xw & 0xffff0000u : xw << 16),
+            __uint_as_float(e ? gw & 0xffff0000u : gw << 16), &d, &sg);
+        acc[k] = live ? d : 0.f;
+        gs[2 * h + e] = live ? sg : 0.f;
+      }
+      *gp = hop::pack2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    }
+    *ds_work_at(work, i) = make_float4(gs[0], gs[1], gs[2], gs[3]);
+  }
+  hop::named_sync(bar, 128);  // every thread has read its x from xt
+  // each column's sum over the warp's rows: the thread's two rows, then
+  // the 8 lanes of the column (all get the same bits)
+  float *wsum = reinterpret_cast<float *>(xt) + (warp % 4) * 64 * kB;
+#pragma unroll
+  for (int i = 0; i < 8 * kB; ++i) {
+    float s[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[e] = acc[4 * i + e] + acc[4 * i + 2 + e];
+      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 4);
+      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 8);
+      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 16);
+    }
+    if (g == 0)
+      *reinterpret_cast<float2 *>(wsum + 8 * i + 2 * t4) =
+          make_float2(s[0], s[1]);
+  }
+}
+
+// Pass 2 of one column block of kB boxes, for this consumer thread: g*scale
+// read back from `work` (this warpgroup's share of the block) while the
+// dn . gamma k-loop runs, then, once the block's x is in xt (`side` at
+// `parity`), dx = g*scale + 2 x (dn . gamma), rounded once to bf16 over x
+// in xt.
+template <int kB>
+__device__ __forceinline__ void ds_dx_block(unsigned char *ring,
+                                            uint64_t *landed,
+                                            uint64_t *freed, int *it,
+                                            int boxes, unsigned char *xt,
+                                            uint64_t *side, unsigned parity,
+                                            const float *work) {
+  constexpr int kBox = hop::kBox;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rw = 16 * (warp % 4);
+  // g*scale of sums 4 i .. 4 i + 3 in gs[i]
+  float4 gs[8 * kB];
+#pragma unroll
+  for (int i = 0; i < 8 * kB; ++i) gs[i] = *ds_work_at(work, i);
+  float acc[32 * kB];
+  ds_dn_loop<kB>(acc, ring, landed, freed, it, boxes);
+  hop::mbar_wait(side, parity);
+#pragma unroll
+  for (int i = 0; i < 8 * kB; ++i) {
+    const float4 s = gs[i];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned *p = reinterpret_cast<unsigned *>(
+          xt + (i / 8) * kBox + (rw + g + 8 * h) * 128 +
+          (((i % 8) ^ g) * 16) + 4 * t4);
+      const unsigned xw = *p;
+      const float x0 = __uint_as_float(xw << 16);
+      const float x1 = __uint_as_float(xw & 0xffff0000u);
+      *p = hop::pack2((h ? s.z : s.x) + 2.0f * x0 * acc[4 * i + 2 * h],
+                      (h ? s.w : s.y) + 2.0f * x1 * acc[4 * i + 2 * h + 1]);
+    }
+  }
+}
+
+// x, g, dx, dn: (n, C) bf16 behind their tensor maps (dn is stored, then
+// loaded back), gamma (C, C), C a multiple of 8; beta: the first `live` of
+// C (1 past them); dn_sums: (ceil(n / 64), live) f32; work: the grid's
+// workspaces, ds_work_floats(C) floats a CTA.
+template <bool kInverse>
+__global__ void __launch_bounds__(kDsThreads, 1)
+    gdn_bwd_dx_stream_kernel(const __grid_constant__ CUtensorMap x_map,
+                             const __grid_constant__ CUtensorMap g_map,
+                             const __grid_constant__ CUtensorMap gamma_map,
+                             const __grid_constant__ CUtensorMap dx_map,
+                             const __grid_constant__ CUtensorMap dn_map,
+                             const __nv_bfloat16 *__restrict__ beta,
+                             float *__restrict__ dn_sums,
+                             float *__restrict__ work, int n, int C,
+                             int live) {
+  constexpr int kBox = hop::kBox;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char *ring =
+      smem_raw + (1024 - hop::smem_at(smem_raw) % 1024) % 1024;
+  unsigned char *xtiles = ring + kDsStages * kDsStage;
+  unsigned char *gtiles = xtiles + kDsTile;
+  float *bs = reinterpret_cast<float *>(gtiles + kDsTile);
+  __shared__ uint64_t landed[kDsStages], freed[kDsStages];
+  __shared__ uint64_t side[2];  // a warpgroup's g (pass 1) or x (pass 2)
+  __shared__ uint64_t dn_done;  // both warpgroups' dn of a tile is stored
+
+  const int boxes = (C + 63) / 64;
+  const int blocks = (boxes + kDsMaxBoxes - 1) / kDsMaxBoxes;
+  const int row_tiles = (n + kDsRows - 1) / kDsRows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDsStages; ++s) {
+      hop::mbar_init(landed + s);
+      hop::mbar_init(freed + s, kDsConsumers / 32);  // a consumer warp
+    }
+    hop::mbar_init(side);
+    hop::mbar_init(side + 1);
+    hop::mbar_init(&dn_done, 2);  // each warpgroup's first thread
+    hop::fence_mbar_init();
+  }
+  for (int o = threadIdx.x; o < 64 * boxes; o += blockDim.x)
+    bs[o] = o < live ? __bfloat162float(beta[o]) : 1.f;
+  __syncthreads();
+
+  if (threadIdx.x >= kDsConsumers) {  // the producer warpgroup
+    hop::setmaxnreg_dec<kDsProducerRegs>();
+    if (threadIdx.x == kDsConsumers) {
+      int it = 0, done = 0;
+      // the stage of slice `it`, once the products of its last use are
+      // done, expecting 2 + count boxes
+      auto stage = [&](int count) {
+        const int s = it % kDsStages;
+        if (it >= kDsStages)
+          hop::mbar_wait(freed + s, (it / kDsStages - 1) & 1);
+        hop::mbar_expect(landed + s, (2 + count) * kBox);
+        return ring + s * kDsStage;
+      };
+      // x's k-slices of tile rows row0.., gamma's rows o of a block
+      // (K-major)
+      auto norm_slices = [&](int row0, int box0, int count) {
+        for (int ks = 0; ks < boxes; ++ks, ++it) {
+          unsigned char *st = stage(count);
+          uint64_t *bar = landed + it % kDsStages;
+          hop::tma_box(st, x_map, 64 * ks, row0, bar);
+          hop::tma_box(st + kBox, x_map, 64 * ks, row0 + 64, bar);
+          for (int b = 0; b < count; ++b)
+            hop::tma_box(st + (2 + b) * kBox, gamma_map, 64 * ks,
+                         64 * (box0 + b), bar);
+        }
+      };
+      for (int t = blockIdx.x; t < row_tiles; t += gridDim.x, ++done) {
+        const int row0 = t * kDsRows;
+        for (int cb = 0; cb < blocks; ++cb) {
+          int box0, count;
+          hop::column_block(boxes, cb, &box0, &count);
+          norm_slices(row0, box0, count);
+        }
+        // the tile's dn is in the scratch
+        hop::mbar_wait(&dn_done, done & 1);
+        hop::fence_proxy_async_global();
+        for (int cb = 0; cb < blocks; ++cb) {
+          int box0, count;
+          hop::column_block(boxes, cb, &box0, &count);
+          // dn's k-slices, gamma's columns i of the block (MN-major)
+          for (int ks = 0; ks < boxes; ++ks, ++it) {
+            unsigned char *st = stage(count);
+            uint64_t *bar = landed + it % kDsStages;
+            hop::tma_box(st, dn_map, 64 * ks, row0, bar);
+            hop::tma_box(st + kBox, dn_map, 64 * ks, row0 + 64, bar);
+            for (int b = 0; b < count; ++b)
+              hop::tma_box(st + (2 + b) * kBox, gamma_map, 64 * (box0 + b),
+                           64 * ks, bar);
+          }
+        }
+      }
+    }
+    return;
+  }
+  hop::setmaxnreg_inc<kDsConsumerRegs>();
+
+  // each warpgroup loads and stores its own 64 rows (its first thread) and
+  // meets the other only in the stages they share and in dn_done
+  const int wg = threadIdx.x / 128;
+  const bool leader = threadIdx.x % 128 == 0;
+  const int bar = 1 + wg;  // this warpgroup's named barrier
+  unsigned char *xt = xtiles + wg * kDsMaxBoxes * kBox;
+  unsigned char *gt = gtiles + wg * kDsMaxBoxes * kBox;
+  float *mine = work + blockIdx.x * ds_work_floats(C);
+  int it = 0;
+  unsigned uses = 0;  // of `side`
+  // this warpgroup's share of block (box0, count) of the workspace
+  auto share = [&](int box0, int count) {
+    return mine + static_cast<int64_t>(kDsRows) * 64 * box0 +
+           wg * 64 * 64 * count;
+  };
+  for (int t = blockIdx.x; t < row_tiles; t += gridDim.x) {
+    const int row0 = t * kDsRows + 64 * wg;
+    const int valid = n - row0 < 0 ? 0 : (n - row0 < 64 ? n - row0 : 64);
+    for (int cb = 0; cb < blocks; ++cb, ++uses) {
+      int box0, count;
+      hop::column_block(boxes, cb, &box0, &count);
+      // the last dn store has read gt, and every thread is done with xt
+      // and gt
+      if (leader) hop::bulk_wait_read<0>();
+      hop::named_sync(bar, 128);
+      if (leader) {
+        hop::mbar_expect(side + wg, count * kBox);
+        for (int b = 0; b < count; ++b)
+          hop::tma_box(gt + b * kBox, g_map, 64 * (box0 + b), row0,
+                       side + wg);
+      }
+      float *ws = share(box0, count);
+      if (count == 3)
+        ds_norm_block<kInverse, 3>(ring, landed, freed, &it, boxes, box0, xt,
+                                   gt, side + wg, uses & 1, bs, ws, valid,
+                                   bar);
+      else if (count == 2)
+        ds_norm_block<kInverse, 2>(ring, landed, freed, &it, boxes, box0, xt,
+                                   gt, side + wg, uses & 1, bs, ws, valid,
+                                   bar);
+      else
+        ds_norm_block<kInverse, 1>(ring, landed, freed, &it, boxes, box0, xt,
+                                   gt, side + wg, uses & 1, bs, ws, valid,
+                                   bar);
+      hop::fence_proxy_async();
+      hop::named_sync(bar, 128);  // dn is whole in gt, the warps' sums in xt
+      if (leader && valid > 0) {
+        for (int b = 0; b < count; ++b)
+          hop::tma_store(dn_map, gt + b * kBox, 64 * (box0 + b), row0);
+        hop::bulk_commit();
+      }
+      // the tile's sum of each column: the 4 warps' sums in order
+      const float *wsum = reinterpret_cast<const float *>(xt);
+      for (int c = threadIdx.x % 128;
+           valid > 0 && c < 64 * count && 64 * box0 + c < live; c += 128) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s += wsum[q * 64 * count + c];
+        dn_sums[static_cast<int64_t>(row0 / 64) * live + 64 * box0 + c] = s;
+      }
+    }
+    // the tile's dn stores are complete before the producer loads it back
+    if (leader) {
+      hop::bulk_wait<0>();
+      hop::fence_proxy_async_global();
+      hop::mbar_arrive(&dn_done);
+    }
+    for (int cb = 0; cb < blocks; ++cb, ++uses) {
+      int box0, count;
+      hop::column_block(boxes, cb, &box0, &count);
+      // the last dx store has read xt; every thread's writes of xt come
+      // before the TMA's
+      if (leader) hop::bulk_wait_read<0>();
+      hop::fence_proxy_async();
+      hop::named_sync(bar, 128);
+      if (leader) {
+        hop::mbar_expect(side + wg, count * kBox);
+        for (int b = 0; b < count; ++b)
+          hop::tma_box(xt + b * kBox, x_map, 64 * (box0 + b), row0,
+                       side + wg);
+      }
+      const float *ws = share(box0, count);
+      if (count == 3)
+        ds_dx_block<3>(ring, landed, freed, &it, boxes, xt, side + wg,
+                       uses & 1, ws);
+      else if (count == 2)
+        ds_dx_block<2>(ring, landed, freed, &it, boxes, xt, side + wg,
+                       uses & 1, ws);
+      else
+        ds_dx_block<1>(ring, landed, freed, &it, boxes, xt, side + wg,
+                       uses & 1, ws);
+      hop::fence_proxy_async();
+      hop::named_sync(bar, 128);  // dx is whole in xt
+      if (leader && valid > 0) {
+        for (int b = 0; b < count; ++b)
+          hop::tma_store(dx_map, xt + b * kBox, 64 * (box0 + b), row0);
+        hop::bulk_commit();
+      }
+    }
+  }
+  if (leader) hop::bulk_wait<0>();  // the stores are done
 }
 
 // The bf16 partials: for each 1024-row chunk, dgamma's partial dn^T . x^2
@@ -970,7 +1396,7 @@ constexpr int kWideAcc = 96;       // f32 sums a thread: 64 x 192 / 128
 constexpr int kMaxSplit = 4;
 constexpr size_t kWideSmem = kWideStages * 2 * kWideSlice;
 static_assert(kChunkRows % kWideRows == 0, "whole slices per chunk");
-static_assert(kWideRows == gdn_mma::kTileRows && kWideRows == hop::kBoxRows,
+static_assert(kWideRows == hop::kTileRows && kWideRows == hop::kBoxRows,
               "a slice is a dx tile and a row of boxes");
 static_assert(3 * 64 == kWideBlock, "the warpgroups tile the block");
 // what a rank receives: every rank's sums of the warps it owns
@@ -1180,10 +1606,10 @@ cudaError_t launch_dx_as(const void *x, const void *g, const void *gamma_t,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   // 16-byte copies and accesses need whole rows of 4 and aligned bases
-  const bool vec = C % 4 == 0 && gdn_mma::aligned16(x) &&
-                   gdn_mma::aligned16(g) && gdn_mma::aligned16(gamma_t) &&
-                   gdn_mma::aligned16(gamma) && gdn_mma::aligned16(dx) &&
-                   gdn_mma::aligned16(dn);
+  const bool vec = C % 4 == 0 && hop::aligned16(x) &&
+                   hop::aligned16(g) && hop::aligned16(gamma_t) &&
+                   hop::aligned16(gamma) && hop::aligned16(dx) &&
+                   hop::aligned16(dn);
   const int64_t blocks = (n + s.rows - 1) / s.rows;
   kernel<<<static_cast<unsigned>(blocks), s.threads, smem, stream>>>(
       static_cast<const float *>(x), static_cast<const float *>(g),
@@ -1217,8 +1643,8 @@ cudaError_t launch_partials_as(const void *x, const void *dn, void *partials,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // 16-byte copies and stores need whole rows of 4 and aligned bases
-  const bool vec = C % 4 == 0 && gdn_mma::aligned16(x) &&
-                   gdn_mma::aligned16(dn) && gdn_mma::aligned16(partials);
+  const bool vec = C % 4 == 0 && hop::aligned16(x) &&
+                   hop::aligned16(dn) && hop::aligned16(partials);
   const int tiles = (C + kTile - 1) / kTile;
   const dim3 grid(static_cast<unsigned>(tiles * tiles),
                   static_cast<unsigned>((n + kChunkRows - 1) / kChunkRows));
@@ -1233,39 +1659,6 @@ cudaError_t launch_partials(const void *x, const void *dn, void *partials,
   if (C == 192) return launch_partials_as<192>(x, dn, partials, n, C, stream);
   if (C == 128) return launch_partials_as<128>(x, dn, partials, n, C, stream);
   return launch_partials_as<0>(x, dn, partials, n, C, stream);
-}
-
-size_t dx_mma_smem(int C) {
-  const int Cp = gdn_mma::padded(C);
-  return static_cast<size_t>(gdn_mma::kTileRows) *
-             (gdn_mma::tile_ld(Cp) * 2 + (Cp + 4) * sizeof(float)) +
-         gdn_mma::panel_bytes(Cp);
-}
-
-template <bool kInverse>
-cudaError_t launch_dx_mma(const void *x, const void *g, const void *gamma_t,
-                          const void *gamma, const void *beta, void *dx,
-                          void *dn, void *dn_sums, int64_t n, int C,
-                          cudaStream_t stream) {
-  const size_t smem = dx_mma_smem(C);
-  auto kernel = gdn_bwd_dx_mma_kernel<kInverse>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // 16-byte vectors need whole rows of 8 elements and aligned bases
-  const bool vec = C % 8 == 0 && gdn_mma::aligned16(x) &&
-                   gdn_mma::aligned16(g) && gdn_mma::aligned16(gamma_t) &&
-                   gdn_mma::aligned16(gamma) && gdn_mma::aligned16(beta) &&
-                   gdn_mma::aligned16(dx) && gdn_mma::aligned16(dn);
-  using T = __nv_bfloat16;
-  const int64_t blocks = (n + gdn_mma::kTileRows - 1) / gdn_mma::kTileRows;
-  kernel<<<static_cast<unsigned>(blocks), gdn_mma::kMmaThreads, smem, stream>>>(
-      static_cast<const T *>(x), static_cast<const T *>(g),
-      static_cast<const T *>(gamma_t), static_cast<const T *>(gamma),
-      static_cast<const T *>(beta), static_cast<T *>(dx), static_cast<T *>(dn),
-      static_cast<float *>(dn_sums), n, C, vec);
-  return counted(kDxMma);
 }
 
 template <bool kInverse, int kWidth>
@@ -1287,11 +1680,8 @@ cudaError_t launch_dx_wide_as(const void *x, const void *g, const void *gamma,
       return err;
   // persistent CTAs, one an SM: each tile's bytes are one CTA's alone, so
   // they do not depend on the grid
-  int device = 0, sms = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return err;
+  const int sms = hop::sm_count();
+  if (!sms) return cudaErrorNoDevice;
   const int64_t tiles = (n + 63) / 64;
   kernel<<<static_cast<unsigned>(tiles < sms ? tiles : sms), W::kThreads,
            W::kSmem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
@@ -1300,22 +1690,94 @@ cudaError_t launch_dx_wide_as(const void *x, const void *g, const void *gamma,
   return counted(kDxWide);
 }
 
+// Runs gdn_bwd_dx_stream_kernel on its operands as they are (C % 8 == 0,
+// 16-byte aligned bases): one launch, or one per kDsLaunchRows rows, on
+// `work`, ds_work_bytes(n, C, sms) bytes.
+template <bool kInverse>
+cudaError_t launch_dx_stream(const void *x, const void *g, const void *gamma,
+                             const void *beta, void *dx, void *dn,
+                             void *dn_sums, void *work, int64_t n, int C,
+                             int live, int sms, cudaStream_t stream) {
+  if (n > kDsLaunchRows) {  // the rest from bases further on
+    const int64_t at = kDsLaunchRows * C * 2;  // bytes
+    cudaError_t err = launch_dx_stream<kInverse>(
+        x, g, gamma, beta, dx, dn, dn_sums, work, kDsLaunchRows, C, live,
+        sms, stream);
+    if (err != cudaSuccess) return err;
+    auto on = [&](const void *p) { return static_cast<const char *>(p) + at; };
+    return launch_dx_stream<kInverse>(
+        on(x), on(g), gamma, beta, const_cast<char *>(on(dx)),
+        const_cast<char *>(on(dn)),
+        static_cast<float *>(dn_sums) + kDsLaunchRows / 64 * live, work,
+        n - kDsLaunchRows, C, live, sms, stream);
+  }
+  auto kernel = gdn_bwd_dx_stream_kernel<kInverse>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kDsSmem));
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[5];  // x, g, gamma, dx, dn
+  const void *bases[5] = {x, g, gamma, dx, dn};
+  for (int k = 0; k < 5; ++k)
+    if ((err = hop::box_map(maps + k, bases[k], k == 2 ? C : n, C)) !=
+        cudaSuccess)
+      return err;
+  // persistent CTAs, one an SM, none without a row tile
+  const int64_t row_tiles = (n + kDsRows - 1) / kDsRows;
+  kernel<<<static_cast<unsigned>(row_tiles < sms ? row_tiles : sms),
+           kDsThreads, kDsSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      static_cast<const __nv_bfloat16 *>(beta), static_cast<float *>(dn_sums),
+      static_cast<float *>(work), static_cast<int>(n), C, live);
+  return counted(kDxStream);
+}
+
 // The bf16 dx route, a rule on shape and alignment alone: the widths of
 // the zoo's AMP training paths take gdn_bwd_dx_wide_kernel where the TMA
 // can move their rows (16-byte rows and bases, row indices that fit an
-// int); every other shape takes gdn_bwd_dx_mma_kernel.
+// int); every other shape takes gdn_bwd_dx_stream_kernel.
 bool dx_wide_route(const void *x, const void *g, const void *gamma,
                    const void *dx, const void *dn, int64_t n, int C) {
-  return (C == 128 || C == 192) && gdn_mma::aligned16(x) &&
-         gdn_mma::aligned16(g) && gdn_mma::aligned16(gamma) &&
-         gdn_mma::aligned16(dx) && gdn_mma::aligned16(dn) &&
+  return (C == 128 || C == 192) && hop::aligned16(x) &&
+         hop::aligned16(g) && hop::aligned16(gamma) &&
+         hop::aligned16(dx) && hop::aligned16(dn) &&
          n < (int64_t{1} << 31);
 }
 
+// Where gdn_bwd_dx_stream_kernel reads x, g and gamma and writes dx and
+// dn: the tensors themselves where the TMA can address them (C % 8 == 0,
+// 16-byte aligned bases), else copies in the scratch, in rows of round8(C)
+// elements: x, g, dx, dn, then gamma, each only if it is copied; the
+// workspace follows them.
+struct DxStaging {
+  int width;
+  bool x, g, dx, dn, gamma;
+  int64_t copies(int64_t n) const {
+    return 2 * static_cast<int64_t>(width) *
+           ((x + g + dx + dn) * n + (gamma ? width : 0));
+  }
+};
+
+DxStaging dx_staging_of(const void *x, const void *g, const void *gamma,
+                        const void *dx, const void *dn, int C) {
+  const int width = (C + 7) / 8 * 8;
+  const bool pad = width != C;
+  return {width, pad || !hop::aligned16(x), pad || !hop::aligned16(g),
+          pad || !hop::aligned16(dx), pad || !hop::aligned16(dn),
+          pad || !hop::aligned16(gamma)};
+}
+
+// The workspace bytes: one per CTA of the largest launch
+int64_t ds_work_bytes(int64_t n, int C, int sms) {
+  const int64_t rows = n < kDsLaunchRows ? n : kDsLaunchRows;
+  const int64_t tiles = (rows + kDsRows - 1) / kDsRows;
+  return (tiles < sms ? tiles : sms) * ds_work_floats(C) * 4;
+}
+
 template <bool kInverse>
-cudaError_t launch_dx_bf16(const void *x, const void *g, const void *gamma_t,
-                           const void *gamma, const void *beta, void *dx,
-                           void *dn, void *dn_sums, int64_t n, int C,
+cudaError_t launch_dx_bf16(const void *x, const void *g, const void *gamma,
+                           const void *beta, void *dx, void *dn,
+                           void *dn_sums, int64_t n, int C, void *scratch,
                            cudaStream_t stream) {
   const bool tma = dx_wide_route(x, g, gamma, dx, dn, n, C);
   if (tma && C == 192)
@@ -1324,8 +1786,51 @@ cudaError_t launch_dx_bf16(const void *x, const void *g, const void *gamma_t,
   if (tma && C == 128)
     return launch_dx_wide_as<kInverse, 128>(x, g, gamma, beta, dx, dn,
                                             dn_sums, n, stream);
-  return launch_dx_mma<kInverse>(x, g, gamma_t, gamma, beta, dx, dn, dn_sums,
-                                 n, C, stream);
+  const int sms = hop::sm_count();
+  if (!sms) return cudaErrorNoDevice;
+  const DxStaging st = dx_staging_of(x, g, gamma, dx, dn, C);
+  if (!scratch || !hop::aligned16(scratch)) return cudaErrorInvalidValue;
+  char *at = static_cast<char *>(scratch);
+  const size_t row = 2 * static_cast<size_t>(C);  // bytes of a row of C
+  const size_t wide = 2 * static_cast<size_t>(st.width);
+  cudaError_t err = cudaSuccess;
+  // x and g into rows of width, zeros past C
+  auto copy_in = [&](bool copied, const void *src) {
+    if (!copied) return src;
+    if (wide > row && err == cudaSuccess)
+      err = cudaMemset2DAsync(at + row, wide, 0, wide - row, n, stream);
+    if (err == cudaSuccess)
+      err = cudaMemcpy2DAsync(at, wide, src, row, row, n,
+                              cudaMemcpyDeviceToDevice, stream);
+    const void *to = at;
+    at += wide * n;
+    return to;
+  };
+  const void *xs = copy_in(st.x, x);
+  const void *gs = copy_in(st.g, g);
+  void *dxs = dx, *dns = dn;
+  if (st.dx) dxs = at, at += wide * n;
+  if (st.dn) dns = at, at += wide * n;
+  const void *gam = gamma;
+  if (st.gamma) {  // gamma, zeros past C both ways
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(at, 0, wide * st.width, stream);
+    if (err == cudaSuccess)
+      err = cudaMemcpy2DAsync(at, wide, gamma, row, row, C,
+                              cudaMemcpyDeviceToDevice, stream);
+    gam = at;
+    at += wide * st.width;
+  }
+  if (err == cudaSuccess)
+    err = launch_dx_stream<kInverse>(xs, gs, gam, beta, dxs, dns, dn_sums, at,
+                                     n, st.width, C, sms, stream);
+  if (err == cudaSuccess && st.dx)
+    err = cudaMemcpy2DAsync(dx, row, dxs, wide, row, n,
+                            cudaMemcpyDeviceToDevice, stream);
+  if (err == cudaSuccess && st.dn)
+    err = cudaMemcpy2DAsync(dn, row, dns, wide, row, n,
+                            cudaMemcpyDeviceToDevice, stream);
+  return err;
 }
 
 // The cluster size of the bf16 partials: the most ranks (up to kMaxSplit)
@@ -1353,8 +1858,8 @@ cudaError_t launch_partials_wide(const void *x, const void *dn,
   const int split = partials_split(n, C);
   // the TMA needs 16-byte rows and bases (and a row index that fits int);
   // other shapes take element copies
-  const bool tma = C % 8 == 0 && gdn_mma::aligned16(x) &&
-                   gdn_mma::aligned16(dn) && gdn_mma::aligned16(partials) &&
+  const bool tma = C % 8 == 0 && hop::aligned16(x) &&
+                   hop::aligned16(dn) && hop::aligned16(partials) &&
                    n < (int64_t{1} << 31);
   CUtensorMap x_map = {}, dn_map = {};
   if (tma) {
@@ -1391,9 +1896,8 @@ cudaError_t launch_reduce_as(const void *partials, void *dbeta, void *dgamma,
   const int64_t threads = (static_cast<int64_t>(C) * C + C + kVec - 1) / kVec;
   // the widest CTAs that still give every SM one (the copies in flight are
   // what bounds the sum, and an idle SM issues none)
-  int sms = 132, device;
-  if (cudaGetDevice(&device) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = hop::sm_count();
+  if (!sms) sms = 132;
   int block = kReduceThreads;
   while (block > 32 && (threads + block - 1) / block < sms) block /= 2;
   const int64_t blocks = (threads + block - 1) / block;
@@ -1415,7 +1919,7 @@ template <typename T>
 cudaError_t launch_reduce(const void *partials, void *dbeta, void *dgamma,
                           int64_t chunks, int C, cudaStream_t stream) {
   // 4 neighbouring elements lie in one output when C % 4 == 0
-  if (C % 4 == 0 && gdn_mma::aligned16(partials))
+  if (C % 4 == 0 && hop::aligned16(partials))
     return launch_reduce_as<T, 4>(partials, dbeta, dgamma, chunks, C, stream);
   return launch_reduce_as<T, 1>(partials, dbeta, dgamma, chunks, C, stream);
 }
@@ -1425,15 +1929,11 @@ cudaError_t launch_reduce(const void *partials, void *dbeta, void *dgamma,
 extern "C" {
 
 // The widest C the kernels take, for dtype 0 = float32 (the warp grid of
-// gdn_f32.cuh: 384) or 1 = bfloat16 (the staged tiles fit the 227 KB of
-// shared memory a CTA may use on Hopper); 0 for others.
+// gdn_f32.cuh: 384) or 1 = bfloat16 (gdn_bwd_dx_stream_kernel, which stages
+// beta in shared memory: 1024); 0 for others.
 int lmic_gdn_bwd_max_channels(int dtype) {
   if (dtype == 0) return gdn_f32::max_channels(2);
-  if (dtype != 1) return 0;
-  int C = 16;
-  while (dx_mma_smem(C + 16) <= static_cast<size_t>(gdn_mma::kSmemLimit))
-    C += 16;
-  return C;
+  return dtype == 1 ? kDsMaxChannels : 0;
 }
 
 // Rows per partial sum: gdn_bwd_partials writes ceil(n / this) partials of
@@ -1442,31 +1942,41 @@ int lmic_gdn_bwd_chunk_rows() { return kChunkRows; }
 
 // Rows per tile of the bf16 dx pass: it writes ceil(n / this) rows of C
 // f32 sums of dn, one per tile, in tile order.
-int lmic_gdn_bwd_tile_rows() { return gdn_mma::kTileRows; }
+int lmic_gdn_bwd_tile_rows() { return hop::kTileRows; }
 
-// 1 when lmic_gdn_bwd_dx reads gamma_t for these operands (float32, and
-// bfloat16 off gdn_bwd_dx_wide_kernel's route), else 0: the caller builds
-// the transpose only then, and may pass any pointer in its place.
-int lmic_gdn_bwd_dx_reads_gamma_t(const void *x, const void *g,
-                                  const void *gamma, const void *dx,
-                                  const void *dn, int64_t n, int C,
-                                  int dtype) {
-  return !(dtype == 1 && dx_wide_route(x, g, gamma, dx, dn, n, C));
+// The bytes of scratch that lmic_gdn_bwd_dx needs for these operands on
+// the current device: 0 where no kernel needs any (float32, bfloat16 on
+// gdn_bwd_dx_wide_kernel's route), else gdn_bwd_dx_stream_kernel's
+// workspace and room for the copies it runs on; -1 if the runtime cannot
+// give the device's SM count.
+int64_t lmic_gdn_bwd_dx_scratch_bytes(const void *x, const void *g,
+                                      const void *gamma, const void *dx,
+                                      const void *dn, int64_t n, int C,
+                                      int dtype) {
+  if (dtype != 1 || n <= 0 || C <= 0 ||
+      dx_wide_route(x, g, gamma, dx, dn, n, C))
+    return 0;
+  const int sms = hop::sm_count();
+  if (!sms) return -1;
+  return dx_staging_of(x, g, gamma, dx, dn, C).copies(n) +
+         ds_work_bytes(n, C, sms);
 }
 
 // x, g, dx: (n, C) contiguous; gamma_t: gamma transposed, (C_in, C_out),
-// read where lmic_gdn_bwd_dx_reads_gamma_t says so;
+// read for float32 only (bfloat16 may pass any pointer);
 // gamma: (C_out, C_in); beta: (C,); all of one type (0 = float32,
 // 1 = bfloat16). dn: (n, C) scratch, float32 for float32 and bfloat16
 // (dn rounded as the products take it) for bfloat16. dn_sums: for
 // bfloat16, (ceil(n / lmic_gdn_bwd_tile_rows()), C) float32, each tile's
 // sum of the f32 dn over its rows; not read or written for float32 (may be
-// null). Each entry point launches on `stream` without synchronising and
-// returns cudaGetLastError() after the launch (0 on success).
+// null). scratch: 16-byte aligned, at least lmic_gdn_bwd_dx_scratch_bytes
+// bytes (null where that is 0). Each entry point launches on `stream`
+// without synchronising and returns cudaGetLastError() after the launch
+// (0 on success).
 int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
                     const void *gamma, const void *beta, void *dx, void *dn,
                     void *dn_sums, int64_t n, int C, int dtype, int inverse,
-                    void *stream) {
+                    void *scratch, void *stream) {
   if (n <= 0) return 0;
   if (C <= 0 || C > lmic_gdn_bwd_max_channels(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1478,10 +1988,10 @@ int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
                   : launch_dx<false>(x, g, gamma_t, gamma, beta, dx, dn, n,
                                      C, s);
   } else {
-    err = inverse ? launch_dx_bf16<true>(x, g, gamma_t, gamma, beta, dx, dn,
-                                         dn_sums, n, C, s)
-                  : launch_dx_bf16<false>(x, g, gamma_t, gamma, beta, dx, dn,
-                                          dn_sums, n, C, s);
+    err = inverse ? launch_dx_bf16<true>(x, g, gamma, beta, dx, dn, dn_sums,
+                                         n, C, scratch, s)
+                  : launch_dx_bf16<false>(x, g, gamma, beta, dx, dn, dn_sums,
+                                          n, C, scratch, s);
   }
   return static_cast<int>(err);
 }

@@ -67,13 +67,13 @@ _SIGNATURES = {
     },
     "gdn_bwd.cu": {
         "lmic_gdn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
-                            _I, _P],
+                            _I, _P, _P],
         "lmic_gdn_bwd_partials": [_P, _P, _P, _P, _I64, _I, _I, _P],
         "lmic_gdn_bwd_reduce": [_P, _P, _P, _I64, _I, _I, _P],
         "lmic_gdn_bwd_max_channels": [_I],
         "lmic_gdn_bwd_chunk_rows": [],
         "lmic_gdn_bwd_tile_rows": [],
-        "lmic_gdn_bwd_dx_reads_gamma_t": [_P, _P, _P, _P, _P, _I64, _I, _I],
+        "lmic_gdn_bwd_dx_scratch_bytes": [_P, _P, _P, _P, _P, _I64, _I, _I],
         "lmic_gdn_bwd_kernel_name": [_I],
         "lmic_gdn_bwd_kernel_launches": [_I],
         "lmic_gdn_bwd_error_string": [_I],
@@ -169,7 +169,8 @@ def gdn_bwd_reference(x, beta, gamma, g, inverse: bool = False):
 
 def max_channels(kernel: str, dtype: torch.dtype) -> int:
     """The widest C that `kernel` ("gdn_fwd" or "gdn_bwd") takes in
-    `dtype`: its staged tiles must fit a CTA's shared memory. Builds the
+    `dtype`: f32 384 (the warp grid of the register-tiled kernels), bf16
+    1024 (the stream kernels stage beta in shared memory). Builds the
     kernel on first use."""
     if kernel == "gdn_fwd":
         return _load("gdn_fwd.cu").lmic_gdn_fwd_max_channels(
@@ -269,7 +270,13 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
     Three launches, each counted: `gdn_bwd_dx` (dx and the dn scratch:
     f32 for f32; for bf16, dn rounded to bf16 and each 64-row tile's f32
     sum of dn), `gdn_bwd_partials` (per-chunk partial dbeta/dgamma) and
-    `gdn_bwd_reduce` (the fixed-order sum of the partials)."""
+    `gdn_bwd_reduce` (the fixed-order sum of the partials). The C ABI picks
+    the dx kernel by shape: f32 `gdn_bwd_dx_kernel` (which reads gamma^T,
+    built here); bf16 at C = 128 and 192 with 16-byte aligned operands
+    `gdn_bwd_dx_wide_kernel`, other bf16 shapes `gdn_bwd_dx_stream_kernel`
+    (on a scratch buffer allocated here: its g*scale workspace, and
+    zero-padded copies where C % 8 != 0 or a base is off 16 bytes); a
+    failed launch or tensor-map encode raises."""
     C = _check("gdn_bwd", x, beta, gamma)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(
@@ -295,20 +302,26 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
     chunks = -(-n // lib.lmic_gdn_bwd_chunk_rows())
     dn, dn_sums = _dn_scratch(lib, n, C, dt, dev)
     code, inv = _DTYPE_CODES[dt], int(bool(inverse))
-    # the bf16 kernel of the zoo's training widths reads gamma alone
-    reads_t = lib.lmic_gdn_bwd_dx_reads_gamma_t(
-        x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-        dn.data_ptr(), n, C, code)
-    gamma_t = gamma.t().contiguous() if reads_t else gamma
+    # only the f32 dx kernel reads gamma^T
+    gamma_t = gamma.t().contiguous() if dt == torch.float32 else gamma
     partials = torch.empty((chunks, C * C + C), dtype=torch.float32,
                            device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if n:
+            nbytes = lib.lmic_gdn_bwd_dx_scratch_bytes(
+                x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+                dn.data_ptr(), n, C, code)
+            if nbytes < 0:
+                raise RuntimeError("gdn_bwd_dx: the CUDA runtime gives no "
+                                   "SM count for the device")
+            scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                       if nbytes else None)
             _raise_on(lib.lmic_gdn_bwd_dx(
                 x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(),
                 gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
-                dn.data_ptr(), dn_sums.data_ptr(), n, C, code, inv, stream,
+                dn.data_ptr(), dn_sums.data_ptr(), n, C, code, inv,
+                None if scratch is None else scratch.data_ptr(), stream,
             ), lib, "gdn_bwd_dx")
             _count("gdn_bwd_dx")
             _raise_on(lib.lmic_gdn_bwd_partials(

@@ -174,14 +174,16 @@ CHUNK_EDGES = [(dtype, rows, C) for dtype in (torch.float32, torch.bfloat16)
 
 
 # bf16 gdn_bwd at a training step's rows (batch 16 of 256x256: 262,144 /
-# 65,536 / 16,384, and a ragged count) at C = 128 and 192; at the widest C
-# the bf16 backward takes; and with a ragged last 64-row tile in a chunk
-# past the first edge. They cover the bf16 partials' clusters of 1, 2 and 4
-# CTAs a chunk, one and 3 x 3 blocks of dgamma, and its element copies.
+# 65,536 / 16,384, and a ragged count) at C = 128 and 192; at C = 432 and
+# at the widest C the bf16 backward takes (1024); and with a ragged last
+# 64-row tile in a chunk past the first edge. They cover the bf16
+# partials' clusters of 1, 2 and 4 CTAs a chunk, one to 6 x 6 blocks of
+# dgamma, and its element copies.
 TRAINING = ([(torch.bfloat16, rows, C)
              for rows in (262_144, 65_536, 16_384, 16_391)
              for C in (128, 192)]
-            + [(torch.bfloat16, rows, 432) for rows in (1_000, 16_391)]
+            + [(torch.bfloat16, rows, C) for rows in (1_000, 16_391)
+               for C in (432, 1024)]
             + [(torch.bfloat16, rows, C) for rows in (5_000, 70_001)
                for C in (37, 192)])
 
@@ -228,11 +230,14 @@ def test_wide_dx_route_matches_reference(inverse, rows, C):
 
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("rows,C", [(65, 128), (133 * 64, 192),
-                                    (16_391, 192), (16_391, 128)])
+                                    (16_391, 192), (16_391, 128),
+                                    (135, 37), (16_391, 320),
+                                    (16_391, 1024)])
 def test_wide_dx_outputs_match_plain(inverse, rows, C):
-    """gdn_bwd_dx alone through the C ABI: dx, the bf16 dn scratch and the
-    tile sums each against the plain version as chip_smoke.py forms it (run
-    from the root of the checkout), the same bytes twice."""
+    """gdn_bwd_dx alone through the C ABI, on the wide kernel (C = 128 and
+    192) and on the stream kernel with its scratch: dx, the bf16 dn scratch
+    and the tile sums each against the plain version as chip_smoke.py forms
+    it (run from the root of the checkout), the same bytes twice."""
     from chip_smoke import _dx_plain
 
     lib = gdn._load("gdn_bwd.cu")
@@ -242,12 +247,18 @@ def test_wide_dx_outputs_match_plain(inverse, rows, C):
     gamma_t = gamma.t().contiguous()
     dx = torch.empty_like(x)
     dn, dn_sums = gdn._dn_scratch(lib, rows, C, x.dtype, "cuda")
+    nbytes = lib.lmic_gdn_bwd_dx_scratch_bytes(
+        x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+        dn.data_ptr(), rows, C, 1)
+    assert (nbytes == 0) == (C in (128, 192))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
 
     def run():
         err = lib.lmic_gdn_bwd_dx(
             x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), dx.data_ptr(), dn.data_ptr(),
             dn_sums.data_ptr(), rows, C, 1, int(inverse),
+            scratch.data_ptr() if nbytes else None,
             torch.cuda.current_stream().cuda_stream)
         assert err == 0, lib.lmic_gdn_bwd_error_string(err).decode()
         torch.cuda.synchronize()
@@ -263,10 +274,12 @@ def test_wide_dx_outputs_match_plain(inverse, rows, C):
 
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("C", [128, 192])
-def test_offset_view_takes_the_mma_kernel(inverse, C):
-    """A view offset by one element is off the TMA's 16-byte route:
-    gdn_bwd_dx_mma_kernel takes it, and it still matches the plain
-    version; the aligned tensor takes the wide kernel."""
+def test_offset_view_takes_the_dx_stream_kernel(inverse, C):
+    """A view offset by one element is off the wide kernel's 16-byte
+    route: gdn_bwd_dx_stream_kernel takes it (on an aligned copy), and it
+    still matches the plain version; the aligned tensor takes the wide
+    kernel. Each launch's kernel is the C ABI's count (a torch.profiler
+    session may lose a record, but names no other kernel)."""
     rows = 1_000
     x, beta, gamma = _data(rows, C, torch.bfloat16, seed=C, skew=True)
     g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
@@ -277,12 +290,14 @@ def test_offset_view_takes_the_mma_kernel(inverse, C):
     assert offset.is_contiguous() and offset.data_ptr() % 16 != 0
     want = gdn.gdn_bwd_reference(x, beta, gamma, g, inverse)
     from chip_smoke import _routed_kernels
-    for xi, kernel in ((offset, "gdn_bwd_dx_mma_kernel"),
+    for xi, kernel in ((offset, "gdn_bwd_dx_stream_kernel"),
                        (x, "gdn_bwd_dx_wide_kernel")):
         def run():
             return gdn.gdn_bwd(xi, beta, gamma, g, inverse)
-        assert _routed_kernels(run) == [kernel]
-        got = run()
+        assert set(_routed_kernels(run)) <= {kernel}
+        got, launched = _launched(run)
+        assert launched == {kernel: 1, "gdn_bwd_partials_wide_kernel": 1,
+                            "gdn_bwd_reduce_kernel": 1}
         for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
             assert _rel_err(a, b) < TOL[torch.bfloat16], name
         assert all(torch.equal(a, b) for a, b in zip(got, run()))
@@ -338,6 +353,37 @@ def test_stream_fwd_matches_reference(inverse, rows, C):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert _rel_err(got, want) < TOL[torch.bfloat16]
     assert torch.equal(got, gdn.gdn_fwd(x, beta, gamma, inverse))
+
+
+# bf16 gdn_bwd off the wide dx route, on gdn_bwd_dx_stream_kernel: the
+# widths of STREAM (one to six column blocks, C = 37 on zero-padded
+# copies) at one row, one ragged 64-row tile, past a 128-row tile and a
+# ragged count of tiles; C = 320 at a training layer's rows.
+DX_STREAM = ([(rows, C) for C in (8, 37, 64, 256, 320, 512, 1024)
+              for rows in (1, 63, 135, 16_391)] + [(262_144, 320)])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows,C", DX_STREAM)
+def test_stream_dx_matches_reference(inverse, rows, C):
+    """bf16 gdn_bwd with its dx on gdn_bwd_dx_stream_kernel against the
+    plain version (dx, dbeta, dgamma), each dx launch on that kernel by
+    the C ABI's counts, the same bytes twice."""
+    x, beta, gamma = _data(rows, C, torch.bfloat16, seed=rows + C,
+                           skew=True)
+    g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
+                    ).to("cuda", torch.bfloat16)
+    got, launched = _launched(lambda: gdn.gdn_bwd(x, beta, gamma, g,
+                                                  inverse))
+    assert launched == {"gdn_bwd_dx_stream_kernel": 1,
+                        "gdn_bwd_partials_wide_kernel": 1,
+                        "gdn_bwd_reduce_kernel": 1}
+    want = gdn.gdn_bwd_reference(x, beta, gamma, g, inverse)
+    for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) < TOL[torch.bfloat16], name
+    again = gdn.gdn_bwd(x, beta, gamma, g, inverse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -422,7 +468,7 @@ def test_dtypes_the_kernels_do_not_take_run_the_plain_versions(dtype,
      "gdn_bwd_partials_kernel"),
     (torch.bfloat16, 0, "gdn_fwd_wide_kernel", "gdn_bwd_dx_wide_kernel",
      "gdn_bwd_partials_wide_kernel"),
-    (torch.bfloat16, 1, "gdn_fwd_stream_kernel", "gdn_bwd_dx_mma_kernel",
+    (torch.bfloat16, 1, "gdn_fwd_stream_kernel", "gdn_bwd_dx_stream_kernel",
      "gdn_bwd_partials_wide_kernel"),
 ])
 def test_kernel_launches_count_the_kernel_each_launch_took(dtype, offset, fwd,
@@ -452,24 +498,47 @@ def test_kernel_launches_count_the_kernel_each_launch_took(dtype, offset, fwd,
         dx: 1, partials: 1, "gdn_bwd_reduce_kernel": 1}
 
 
-def test_dx_reads_gamma_t_off_the_wide_route_only():
-    """The wrapper builds gamma^T only where the dx launch reads it: f32,
-    and bf16 off the wide kernel's route (a width it has no instance of, a
-    base off 16 bytes)."""
+def test_only_f32_dx_reads_gamma_t():
+    """Only the f32 dx kernel reads gamma^T, so the wrapper builds it for
+    f32 alone: every bf16 dx launch, on the wide route and off it (a width
+    the wide kernel has no instance of, a base off 16 bytes), runs with a
+    null gamma^T and matches the plain version; the stream kernel's
+    scratch is asked for off the wide route only, and f32 asks for none."""
+    from chip_smoke import _dx_plain
+
     lib = gdn._load("gdn_bwd.cu")
-    buf = torch.empty(64 * 320 + 1, dtype=torch.bfloat16, device="cuda")
-
-    def reads(C, dtype, at=0):
-        x = buf[at:at + 64 * C].view(64, C)
-        gamma = torch.empty((C, C), dtype=dtype, device="cuda")
-        return lib.lmic_gdn_bwd_dx_reads_gamma_t(
-            x.data_ptr(), x.data_ptr(), gamma.data_ptr(), x.data_ptr(),
-            x.data_ptr(), 64, C, 0 if dtype == torch.float32 else 1)
-
-    assert reads(128, torch.bfloat16) == reads(192, torch.bfloat16) == 0
-    assert reads(192, torch.bfloat16, at=1) == 1
-    assert reads(320, torch.bfloat16) == reads(37, torch.bfloat16) == 1
-    assert reads(192, torch.float32) == 1
+    rows = 300
+    stream = torch.cuda.current_stream().cuda_stream
+    for C, at in ((128, 0), (192, 0), (192, 1), (320, 0), (37, 0)):
+        x, beta, gamma = _data(rows, C, torch.bfloat16, seed=C + at,
+                               skew=True)
+        buf = torch.empty(rows * C + at, dtype=x.dtype, device="cuda")
+        buf[at:].copy_(x.view(-1))
+        x = buf[at:].view(rows, C)
+        g = torch.randn((rows, C), generator=torch.Generator().manual_seed(1)
+                        ).to("cuda", torch.bfloat16)
+        dx = torch.empty_like(g)
+        dn, dn_sums = gdn._dn_scratch(lib, rows, C, x.dtype, "cuda")
+        nbytes = lib.lmic_gdn_bwd_dx_scratch_bytes(
+            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+            dn.data_ptr(), rows, C, 1)
+        assert (nbytes > 0) == (C not in (128, 192) or at > 0), (C, at)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        assert lib.lmic_gdn_bwd_dx(
+            x.data_ptr(), g.data_ptr(), None, gamma.data_ptr(),
+            beta.data_ptr(), dx.data_ptr(), dn.data_ptr(),
+            dn_sums.data_ptr(), rows, C, 1, 0,
+            scratch.data_ptr() if nbytes else None, stream) == 0
+        torch.cuda.synchronize()
+        want = _dx_plain(x, beta, gamma, g, False,
+                         lib.lmic_gdn_bwd_tile_rows())
+        for name, a, b in zip(("dx", "dn", "dn_sums"), (dx, dn, dn_sums),
+                              want):
+            assert _rel_err(a, b) < TOL[torch.bfloat16], (C, at, name)
+    x = torch.empty((64, 192), device="cuda")
+    assert lib.lmic_gdn_bwd_dx_scratch_bytes(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+        x.data_ptr(), 64, 192, 0) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -477,12 +546,21 @@ def test_kernels_refuse_channels_past_their_tile(dtype):
     for kernel in ("gdn_fwd", "gdn_bwd"):
         widest = gdn.max_channels(kernel, dtype)
         assert widest >= 320, kernel  # every GDN width of the zoo
-        if (kernel, dtype) == ("gdn_fwd", torch.bfloat16):
-            assert widest >= 1024  # gdn_fwd_stream_kernel
+        if dtype == torch.bfloat16:
+            # gdn_fwd_stream_kernel, gdn_bwd_dx_stream_kernel
+            assert widest >= 1024, kernel
             x, beta, gamma = _data(70, widest, dtype, skew=True)
-            got = gdn.gdn_fwd(x, beta, gamma)
-            assert _rel_err(got, gdn.gdn_reference(x, beta, gamma)) \
-                < TOL[dtype]
+            if kernel == "gdn_fwd":
+                got = [gdn.gdn_fwd(x, beta, gamma)]
+                want = [gdn.gdn_reference(x, beta, gamma)]
+            else:
+                g = torch.randn((70, widest),
+                                generator=torch.Generator().manual_seed(2)
+                                ).to("cuda", dtype)
+                got = gdn.gdn_bwd(x, beta, gamma, g)
+                want = gdn.gdn_bwd_reference(x, beta, gamma, g)
+            for a, b in zip(got, want):
+                assert _rel_err(a, b) < TOL[dtype], kernel
         x, beta, gamma = _data(4, widest + 1, dtype)
         before = dict(gdn.LAUNCHES)
         with pytest.raises(ValueError, match="exceed"):

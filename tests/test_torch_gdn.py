@@ -163,6 +163,28 @@ def test_bwd_reference_matches_lmic_tpu(against, dtype, inverse, ragged,
         assert _rel_err(a, b) < TOL[dtype], name
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("width", [37, 320, 1024])
+@pytest.mark.parametrize("rows", [63, 65, 135])
+def test_bf16_bwd_reference_matches_pallas_at_the_stream_widths(
+        rows, width, inverse, monkeypatch):
+    """The bf16 plain backward, which the card holds
+    gdn_bwd_dx_stream_kernel to, against lmic_tpu's fused Pallas backward
+    run by the interpreter at widths of that kernel's route: C not a
+    multiple of 8 (its padded copies), two column blocks (320) and six
+    (1024), around the 64-row tiles of dn's sums and past a 128-row tile;
+    dx, dbeta and dgamma at the bf16 bar."""
+    shape = (rows, width)
+    (jx, jb, jg), (tx, tb, tg) = _data(10, shape, "bfloat16")
+    jc, tc = _cotangent(11, shape, "bfloat16")
+    monkeypatch.setenv("LMIC_PALLAS", "interpret")
+    want = pallas_gdn._gdn_bwd(inverse, (jx, jb, jg), jc)
+    got = tgdn.gdn_bwd_reference(tx, tb, tg, tc, inverse)
+    for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert _rel_err(a, b) < TOL["bfloat16"], name
+
+
 def test_core_records_a_gradient_only_when_asked():
     _, (tx, tb, tg) = _data(6, (5, C), "float32")
     tx.requires_grad_()

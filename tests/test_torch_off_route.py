@@ -1,6 +1,6 @@
 """mbt2018-mean at a GDN width off the wide bf16 kernels' route (N = 40, M =
 48: on the card every AMP GDN of it runs gdn_fwd_stream_kernel and
-gdn_bwd_dx_mma_kernel, as in chip_smoke.py's phase 17) against lmic_tpu on
+gdn_bwd_dx_stream_kernel, as in chip_smoke.py's phase 17) against lmic_tpu on
 the CPU, on weights carried by `zoo/convert.py::state_dict_from_jax` and
 the same quantization noise: the training forward in f32 and in bf16 AMP,
 and the AMP step's losses and gradients at the bars of

@@ -109,7 +109,7 @@ def test_build_key_hashes_the_shared_cuda_headers(tmp_path, monkeypatch):
 
     from lmic_tpu_torch.ops import _build
 
-    assert os.path.join(_build.CSRC, "gdn_mma.cuh") in _build._inputs(
+    assert os.path.join(_build.CSRC, "gdn_hopper.cuh") in _build._inputs(
         "gdn_fwd.cu")
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
@@ -269,8 +269,8 @@ def test_every_gdn_kernel_is_in_one_smoke_list(source):
     """Each `__global__` kernel of the CUDA source is named in exactly one
     of chip_smoke.py's MMA_KERNELS (must run on the tensor cores) and
     FP32_KERNELS (must not), so the card's SASS check covers it and cannot
-    pass over a new kernel; the wgmma and no-spill lists name kernels of
-    the sources."""
+    pass over a new kernel; the no-spill list names kernels of the
+    sources."""
     kernels = _global_kernels(source)
     assert kernels and all(k.startswith(source[:-3] + "_") for k in kernels)
     lists = _smoke_kernel_lists()
@@ -279,7 +279,6 @@ def test_every_gdn_kernel_is_in_one_smoke_list(source):
         assert (kernel in mma) + (kernel in fp32) == 1, kernel
     ours = {k for k in mma | fp32 if k.startswith(source[:-3] + "_")}
     assert ours == kernels  # no stale name either
-    assert set(lists["WGMMA_KERNELS"]) <= mma
     for name in lists["NO_SPILL_KERNELS"]:
         assert name in mma | fp32, name
 
