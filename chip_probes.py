@@ -15,6 +15,7 @@ runs them.
     python3 chip_probes.py gdn-dx-stream
     python3 chip_probes.py bf16-step
     python3 chip_probes.py amp-narrow
+    python3 chip_probes.py wide-steps
 
 - master-batch: the largest batch of the RGB-T master's training step
   that fits, the channel-1 master q7 (f32) against its frozen guided q7 on
@@ -134,6 +135,11 @@ runs them.
   hyper-path leaves over the CPU AMP test's bar (2e-2 + twice the CPU's
   AMP effect); and the kernels' step against the plain versions' on the
   card.
+- wide-steps: `chip_smoke.py` phase 18's wide AMP model (mbt2018-mean q7
+  at N = 1152, M = 320, seed 0, batch 4 of 256x256) stepped 4 times from
+  its init in AMP and in f32, with the GDN kernels and with the plain
+  versions in their place on the card (as amp-narrow swaps them): each
+  run's losses, to tell the model's own first steps from a kernel's.
 """
 
 from __future__ import annotations
@@ -1262,12 +1268,53 @@ def amp_narrow(widths=((40, 48), (32, 48), (192, 48))):
                                                                plain)}))
 
 
+def wide_steps(steps=4):
+    """wide-steps: phase 18's wide AMP model stepped from its init with
+    the GDN kernels and with the plain versions, in AMP and in f32."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cs = chip_smoke
+    batch = cs._train_batch(cs.WIDE_AMP_BATCH, seed=1)
+    for dtype in (torch.bfloat16, None):
+        for plain in (False, True):
+            kernels = (gdn.gdn_fwd, gdn.gdn_bwd)
+            if plain:
+                gdn.gdn_fwd, gdn.gdn_bwd = (gdn.gdn_reference,
+                                            gdn.gdn_bwd_reference)
+            try:
+                module = zoo.create_model(cs.TRAIN_ARCH, cs.TRAIN_QUALITY,
+                                          seed=0, device="cuda",
+                                          dtype=dtype, **cs.WIDE_AMP).module
+                opt = make_optimizer()
+                state = create_train_state(module, opt)
+                step = make_train_step(module, opt, cs.TRAIN_LAMBDA)
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                losses = [float(step(state, batch, gen)[1]["loss"])
+                          for _ in range(steps)]
+            finally:
+                gdn.gdn_fwd, gdn.gdn_bwd = kernels
+            log(f"wide-steps {cs.WIDE_AMP} {'amp' if dtype else 'f32'} "
+                f"{'plain versions' if plain else 'kernels'}: losses "
+                + json.dumps([round(v, 2) for v in losses]))
+            del module, opt, state, step
+            torch.cuda.empty_cache()
+
+
 def main(argv):
     import torch
 
     probes = ("master-batch", "train-convs", "video-convs", "sync-u8",
               "gdn-ab", "gdn-host", "gdn-fwd-tiles", "gdn-fwd-sqrt",
-              "gdn-fwd-stream", "gdn-dx-stream", "bf16-step", "amp-narrow")
+              "gdn-fwd-stream", "gdn-dx-stream", "bf16-step", "amp-narrow",
+              "wide-steps")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -1305,6 +1352,8 @@ def main(argv):
         bf16_step()
     elif argv[0] == "amp-narrow":
         amp_narrow()
+    elif argv[0] == "wide-steps":
+        wide_steps()
     else:
         video_convs()
     return 0

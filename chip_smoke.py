@@ -36,8 +36,14 @@ Phases, each of which raises (exit code != 0) on any failure:
    off the wide routes, each against its plain version and its
    composite, `gdn_fwd_stream_kernel` and `gdn_bwd_dx_stream_kernel` (with
    the whole `gdn_bwd` against `gdn_bwd_reference`) at C = 256 and 320 at
-   the training rows, at C = 8, 37, 64, 512 and 1024 at 16,391 rows and
-   at 16,391 x 192 in a view offset by one element); bf16 `gdn_fwd` and
+   the training rows, at C = 8, 37, 64, 512, 1024, 1025, 1152 and 2048 at
+   16,391 rows and at 16,391 x 192 in a view offset by one element); f32
+   past 384 channels, `gdn_fwd_f32_blocked_kernel` and
+   `gdn_bwd_dx_f32_blocked_kernel` (with the whole `gdn_bwd`) at C = 385,
+   512, 1024 and 2048 at 16,391 rows, at 262,144 / 65,536 / 16,384 x 512
+   (phase 18's step) and at 16,391 x 512 offset by one element, the
+   forward alone at 98,304 / 24,576 / 6,144 x 512 (phase 18's round
+   trip), each within 1e-5 and the same bytes twice; bf16 `gdn_fwd` and
    `gdn_bwd_dx` logged per layer
    of a training step (C = 192 and 128) beside their bounds and
    composites;
@@ -292,6 +298,27 @@ Phases, each of which raises (exit code != 0) on any failure:
    the hyper path's in relative Frobenius norm within 2e-2 plus AMP's own
    effect on that leaf on each device, the f32 steps within 1e-4 (losses,
    and the gradients as one vector).
+18. wide channels, last: GDN at widths past the old channel caps (f32
+   384, bf16 1024). mbt2018-mean q8 built at N = M = 512 from seed 0 and
+   served over HTTP: three seeded 512x768 images through /compress and
+   /decompress with the launch counts set to 0 just before and read just
+   after (6 `gdn_fwd` a round trip, all on `gdn_fwd_f32_blocked_kernel`
+   by the C ABI); the bodies held to the direct calls, encoding
+   deterministic, the decoder recovering the encoder's latents, the CUDA
+   transforms within 1e-4 of the CPU's on a 64x128 image. Then
+   mbt2018-mean q7 at N = M = 512, f32, batch 16 of 256x256: a warm-up, a
+   profiled and 3 timed steps (6 of each wrapper's launches a step; by
+   the C ABI 6 of `gdn_fwd_f32_blocked_kernel`,
+   `gdn_bwd_dx_f32_blocked_kernel`, the partials and the reduce, none of
+   the whole-width kernels), the loss falling; step ms, device ms, GDN
+   ms, busy share and peak memory logged; an AMP step at N = 1152, M =
+   320, batch 4 of 256x256 (6 of `gdn_fwd_stream_kernel` and
+   `gdn_bwd_dx_stream_kernel` a step; the losses finite: this model's
+   jumps at its third step with the plain versions too, `chip_probes.py
+   wide-steps`); one f32 step at N = M = 400 on the
+   card against the CPU with the same noise (losses and the gradients as
+   one vector within 1e-4); `GDNCore` forward and backward in bf16 on a
+   (16, 32, 32, 1152) tensor within 2e-2 of the plain versions.
 
 The next-to-last line of stdout is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Without a GPU, or run from a directory that
@@ -520,26 +547,48 @@ def phase_environment():
 MMA_KERNELS = ("gdn_fwd_stream_kernel", "gdn_fwd_wide_kernel",
                "gdn_bwd_dx_stream_kernel", "gdn_bwd_dx_wide_kernel",
                "gdn_bwd_partials_wide_kernel")
+# the f32 kernels past 384 channels (no GDN of the zoo is that wide)
+BLOCKED_FP32_KERNELS = ("gdn_fwd_f32_blocked_kernel",
+                        "gdn_bwd_dx_f32_blocked_kernel")
 FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
-                "gdn_bwd_partials_kernel", "gdn_bwd_reduce_kernel")
+                "gdn_bwd_partials_kernel",
+                "gdn_bwd_reduce_kernel") + BLOCKED_FP32_KERNELS
 # launches of each CUDA kernel a step under --bf16 (the GDN stays f32:
 # HIGHEST in lmic_tpu) and under --bf16 --remat
 BF16_STEP = {**{k: 0 for k in MMA_KERNELS},
-             **{k: 6 for k in FP32_KERNELS}}
+             **{k: 6 for k in FP32_KERNELS},
+             **{k: 0 for k in BLOCKED_FP32_KERNELS}}
 BF16_REMAT_STEP = {**BF16_STEP, "gdn_fwd_kernel": 12}
 
 
-# The register-tiled f32 kernels (8 x 4 accumulators a thread): the two on
-# the shared loop of csrc/gdn_f32.cuh and the partials. Their accumulators
+# The register-tiled f32 kernels (8 x 4 accumulators a thread): the four
+# on the loops of csrc/gdn_f32.cuh and the partials. Their accumulators
 # must stay in registers.
 TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
-                      "gdn_bwd_partials_kernel")
+                      "gdn_bwd_partials_kernel") + BLOCKED_FP32_KERNELS
 # ... and so must the bf16 wide and stream kernels' (wgmma sums; dn,
 # g * scale)
 NO_SPILL_KERNELS = TILED_FP32_KERNELS + ("gdn_fwd_wide_kernel",
                                          "gdn_fwd_stream_kernel",
                                          "gdn_bwd_dx_wide_kernel",
                                          "gdn_bwd_dx_stream_kernel")
+
+
+def _mangled_kernel(line):
+    """The GDN kernel that a mangled name on `line` names, as (name, name
+    with its template arguments), or None. A mangled name gives each
+    identifier's length before it, which sets the kernel's name apart from
+    the anonymous namespace's (gdn_fwd_cu_<hash>) and lets it hold
+    digits (gdn_fwd_f32_blocked_kernel)."""
+    for m in re.finditer(r"(\d+)(gdn_\w+)", line):
+        digits, rest = m.groups()
+        for i in range(len(digits)):  # the length may follow other digits
+            size = int(digits[i:])
+            name = rest[:size]
+            if len(name) == size and name.endswith("_kernel"):
+                args = re.match(r"I\w+?EE", rest[size:])
+                return name, name + (args.group(0) if args else "")
+    return None
 
 
 def _check_registers(source, log_path):
@@ -550,10 +599,11 @@ def _check_registers(source, log_path):
     with open(log_path) as f:
         for line in f:
             # the name with its template arguments (direction, width)
-            m = re.search(r"(?:entry function '|Function properties for )"
-                          r"\S*?(gdn_[a-z_]+?_kernel(?:I\w+?EE)?)", line)
-            if m:
-                kernel = m.group(1)
+            found = (_mangled_kernel(line) if re.search(
+                r"entry function '|Function properties for ", line)
+                else None)
+            if found:
+                kernel = found[1]
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -590,11 +640,10 @@ def _check_tensor_cores(source, lib):
     counts = {}
     current = None
     for line in sass.splitlines():
-        # letters and underscores only: the anonymous namespace's mangled
-        # name (gdn_fwd_cu_<hash>) comes first on the line
-        m = re.search(r"Function : \S*?(gdn_[a-z_]+?_kernel)", line)
-        if m:
-            current = counts.setdefault(m.group(1), [])
+        found = (_mangled_kernel(line) if "Function : " in line
+                 else None)
+        if found:
+            current = counts.setdefault(found[0], [])
             current.append([0, 0])
         elif current is not None:
             m = re.search(r"\b(HG?MMA)\b", line)
@@ -831,7 +880,7 @@ def _record(cases, name, n, C, dtype, inverse, work, peak, mem_bw,
         raise AssertionError(
             f"{name} {n}x{C} {dtype} inverse={inverse}: "
             f"error {rel:.3g} >= {TOL[dtype]}")
-    if name == "gdn_fwd" and dtype == "float32" and err:
+    if extra.get("kernel") == "gdn_fwd_kernel" and err:
         # the wire's kernel, which this check holds still
         raise AssertionError(
             f"f32 gdn_fwd {n}x{C} inverse={inverse} differs "
@@ -848,6 +897,7 @@ def _record(cases, name, n, C, dtype, inverse, work, peak, mem_bw,
         "bound_us": 1e6 * max(t_mem, t_ops),
         "bound_by": ("operations" if t_ops > t_mem else "bytes"),
         "bytes_us": 1e6 * t_mem, "operations_us": 1e6 * t_ops,
+        "exact": err == 0,
     })
 
 
@@ -877,7 +927,20 @@ def _fwd_work(x, beta, gamma, gamma_t, inverse):
 # element on the explicit copies)
 STREAM_CASES = ([(n, C, 0) for C in (256, 320) for n in TRAIN_ROWS]
                 + [(16_391, C, 0) for C in (8, 37, 64, 512, 1024)]
-                + [(16_391, 192, 1)])
+                + [(16_391, 192, 1)]
+                # past 1024 channels
+                + [(16_391, C, 0) for C in (1025, 1152, 2048)])
+# f32 past the whole-width kernels' 384 channels, on
+# gdn_fwd_f32_blocked_kernel and gdn_bwd_dx_f32_blocked_kernel, as (rows, C,
+# offset of x in elements): one to sixteen column blocks at 16,391 rows
+# (C = 385 ragged), phase 18's N = 512 step's layers, and a view offset by
+# one element (the element copies)
+WIDE_F32_CASES = ([(16_391, C, 0) for C in (385, 512, 1024, 2048)]
+                  + [(n, 512, 0) for n in TRAIN_ROWS[:3]]
+                  + [(16_391, 512, 1)])
+# ... and the forward alone at phase 18's f32 round trip's layers
+WIDE_F32_SERVE_ROWS = SERVE_ROWS[:3]
+WIDE_C = 512  # phase 18's N = M
 
 
 def phase_kernel(peaks):
@@ -885,8 +948,9 @@ def phase_kernel(peaks):
     shape (serving, training, the RGB-T pair's wire and its training
     step, the batched synthesis of phase 12), the bf16 forward at the
     shapes of STREAM_CASES and the backward (its launches and the whole)
-    there too, off the wide kernels' routes; returns the per-shape cases
-    of each."""
+    there too, off the wide kernels' routes, and f32 past 384 channels
+    (WIDE_F32_CASES, and the forward at phase 18's round trip's rows);
+    returns the per-shape cases of each."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -969,14 +1033,48 @@ def phase_kernel(peaks):
                 6 * n * C * C + 12 * n * C), bf16, mem_bw,
                 kernel="gdn_bwd_dx_stream_kernel", offset=offset)
         del x, beta, gamma, g, buf, gamma_t
+    # f32 past 384 channels (WIDE_F32_CASES): the forward on
+    # gdn_fwd_f32_blocked_kernel and dx on gdn_bwd_dx_f32_blocked_kernel,
+    # with the whole backward; the forward alone at the round trip's rows
+    for n, C, offset in (WIDE_F32_CASES + [(n, WIDE_C, 0)
+                                           for n in WIDE_F32_SERVE_ROWS]):
+        x, beta, gamma, g = _gdn_inputs(gen, n, C, torch.float32)
+        buf = torch.empty(n * C + offset, dtype=x.dtype, device="cuda")
+        buf[offset:].copy_(x.view(-1))
+        x = buf[offset:].view(n, C)
+        gamma_t = gamma.t().contiguous()
+        for inverse in (False, True):
+            routes.append((n, C, x.dtype, offset, inverse, "gdn_fwd",
+                           "gdn_fwd_f32_blocked_kernel"))
+            _record(cases, "gdn_fwd", n, C, "float32", inverse,
+                    _fwd_work(x, beta, gamma, gamma_t, inverse), fp32,
+                    mem_bw, kernel="gdn_fwd_f32_blocked_kernel",
+                    offset=offset)
+            if n in WIDE_F32_SERVE_ROWS:
+                continue
+            routes.append((n, C, x.dtype, offset, inverse, "gdn_bwd_dx",
+                           "gdn_bwd_dx_f32_blocked_kernel"))
+            _bwd_kernel_cases(cases, x, beta, gamma, gamma_t, g, inverse,
+                              fp32, mem_bw, fp32,
+                              "gdn_bwd_dx_f32_blocked_kernel")
+            _record(cases, "gdn_bwd", n, C, "float32", inverse, (
+                lambda: gdn.gdn_bwd(x, beta, gamma, g, inverse),
+                lambda: gdn.gdn_bwd_reference(x, beta, gamma, g, inverse),
+                lambda: _bwd_composite(x, beta, gamma, gamma_t, g,
+                                       inverse),
+                (3 * n * C + 2 * (C * C + C)) * 4,
+                6 * n * C * C + 12 * n * C), fp32, mem_bw,
+                kernel="gdn_bwd_dx_f32_blocked_kernel", offset=offset)
+        del x, beta, gamma, g, buf, gamma_t
+        torch.cuda.empty_cache()
     _check_routes(gen, routes)
     return cases
 
 
 DX_KERNELS = ("gdn_bwd_dx_kernel", "gdn_bwd_dx_stream_kernel",
-              "gdn_bwd_dx_wide_kernel")
+              "gdn_bwd_dx_wide_kernel", "gdn_bwd_dx_f32_blocked_kernel")
 FWD_KERNELS = ("gdn_fwd_kernel", "gdn_fwd_stream_kernel",
-               "gdn_fwd_wide_kernel")
+               "gdn_fwd_wide_kernel", "gdn_fwd_f32_blocked_kernel")
 
 
 def _routed_kernels(run):
@@ -1204,19 +1302,20 @@ def _roundtrip_checks(codec, x, strings, shape):
         raise AssertionError("decode did not recover the encoded latents")
 
 
-def _cpu_agreement(arch, codec, quality=QUALITY):
+def _cpu_agreement(arch, codec, quality=QUALITY, **widths):
     """The CUDA transforms (GDN kernel, cuDNN without TF32) against the CPU
-    plain-version transforms, same seed, on a small input: f32 sums in
-    another order, so within 1e-4 of the largest value; for an AR codec
-    also every wavefront step's scales and means on the same latents.
-    Returns {"transforms": error} (and "step", "index_flips", "indexes")."""
+    plain-version transforms, same seed (and `widths`, N = and M =, if
+    given), on a small input: f32 sums in another order, so within 1e-4
+    of the largest value; for an AR codec also every wavefront step's
+    scales and means on the same latents. Returns {"transforms": error}
+    (and "step", "index_flips", "indexes")."""
     import torch
 
     from lmic_tpu_torch import zoo
     from lmic_tpu_torch.models.joint import JointARCodec
     from lmic_tpu_torch.utils.crosscheck import wavefront_step_agreement
 
-    cpu = zoo.create_model(arch, quality, seed=0, device="cpu")
+    cpu = zoo.create_model(arch, quality, seed=0, device="cpu", **widths)
     x = _images(1, (1, 64, 128, 3), seed=7)[0]
     with torch.inference_mode():
         xs = [c._pixels(x) for c in (codec, cpu)]
@@ -1800,13 +1899,15 @@ def _steps(step, state, batch, gen, n):
 GDN_KERNELS = MMA_KERNELS + FP32_KERNELS
 # the CUDA kernels behind each launch of ops/gdn.py, by dtype and route
 CUDA_KERNELS = {
-    "gdn_fwd": ["gdn_fwd_kernel (f32)",
+    "gdn_fwd": ["gdn_fwd_kernel (f32, C <= 384)",
+                "gdn_fwd_f32_blocked_kernel (f32, C > 384)",
                 "gdn_fwd_wide_kernel (bf16, C = 128 and 192, 16-byte rows)",
-                "gdn_fwd_stream_kernel (bf16, other shapes, C <= 1024)"],
-    "gdn_bwd_dx": ["gdn_bwd_dx_kernel (f32)",
+                "gdn_fwd_stream_kernel (bf16, other shapes, any C)"],
+    "gdn_bwd_dx": ["gdn_bwd_dx_kernel (f32, C <= 384)",
+                   "gdn_bwd_dx_f32_blocked_kernel (f32, C > 384)",
                    "gdn_bwd_dx_wide_kernel (bf16, C = 128 and 192, 16-byte "
                    "rows)", "gdn_bwd_dx_stream_kernel (bf16, other shapes, "
-                   "C <= 1024)"],
+                   "any C)"],
     "gdn_bwd_partials": ["gdn_bwd_partials_kernel (f32)",
                          "gdn_bwd_partials_wide_kernel (bf16)"],
     "gdn_bwd_reduce": ["gdn_bwd_reduce_kernel"],
@@ -2078,11 +2179,11 @@ def _log_train_convs():
 
 
 def _train_case(what, step, state, batches, gen, timed, per_step,
-                kernels=None, exact=False, out=None):
+                kernels=None, exact=False, out=None, falls=True):
     """A warm-up step, a second one under the profiler, then `timed`
     steps with the launch counts set to 0 just before and read just
     after, which must be `per_step` of each kernel a step; the loss must
-    stay finite and fall on the one batch. `kernels` maps CUDA kernel
+    stay finite and, with `falls`, fall on the one batch. `kernels` maps CUDA kernel
     names to the launches the profiled step must make (`_hold_launches`),
     and with `exact` each timed step too, as the C ABI counts them.
     Logs the step ms, peak memory and the profiled step, and puts the
@@ -2138,7 +2239,7 @@ def _train_case(what, step, state, batches, gen, timed, per_step,
     losses = [m["loss"] for m in metrics]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: loss not finite: {losses}")
-    if not losses[-1] < losses[0]:
+    if falls and not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: loss did not fall: {losses}")
     last = metrics[-1]
     log(f"train {what}: step ms {json.dumps([round(v, 2) for v in ms])} "
@@ -4926,6 +5027,226 @@ def phase_off_route_training():
     return launched, out
 
 
+WIDE_WIDTHS = {"N": WIDE_C, "M": WIDE_C}  # every GDN 512 wide
+WIDE_CHECK = {"N": 400, "M": 400}  # past the cap, on the CPU too
+WIDE_TIMED = 3
+WIDE_AMP = {"N": 1152, "M": 320}  # bf16 past 1024
+WIDE_AMP_BATCH = (4, 256, 256, 3)
+WIDE_CORE = (16, 32, 32, 1152)  # GDNCore forward and backward, bf16
+# launches of each CUDA kernel a pass of phase 18: a round trip (3 GDN in
+# g_a, 3 IGDN in g_s), an f32 step, an AMP step at N = 1152
+WIDE_ROUND_TRIP = {"gdn_fwd_f32_blocked_kernel": 6, "gdn_fwd_kernel": 0}
+WIDE_F32_STEP = {"gdn_fwd_f32_blocked_kernel": 6,
+                 "gdn_bwd_dx_f32_blocked_kernel": 6,
+                 "gdn_bwd_partials_kernel": 6, "gdn_bwd_reduce_kernel": 6,
+                 "gdn_fwd_kernel": 0, "gdn_bwd_dx_kernel": 0}
+WIDE_AMP_STEP = {**AMP_OFF_ROUTE, "gdn_bwd_partials_wide_kernel": 6,
+                 "gdn_bwd_reduce_kernel": 6}
+
+
+def _wide_serving():
+    """mbt2018-mean q8 at N = M = 512 served over HTTP: three 512x768
+    images through /compress and /decompress, the counts set to 0 just
+    before and read just after (6 `gdn_fwd` a round trip, all on
+    gdn_fwd_f32_blocked_kernel by the C ABI, no backward); the bodies
+    held to the direct calls, encoding deterministic, the decoder
+    recovering the encoder's latents, the CUDA transforms within 1e-4 of
+    the CPU's on a 64x128 image. Returns the `gdn_fwd` launches."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.codec_cli import read_body
+    from lmic_tpu_torch.utils.serve import (
+        _read_pixels,
+        _write_pixels,
+        make_server,
+    )
+
+    t0 = time.perf_counter()
+    codec = zoo.create_model(SERVE_ARCH, QUALITY, seed=0, device="cuda",
+                             **WIDE_WIDTHS)
+    codec.update()
+    images = _images(3, seed=21)
+    codec.decompress(**codec.compress(images[0]), u8=True)  # warm-up
+    log(f"{SERVE_ARCH} q{QUALITY} {WIDE_WIDTHS} built, updated and warmed "
+        f"up in {time.perf_counter() - t0:.1f} s")
+    server = make_server(codec, {"family": "image", "arch": SERVE_ARCH,
+                                 "quality": QUALITY,
+                                 "input_shape": list(IMAGE)})
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        bodies, recs, times, stats = [], [], [], []
+        torch.cuda.synchronize()
+        before = gdn.kernel_launches()
+        _reset_counts()
+        for x in images:
+            f = io.BytesIO()
+            _write_pixels(f, x)
+            t1 = time.perf_counter()
+            bodies.append(_post(port, "/compress", f.getvalue()))
+            t2 = time.perf_counter()
+            enc_stats = dict(codec.stats)
+            recs.append(_post(port, "/decompress", bodies[-1]))
+            times.append((1e3 * (t2 - t1),
+                          1e3 * (time.perf_counter() - t2)))
+            stats.append({**enc_stats, **codec.stats})
+        counts = dict(gdn.LAUNCHES)
+        torch.cuda.synchronize()
+        abi = _abi_diff(before)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    launches = counts.pop("gdn_fwd")
+    want = {k: v * len(images) for k, v in WIDE_ROUND_TRIP.items()}
+    if launches != 6 * len(images) or any(counts.values()) or any(
+            abi[k] != v for k, v in want.items()) or sum(
+            abi.values()) != launches:
+        raise AssertionError(f"N = 512 serving launched gdn_fwd {launches} "
+                             f"times, {counts}; the C ABI counted {abi}")
+    for i, (x, body, rec, (tc, td), st) in enumerate(
+            zip(images, bodies, recs, times, stats)):
+        shape, groups = read_body(io.BytesIO(body))
+        direct = codec.compress(x)
+        if [list(g) for g in direct["strings"]] != groups \
+                or tuple(direct["shape"]) != tuple(shape):
+            raise AssertionError("N = 512: encoding is not deterministic")
+        want_x = codec.decompress(direct["strings"], direct["shape"],
+                                  u8=True)["x_hat"]
+        got = _read_pixels(io.BytesIO(rec))
+        if got.shape != x.shape or not np.array_equal(got, want_x):
+            raise AssertionError("N = 512: /decompress differs from the "
+                                 "codec")
+        if i == 0:
+            _roundtrip_checks(codec, x, direct["strings"], direct["shape"])
+        nbytes = sum(len(s) for g in groups for s in g)
+        log(f"N = 512 serve image {i}: {nbytes} bytes, /compress {tc:.1f} "
+            f"ms, /decompress {td:.1f} ms; stages ms " + json.dumps(
+                {k: round(v, 2) for k, v in st.items()}))
+    worst = _cpu_agreement(SERVE_ARCH, codec, **WIDE_WIDTHS)["transforms"]
+    log(f"N = 512: CUDA vs CPU transforms within {worst:.3g}; the C ABI "
+        f"counted {json.dumps({k: v for k, v in abi.items() if v})}")
+    return launches
+
+
+def _wide_core():
+    """GDNCore (gdn_core with a gradient) forward and backward in bf16 on
+    a WIDE_CORE tensor, on gdn_fwd_stream_kernel and
+    gdn_bwd_dx_stream_kernel, against the plain versions on the card at
+    the bf16 bar; returns the largest error."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    C = WIDE_CORE[-1]
+    x, beta, gamma, g = _gdn_inputs(gen, int(np.prod(WIDE_CORE[:-1])), C,
+                                    torch.bfloat16)
+    x, g = x.view(WIDE_CORE), g.view(WIDE_CORE)
+    before = gdn.kernel_launches()
+    leaves = [t.clone().requires_grad_() for t in (x, beta, gamma)]
+    y = gdn.gdn_core(*leaves)
+    y.backward(g)
+    torch.cuda.synchronize()
+    abi = _abi_diff(before)
+    if abi["gdn_fwd_stream_kernel"] != 1 or \
+            abi["gdn_bwd_dx_stream_kernel"] != 1:
+        raise AssertionError(f"GDNCore at {WIDE_CORE}: the C ABI counted "
+                             f"{abi}")
+    want = [gdn.gdn_reference(x, beta, gamma),
+            *gdn.gdn_bwd_reference(x, beta, gamma, g)]
+    got = [y.detach()] + [t.grad for t in leaves]
+    worst = 0.0
+    for name, a, b in zip(("y", "dx", "dbeta", "dgamma"), got, want):
+        _, rel = _errors([a], [b])
+        worst = max(worst, rel)
+        if not rel < TOL["bfloat16"]:
+            raise AssertionError(f"GDNCore at {WIDE_CORE}: {name} error "
+                                 f"{rel:.3g}")
+    return worst
+
+
+def phase_wide_channels():
+    """Phase 18 (see the module doc): mbt2018-mean at N = M = 512 served
+    and trained in f32 on the blocked f32 kernels, an AMP step at N = 1152
+    and GDNCore at 1152 channels on the bf16 stream kernels. Returns the
+    serving's `gdn_fwd` launches, the training steps' launch counts and
+    the f32 step's measurements (`_train_case`'s `out`)."""
+    import torch
+
+    from lmic_tpu_torch import zoo
+    from lmic_tpu_torch.ops import gdn
+    from lmic_tpu_torch.utils.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    serve_launches = _wide_serving()
+    launched = {k: 0 for k in gdn.LAUNCHES}
+    out = {}
+    # the AMP model's loss jumps at its third step from seed 0, with the
+    # plain versions in the kernels' place too (chip_probes.py
+    # wide-steps): Adam's first steps move each of gamma's C^2 entries by
+    # about the learning rate, and a norm sums C of them; so that step's
+    # losses are held finite, not falling
+    for what, dtype, widths, batch_shape, timed, kernels, falls in (
+            ("f32", None, WIDE_WIDTHS, TRAIN_BATCH, WIDE_TIMED,
+             WIDE_F32_STEP, True),
+            ("amp", torch.bfloat16, WIDE_AMP, WIDE_AMP_BATCH, 1,
+             WIDE_AMP_STEP, False)):
+        torch.cuda.empty_cache()
+        module = zoo.create_model(TRAIN_ARCH, TRAIN_QUALITY, seed=0,
+                                  device="cuda", dtype=dtype,
+                                  **widths).module
+        opt = make_optimizer()
+        state = create_train_state(module, opt)
+        step = make_train_step(module, opt, TRAIN_LAMBDA)
+        batch = _train_batch(batch_shape, seed=1)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        name = (f"{TRAIN_ARCH} q{TRAIN_QUALITY} N = {widths['N']}, M = "
+                f"{widths['M']} {what} batch {batch_shape[0]}")
+        case = {}
+        counts = _train_case(name, step, state, (batch,), gen, timed,
+                             {k: 6 for k in gdn.LAUNCHES}, kernels=kernels,
+                             exact=True, out=case, falls=falls)
+        for k, v in counts.items():
+            launched[k] += v
+        log(f"train {name}: step ms {case['step_ms']:.2f} (median of "
+            f"{timed}), device {case['device_ms']:.2f} ms, GDN kernels "
+            f"{case['gdn_ms']:.3f} ms "
+            f"({100 * case['gdn_ms'] / case['device_ms']:.1f} %), busy "
+            f"{100 * case['busy']:.1f} %, peak memory "
+            f"{case['peak_gib']:.2f} GiB; GDN kernels' device ms: "
+            + json.dumps({k: round(v, 3) for k, v in case["kernels"].items()
+                          if k in GDN_KERNELS}))
+        if what == "f32":
+            out = case
+        del module, opt, state, step, batch
+    torch.cuda.empty_cache()
+    card = _narrow_step("cuda", None, None, **WIDE_CHECK)
+    cpu = _narrow_step("cpu", None, None, **WIDE_CHECK)
+    loss_err, grad_err, rms, leaves = _step_gap(card, cpu)
+    log(f"f32 training step on the card vs the CPU ({WIDE_CHECK}, same "
+        f"noise): losses within {loss_err:.3g}, gradients as one vector "
+        f"{grad_err:.3g} (leaf rms {rms:.3g}; the largest leaves "
+        f"{json.dumps(leaves)})")
+    if not (loss_err < 1e-4 and grad_err < 1e-4):
+        raise AssertionError(f"the f32 step at {WIDE_CHECK} on the card vs "
+                             f"the CPU: loss {loss_err:.3g}, gradients "
+                             f"{grad_err:.3g}")
+    worst = _wide_core()
+    log(f"GDNCore bf16 at {WIDE_CORE}: forward and backward within "
+        f"{worst:.3g} of the plain versions (bar {TOL['bfloat16']})")
+    log(f"wide channels phase: {time.perf_counter() - t_phase:.1f} s")
+    return serve_launches, launched, out
+
+
 def _totals(cases, kernel, rows, dtype, C=192):
     """Sums over one main-path pass (a round trip or a training step): the
     GDN and the IGDN at each of `rows`, at width C; `rows` may map each
@@ -5026,11 +5347,25 @@ def main():
                  for k in ("gdn_fwd", "gdn_bwd_dx")}
     for kernel, rows in off_route.items():
         log(f"bf16 {kernel} off the wide route: {json.dumps(rows)}")
+    # f32 past 384 channels (WIDE_F32_CASES): the blocked kernels, whole
+    # backward included; `exact`: equal to the plain version bit for bit
+    for kernel in ("gdn_fwd", "gdn_bwd_dx", "gdn_bwd"):
+        rows = [{"shape": c["shape"], "inverse": c["inverse"],
+                 "offset": c.get("offset", 0), "exact": c["exact"]
+                 if "exact" in c else None,
+                 **{m: round(c[m], 2) for m in (
+                     "us", "plain_us", "library_us", "bound_us")}}
+                for c in cases[kernel]
+                if (c.get("kernel") or c.get("dx_kernel"))
+                in BLOCKED_FP32_KERNELS]
+        log(f"f32 {kernel} past 384 channels: {json.dumps(rows)}")
     if args.kernels_only:
         log(json.dumps({"kernels_only": {
-            kernel: {f"training_step_{d}": _totals(cases, kernel,
-                                                   TRAIN_ROWS[:3], d)
-                     for d in ("float32", "bfloat16")}
+            kernel: {**{f"training_step_{d}": _totals(cases, kernel,
+                                                      TRAIN_ROWS[:3], d)
+                        for d in ("float32", "bfloat16")},
+                     "training_step_f32_c512": _totals(
+                         cases, kernel, TRAIN_ROWS[:3], "float32", WIDE_C)}
             for kernel in cases}, "bf16_fwd_by_layer": layers["gdn_fwd"],
             "bf16_dx_by_layer": layers["gdn_bwd_dx"]}))
         return 0
@@ -5056,6 +5391,8 @@ def main():
     apps_launches, more_training["gdn_ablation"] = phase_apps_and_ablation()
     more_training["off_route_training"], off_route_step = \
         phase_off_route_training()
+    wide_launches, more_training["wide_channels"], wide_step = \
+        phase_wide_channels()
 
     def totals(kernel, rows, dtype, C=192):
         return _totals(cases, kernel, rows, dtype, C)
@@ -5065,7 +5402,8 @@ def main():
     # RGB-T pair (phase 8), the paired `_R` arch (phase 9), --remat
     # (phase 13), --bf16 and --bf16 --remat (phase 14), DDP (phase 15), the
     # plain steps of the GDN ablation (phase 16), the off-route AMP step
-    # (phase 17)
+    # (phase 17), the f32 step at N = 512 and the AMP step at N = 1152
+    # (phase 18)
     training = {"training": train_counts, **more_training}
     launched = {k: sum(c[k] for c in training.values()) for k in gdn.LAUNCHES}
     bwd_counts = {k: launched[k] for k in gdn.BWD_KERNELS}
@@ -5080,7 +5418,7 @@ def main():
         "launches": (serve_launches + ar_launches + rgbt_launches
                      + paired_launches + eval_launches + pipe_launches
                      + pretrained_launches + precision_launches
-                     + apps_launches + launched["gdn_fwd"]),
+                     + apps_launches + wide_launches + launched["gdn_fwd"]),
         "launches_by_path": {"serving": serve_launches,
                              "ar_serving": ar_launches,
                              "rgbt_serving": rgbt_launches,
@@ -5091,6 +5429,7 @@ def main():
                              "pretrained_serving": pretrained_launches,
                              "matmul_precision": precision_launches,
                              "apps": apps_launches,
+                             "wide_serving": wide_launches,
                              **{p: c["gdn_fwd"]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts["gdn_fwd"] / train_steps,
@@ -5120,6 +5459,14 @@ def main():
                                           "bfloat16", 256),
         "off_route_amp_step": {k: off_route_step[k] for k in (
             "step_ms", "device_ms", "gdn_ms", "busy", "peak_gib")},
+        # f32 past 384 channels on gdn_fwd_f32_blocked_kernel: phase 18's
+        # round trip and step at N = M = 512, and the step itself
+        "round_trip_f32_c512": totals("gdn_fwd", WIDE_F32_SERVE_ROWS,
+                                      "float32", WIDE_C),
+        "training_step_f32_c512": totals("gdn_fwd", TRAIN_ROWS[:3],
+                                         "float32", WIDE_C),
+        "wide_f32_step": {k: wide_step[k] for k in (
+            "step_ms", "device_ms", "gdn_ms", "busy", "peak_gib")},
         # a --remat step: each GDN and IGDN again in its block's recompute
         "training_step_remat_f32": totals("gdn_fwd", REMAT_ROWS, "float32"),
         "training_step_remat_bf16": totals("gdn_fwd", REMAT_ROWS,
@@ -5147,6 +5494,7 @@ def main():
                              "pretrained_serving": 0,
                              "matmul_precision": 0,
                              "apps": 0,
+                             "wide_serving": 0,
                              **{p: c[gdn.BWD_KERNELS[0]]
                                 for p, c in training.items()}},
         "launches_per_step": train_counts[gdn.BWD_KERNELS[0]] / train_steps,
@@ -5160,6 +5508,9 @@ def main():
                                           "bfloat16", 320),
         "training_step_bf16_c256": totals("gdn_bwd", TRAIN_ROWS[:3],
                                           "bfloat16", 256),
+        # on gdn_bwd_dx_f32_blocked_kernel at phase 18's N = 512 step
+        "training_step_f32_c512": totals("gdn_bwd", TRAIN_ROWS[:3],
+                                         "float32", WIDE_C),
         # the master's step (batch 4 of 512x640): 327,680 / 81,920 / 20,480
         "training_step_master": totals("gdn_bwd", MASTER_STEP_ROWS,
                                        "float32"),
@@ -5181,6 +5532,8 @@ def main():
                                           320),
         "training_step_bf16_c256": totals(name, TRAIN_ROWS[:3], "bfloat16",
                                           256),
+        "training_step_f32_c512": totals(name, TRAIN_ROWS[:3], "float32",
+                                         WIDE_C),
         **({"training_step_bf16_by_layer": layers[name],
             "bf16_off_route": off_route[name]} if name in layers else {}),
         "training_step_master": totals(name, MASTER_STEP_ROWS, "float32"),

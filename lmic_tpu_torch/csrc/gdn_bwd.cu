@@ -30,16 +30,20 @@
 //     order; bf16: in wgmma's order); forms dn and g*scale elementwise;
 //     writes dn to an (n, C) scratch; stages dn rounded to the input type,
 //     and forms dx = g*scale + 2x (dn . gamma).
-//     float32 (gdn_bwd_dx_kernel): bound by the FP32 operations of its
-//     two products, 4*n*C^2 (577 us at 262,144 x 192 at 67 TFLOP/s). Both
-//     run the register-tiled main loop of csrc/gdn_f32.cuh (x^2, then dn,
-//     staged transposed once; gamma^T, then gamma, in cp.async k-slices;
-//     8-row x 4-channel register tiles), and a thread owns the same tile
-//     in both, so norm, dn and g*scale never leave its registers: dn goes
-//     to the f32 scratch and over x^2, g*scale waits for the epilogue. x
-//     and g come to shared memory by cp.async with the first slice (101 KB of
-//     shared memory at C = 192). C = 192 and 128 run instances compiled
-//     for that width.
+//     float32: bound by the FP32 operations of its two products, 4*n*C^2
+//     (577 us at 262,144 x 192 at 67 TFLOP/s). C <= 384 runs
+//     gdn_bwd_dx_kernel: both products run the whole-width loop of
+//     csrc/gdn_f32.cuh (x^2, then dn, staged transposed once; gamma^T,
+//     then gamma, in cp.async k-slices; 8-row x 4-channel register
+//     tiles), and a thread owns the same tile in both, so norm, dn and
+//     g*scale never leave its registers: dn goes to the f32 scratch and
+//     over x^2, g*scale waits for the epilogue. x and g come to shared
+//     memory by cp.async with the first slice (101 KB of shared memory at
+//     C = 192). C = 192 and 128 run instances compiled for that width.
+//     Wider C runs gdn_bwd_dx_f32_blocked_kernel: a CTA per 64-row tile
+//     walks its 128-column blocks twice on the blocked loop (x and gamma^T
+//     streamed, then dn, back from the scratch, and gamma), g*scale
+//     waiting in dx between the passes.
 //     bfloat16: bound by bytes. dn is rounded to bf16 once, for the bf16
 //     scratch and for product 2, and the f32 dn's sum over each 64-row
 //     tile goes to a (ceil(n / 64), C) f32 buffer of tile sums, in a fixed
@@ -49,7 +53,7 @@
 //     gdn_bwd_dx_wide_kernel: persistent CTAs keep gamma in shared memory,
 //     x and g arrive one tile ahead, both products run with the norm, dn
 //     and g*scale in registers, and dn and dx leave by TMA. Every other
-//     shape, any C up to 1024, runs gdn_bwd_dx_stream_kernel: a producer
+//     shape, any C, runs gdn_bwd_dx_stream_kernel: a producer
 //     warp streams 64-column k-slices of x and gamma, then of dn (read
 //     back from the scratch) and gamma, two warpgroups sum 128 rows x up
 //     to 192 columns a block, and g*scale waits in a per-CTA f32
@@ -104,13 +108,14 @@ namespace {
 // and nowhere else: a caller reads them around a run to see which kernel
 // each launch took (a torch.profiler session can lose records).
 enum Kernel {
-  kDxF32, kPartialsF32, kDxStream, kDxWide, kPartialsWide, kReduce, kKernels
+  kDxF32, kPartialsF32, kDxStream, kDxWide, kPartialsWide, kReduce,
+  kDxF32Blocked, kKernels
 };
 constexpr const char *kKernelNames[kKernels] = {
     "gdn_bwd_dx_kernel",         "gdn_bwd_partials_kernel",
     "gdn_bwd_dx_stream_kernel",  "gdn_bwd_dx_wide_kernel",
     "gdn_bwd_partials_wide_kernel",
-    "gdn_bwd_reduce_kernel"};
+    "gdn_bwd_reduce_kernel",     "gdn_bwd_dx_f32_blocked_kernel"};
 std::atomic<int64_t> launches[kKernels];
 
 // cudaGetLastError() after a launch of `kernel`, which counts it if 0
@@ -242,6 +247,101 @@ __global__ void __launch_bounds__(f32::kMaxThreads)
       acc[k][q] = gs[k][q] + 2.0f * xv[q] * acc[k][q];
   }
   f32::store_rows(dx, acc, row0 + r0, valid - r0, c0, C, vec);
+}
+
+// The f32 dx pass past 384 channels: the dx part of
+// lmic_tpu/ops/pallas_gdn.py::_bwd_kernel at every C wider than one CTA's
+// warp grid covers (the TPU kernel keeps the whole (C, C) gamma and
+// blocks over rows alone). Bound by the FP32 operations of its two
+// products like gdn_bwd_dx_kernel (4.13 ms at 262,144 x 512 at 67
+// TFLOP/s). Product 2 (dn . gamma) needs dn at every column before any
+// column of dx, so a CTA owns a 64-row tile and walks its 128-column
+// blocks twice, each block on the blocked loop of csrc/gdn_f32.cuh (8 x 4
+// register tiles, both operands in 32-deep cp.async k-slices):
+//  - pass 1, block by block: product 1 (x^2 . gamma^T, x squared in place,
+//    the sums gdn_fwd_f32_blocked_kernel forms), then norm, dn and
+//    g*scale in registers from x and g read from L2: dn to the f32
+//    scratch the partials read anyway, g*scale into dx;
+//  - pass 2, block by block, after the barrier that starts each product:
+//    product 2 (dn . gamma) streams the tile's dn back from the scratch
+//    (L2), and the epilogue adds 2x (dn . gamma) to the g*scale this
+//    thread wrote into dx, as gdn_bwd_dx_kernel writes it.
+// A thread holds the same positions in both passes, so dx's g*scale is
+// read back by the thread that wrote it; the copies of dn by cp.async
+// follow the CTA's own stores of it across the product's barrier. Sums
+// in a fixed order, no atomics: the same bytes on every run.
+template <bool kInverse>
+__global__ void __launch_bounds__(gdn_f32::blocked::kThreads, 2)
+    gdn_bwd_dx_f32_blocked_kernel(const float *__restrict__ x,
+                                  const float *__restrict__ g,
+                                  const float *__restrict__ gamma_t,
+                                  const float *__restrict__ gamma,
+                                  const float *__restrict__ beta, float *dx,
+                                  float *dn, int64_t n, int C, bool vec) {
+  namespace blk = f32::blocked;
+  constexpr int kR = f32::kTileRows, kC = f32::kTileCols;
+  extern __shared__ float4 smem4[];
+  float *smem = reinterpret_cast<float *>(smem4);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * blk::kRows;
+  const int valid = static_cast<int>(
+      n - row0 < blk::kRows ? n - row0 : static_cast<int64_t>(blk::kRows));
+  int r0, c0;
+  blk::tile_of(&r0, &c0);
+  float acc[kR][kC];
+
+  // pass 1: the norm, dn and g * scale, a column block at a time
+  for (int col0 = 0; col0 < C; col0 += blk::kCols) {
+    blk::product<true>(acc, smem, x, row0, valid, gamma_t, col0, C, r0, c0,
+                       vec);
+    const int c = col0 + c0;
+    if (c >= C) continue;
+    float bo[kC];
+#pragma unroll
+    for (int q = 0; q < kC; ++q) bo[q] = c + q < C ? beta[c + q] : 0.f;
+    // a row at a time: 32 sums, 4 values each of x, g, dn and g * scale
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      const int r = r0 + 4 * k;
+      float xv[kC], gv[kC], gs[kC];
+      blk::load_row<true>(xv, x, row0, r, valid, c, C, vec);
+      blk::load_row<true>(gv, g, row0, r, valid, c, C, vec);
+#pragma unroll
+      for (int q = 0; q < kC; ++q) {
+        const float norm = acc[k][q] + bo[q];
+        const float rs = rsqrtf(norm);
+        if (kInverse) {
+          acc[k][q] = 0.5f * gv[q] * xv[q] * rs;
+          // sqrtf's own Newton step, without its slow path's call, whose
+          // saved registers spilled here (norm >= beta > 0: same bytes)
+          gs[q] = gv[q] * hop::sqrt_from_rsqrt(norm, rs);
+        } else {
+          acc[k][q] = -0.5f * gv[q] * xv[q] * (rs * rs * rs);
+          gs[q] = gv[q] * rs;
+        }
+      }
+      blk::store_row(dn, acc[k], row0, r, valid, c, C, vec);
+      blk::store_row(dx, gs, row0, r, valid, c, C, vec);
+    }
+  }
+
+  // pass 2: dx = g * scale + 2 x (dn . gamma), a column block at a time
+  for (int col0 = 0; col0 < C; col0 += blk::kCols) {
+    blk::product<false>(acc, smem, dn, row0, valid, gamma, col0, C, r0, c0,
+                        vec);
+    const int c = col0 + c0;
+    if (c >= C) continue;
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      const int r = r0 + 4 * k;
+      float xv[kC], gs[kC];
+      blk::load_row<true>(xv, x, row0, r, valid, c, C, vec);
+      blk::load_row<false>(gs, dx, row0, r, valid, c, C, vec);
+#pragma unroll
+      for (int q = 0; q < kC; ++q)
+        acc[k][q] = gs[q] + 2.0f * xv[q] * acc[k][q];
+      blk::store_row(dx, acc[k], row0, r, valid, c, C, vec);
+    }
+  }
 }
 
 // The f32 partials: one CTA per (1024-row chunk, 64 x 64 block of dgamma),
@@ -784,7 +884,7 @@ __global__ void __launch_bounds__(DxWide<kWidth>::kThreads, 1)
 }
 
 // The bf16 dx pass at every shape gdn_bwd_dx_wide_kernel does not take
-// (other widths, any C up to kDsMaxChannels; bases off 16 bytes): the dx
+// (other widths, any C; bases off 16 bytes): the dx
 // and per-tile dbeta part of lmic_tpu/ops/pallas_gdn.py::_bwd_kernel where
 // gamma does not fit beside the tiles. It computes what the wide kernel
 // computes (dx, the bf16 dn scratch, each 64-row tile's f32 sum of dn)
@@ -820,14 +920,16 @@ __global__ void __launch_bounds__(DxWide<kWidth>::kThreads, 1)
 //    raw x at the positions its sums hold in its warpgroup's x tile, as
 //    gdn_fwd_stream_kernel does, and the warpgroup's first thread loads
 //    the block's g by TMA into its g tile. The elementwise pass on the
-//    accumulators: norm = sums + beta, dn and g*scale in f32; dn rounded
+//    accumulators: norm = sums + beta (the block's beta in a 192-float
+//    stage of the warpgroup's own, hop::BlockBeta, so no shared memory
+//    grows with C), dn and g*scale in f32; dn rounded
 //    once to bf16 over g in the g tile and stored by TMA to the scratch;
 //    the f32 dn's sum over the warpgroup's 64 rows (a thread's two rows, a
 //    shuffle over the 8 lanes of a column, the 4 warps in order through
 //    shared memory) to the tile sums; g*scale, which must wait until pass
 //    2 reaches the block, to a per-CTA f32 workspace in device memory
 //    (kDsRows x 64*boxes floats, 160 KB a CTA at C = 320, which stays in
-//    L2), written and read back by the same thread in 16-byte accesses, a
+//    L2; 1 MB at C = 2048, which does not), written and read back by the same thread in 16-byte accesses, a
 //    warp's 512 contiguous bytes.
 //  - Once both warpgroups' dn stores of the tile have completed (each
 //    first thread waits for its bulk groups, fences the async proxy and
@@ -876,14 +978,15 @@ constexpr int kDsProducerRegs = 40, kDsConsumerRegs = 232;
 static_assert(128 * kDsProducerRegs + kDsConsumers * kDsConsumerRegs <=
                   kDsThreads * (65536 / kDsThreads / 8 * 8),
               "setmaxnreg takes no more registers than the launch holds");
-constexpr int kDsMaxChannels = 1024;  // beta staged in shared memory
 // a stage: 2 boxes of x or dn, up to 3 of gamma; the x and the g tiles:
 // each warpgroup's 64 rows of up to 3 boxes
 constexpr int kDsStage = (2 + kDsMaxBoxes) * hop::kBox;
 constexpr int kDsTile = 2 * kDsMaxBoxes * hop::kBox;
 // room to align to 1 KB, the ring, the x and g tiles, beta
+// beta of a column block, for each consumer warpgroup
+constexpr int kDsBeta = 64 * kDsMaxBoxes;
 constexpr size_t kDsSmem = 1024 + kDsStages * kDsStage + 2 * kDsTile +
-                           kDsMaxChannels * 4;
+                           2 * kDsBeta * 4;
 static_assert(kDsSmem <= hop::kSmemLimit, "fits a CTA");
 static_assert(kDsRows == 2 * hop::kTileRows,
               "a warpgroup's rows are one tile of dn's sums");
@@ -1021,7 +1124,8 @@ __device__ __forceinline__ float4 *ds_work_at(const float *work, int i) {
 }
 
 // Pass 1 of one column block of kB boxes, for this consumer thread: the
-// norm's k-loop (x of the block's own columns kept in xt), then, once the
+// norm's k-loop (x of the block's own columns kept in xt), the block's
+// beta staged from `bb` into bs (barrier `bar`), then, once the
 // block's g is in gt (`side` at `parity`), the elementwise pass: dn rounded
 // to bf16 over g in gt, g*scale to `work` (this warpgroup's share of the
 // block), and, once every thread of the warpgroup
@@ -1032,8 +1136,8 @@ template <bool kInverse, int kB>
 __device__ __forceinline__ void ds_norm_block(
     unsigned char *ring, uint64_t *landed, uint64_t *freed, int *it,
     int boxes, int box0, unsigned char *xt, unsigned char *gt,
-    uint64_t *side, unsigned parity, const float *bs, float *work, int valid,
-    int bar) {
+    uint64_t *side, unsigned parity, const hop::BlockBeta &bb, float *bs,
+    float *work, int valid, int bar) {
   constexpr int kBox = hop::kBox;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -1041,6 +1145,7 @@ __device__ __forceinline__ void ds_norm_block(
   const int rw = 16 * (warp % 4);
   float acc[32 * kB];
   ds_norm_loop<kB>(acc, ring, landed, freed, it, boxes, box0, xt);
+  bb.stage(bs, kB, bar);
   hop::mbar_wait(side, parity);
 
   // sum 4 i + 2 h + e is row rw + g + 8 h, column 8 i + 2 t4 + e of the
@@ -1048,7 +1153,7 @@ __device__ __forceinline__ void ds_norm_block(
 #pragma unroll
   for (int i = 0; i < 8 * kB; ++i) {
     const float2 bo =
-        *reinterpret_cast<const float2 *>(bs + 64 * box0 + 8 * i + 2 * t4);
+        *reinterpret_cast<const float2 *>(bs + 8 * i + 2 * t4);
     float gs[4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1156,7 +1261,7 @@ __global__ void __launch_bounds__(kDsThreads, 1)
       smem_raw + (1024 - hop::smem_at(smem_raw) % 1024) % 1024;
   unsigned char *xtiles = ring + kDsStages * kDsStage;
   unsigned char *gtiles = xtiles + kDsTile;
-  float *bs = reinterpret_cast<float *>(gtiles + kDsTile);
+  float *betas = reinterpret_cast<float *>(gtiles + kDsTile);
   __shared__ uint64_t landed[kDsStages], freed[kDsStages];
   __shared__ uint64_t side[2];  // a warpgroup's g (pass 1) or x (pass 2)
   __shared__ uint64_t dn_done;  // both warpgroups' dn of a tile is stored
@@ -1174,8 +1279,6 @@ __global__ void __launch_bounds__(kDsThreads, 1)
     hop::mbar_init(&dn_done, 2);  // each warpgroup's first thread
     hop::fence_mbar_init();
   }
-  for (int o = threadIdx.x; o < 64 * boxes; o += blockDim.x)
-    bs[o] = o < live ? __bfloat162float(beta[o]) : 1.f;
   __syncthreads();
 
   if (threadIdx.x >= kDsConsumers) {  // the producer warpgroup
@@ -1242,6 +1345,7 @@ __global__ void __launch_bounds__(kDsThreads, 1)
   unsigned char *xt = xtiles + wg * kDsMaxBoxes * kBox;
   unsigned char *gt = gtiles + wg * kDsMaxBoxes * kBox;
   float *mine = work + blockIdx.x * ds_work_floats(C);
+  float *bs = betas + wg * kDsBeta;  // beta of this warpgroup's block
   int it = 0;
   unsigned uses = 0;  // of `side`
   // this warpgroup's share of block (box0, count) of the workspace
@@ -1255,6 +1359,8 @@ __global__ void __launch_bounds__(kDsThreads, 1)
     for (int cb = 0; cb < blocks; ++cb, ++uses) {
       int box0, count;
       hop::column_block(boxes, cb, &box0, &count);
+      hop::BlockBeta bb;  // staged after the norm's k-loop
+      bb.load(beta, box0, count, live);
       // the last dn store has read gt, and every thread is done with xt
       // and gt
       if (leader) hop::bulk_wait_read<0>();
@@ -1268,15 +1374,15 @@ __global__ void __launch_bounds__(kDsThreads, 1)
       float *ws = share(box0, count);
       if (count == 3)
         ds_norm_block<kInverse, 3>(ring, landed, freed, &it, boxes, box0, xt,
-                                   gt, side + wg, uses & 1, bs, ws, valid,
+                                   gt, side + wg, uses & 1, bb, bs, ws, valid,
                                    bar);
       else if (count == 2)
         ds_norm_block<kInverse, 2>(ring, landed, freed, &it, boxes, box0, xt,
-                                   gt, side + wg, uses & 1, bs, ws, valid,
+                                   gt, side + wg, uses & 1, bb, bs, ws, valid,
                                    bar);
       else
         ds_norm_block<kInverse, 1>(ring, landed, freed, &it, boxes, box0, xt,
-                                   gt, side + wg, uses & 1, bs, ws, valid,
+                                   gt, side + wg, uses & 1, bb, bs, ws, valid,
                                    bar);
       hop::fence_proxy_async();
       hop::named_sync(bar, 128);  // dn is whole in gt, the warps' sums in xt
@@ -1619,11 +1725,40 @@ cudaError_t launch_dx_as(const void *x, const void *g, const void *gamma_t,
   return counted(kDxF32);
 }
 
-// The main path's widths run kernels compiled for them (as the forward's)
+template <bool kInverse>
+cudaError_t launch_dx_blocked(const void *x, const void *g,
+                              const void *gamma_t, const void *gamma,
+                              const void *beta, void *dx, void *dn,
+                              int64_t n, int C, cudaStream_t stream) {
+  namespace blk = f32::blocked;
+  auto kernel = gdn_bwd_dx_f32_blocked_kernel<kInverse>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, blk::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const bool vec = C % 4 == 0 && hop::aligned16(x) &&
+                   hop::aligned16(g) && hop::aligned16(gamma_t) &&
+                   hop::aligned16(gamma) && hop::aligned16(dx) &&
+                   hop::aligned16(dn);
+  const int64_t blocks = (n + blk::kRows - 1) / blk::kRows;
+  if (blocks >= (int64_t{1} << 31)) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(blocks), blk::kThreads, blk::kSmemBytes,
+           stream>>>(
+      static_cast<const float *>(x), static_cast<const float *>(g),
+      static_cast<const float *>(gamma_t), static_cast<const float *>(gamma),
+      static_cast<const float *>(beta), static_cast<float *>(dx),
+      static_cast<float *>(dn), n, C, vec);
+  return counted(kDxF32Blocked);
+}
+
+// The main path's widths run kernels compiled for them (as the forward's),
+// any other C up to 384 the general one, every wider C the blocked one
 template <bool kInverse>
 cudaError_t launch_dx(const void *x, const void *g, const void *gamma_t,
                       const void *gamma, const void *beta, void *dx,
                       void *dn, int64_t n, int C, cudaStream_t stream) {
+  if (C > f32::kWholeWidth)
+    return launch_dx_blocked<kInverse>(x, g, gamma_t, gamma, beta, dx, dn,
+                                       n, C, stream);
   if (C == 192)
     return launch_dx_as<kInverse, 192>(x, g, gamma_t, gamma, beta, dx, dn, n,
                                        C, stream);
@@ -1928,14 +2063,6 @@ cudaError_t launch_reduce(const void *partials, void *dbeta, void *dgamma,
 
 extern "C" {
 
-// The widest C the kernels take, for dtype 0 = float32 (the warp grid of
-// gdn_f32.cuh: 384) or 1 = bfloat16 (gdn_bwd_dx_stream_kernel, which stages
-// beta in shared memory: 1024); 0 for others.
-int lmic_gdn_bwd_max_channels(int dtype) {
-  if (dtype == 0) return gdn_f32::max_channels(2);
-  return dtype == 1 ? kDsMaxChannels : 0;
-}
-
 // Rows per partial sum: gdn_bwd_partials writes ceil(n / this) partials of
 // C*C + C floats each.
 int lmic_gdn_bwd_chunk_rows() { return kChunkRows; }
@@ -1978,7 +2105,7 @@ int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
                     void *dn_sums, int64_t n, int C, int dtype, int inverse,
                     void *scratch, void *stream) {
   if (n <= 0) return 0;
-  if (C <= 0 || C > lmic_gdn_bwd_max_channels(dtype))
+  if (C <= 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

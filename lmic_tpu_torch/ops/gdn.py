@@ -7,9 +7,9 @@ and channel-last activations `(..., C)`:
 
 - a CUDA tensor goes to the hand-written kernels: `gdn_fwd`
   (csrc/gdn_fwd.cu) forward and `gdn_bwd` (csrc/gdn_bwd.cu) backward, f32
-  on the FP32 cores and bf16 (AMP) on the tensor cores; they never fall
-  back to the plain versions, and they raise on a shape the kernels do
-  not take (`max_channels` gives the widest C of each);
+  on the FP32 cores and bf16 (AMP) on the tensor cores, at every C that
+  lmic_tpu's `gdn_core` takes; they never fall back to the plain
+  versions, and a failed launch raises;
 - a CPU tensor, and a CUDA tensor of a dtype the kernels do not take (f16,
   f64: lmic_tpu's `_gdn_jnp` path), goes to `gdn_reference` /
   `gdn_bwd_reference`, the same formulas in plain torch.
@@ -59,7 +59,6 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "gdn_fwd.cu": {
         "lmic_gdn_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
-        "lmic_gdn_fwd_max_channels": [_I],
         "lmic_gdn_fwd_scratch_bytes": [_P, _P, _P, _I64, _I, _I],
         "lmic_gdn_fwd_kernel_name": [_I],
         "lmic_gdn_fwd_kernel_launches": [_I],
@@ -70,7 +69,6 @@ _SIGNATURES = {
                             _I, _P, _P],
         "lmic_gdn_bwd_partials": [_P, _P, _P, _P, _I64, _I, _I, _P],
         "lmic_gdn_bwd_reduce": [_P, _P, _P, _I64, _I, _I, _P],
-        "lmic_gdn_bwd_max_channels": [_I],
         "lmic_gdn_bwd_chunk_rows": [],
         "lmic_gdn_bwd_tile_rows": [],
         "lmic_gdn_bwd_dx_scratch_bytes": [_P, _P, _P, _P, _P, _I64, _I, _I],
@@ -167,20 +165,6 @@ def gdn_bwd_reference(x, beta, gamma, g, inverse: bool = False):
     return dx.to(x.dtype), dbeta.to(beta.dtype), dgamma.to(gamma.dtype)
 
 
-def max_channels(kernel: str, dtype: torch.dtype) -> int:
-    """The widest C that `kernel` ("gdn_fwd" or "gdn_bwd") takes in
-    `dtype`: f32 384 (the warp grid of the register-tiled kernels), bf16
-    1024 (the stream kernels stage beta in shared memory). Builds the
-    kernel on first use."""
-    if kernel == "gdn_fwd":
-        return _load("gdn_fwd.cu").lmic_gdn_fwd_max_channels(
-            _DTYPE_CODES[dtype])
-    if kernel == "gdn_bwd":
-        return _load("gdn_bwd.cu").lmic_gdn_bwd_max_channels(
-            _DTYPE_CODES[dtype])
-    raise ValueError(f"no GDN kernel {kernel!r}")
-
-
 def _check(fn, x, beta, gamma):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{fn} takes float32 or bfloat16, got {x.dtype}")
@@ -209,16 +193,15 @@ def _raise_on(err, lib, what):
 
 def gdn_fwd(x, beta, gamma, inverse: bool = False):
     """Launch the forward kernel on CUDA tensors x (..., C), beta (C,) and
-    gamma (C, C) of one dtype, float32 or bfloat16. The C ABI picks the
-    kernel by shape: bf16 at C = 128 and 192 with 16-byte aligned x, gamma
-    and y runs `gdn_fwd_wide_kernel`, other bf16 shapes
+    gamma (C, C) of one dtype, float32 or bfloat16, at any C. The C ABI
+    picks the kernel by shape: f32 at C <= 384 runs `gdn_fwd_kernel`, wider
+    f32 `gdn_fwd_f32_blocked_kernel`; bf16 at C = 128 and 192 with 16-byte
+    aligned x, gamma and y runs `gdn_fwd_wide_kernel`, other bf16 shapes
     `gdn_fwd_stream_kernel` (on zero-padded copies in a scratch buffer
     allocated here where C % 8 != 0 or a base is off 16 bytes); a failed
     launch or tensor-map encode raises."""
     C = _check("gdn_fwd", x, beta, gamma)
     lib = _load("gdn_fwd.cu")
-    if C > max_channels("gdn_fwd", x.dtype):
-        raise ValueError(f"gdn_fwd: {C} channels exceed the kernel's tile")
     if not x.is_contiguous():
         x = x.contiguous()  # explicit copy: the kernel reads (n, C) rows
     # the f32 kernel reads gamma^T, the bf16 kernel gamma's rows
@@ -267,16 +250,17 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
     (..., C), beta (C,), gamma (C, C), all of one dtype, float32 or
     bfloat16. Returns (dx, dbeta, dgamma) in that dtype.
 
-    Three launches, each counted: `gdn_bwd_dx` (dx and the dn scratch:
-    f32 for f32; for bf16, dn rounded to bf16 and each 64-row tile's f32
-    sum of dn), `gdn_bwd_partials` (per-chunk partial dbeta/dgamma) and
-    `gdn_bwd_reduce` (the fixed-order sum of the partials). The C ABI picks
-    the dx kernel by shape: f32 `gdn_bwd_dx_kernel` (which reads gamma^T,
-    built here); bf16 at C = 128 and 192 with 16-byte aligned operands
-    `gdn_bwd_dx_wide_kernel`, other bf16 shapes `gdn_bwd_dx_stream_kernel`
-    (on a scratch buffer allocated here: its g*scale workspace, and
-    zero-padded copies where C % 8 != 0 or a base is off 16 bytes); a
-    failed launch or tensor-map encode raises."""
+    Three launches, each counted, at any C: `gdn_bwd_dx` (dx and the dn
+    scratch: f32 for f32; for bf16, dn rounded to bf16 and each 64-row
+    tile's f32 sum of dn), `gdn_bwd_partials` (per-chunk partial
+    dbeta/dgamma) and `gdn_bwd_reduce` (the fixed-order sum of the
+    partials). The C ABI picks the dx kernel by shape: f32
+    `gdn_bwd_dx_kernel` at C <= 384, `gdn_bwd_dx_f32_blocked_kernel` past
+    it (both read gamma^T, built here); bf16 at C = 128 and 192 with
+    16-byte aligned operands `gdn_bwd_dx_wide_kernel`, other bf16 shapes
+    `gdn_bwd_dx_stream_kernel` (on a scratch buffer allocated here: its
+    g*scale workspace, and zero-padded copies where C % 8 != 0 or a base
+    is off 16 bytes); a failed launch or tensor-map encode raises."""
     C = _check("gdn_bwd", x, beta, gamma)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(
@@ -284,8 +268,6 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
             f"does not match x {tuple(x.shape)} {x.dtype} on {x.device}"
         )
     lib = _load("gdn_bwd.cu")
-    if C > max_channels("gdn_bwd", x.dtype):
-        raise ValueError(f"gdn_bwd: {C} channels exceed the kernel's tile")
     # the kernels read (n, C) rows; a cotangent that comes back from cuDNN
     # NCHW-contiguous is copied explicitly, never reinterpreted
     if not x.is_contiguous():
@@ -302,7 +284,7 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
     chunks = -(-n // lib.lmic_gdn_bwd_chunk_rows())
     dn, dn_sums = _dn_scratch(lib, n, C, dt, dev)
     code, inv = _DTYPE_CODES[dt], int(bool(inverse))
-    # only the f32 dx kernel reads gamma^T
+    # only the f32 dx kernels read gamma^T
     gamma_t = gamma.t().contiguous() if dt == torch.float32 else gamma
     partials = torch.empty((chunks, C * C + C), dtype=torch.float32,
                            device=dev)

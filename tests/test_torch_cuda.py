@@ -541,34 +541,58 @@ def test_only_f32_dx_reads_gamma_t():
         x.data_ptr(), 64, 192, 0) == 0
 
 
+# (C, offset of x in elements) past the old channel caps (f32 384 on the
+# whole-width kernels, bf16 1024 on the stream kernels' staged beta), and
+# the CUDA kernels of each launch
+EVERY_WIDTH = {
+    torch.float32: ([(385, 0), (512, 0), (2048, 0), (512, 1)],
+                    ("gdn_fwd_f32_blocked_kernel",
+                     "gdn_bwd_dx_f32_blocked_kernel",
+                     "gdn_bwd_partials_kernel")),
+    torch.bfloat16: ([(1025, 0), (2048, 0)],
+                     ("gdn_fwd_stream_kernel", "gdn_bwd_dx_stream_kernel",
+                      "gdn_bwd_partials_wide_kernel")),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_refuse_channels_past_their_tile(dtype):
-    for kernel in ("gdn_fwd", "gdn_bwd"):
-        widest = gdn.max_channels(kernel, dtype)
-        assert widest >= 320, kernel  # every GDN width of the zoo
-        if dtype == torch.bfloat16:
-            # gdn_fwd_stream_kernel, gdn_bwd_dx_stream_kernel
-            assert widest >= 1024, kernel
-            x, beta, gamma = _data(70, widest, dtype, skew=True)
-            if kernel == "gdn_fwd":
-                got = [gdn.gdn_fwd(x, beta, gamma)]
-                want = [gdn.gdn_reference(x, beta, gamma)]
-            else:
-                g = torch.randn((70, widest),
-                                generator=torch.Generator().manual_seed(2)
-                                ).to("cuda", dtype)
-                got = gdn.gdn_bwd(x, beta, gamma, g)
-                want = gdn.gdn_bwd_reference(x, beta, gamma, g)
-            for a, b in zip(got, want):
-                assert _rel_err(a, b) < TOL[dtype], kernel
-        x, beta, gamma = _data(4, widest + 1, dtype)
-        before = dict(gdn.LAUNCHES)
-        with pytest.raises(ValueError, match="exceed"):
-            if kernel == "gdn_fwd":
-                gdn.gdn_fwd(x, beta, gamma)
-            else:
-                gdn.gdn_bwd(x, beta, gamma, x)
-        assert gdn.LAUNCHES == before  # refused, never sent elsewhere
+def test_kernels_take_every_width(dtype):
+    """gdn_fwd and gdn_bwd take the widths lmic_tpu's gdn_core takes past
+    the old caps: f32 at C = 385 (ragged), 512 and 2048 and a base off 16
+    bytes, bf16 at 1025 and 2048; each within TOL of the plain versions,
+    the same bytes on a second call, one launch of each kernel by the C
+    ABI's counts."""
+    widths, (fwd, dx, partials) = EVERY_WIDTH[dtype]
+    rows = 200  # three 64-row tiles and a ragged fourth
+
+    def launched(run):
+        torch.cuda.synchronize()
+        before = gdn.kernel_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: v - before.get(k, 0)
+                     for k, v in gdn.kernel_launches().items()
+                     if v != before.get(k, 0)}
+
+    for C, offset in widths:
+        x, beta, gamma = _data(rows, C, dtype, seed=C + offset, skew=True)
+        buf = torch.empty(rows * C + offset, dtype=dtype, device="cuda")
+        buf[offset:].copy_(x.view(-1))
+        x = buf[offset:].view(rows, C)
+        g = torch.randn((rows, C), generator=torch.Generator().manual_seed(C)
+                        ).to("cuda", dtype)
+        y, counts = launched(lambda: gdn.gdn_fwd(x, beta, gamma))
+        assert counts == {fwd: 1}, (C, offset)
+        assert _rel_err(y, gdn.gdn_reference(x, beta, gamma)) < TOL[dtype]
+        assert torch.equal(y, gdn.gdn_fwd(x, beta, gamma)), (C, offset)
+        got, counts = launched(lambda: gdn.gdn_bwd(x, beta, gamma, g))
+        assert counts == {dx: 1, partials: 1, "gdn_bwd_reduce_kernel": 1}
+        want = gdn.gdn_bwd_reference(x, beta, gamma, g)
+        for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert _rel_err(a, b) < TOL[dtype], (C, offset, name)
+        again = gdn.gdn_bwd(x, beta, gamma, g)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -45,16 +45,26 @@ def _perturb_gammas(tree, rng):
             _perturb_gammas(node, rng)
 
 
-def jax_params(arch, seed=0, n=N, m=M, channel=3, input_size=IMAGE[1:3]):
+def jax_params(arch, seed=0, n=N, m=M, channel=3, input_size=IMAGE[1:3],
+               jit=False):
     """lmic_tpu init for `arch` at n/m, as numpy, with GDN gammas pushed
     off the diagonal (so the channel mixing is exercised) and the
     bottleneck medians moved off zero (so they matter in the symbols).
     `channel` is the image's channel count (the master's modality for
-    the RGB-T master, whose init also traces its guide at `input_size`)."""
-    codec = jzoo.create_model(arch, 1, key=jax.random.key(seed),
-                              input_size=input_size, N=n, M=m,
-                              channel=channel)
-    params = jax.tree.map(np.asarray, codec.variables["params"])
+    the RGB-T master, whose init also traces its guide at `input_size`).
+    With `jit` (an image arch) lmic_tpu's `create_model` init runs traced
+    once: the same params, which a wide model inits op by op slowly."""
+    if jit:
+        key = jax.random.key(seed)
+        module = jzoo.make_module(arch, 1, N=n, M=m, channel=channel)
+        variables = jax.jit(module.init)(
+            {"params": key, "noise": jax.random.fold_in(key, 1)},
+            jnp.zeros((1, *input_size, channel), jnp.float32))
+    else:
+        variables = jzoo.create_model(arch, 1, key=jax.random.key(seed),
+                                      input_size=input_size, N=n, M=m,
+                                      channel=channel).variables
+    params = jax.tree.map(np.asarray, variables["params"])
     rng = np.random.default_rng(seed)
     for seq in ("g_a_net", "g_s_net"):
         _perturb_gammas(params[seq], rng)
