@@ -13,6 +13,7 @@ runs them.
     python3 chip_probes.py gdn-fwd-sqrt
     python3 chip_probes.py gdn-fwd-stream
     python3 chip_probes.py gdn-dx-stream
+    python3 chip_probes.py gdn-f32-blocked
     python3 chip_probes.py bf16-step
     python3 chip_probes.py amp-narrow
     python3 chip_probes.py wide-steps
@@ -62,8 +63,11 @@ runs them.
   gdn_bwd's three launches: dx and the dn scratch, the partials, dbeta and
   dgamma) at every f32 shape of the kernel phase, and of the bf16 partials
   and reduce on fixed seeded inputs (x, dn, tile sums), all of which must
-  agree across the ROOTs; and phase 5's AMP step (mbt2018-mean q7, batch
-  16 of 256x256): step ms, peak memory, and device ms and busy share from
+  agree across the ROOTs, also at the f32 shapes past 384 channels
+  (AB_WIDE_F32, the forward alone at AB_WIDE_F32_FWD), with the device
+  µs a launch of gdn_fwd and gdn_bwd_dx there; and phase 5's AMP step
+  (mbt2018-mean q7, batch 16 of 256x256): step ms, peak memory, and
+  device ms and busy share from
   a profile; and the bf16 `gdn_fwd` off the wide route (C = 320 and 256
   at 16,391 and 262,144 rows, both directions) through the ROOT's own
   wrapper and route: device µs and the CUDA kernel it took (its C ABI's
@@ -108,6 +112,21 @@ runs them.
   products and a copy whose epilogue stores x as y (timing only: their
   outputs are wrong), the time the rest takes without each. Fewer stages in flight that cost
   time say the kernel waits on its loads' latency.
+- gdn-f32-blocked: f32 `gdn_fwd` on `gdn_fwd_f32_blocked_kernel` and
+  `gdn_bwd_dx` on `gdn_bwd_dx_f32_blocked_kernel` (GDN; 262,144 x 512
+  and 16,391 rows at C = 512, 1024, 2048, 385 and 640, 24,576 to 4,096
+  rows at 512, 4,096, 1,000 and 129 rows at 2048) against copies built with
+  other constants of the blocked loop (2 or 3 stages, 1 or all 8 4-deep
+  steps of a slice unrolled, a thread's rows consecutive), other tiles
+  (128 x 128 or 64 x 256 of 8 x 8 sums a thread) or other routes (the
+  forward's small tiles never or always, three or two CTAs an SM, no
+  128-column blocks, dx without clusters), in turns: device µs of each, ptxas's registers and
+  spills, and the outputs, which must be equal byte for byte; the SM
+  clock and power draw nvidia-smi reads while each kernel runs; the
+  forward's IGDN against a copy with IEEE sqrtf in place of its Newton
+  step from rsqrtf (µs, whether the bytes are equal); then, for information, C = 192 and 128
+  routed to the blocked kernels against the whole-width ones (µs, equal
+  bytes).
 - gdn-dx-stream: bf16 `gdn_bwd_dx` on `gdn_bwd_dx_stream_kernel` (GDN;
   C = 320 and 256 at 262,144 rows, 320 and 1024 at 16,391) against copies
   of the kernel built with 2 stages, with the workspace read after pass
@@ -147,6 +166,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -450,9 +470,21 @@ def _checksum(t):
     return f"{tuple(t.shape)}:{total & (2**64 - 1):016x}"
 
 
-def _f32_checksums():
+# the f32 shapes past 384 channels, as (rows, C, offset of x in elements),
+# that chip_smoke.py holds the blocked kernels to (WIDE_F32_CASES; the
+# forward alone at WIDE_F32_SERVE_ROWS x 512), written out here so that a
+# checkout whose chip_smoke.py lacks some of them is held to all of them
+AB_WIDE_F32 = ([(16_391, C, 0) for C in (385, 512, 1024, 2048)]
+               + [(n, 512, 0) for n in (262_144, 65_536, 16_384)]
+               + [(16_391, 512, 1), (16_391, 640, 0), (129, 2048, 0)])
+AB_WIDE_F32_FWD = [(n, 512, 0) for n in (98_304, 24_576, 6_144)]
+
+
+def _f32_checksums(wide_us=None):
     """{shape and direction: checksums of the f32 outputs} of gdn_fwd and of
-    gdn_bwd's three launches at every f32 shape of the kernel phase."""
+    gdn_bwd's three launches at every f32 shape of the kernel phase, and
+    at AB_WIDE_F32 and AB_WIDE_F32_FWD, whose device µs a launch of
+    gdn_fwd and of gdn_bwd_dx go to `wide_us` when given."""
     import torch
 
     from lmic_tpu_torch.ops import gdn
@@ -477,6 +509,29 @@ def _f32_checksums():
                     sums += [_checksum(t) for t in launch[name]()]
             out[key] = sums
             del x, beta, gamma, g
+    for n, C, offset in AB_WIDE_F32 + AB_WIDE_F32_FWD:
+        for inverse in (False, True):
+            gen = torch.Generator(device="cuda").manual_seed(n * 1000 + C)
+            x, beta, gamma, g = cs._gdn_inputs(gen, n, C, torch.float32)
+            buf = torch.empty(n * C + offset, device="cuda")
+            buf[offset:].copy_(x.view(-1))
+            x = buf[offset:].view(n, C)
+            key = f"{n}x{C}+{offset} inverse={inverse}"
+            fwd = (lambda: gdn.gdn_fwd(x, beta, gamma, inverse))
+            sums = [_checksum(fwd())]
+            us = [1e3 * cs._time_ms(fwd)] if wide_us is not None else []
+            if (n, C, offset) in AB_WIDE_F32:
+                launch = cs._bwd_launches(x, beta, gamma,
+                                          gamma.t().contiguous(), g, inverse)
+                for name in gdn.BWD_KERNELS:  # dx, partials, reduce in turn
+                    sums += [_checksum(t) for t in launch[name]()]
+                if wide_us is not None:
+                    us.append(1e3 * cs._time_ms(launch["gdn_bwd_dx"]))
+            out[key] = sums
+            if wide_us is not None:
+                wide_us[key] = us
+            del x, beta, gamma, g, buf
+            torch.cuda.empty_cache()
     return out
 
 
@@ -651,7 +706,8 @@ def gdn_ab_one(root, off_route=False):
              and c["dtype"] == "bfloat16" and "offset" not in c),
             key=lambda c: c["inverse"])]
         for C in (192, 128) for n in cs.TRAIN_ROWS[:3]}
-    result["f32_checksums"] = _f32_checksums()
+    result["wide_f32_us"] = {}
+    result["f32_checksums"] = _f32_checksums(result["wide_f32_us"])
     result["bf16_sums_checksums"] = _bf16_sums_checksums()
     torch.cuda.empty_cache()
     result["amp_step"] = _amp_step()
@@ -704,6 +760,17 @@ def gdn_ab(roots, off_route=False):
         json.dump(results, f, indent=1)
     if off_route:
         return
+    # the f32 kernels past 384 channels: µs a launch (gdn_fwd, gdn_bwd_dx),
+    # the least of each checkout's two processes
+    roots_ab = list(dict.fromkeys(r["root"] for r in results))
+    for key in results[0]["wide_f32_us"]:
+        best = {root: [min(r["wide_f32_us"][key][i] for r in results
+                           if r["root"] == root)
+                       for i in range(len(results[0]["wide_f32_us"][key]))]
+                for root in roots_ab}
+        log(f"gdn-ab f32 {key} µs (gdn_fwd, gdn_bwd_dx): " + ", ".join(
+            f"{os.path.basename(root)} "
+            + " / ".join(f"{u:.1f}" for u in v) for root, v in best.items()))
     for sums in ("f32_checksums", "bf16_sums_checksums"):
         for key in results[0][sums]:
             if len({json.dumps(r[sums][key]) for r in results}) != 1:
@@ -913,8 +980,9 @@ def gdn_host(parent, rounds=3, n=65_536, C=192):
 
 def _patched(edits, source="gdn_fwd.cu"):
     """ctypes handle of a copy of csrc/`source` with each (regex, text) of
-    `edits` applied once, built beside the shared headers and bound as
-    ops/gdn.py binds the source's library."""
+    `edits` applied once, built beside copies of the shared headers and
+    bound as ops/gdn.py binds the source's library; an edit (header,
+    regex, text) applies to that header's copy instead."""
     import ctypes
     import glob
     import re
@@ -923,28 +991,55 @@ def _patched(edits, source="gdn_fwd.cu"):
 
     from lmic_tpu_torch.ops import _build, gdn
 
-    with open(os.path.join(_build.CSRC, source)) as f:
-        src = f.read()
-    for pattern, text in edits:
-        src, hits = re.subn(pattern, text, src, count=1, flags=re.S)
-        if hits != 1:
-            raise AssertionError(f"{source}: no {pattern!r} to patch")
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
     for header in glob.glob(os.path.join(_build.CSRC, "*.cuh")):
         shutil.copy(header, tmp)
-    with open(os.path.join(tmp, source), "w") as f:
-        f.write(src)
+    shutil.copy(os.path.join(_build.CSRC, source), tmp)
+    for edit in edits:
+        name, pattern, text = edit if len(edit) == 3 else (source, *edit)
+        with open(os.path.join(tmp, name)) as f:
+            src = f.read()
+        src, hits = re.subn(pattern, text, src, count=1, flags=re.S)
+        if hits != 1:
+            raise AssertionError(f"{name}: no {pattern!r} to patch")
+        with open(os.path.join(tmp, name), "w") as f:
+            f.write(src)
     lib = os.path.join(tmp, "libpatched.so")
     cmd = _build._command(source, lib)
     cmd[cmd.index(os.path.join(_build.CSRC, source))] = os.path.join(
         tmp, source)
-    subprocess.run(cmd, check=True, capture_output=True)
+    built = subprocess.run(cmd, check=True, capture_output=True, text=True)
     handle = ctypes.CDLL(lib)
+    handle.ptxas = built.stdout + built.stderr  # -Xptxas -v's report
     for name, argtypes in gdn._SIGNATURES[source].items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
         fn.restype = gdn._restype(name)
     return handle
+
+
+def _spills(lib, kernel):
+    """The registers and spill bytes ptxas reported for each
+    instantiation of `kernel` in a `_patched` library, with the first of
+    its mangled template arguments."""
+    out, current = [], None
+    for line in lib.ptxas.splitlines():
+        found = (chip_smoke._mangled_kernel(line) if re.search(
+            r"entry function '|Function properties for ", line) else None)
+        if found:
+            current, args = found
+            continue
+        if current != kernel:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.append({"instance": args[len(kernel):],
+                        "spill": [int(m.group(1)), int(m.group(2))]})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def gdn_fwd_tiles(ks=(1, 2, 3, 4, 8, 16, 32)):
@@ -1194,6 +1289,243 @@ def gdn_dx_stream(shapes=((262_144, 320), (262_144, 256), (16_391, 320),
     log("gdn-dx-stream: " + json.dumps(out))
 
 
+# gdn-f32-blocked's variants of the blocked f32 kernels: (source, edits)
+# of each: a tile shape as the Config of csrc/gdn_fwd.cu's FwdBlocked and
+# csrc/gdn_bwd.cu's DxBlocked names it (warp rows, warp columns, a
+# thread's columns), or a constant of csrc/gdn_f32.cuh's blocked loop
+F32_FWD_CONFIG = r"using FwdBlocked = f32::blocked::Config<.*?>;"
+F32_DX_CONFIG = r"using DxBlocked = f32::blocked::Config<.*?>;"
+
+
+def _config(which, args):
+    name = "FwdBlocked" if which == "fwd" else "DxBlocked"
+    return [(F32_FWD_CONFIG if which == "fwd" else F32_DX_CONFIG,
+             f"using {name} = f32::blocked::Config<{args}>;")]
+
+
+def _constant(name, value):
+    return [("gdn_f32.cuh", rf"constexpr int {name} = \d+;",
+             f"constexpr int {name} = {value};")]
+
+
+F32_BLOCKED_VARIANTS = {
+    part: {"3 stages": _constant("kMaxStages", 3),
+           "2 stages": _constant("kMaxStages", 2),
+           "1 step unrolled": _constant("kUnroll", 1),
+           "a slice unrolled whole": _constant("kUnroll", 8),
+           # a thread's 8 rows consecutive: the four quarter warps' rows
+           # alike mod 8, their units of a on one bank quad
+           "consecutive rows": _constant("kRowGap", 1) + [
+               ("gdn_f32.cuh", r"return \{wr \* 32 \+ lane / 8,",
+                "return {wr * 32 + lane / 8 * kRowsT,")],
+           "128 x 128 tiles, 8 x 8 a thread": _config(part, "4, 2, 8"),
+           "64 x 256 tiles, 8 x 8 a thread": _config(part, "2, 4, 8")}
+    for part in ("fwd", "dx")}
+# the routes: the forward's small tiles never or always, 256-column
+# blocks at every C, and dx without clusters
+F32_SMALL_RULE = (r"return 100 \* wave_sums<FwdBlockedSmall>.*?;",)
+F32_BLOCKED_VARIANTS["fwd"]["no small tiles"] = [(*F32_SMALL_RULE,
+                                                  "return false;")]
+F32_BLOCKED_VARIANTS["fwd"]["small tiles"] = [(*F32_SMALL_RULE,
+                                               "return true;")]
+# ... and two of their CTAs an SM (a ring of 4 stages each)
+F32_BLOCKED_VARIANTS["fwd"]["small tiles, 2 CTAs an SM"] = [
+    (*F32_SMALL_RULE, "return true;"),
+    (r"using FwdBlockedSmall = f32::blocked::Config<.*?>;",
+     "using FwdBlockedSmall = f32::blocked::Config<2, 4, 4, 2>;")]
+F32_BLOCKED_VARIANTS["fwd"]["no 128-column blocks"] = [
+    (r"blk::narrow_blocks\(width\) \|\| !vec_y", "!vec_y")]
+F32_BLOCKED_VARIANTS["dx"]["no 128-column blocks"] = [
+    (r": blk::narrow_blocks\(width\)", ": false")]
+F32_BLOCKED_VARIANTS["dx"]["no clusters"] = [
+    (r"k <= 8 && k <= blocks; k \*= 2", "k <= 1; k *= 2")]
+# the forward's IGDN with IEEE sqrtf in place of its Newton step from
+# rsqrtf
+F32_BLOCKED_SQRT = [(r"kInverse \? hop::sqrt_from_rsqrt\(norm, rs\)",
+                     "kInverse ? sqrtf(norm)")]
+# the whole-width route's C (up to 384) on the blocked kernels too
+F32_BLOCKED_ROUTE = {
+    "fwd": [(r"if \(C > f32::kWholeWidth\)\n    return launch_blocked",
+             "if (C > 0)\n    return launch_blocked")],
+    "dx": [(r"if \(C > f32::kWholeWidth\)\n    return launch_dx_blocked",
+            "if (C > 0)\n    return launch_dx_blocked")],
+}
+F32_BLOCKED_SHAPES = ((262_144, 512), (16_391, 512), (16_391, 1024),
+                      (16_391, 2048), (16_391, 385), (16_391, 640),
+                      (24_576, 512), (12_288, 512), (8_192, 512),
+                      (6_144, 512), (4_096, 512), (4_096, 2048),
+                      (1_000, 2048), (129, 2048))
+F32_WHOLE_SHAPES = ((262_144, 192), (262_144, 128), (98_304, 192))
+
+
+def _f32_call(lib, part, x, beta, gamma, gamma_t, g, inverse, out):
+    """A call of `lib`'s f32 gdn_fwd (part "fwd") or gdn_bwd_dx ("dx")
+    through its C ABI on buffers of its own, which it fills: out[0] y, or
+    out[0] dx and out[1] dn."""
+    import torch
+
+    n, C = x.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if part == "fwd":
+        nbytes = lib.lmic_gdn_fwd_scratch_bytes(
+            x.data_ptr(), gamma_t.data_ptr(), out[0].data_ptr(), n, C, 0)
+    else:
+        nbytes = lib.lmic_gdn_bwd_dx_scratch_bytes(
+            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), n, C, 0)
+    scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device="cuda")
+
+    def call():
+        if part == "fwd":
+            err = lib.lmic_gdn_fwd(x.data_ptr(), gamma_t.data_ptr(),
+                                   beta.data_ptr(), out[0].data_ptr(), n, C,
+                                   0, int(inverse), scratch.data_ptr(),
+                                   stream)
+        else:
+            err = lib.lmic_gdn_bwd_dx(
+                x.data_ptr(), g.data_ptr(), gamma_t.data_ptr(),
+                gamma.data_ptr(), beta.data_ptr(), out[0].data_ptr(),
+                out[1].data_ptr(), None, n, C, 0, int(inverse),
+                scratch.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"gdn-f32-blocked {part}: error {err}")
+    return call
+
+
+def _clocks_during(fn, seconds=3.0):
+    """The card's SM clock (MHz), its maximum and the power draw (W), as
+    nvidia-smi samples them every 100 ms while `fn` runs back to back for
+    about `seconds`: medians of the samples taken under the load."""
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(8):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    rows = [[float(v) for v in line.split(",")]
+            for line in out.strip().splitlines()[2:-1] if line.strip()]
+    if not rows:
+        return {}
+    clock, top, watts = (float(np.median([r[i] for r in rows]))
+                         for i in range(3))
+    return {"sm_mhz": clock, "max_sm_mhz": top, "power_w": watts,
+            "samples": len(rows)}
+
+
+def gdn_f32_blocked():
+    """gdn-f32-blocked: the blocked f32 kernels against copies built as
+    F32_BLOCKED_VARIANTS says, at F32_BLOCKED_SHAPES (GDN), in turns:
+    device µs of each and their outputs, which must be equal byte for
+    byte (every variant keeps each sum's order); then, for information,
+    the whole-width C of F32_WHOLE_SHAPES routed to the blocked kernels
+    against gdn_fwd_kernel and gdn_bwd_dx_kernel (µs, and whether the
+    bytes are equal)."""
+    import torch
+
+    from lmic_tpu_torch.ops import gdn
+
+    sources = {"fwd": "gdn_fwd.cu", "dx": "gdn_bwd.cu"}
+    jobs = [(part, name, edits) for part, v in F32_BLOCKED_VARIANTS.items()
+            for name, edits in v.items()]
+    jobs += [(part, "routed", edits)
+             for part, edits in F32_BLOCKED_ROUTE.items()]
+    jobs.append(("fwd", "IEEE sqrtf", F32_BLOCKED_SQRT))
+    with ThreadPoolExecutor(8) as pool:  # one compiler each
+        built = list(pool.map(lambda j: _patched(j[2], sources[j[0]]),
+                              jobs))
+    libs = {part: {"kernel": gdn._load(src)} for part, src in sources.items()}
+    routed = {"routed": {}}
+    for (part, name, _), lib in zip(jobs, built):
+        kernel = ("gdn_fwd_f32_blocked_kernel" if part == "fwd"
+                  else "gdn_bwd_dx_f32_blocked_kernel")
+        log(f"gdn-f32-blocked {part} {name}: ptxas {_spills(lib, kernel)}")
+        if name == "routed":
+            routed[name][part] = lib
+        elif name == "IEEE sqrtf":
+            routed[name] = lib
+        else:
+            libs[part][name] = lib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+
+    def race(part, group, n, C, inverse=False):
+        x, beta, gamma, g = chip_smoke._gdn_inputs(gen, n, C, torch.float32)
+        gamma_t = gamma.t().contiguous()
+        outs, calls = {}, {}
+        for which, lib in group.items():
+            bufs = [torch.empty_like(x) for _ in range(2)]
+            calls[which] = _f32_call(lib, part, x, beta, gamma, gamma_t, g,
+                                     inverse, bufs)
+            calls[which]()
+            outs[which] = bufs if part == "dx" else bufs[:1]
+        torch.cuda.synchronize()
+        same = {k: all(torch.equal(a, b) for a, b in
+                       zip(v, outs["kernel"])) for k, v in outs.items()}
+        us = {k: [] for k in group}
+        for order in (list(group), list(group)[::-1]):
+            for which in order:
+                us[which].append(1e3 * chip_smoke._time_ms(calls[which]))
+        del x, beta, gamma, g, gamma_t, outs, calls
+        torch.cuda.empty_cache()
+        return us, same
+
+    # the SM clock and power under each kernel's load: 67 TFLOP/s FP32
+    # assumes the boost clock
+    for part in ("fwd", "dx"):
+        x, beta, gamma, g = chip_smoke._gdn_inputs(gen, 262_144, 512,
+                                                   torch.float32)
+        bufs = [torch.empty_like(x) for _ in range(2)]
+        clocks = _clocks_during(_f32_call(
+            libs[part]["kernel"], part, x, beta, gamma,
+            gamma.t().contiguous(), g, False, bufs))
+        out[f"{part} 262144x512 clocks"] = clocks
+        log(f"gdn-f32-blocked {part} 262144x512 under load: "
+            + json.dumps(clocks))
+        del x, beta, gamma, g, bufs
+        torch.cuda.empty_cache()
+    for n, C in F32_BLOCKED_SHAPES[:5]:  # the forward's IGDN epilogue
+        us, same = race("fwd", {"kernel": libs["fwd"]["kernel"],
+                                "IEEE sqrtf": routed["IEEE sqrtf"]},
+                        n, C, inverse=True)
+        us["GDN"] = race("fwd", {"kernel": libs["fwd"]["kernel"]}, n, C)[0][
+            "kernel"]
+        out[f"fwd {n}x{C} IGDN"] = {"us": us, "same_bytes": same}
+        log(f"gdn-f32-blocked fwd {n}x{C} IGDN: " + ", ".join(
+            f"{k} {min(v):.1f}-{max(v):.1f} us" for k, v in us.items())
+            + f"; the same bytes: {same['IEEE sqrtf']}")
+    for part in ("fwd", "dx"):
+        for n, C in F32_BLOCKED_SHAPES:
+            us, same = race(part, libs[part], n, C)
+            if not all(same.values()):
+                raise AssertionError(f"gdn-f32-blocked {part} {n}x{C}: "
+                                     f"other bytes than the kernel's {same}")
+            out[f"{part} {n}x{C}"] = us
+            log(f"gdn-f32-blocked {part} {n}x{C} GDN: " + ", ".join(
+                f"{k} {min(v):.1f}-{max(v):.1f} us" for k, v in us.items()))
+        for n, C in F32_WHOLE_SHAPES:
+            us, same = race(part, {"kernel": libs[part]["kernel"],
+                                   "blocked loop": routed["routed"][part]},
+                            n, C)
+            out[f"{part} {n}x{C} routed"] = {"us": us, "same_bytes": same}
+            log(f"gdn-f32-blocked {part} {n}x{C} GDN, whole-width kernel "
+                "against the blocked loop: " + ", ".join(
+                    f"{k} {min(v):.1f}-{max(v):.1f} us"
+                    for k, v in us.items())
+                + f"; the same bytes: {same['blocked loop']}")
+    log("gdn-f32-blocked: " + json.dumps(out))
+
+
 def bf16_step():
     """bf16-step: a narrow `--bf16` step on the card against the CPU, with
     the rounded operands in TF32 (the port's route) and in FP32."""
@@ -1313,8 +1645,8 @@ def main(argv):
 
     probes = ("master-batch", "train-convs", "video-convs", "sync-u8",
               "gdn-ab", "gdn-host", "gdn-fwd-tiles", "gdn-fwd-sqrt",
-              "gdn-fwd-stream", "gdn-dx-stream", "bf16-step", "amp-narrow",
-              "wide-steps")
+              "gdn-fwd-stream", "gdn-dx-stream", "gdn-f32-blocked",
+              "bf16-step", "amp-narrow", "wide-steps")
     if not argv or argv[0] not in probes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -1348,6 +1680,8 @@ def main(argv):
         gdn_fwd_stream()
     elif argv[0] == "gdn-dx-stream":
         gdn_dx_stream()
+    elif argv[0] == "gdn-f32-blocked":
+        gdn_f32_blocked()
     elif argv[0] == "bf16-step":
         bf16_step()
     elif argv[0] == "amp-narrow":

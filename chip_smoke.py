@@ -40,8 +40,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    16,391 rows and at 16,391 x 192 in a view offset by one element); f32
    past 384 channels, `gdn_fwd_f32_blocked_kernel` and
    `gdn_bwd_dx_f32_blocked_kernel` (with the whole `gdn_bwd`) at C = 385,
-   512, 1024 and 2048 at 16,391 rows, at 262,144 / 65,536 / 16,384 x 512
-   (phase 18's step) and at 16,391 x 512 offset by one element, the
+   512, 640, 1024 and 2048 at 16,391 rows, at 129 x 2048 (a whole
+   128-row tile and one of a single row), at 262,144 / 65,536 / 16,384 x
+   512 (phase 18's step) and at 16,391 x 512 offset by one element, the
    forward alone at 98,304 / 24,576 / 6,144 x 512 (phase 18's round
    trip), each within 1e-5 and the same bytes twice; bf16 `gdn_fwd` and
    `gdn_bwd_dx` logged per layer
@@ -561,9 +562,10 @@ BF16_STEP = {**{k: 0 for k in MMA_KERNELS},
 BF16_REMAT_STEP = {**BF16_STEP, "gdn_fwd_kernel": 12}
 
 
-# The register-tiled f32 kernels (8 x 4 accumulators a thread): the four
-# on the loops of csrc/gdn_f32.cuh and the partials. Their accumulators
-# must stay in registers.
+# The register-tiled f32 kernels: the two on the whole-width loop of
+# csrc/gdn_f32.cuh and the partials (8 x 4 accumulators a thread), the two
+# on its blocked loop (8 x 16, 8 x 8 or 8 x 4). Their accumulators must
+# stay in registers.
 TILED_FP32_KERNELS = ("gdn_fwd_kernel", "gdn_bwd_dx_kernel",
                       "gdn_bwd_partials_kernel") + BLOCKED_FP32_KERNELS
 # ... and so must the bf16 wide and stream kernels' (wgmma sums; dn,
@@ -932,12 +934,14 @@ STREAM_CASES = ([(n, C, 0) for C in (256, 320) for n in TRAIN_ROWS]
                 + [(16_391, C, 0) for C in (1025, 1152, 2048)])
 # f32 past the whole-width kernels' 384 channels, on
 # gdn_fwd_f32_blocked_kernel and gdn_bwd_dx_f32_blocked_kernel, as (rows, C,
-# offset of x in elements): one to sixteen column blocks at 16,391 rows
-# (C = 385 ragged), phase 18's N = 512 step's layers, and a view offset by
-# one element (the element copies)
+# offset of x in elements): one to sixteen 128-column blocks at 16,391
+# rows (C = 385 ragged, on zero-padded copies; 640 five blocks), phase
+# 18's N = 512 step's layers, a view offset by one element (the copies),
+# and a whole 128-row tile and one of a single row at 2048
 WIDE_F32_CASES = ([(16_391, C, 0) for C in (385, 512, 1024, 2048)]
                   + [(n, 512, 0) for n in TRAIN_ROWS[:3]]
-                  + [(16_391, 512, 1)])
+                  + [(16_391, 512, 1)]
+                  + [(16_391, 640, 0), (129, 2048, 0)])
 # ... and the forward alone at phase 18's f32 round trip's layers
 WIDE_F32_SERVE_ROWS = SERVE_ROWS[:3]
 WIDE_C = 512  # phase 18's N = M
@@ -5042,6 +5046,12 @@ WIDE_F32_STEP = {"gdn_fwd_f32_blocked_kernel": 6,
                  "gdn_fwd_kernel": 0, "gdn_bwd_dx_kernel": 0}
 WIDE_AMP_STEP = {**AMP_OFF_ROUTE, "gdn_bwd_partials_wide_kernel": 6,
                  "gdn_bwd_reduce_kernel": 6}
+# the f32 step at N = 512 on the earlier blocked loop (8 x 4 tiles, 64 x
+# 128 blocks fed by cp.async), as PERF.md records it from this phase on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: the GDN kernels' ms of one profiled
+# step (forward, dx) and its device ms, and the step's wall ms
+WIDE_F32_EARLIER = {"gdn_ms": 41.0, "fwd_ms": 10.3, "dx_ms": 20.9,
+                    "device_ms": 285.6, "wall_ms": (294.1, 302.3)}
 
 
 def _wide_serving():
@@ -5227,6 +5237,15 @@ def phase_wide_channels():
                           if k in GDN_KERNELS}))
         if what == "f32":
             out = case
+            fwd, dx = (case["kernels"].get(k, 0.0)
+                       for k in BLOCKED_FP32_KERNELS)
+            e = WIDE_F32_EARLIER
+            log(f"train {name}: GDN {case['gdn_ms']:.2f} ms (forward "
+                f"{fwd:.2f}, dx {dx:.2f}) of {case['device_ms']:.2f} device "
+                f"ms, wall {case['step_ms']:.2f} ms; the earlier blocked "
+                f"loop's: GDN {e['gdn_ms']} (forward {e['fwd_ms']}, dx "
+                f"{e['dx_ms']}) of {e['device_ms']}, wall "
+                f"{e['wall_ms'][0]}-{e['wall_ms'][1]}")
         del module, opt, state, step, batch
     torch.cuda.empty_cache()
     card = _narrow_step("cuda", None, None, **WIDE_CHECK)

@@ -40,10 +40,10 @@
 //     over x^2, g*scale waits for the epilogue. x and g come to shared
 //     memory by cp.async with the first slice (101 KB of shared memory at
 //     C = 192). C = 192 and 128 run instances compiled for that width.
-//     Wider C runs gdn_bwd_dx_f32_blocked_kernel: a CTA per 64-row tile
-//     walks its 128-column blocks twice on the blocked loop (x and gamma^T
-//     streamed, then dn, back from the scratch, and gamma), g*scale
-//     waiting in dx between the passes.
+//     Wider C runs gdn_bwd_dx_f32_blocked_kernel: persistent CTAs take
+//     128-row tiles and walk each one's 256-column blocks twice on the
+//     blocked loop (x and gamma^T brought by the TMA, then dn, back from
+//     the scratch, and gamma), g*scale waiting in dx between the passes.
 //     bfloat16: bound by bytes. dn is rounded to bf16 once, for the bf16
 //     scratch and for product 2, and the f32 dn's sum over each 64-row
 //     tile goes to a (ceil(n / 64), C) f32 buffer of tile sums, in a fixed
@@ -255,91 +255,192 @@ __global__ void __launch_bounds__(f32::kMaxThreads)
 // blocks over rows alone). Bound by the FP32 operations of its two
 // products like gdn_bwd_dx_kernel (4.13 ms at 262,144 x 512 at 67
 // TFLOP/s). Product 2 (dn . gamma) needs dn at every column before any
-// column of dx, so a CTA owns a 64-row tile and walks its 128-column
-// blocks twice, each block on the blocked loop of csrc/gdn_f32.cuh (8 x 4
-// register tiles, both operands in 32-deep cp.async k-slices):
-//  - pass 1, block by block: product 1 (x^2 . gamma^T, x squared in place,
-//    the sums gdn_fwd_f32_blocked_kernel forms), then norm, dn and
-//    g*scale in registers from x and g read from L2: dn to the f32
+// column of dx, so a CTA owns a 128-row tile and walks its 256-column
+// blocks twice, each block on the blocked loop of csrc/gdn_f32.cuh (8 x
+// 16 register tiles, both operands fed by TMA in 32-deep k-slices through
+// a ring of four stages, as gdn_fwd_f32_blocked_kernel):
+//  - pass 1, block by block: product 1 (x^2 . gamma^T, x squared in the
+//    stage, the sums gdn_fwd_f32_blocked_kernel forms), then norm, dn
+//    and g*scale in registers from x and g read from L2: dn to the f32
 //    scratch the partials read anyway, g*scale into dx;
-//  - pass 2, block by block, after the barrier that starts each product:
-//    product 2 (dn . gamma) streams the tile's dn back from the scratch
-//    (L2), and the epilogue adds 2x (dn . gamma) to the g*scale this
-//    thread wrote into dx, as gdn_bwd_dx_kernel writes it.
-// A thread holds the same positions in both passes, so dx's g*scale is
-// read back by the thread that wrote it; the copies of dn by cp.async
-// follow the CTA's own stores of it across the product's barrier. Sums
-// in a fixed order, no atomics: the same bytes on every run.
-template <bool kInverse>
-__global__ void __launch_bounds__(gdn_f32::blocked::kThreads, 2)
-    gdn_bwd_dx_f32_blocked_kernel(const float *__restrict__ x,
-                                  const float *__restrict__ g,
-                                  const float *__restrict__ gamma_t,
-                                  const float *__restrict__ gamma,
-                                  const float *__restrict__ beta, float *dx,
-                                  float *dn, int64_t n, int C, bool vec) {
-  namespace blk = f32::blocked;
-  constexpr int kR = f32::kTileRows, kC = f32::kTileCols;
-  extern __shared__ float4 smem4[];
-  float *smem = reinterpret_cast<float *>(smem4);
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * blk::kRows;
-  const int valid = static_cast<int>(
-      n - row0 < blk::kRows ? n - row0 : static_cast<int64_t>(blk::kRows));
-  int r0, c0;
-  blk::tile_of(&r0, &c0);
-  float acc[kR][kC];
+//  - every thread then fences its dn stores for the async proxy, and
+//    after a barrier of the CTA thread 0 issues the tile's first TMA reads
+//    of dn (the stages' gamma went ahead: a refill of a pass-2 slice
+//    before this point loads gamma alone);
+//  - pass 2, block by block: product 2 (dn . gamma) streams the tile's dn
+//    back from the scratch (L2), and the epilogue adds 2x (dn . gamma) to
+//    the g*scale this thread wrote into dx, as gdn_bwd_dx_kernel writes it.
+// Persistent clusters of K CTAs, as many as fit the card and no more than
+// there are row tiles, walk tiles c, c + clusters, ..., the CTA of rank r
+// summing column blocks r, r + K, ... of each in both passes (K, up to 8,
+// evens out the waves of tiles over the card: 1 at 262,144 x 512, 2 at
+// 24,576 x 512, 8 at 129 x 2048); a cluster barrier separates the passes.
+// The next tile's first stages fill while the last one's epilogue runs. A
+// thread holds the same positions in both passes, so dx's g*scale is read
+// back by the thread that wrote it. Sums in a fixed order, no atomics:
+// the same bytes on every run and as the earlier loop gave. x and dn are
+// (n, width),
+// gamma^T and gamma (width, width), width % 4 == 0 and 16-byte aligned
+// bases (the TMA reads them); other shapes run on zero-padded copies of
+// them (launch_dx_blocked). g and dx are (n, C) as they are, read and
+// written a quad at a time where their rows are 16-byte aligned (kVecO),
+// else a value at a time; the instances are those the route below can
+// reach: DxBlocked with kVecO only.
+// Where C's last 256-column block would be half empty (narrow_blocks), or
+// g's and dx's rows are not 16-byte aligned (their accesses a value at a
+// time cost the 8 x 16 tiles ~70 us more at 16,391 x 385 on an NVIDIA
+// H100 80GB HBM3: chip_probes.py gdn-f32-blocked), 128 x 128 tiles of 8 x
+// 8 (DxBlockedNarrow) take its place.
+using DxBlocked = f32::blocked::Config<4, 2, 16>;
+using DxBlockedNarrow = f32::blocked::Config<4, 2, 8>;
 
-  // pass 1: the norm, dn and g * scale, a column block at a time
-  for (int col0 = 0; col0 < C; col0 += blk::kCols) {
-    blk::product<true>(acc, smem, x, row0, valid, gamma_t, col0, C, r0, c0,
-                       vec);
-    const int c = col0 + c0;
-    if (c >= C) continue;
-    float bo[kC];
+template <bool kInverse, class Cfg, bool kVecO>
+__global__ void __launch_bounds__(Cfg::kThreads, Cfg::kCtasPerSm)
+    gdn_bwd_dx_f32_blocked_kernel(
+        const __grid_constant__ CUtensorMap x_map,
+        const __grid_constant__ CUtensorMap gamma_t_map,
+        const __grid_constant__ CUtensorMap dn_map,
+        const __grid_constant__ CUtensorMap gamma_map,
+        const float *__restrict__ x, const float *__restrict__ g,
+        const float *__restrict__ beta, float *dx, float *dn, int n, int C,
+        int width) {
+  namespace blk = f32::blocked;
+  constexpr int kTC = Cfg::kTC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ uint64_t full[Cfg::kStages], empty[Cfg::kStages];
+  const blk::Ring<Cfg> ring = blk::make_ring<Cfg>(smem_raw, full, empty);
+  __syncthreads();
+
+  const int blocks = (width + Cfg::kCols - 1) / Cfg::kCols;
+  const int tiles = (n + Cfg::kRows - 1) / Cfg::kRows;
+  const int slices = blk::slices_of(width);
+  // a cluster of K CTAs takes tiles c, c + clusters, ...; its CTA of rank
+  // r sums column blocks r, r + K, ... of each in both passes
+  const int K = blk::cluster_size(), rank = blk::cluster_rank();
+  const int cluster = blockIdx.x / K, clusters = gridDim.x / K;
+  const int mine = (blocks - rank + K - 1) / K;  // this CTA's blocks
+  const int per_pass = mine * slices;  // slices a pass of a tile
+  // thread 0's state: slices refilled so far, and this CTA's tiles whose
+  // dn is in the scratch (dn's boxes of a later tile wait for it)
+  int refilled = 0, dn_tiles = 0;
+  // the dn box of slice j, a pass-2 slice of this CTA's tile j / (2
+  // per_pass), whose stage is claimed
+  auto load_dn = [&](int j) {
+    const int t = cluster + j / (2 * per_pass) * clusters;
+    ring.load_a(j % Cfg::kStages, dn_map, t * Cfg::kRows, j % slices);
+  };
+  // slice j: k-slice j % slices of this CTA's column block (j / slices)
+  // % mine of pass 1 (x^2 . gamma^T) or 2 (dn . gamma) of its tile
+  // j / (2 per_pass)
+  auto refill = [&](int j) {
+    const int i = j / (2 * per_pass), r = j % (2 * per_pass);
+    const int t = cluster + i * clusters;
+    if (t >= tiles) return;
+    const int s = ring.claim(j);
+    const int col0 = (rank + r / slices % mine * K) * Cfg::kCols;
+    refilled = j + 1;
+    if (r < per_pass) {
+      ring.load_a(s, x_map, t * Cfg::kRows, j % slices);
+      ring.load_w(s, gamma_t_map, col0, j % slices);
+    } else {
+      ring.load_w(s, gamma_map, col0, j % slices);
+      if (i < dn_tiles) load_dn(j);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int j = 0; j < Cfg::kStages; ++j) refill(j);
+
+  const blk::Lane me = blk::lane_of<Cfg>();
+  float acc[blk::kRowsT][kTC];
+  int it = 0;
+  for (int t = cluster; t < tiles; t += clusters) {
+    const int row0 = t * Cfg::kRows + me.row;
+    // pass 1: the norm, dn and g * scale, a column block at a time
+    for (int cb = rank; cb < blocks; cb += K) {
+      blk::product<Cfg, true>(acc, ring, &it, slices, me, refill);
+      const int col0 = cb * Cfg::kCols + blk::col_of<Cfg>();
+      float bo[kTC];
 #pragma unroll
-    for (int q = 0; q < kC; ++q) bo[q] = c + q < C ? beta[c + q] : 0.f;
-    // a row at a time: 32 sums, 4 values each of x, g, dn and g * scale
+      for (int h = 0; h < kTC / 4; ++h)
 #pragma unroll
-    for (int k = 0; k < kR; ++k) {
-      const int r = r0 + 4 * k;
-      float xv[kC], gv[kC], gs[kC];
-      blk::load_row<true>(xv, x, row0, r, valid, c, C, vec);
-      blk::load_row<true>(gv, g, row0, r, valid, c, C, vec);
+        for (int q = 0; q < 4; ++q) {
+          const int c = col0 + 32 * h + q;
+          bo[4 * h + q] = c < C ? beta[c] : 1.f;
+        }
+      // a row at a time: 4 values each of x, g, dn and g * scale a quad
 #pragma unroll
-      for (int q = 0; q < kC; ++q) {
-        const float norm = acc[k][q] + bo[q];
-        const float rs = rsqrtf(norm);
-        if (kInverse) {
-          acc[k][q] = 0.5f * gv[q] * xv[q] * rs;
-          // sqrtf's own Newton step, without its slow path's call, whose
-          // saved registers spilled here (norm >= beta > 0: same bytes)
-          gs[q] = gv[q] * hop::sqrt_from_rsqrt(norm, rs);
-        } else {
-          acc[k][q] = -0.5f * gv[q] * xv[q] * (rs * rs * rs);
-          gs[q] = gv[q] * rs;
+      for (int k = 0; k < blk::kRowsT; ++k) {
+        const int row = row0 + blk::kRowGap * k;
+        if (row >= n) break;
+        const int64_t at = static_cast<int64_t>(row) * width;
+        const int64_t ao = static_cast<int64_t>(row) * C;
+#pragma unroll
+        for (int h = 0; h < kTC / 4; ++h) {
+          const int c = col0 + 32 * h;
+          if (c >= width) continue;
+          const float4 x4 = __ldg(reinterpret_cast<const float4 *>(x + at + c));
+          const float4 g4 = blk::load4(g + ao, c, C, kVecO);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+          const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+          float d[4], gs[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float norm = acc[k][4 * h + q] + bo[4 * h + q];
+            const float rs = rsqrtf(norm);
+            if (kInverse) {
+              d[q] = 0.5f * gv[q] * xv[q] * rs;
+              // sqrtf's own Newton step, without its slow path's call
+              // (norm >= beta > 0: the same bytes)
+              gs[q] = gv[q] * hop::sqrt_from_rsqrt(norm, rs);
+            } else {
+              d[q] = -0.5f * gv[q] * xv[q] * (rs * rs * rs);
+              gs[q] = gv[q] * rs;
+            }
+            if (c + q >= C) d[q] = 0.f;  // padding adds zeros in pass 2
+          }
+          *reinterpret_cast<float4 *>(dn + at + c) =
+              make_float4(d[0], d[1], d[2], d[3]);
+          blk::store4(dx + ao, c, C, gs, kVecO);
         }
       }
-      blk::store_row(dn, acc[k], row0, r, valid, c, C, vec);
-      blk::store_row(dx, gs, row0, r, valid, c, C, vec);
     }
-  }
+    // the tile's dn, written by the generic proxy of the cluster's CTAs,
+    // is read by the TMA next: the dn boxes of the pass-2 slices already
+    // refilled go once every CTA of the cluster is done with pass 1
+    hop::fence_proxy_async_global();
+    blk::cluster_sync();
+    if (threadIdx.x == 0) {
+      hop::fence_proxy_async_global();
+      const int first = dn_tiles * 2 * per_pass + per_pass;
+      const int end = ++dn_tiles * 2 * per_pass;  // the tile's last + 1
+      for (int j = first; j < refilled && j < end; ++j) load_dn(j);
+    }
 
-  // pass 2: dx = g * scale + 2 x (dn . gamma), a column block at a time
-  for (int col0 = 0; col0 < C; col0 += blk::kCols) {
-    blk::product<false>(acc, smem, dn, row0, valid, gamma, col0, C, r0, c0,
-                        vec);
-    const int c = col0 + c0;
-    if (c >= C) continue;
+    // pass 2: dx = g * scale + 2 x (dn . gamma), a column block at a time
+    for (int cb = rank; cb < blocks; cb += K) {
+      blk::product<Cfg, false>(acc, ring, &it, slices, me, refill);
+      const int col0 = cb * Cfg::kCols + blk::col_of<Cfg>();
 #pragma unroll
-    for (int k = 0; k < kR; ++k) {
-      const int r = r0 + 4 * k;
-      float xv[kC], gs[kC];
-      blk::load_row<true>(xv, x, row0, r, valid, c, C, vec);
-      blk::load_row<false>(gs, dx, row0, r, valid, c, C, vec);
+      for (int k = 0; k < blk::kRowsT; ++k) {
+        const int row = row0 + blk::kRowGap * k;
+        if (row >= n) break;
+        const int64_t at = static_cast<int64_t>(row) * width;
+        const int64_t ao = static_cast<int64_t>(row) * C;
 #pragma unroll
-      for (int q = 0; q < kC; ++q)
-        acc[k][q] = gs[q] + 2.0f * xv[q] * acc[k][q];
-      blk::store_row(dx, acc[k], row0, r, valid, c, C, vec);
+        for (int h = 0; h < kTC / 4; ++h) {
+          const int c = col0 + 32 * h;
+          if (c >= C) continue;
+          const float4 x4 = __ldg(reinterpret_cast<const float4 *>(x + at + c));
+          const float4 s4 = blk::load4(dx + ao, c, C, kVecO);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+          const float gs[4] = {s4.x, s4.y, s4.z, s4.w};
+          float out[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            out[q] = gs[q] + 2.0f * xv[q] * acc[k][4 * h + q];
+          blk::store4(dx + ao, c, C, out, kVecO);
+        }
+      }
     }
   }
 }
@@ -1725,29 +1826,157 @@ cudaError_t launch_dx_as(const void *x, const void *g, const void *gamma_t,
   return counted(kDxF32);
 }
 
+// Where gdn_bwd_dx_f32_blocked_kernel reads x, gamma^T and gamma and
+// writes dn (the operands the TMA reads): the tensors themselves where it
+// can address them (C % 4 == 0, 16-byte aligned bases), else zero-padded
+// copies in scratch, in rows of round4(C) floats: x, dn, then gamma^T and
+// gamma, each only if it is copied. gamma^T is copied where gamma is (the
+// caller builds it; lmic_gdn_bwd_dx requires it 16-byte aligned where
+// C % 4 == 0 and gamma is). Sized by n and C alone.
+struct DxF32Staging {
+  int width;
+  bool x, dn, gammas;
+  int64_t bytes(int64_t n) const {
+    return int64_t{4} * width * ((x + dn) * n + (gammas ? 2 * width : 0));
+  }
+};
+
+DxF32Staging dx_f32_staging_of(const void *x, const void *gamma,
+                               const void *dn, int C) {
+  const int width = (C + 3) / 4 * 4;
+  const bool pad = width != C;
+  return {width, pad || !hop::aligned16(x), pad || !hop::aligned16(dn),
+          pad || !hop::aligned16(gamma)};
+}
+
+// Runs gdn_bwd_dx_f32_blocked_kernel on its operands as the TMA can
+// address them: (n, width) and (width, width), width % 4 == 0, 16-byte
+// aligned.
+template <bool kInverse, class Cfg, bool kVecO>
+cudaError_t run_dx_blocked(const void *x, const void *g, const void *gamma_t,
+                           const void *gamma, const void *beta, void *dx,
+                           void *dn, int64_t n, int C, int width,
+                           cudaStream_t stream) {
+  namespace blk = f32::blocked;
+  auto kernel = gdn_bwd_dx_f32_blocked_kernel<kInverse, Cfg, kVecO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+  CUtensorMap maps[4];  // x, gamma^T, dn, gamma
+  if (err != cudaSuccess ||
+      (err = blk::a_map<Cfg>(maps, x, n, width)) != cudaSuccess ||
+      (err = blk::w_map(maps + 1, gamma_t, width)) != cudaSuccess ||
+      (err = blk::a_map<Cfg>(maps + 2, dn, n, width)) != cudaSuccess ||
+      (err = blk::w_map(maps + 3, gamma, width)) != cudaSuccess)
+    return err;
+  // clusters of K CTAs split each tile's column blocks: the K (1, 2, 4
+  // or 8, no more than the blocks) whose waves of tiles over the clusters
+  // the card holds at once take the least time, each wave 1 / K of a
+  // tile's work (the smallest K of equals). A rule on n, C and the card;
+  // each output's sum is the same at every K.
+  const int sms = hop::sm_count();
+  if (!sms) return cudaErrorNoDevice;
+  const int64_t tiles = (n + Cfg::kRows - 1) / Cfg::kRows;
+  const int blocks = (width + Cfg::kCols - 1) / Cfg::kCols;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.blockDim = dim3(Cfg::kThreads);
+  config.dynamicSmemBytes = Cfg::kSmemBytes;
+  config.stream = stream;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  // clusters of k the card holds at once, asked of the runtime once per
+  // device, instance and k (kept plus one: 0 until asked)
+  constexpr int kDevices = 64;
+  static std::atomic<int> fits[kDevices][4];
+  int device = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  int K = 0, most = 0;
+  double best = 0.0;
+  for (int k = 1, e = 0; k <= 8 && k <= blocks; k *= 2, ++e) {
+    std::atomic<int> *known =
+        device < kDevices ? &fits[device][e] : nullptr;
+    int fit = known ? known->load() - 1 : -1;
+    if (fit < 0) {
+      cluster[0].val.clusterDim.x = k;
+      config.gridDim = dim3(k);
+      if ((err = cudaOccupancyMaxActiveClusters(&fit, kernel, &config)) !=
+          cudaSuccess)
+        return err;
+      if (known) known->store(fit + 1);
+    }
+    if (!fit) break;
+    const double time = static_cast<double>((tiles + fit - 1) / fit) / k;
+    if (!K || time < best) K = k, most = fit, best = time;
+  }
+  if (!K) return cudaErrorNoDevice;
+  cluster[0].val.clusterDim.x = K;
+  config.gridDim = dim3(static_cast<unsigned>(tiles < most ? tiles : most) *
+                        K);
+  err = cudaLaunchKernelEx(
+      &config, kernel, maps[0], maps[1], maps[2], maps[3],
+      static_cast<const float *>(x), static_cast<const float *>(g),
+      static_cast<const float *>(beta), static_cast<float *>(dx),
+      static_cast<float *>(dn), static_cast<int>(n), C, width);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // reported here, not at the next launch
+    return err;
+  }
+  return counted(kDxF32Blocked);
+}
+
+// gdn_bwd_dx_f32_blocked_kernel on its operands where the TMA can address
+// them, else on zero-padded copies in scratch (dx_f32_staging_of), dx and
+// dn copied back.
 template <bool kInverse>
 cudaError_t launch_dx_blocked(const void *x, const void *g,
                               const void *gamma_t, const void *gamma,
                               const void *beta, void *dx, void *dn,
-                              int64_t n, int C, cudaStream_t stream) {
+                              int64_t n, int C, void *scratch,
+                              cudaStream_t stream) {
   namespace blk = f32::blocked;
-  auto kernel = gdn_bwd_dx_f32_blocked_kernel<kInverse>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, blk::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const bool vec = C % 4 == 0 && hop::aligned16(x) &&
-                   hop::aligned16(g) && hop::aligned16(gamma_t) &&
-                   hop::aligned16(gamma) && hop::aligned16(dx) &&
-                   hop::aligned16(dn);
-  const int64_t blocks = (n + blk::kRows - 1) / blk::kRows;
-  if (blocks >= (int64_t{1} << 31)) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(blocks), blk::kThreads, blk::kSmemBytes,
-           stream>>>(
-      static_cast<const float *>(x), static_cast<const float *>(g),
-      static_cast<const float *>(gamma_t), static_cast<const float *>(gamma),
-      static_cast<const float *>(beta), static_cast<float *>(dx),
-      static_cast<float *>(dn), n, C, vec);
-  return counted(kDxF32Blocked);
+  // TMA row coordinates are ints (no card holds 2^31 rows of 385 floats)
+  if (n > (int64_t{1} << 31) - 256) return cudaErrorInvalidValue;
+  const DxF32Staging st = dx_f32_staging_of(x, gamma, dn, C);
+  if (st.bytes(n) && (!scratch || !hop::aligned16(scratch)))
+    return cudaErrorInvalidValue;
+  if (!st.gammas && !hop::aligned16(gamma_t)) return cudaErrorInvalidValue;
+  const int width = st.width;
+  const int64_t rows_bytes = int64_t{4} * width * n;
+  char *at = static_cast<char *>(scratch);
+  cudaError_t err = cudaSuccess;
+  const void *xs = x;
+  if (st.x) {
+    err = blk::pad_rows(at, x, n, C, width, stream);
+    xs = at;
+    at += rows_bytes;
+  }
+  void *dns = dn;
+  if (st.dn) dns = at, at += rows_bytes;
+  const void *gts = gamma_t, *gms = gamma;
+  if (st.gammas) {
+    if (err == cudaSuccess)
+      err = blk::pad_square(at, gamma_t, C, width, stream);
+    gts = at;
+    at += int64_t{4} * width * width;
+    if (err == cudaSuccess)
+      err = blk::pad_square(at, gamma, C, width, stream);
+    gms = at;
+  }
+  const bool vec_o = C % 4 == 0 && hop::aligned16(g) && hop::aligned16(dx);
+  if (err == cudaSuccess)
+    err = !vec_o ? run_dx_blocked<kInverse, DxBlockedNarrow, false>(
+                       xs, g, gts, gms, beta, dx, dns, n, C, width, stream)
+          : blk::narrow_blocks(width)
+              ? run_dx_blocked<kInverse, DxBlockedNarrow, true>(
+                    xs, g, gts, gms, beta, dx, dns, n, C, width, stream)
+              : run_dx_blocked<kInverse, DxBlocked, true>(
+                    xs, g, gts, gms, beta, dx, dns, n, C, width, stream);
+  if (err == cudaSuccess && st.dn)
+    err = blk::unpad_rows(dn, dns, n, C, width, stream);
+  return err;
 }
 
 // The main path's widths run kernels compiled for them (as the forward's),
@@ -1755,10 +1984,11 @@ cudaError_t launch_dx_blocked(const void *x, const void *g,
 template <bool kInverse>
 cudaError_t launch_dx(const void *x, const void *g, const void *gamma_t,
                       const void *gamma, const void *beta, void *dx,
-                      void *dn, int64_t n, int C, cudaStream_t stream) {
+                      void *dn, int64_t n, int C, void *scratch,
+                      cudaStream_t stream) {
   if (C > f32::kWholeWidth)
     return launch_dx_blocked<kInverse>(x, g, gamma_t, gamma, beta, dx, dn,
-                                       n, C, stream);
+                                       n, C, scratch, stream);
   if (C == 192)
     return launch_dx_as<kInverse, 192>(x, g, gamma_t, gamma, beta, dx, dn, n,
                                        C, stream);
@@ -2072,17 +2302,21 @@ int lmic_gdn_bwd_chunk_rows() { return kChunkRows; }
 int lmic_gdn_bwd_tile_rows() { return hop::kTileRows; }
 
 // The bytes of scratch that lmic_gdn_bwd_dx needs for these operands on
-// the current device: 0 where no kernel needs any (float32, bfloat16 on
-// gdn_bwd_dx_wide_kernel's route), else gdn_bwd_dx_stream_kernel's
-// workspace and room for the copies it runs on; -1 if the runtime cannot
-// give the device's SM count.
+// the current device: 0 where no kernel needs any (float32 up to 384
+// channels, float32 past it with C % 4 == 0 and 16-byte aligned x, gamma
+// and dn, bfloat16 on gdn_bwd_dx_wide_kernel's route), else room for the
+// zero-padded copies gdn_bwd_dx_f32_blocked_kernel runs on (float32), or
+// gdn_bwd_dx_stream_kernel's workspace and room for the copies it runs on
+// (bfloat16); -1 if the runtime cannot give the device's SM count.
 int64_t lmic_gdn_bwd_dx_scratch_bytes(const void *x, const void *g,
                                       const void *gamma, const void *dx,
                                       const void *dn, int64_t n, int C,
                                       int dtype) {
-  if (dtype != 1 || n <= 0 || C <= 0 ||
-      dx_wide_route(x, g, gamma, dx, dn, n, C))
-    return 0;
+  if (n <= 0 || C <= 0) return 0;
+  if (dtype == 0)
+    return C > f32::kWholeWidth ? dx_f32_staging_of(x, gamma, dn, C).bytes(n)
+                                : 0;
+  if (dtype != 1 || dx_wide_route(x, g, gamma, dx, dn, n, C)) return 0;
   const int sms = hop::sm_count();
   if (!sms) return -1;
   return dx_staging_of(x, g, gamma, dx, dn, C).copies(n) +
@@ -2090,7 +2324,8 @@ int64_t lmic_gdn_bwd_dx_scratch_bytes(const void *x, const void *g,
 }
 
 // x, g, dx: (n, C) contiguous; gamma_t: gamma transposed, (C_in, C_out),
-// read for float32 only (bfloat16 may pass any pointer);
+// read for float32 only (bfloat16 may pass any pointer), 16-byte aligned
+// past 384 channels where C % 4 == 0 and gamma is;
 // gamma: (C_out, C_in); beta: (C,); all of one type (0 = float32,
 // 1 = bfloat16). dn: (n, C) scratch, float32 for float32 and bfloat16
 // (dn rounded as the products take it) for bfloat16. dn_sums: for
@@ -2111,9 +2346,9 @@ int lmic_gdn_bwd_dx(const void *x, const void *g, const void *gamma_t,
   cudaError_t err;
   if (dtype == 0) {
     err = inverse ? launch_dx<true>(x, g, gamma_t, gamma, beta, dx, dn, n, C,
-                                    s)
+                                    scratch, s)
                   : launch_dx<false>(x, g, gamma_t, gamma, beta, dx, dn, n,
-                                     C, s);
+                                     C, scratch, s);
   } else {
     err = inverse ? launch_dx_bf16<true>(x, g, gamma, beta, dx, dn, dn_sums,
                                          n, C, scratch, s)

@@ -39,24 +39,42 @@
 //    not 16-byte aligned) w is copied element by element.
 // Past 384 channels one CTA's warps cannot cover C, and a whole-depth
 // stage of a does not fit: [Cp][rows + 4] floats are 295 KB at C = 2048.
-// The blocked loop (`blocked::product`) takes every wider C:
-//  - a CTA sums a tile of blocked::kRows = 64 rows x blocked::kCols = 128
-//    output columns (a column block; the last one ragged), 8 warps of the
-//    same 32 x 32 blocks and 8 x 4 register tiles;
-//  - both operands stream in k-slices of blocked::kDepth = 32: the tile's
-//    rows of a, row-major ([64][32 + 4] floats), and w's 32 rows of the
-//    block's 128 columns, through a double buffer of cp.async copies, one
-//    barrier a slice (51 KB of shared memory, so two CTAs share an SM);
-//    the forward's x is squared in place by the thread that copied it,
-//    once its copy has landed;
-//  - a thread's 8 rows are 4 apart (rows g, g + 4, ..., g + 28 of its
-//    warp's 32), so for 4 values of j it reads each of its rows of a as one
-//    16-byte load, and a warp's 4 row groups, one staged row apart, fall on
-//    4 different bank quads; w's 4 rows of j are one 16-byte load each:
-//    12 shared loads for 128 FMAs;
-//  - ragged C and unaligned bases as in the whole-width loop: zeros past C
-//    in both operands (after j = C - 1), element copies without 16-byte
-//    alignment.
+// The blocked loop (`blocked::product`) takes every wider C, for Hopper:
+//  - a CTA of 8 warps sums tiles of 128 rows x 256 output columns (a
+//    column block; the last one ragged), each warp a 32 x 128 block, each
+//    thread an 8-row x 16-column register tile (128 accumulators: rows 4
+//    apart, columns four quads 32 apart); a blocked::Config names the
+//    shape, and the kernels also take 128 x 128 tiles of 8 x 8 and 64 x
+//    128 tiles of 8 x 4 (three CTAs an SM, a ring of 3 stages each) where
+//    C or n call for them;
+//  - the TMA brings both operands in k-slices of blocked::kDepth = 32
+//    into a ring of four stages (a full and an empty mbarrier a stage):
+//    the tile's rows of a as one 128-row x 32-column box with the 128-byte
+//    swizzle, w's 32 rows of the block's columns as plain 128-column
+//    boxes. Thread 0 issues every box, refilling a stage as soon as every
+//    warp is done with it, four slices ahead of the sums and into the
+//    next tile while the last one's epilogue runs; no thread copies and
+//    no CTA-wide barrier is in the loop;
+//  - per 4 values of j a thread reads each of its 8 rows of a as one
+//    16-byte load (the 8 lanes of a quarter warp share a row; the 4
+//    quarter warps' rows differ mod 8, so the swizzle puts their units on
+//    different bank quads) and, per j, its 4 quads of w (a quarter warp
+//    reads 128 consecutive bytes): 24 shared loads for 512 FMAs. An SM's
+//    shared memory delivers 128 bytes a clock and its FP32 pipes 128
+//    FMAs: an 8 x 8 tile's 16 loads per 256 FMAs would keep both exactly
+//    busy, 8 x 16 leaves shared memory a quarter of slack. Two of a
+//    slice's eight 4-deep steps are unrolled: the whole slice would not
+//    fit the instruction caches;
+//  - the forward's x^2 is formed in each stage once it lands, by the
+//    warps that share its rows: x * x, rounded once, as stage_squares
+//    forms it;
+//  - zeros past C come from the TMA's fill past a tensor's rows and
+//    columns, and, where C % 4 != 0 or a base is off 16 bytes (the TMA's
+//    rule), from zero-padded copies the launchers make in scratch: both
+//    only after j = C - 1.
+// The tile shape is a Config (blocked::Config); the ring's stages and the
+// unrolled steps are constants (chip_probes.py gdn-f32-blocked builds
+// variants of both).
 // No split sums, no atomics, no tensor cores: the same bytes on every run.
 
 #pragma once
@@ -64,6 +82,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "gdn_hopper.cuh"
 
 namespace gdn_f32 {
 
@@ -317,192 +337,407 @@ __device__ __forceinline__ void product(float (&acc)[kTileRows][kTileCols],
 }
 
 // The blocked loop, for C > kWholeWidth (see the top of this file): a CTA
-// sums kRows rows x kCols output columns, both operands streamed in
-// k-slices of kDepth.
+// sums tiles of Config::kRows rows x Config::kCols output columns, both
+// operands brought by the TMA in k-slices of kDepth through a ring of
+// stages that thread 0 refills.
 namespace blocked {
 
-constexpr int kRows = 64;  // rows a CTA: 2 warp rows of 32
-constexpr int kCols = 128;  // output columns a column block: 4 warp columns
-constexpr int kDepth = 32;  // j a k-slice
-constexpr int kLda = kDepth + 4;  // floats a staged row of a (16-byte rows)
-constexpr int kWarpsAcross = kCols / kWarpCols;
-constexpr int kThreads = kRows / kWarpRows * kWarpsAcross * 32;  // 256
-constexpr int kAFloats = kRows * kLda;  // a's slice, [kRows][kLda]
-constexpr int kWFloats = kDepth * kCols;  // w's slice, [kDepth][kCols]
-constexpr int kStageFloats = kAFloats + kWFloats;
-constexpr int kSmemBytes = 2 * kStageFloats * 4;  // a double buffer
-static_assert(kWarpCols == 32 && kTileRows == 8 && kTileCols == 4,
-              "a warp's 32 x 32 block of 8 x 4 tiles, rows 4 apart");
-static_assert(kDepth % 4 == 0 && kLda % 4 == 0 && kLda % 32 != 0,
-              "16-byte rows of a, consecutive rows on other bank quads");
+namespace hop = gdn_hopper;
 
-// This thread's tile in the CTA's kRows x kCols block: rows r0 + 4 k for
-// k < 8, columns c0 .. c0 + 3.
-__device__ __forceinline__ void tile_of(int *r0, int *c0) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  *r0 = (warp / kWarpsAcross) * kWarpRows + lane / 8;
-  *c0 = (warp % kWarpsAcross) * kWarpCols + (lane % 8) * kTileCols;
+constexpr int kDepth = 32;     // j a k-slice: a box row of a is 128 bytes
+constexpr int kBoxCols = 128;  // columns of a box of w (512-byte rows)
+constexpr int kRowsT = 8;      // a thread's rows, kRowGap apart
+
+// The ring's stages (fewer where a Config's CTAs an SM leave no room for
+// them), and the 4-deep steps of j a slice that are unrolled: a slice
+// unrolled whole is ~4,300 instructions at kTC = 16, ~70 KB of code,
+// which the SM's instruction caches do not hold (the loop ran at half
+// speed); a step is ~9 KB. Fewer stages or one step unrolled cost 1-4 %
+// (chip_probes.py gdn-f32-blocked patches both).
+constexpr int kMaxStages = 4;
+constexpr int kUnroll = 2;
+// An SM's shared memory, and what the runtime keeps of it for each CTA
+constexpr int kSmemPerSm = 233472;
+constexpr int kSmemPerCta = 1024;
+// A thread's rows lie kRowGap apart: the four row groups of a warp (its
+// quarter warps) then read rows with different residues mod 8, whose
+// 16-byte units the 128-byte swizzle puts on different bank quads.
+constexpr int kRowGap = 4;
+
+// A CTA's shape: a grid of kWR x kWC warps, each 32 rows (4 row groups,
+// a thread's 8 rows kRowGap apart) x 8 kTC columns (8 column groups of
+// kTC / 4 quads, 32 columns apart), a thread kRowsT x kTC sums, and the
+// ring's stages. Eight warps a CTA, and no warp apart to feed them: a
+// ninth would put three on one of the SM's four schedulers and cap every
+// thread at 168 registers (ptxas allocates the whole kernel within the
+// launch's count, setmaxnreg or not), where 8 x 16 sums and their
+// operands take ~200. kCtas CTAs share an SM (the kernels'
+// __launch_bounds__, which caps their registers to fit), each with the
+// deepest ring their shared memory leaves room for, up to kMaxStages.
+template <int kWR, int kWC, int kTC_, int kCtas = 1>
+struct Config {
+  static constexpr int kTC = kTC_;  // a thread's columns
+  static constexpr int kCtasPerSm = kCtas;
+  static constexpr int kWarpRowsN = kWR, kWarpColsN = kWC;
+  static constexpr int kRows = 32 * kWR;       // rows a tile
+  static constexpr int kCols = 8 * kTC * kWC;  // columns a block
+  static constexpr int kThreads = 32 * kWR * kWC;
+  static constexpr int kABytes = kRows * kDepth * 4;  // a's box
+  static constexpr int kWBoxBytes = kDepth * kBoxCols * 4;
+  static constexpr int kWBoxes = kCols / kBoxCols;
+  static constexpr int kStageBytes = kABytes + kWBoxes * kWBoxBytes;
+  // stages that fit beside the 1 KB alignment room, the barriers and what
+  // the runtime keeps
+  static constexpr int kRoom =
+      (kSmemPerSm / kCtas - kSmemPerCta - 1024 - 16 * kMaxStages) /
+      kStageBytes;
+  static constexpr int kStages = kRoom < kMaxStages ? kRoom : kMaxStages;
+  // 4-deep steps unrolled: one where three CTAs an SM leave 80 registers
+  // a thread (two spilled there)
+  static constexpr int kSteps = kCtas > 2 ? 1 : kUnroll;
+  // room to align the ring to 1 KB (the swizzle's atoms), the ring
+  static constexpr int kSmemBytes = 1024 + kStages * kStageBytes;
+  static_assert(kThreads == 256, "eight warps");
+  static_assert(kCtas >= 1 && kCtas <= 3, "80 registers a thread or more");
+  static_assert(kStages >= 2, "a stage summed while the next one lands");
+  static_assert(kTC == 4 || kTC == 8 || kTC == 16, "1, 2 or 4 quads");
+  static_assert(kDepth / 4 % kSteps == 0, "whole unrolled steps");
+  static_assert(kCols % kBoxCols == 0 && kBoxCols % (8 * kTC) == 0,
+                "a warp's columns lie in one box of w");
+  static_assert(kABytes % 1024 == 0, "stages on 1 KB boundaries");
+  static_assert(kSmemBytes <= hop::kSmemLimit, "fits a CTA");
+  static_assert(kWR <= 4, "named barriers 1 .. 4");
+};
+
+// Where this thread's tile lies: rows row + kRowGap k (k < 8) of the
+// CTA's tile (its warp row row / 32), and the offset of its first column
+// in a stage's boxes of w; its columns are col_of() + 32 h + q (q < 4,
+// h < kTC / 4) of its block. Only what the loop needs stays in registers.
+struct Lane {
+  int row, wbox;
+};
+
+template <class Cfg>
+__device__ __forceinline__ Lane lane_of() {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp / Cfg::kWarpColsN, wc = warp % Cfg::kWarpColsN;
+  const int cw = wc * 8 * Cfg::kTC;  // the warp's first column
+  return {wr * 32 + lane / 8, (cw / kBoxCols) * (kDepth * kBoxCols) +
+                                  cw % kBoxCols + (lane % 8) * 4};
 }
 
-// Starts copying k-slice k of a (rows row0 .. row0 + kRows - 1 of an
-// (n, C) row-major array, columns j = k kDepth ..) into sa ([kRows][kLda])
-// and of w (rows j, columns col0 .. col0 + kCols - 1 of a C x C
-// row-major array) into sw ([kDepth][kCols]): zeros from row `valid` of
-// a on and past C in either; commits the copies as one group. The
-// elements a thread copies of a are the ones `square_own` squares.
-__device__ __forceinline__ void issue(float *sa, float *sw,
-                                      const float *__restrict__ a,
-                                      int64_t row0, int valid,
-                                      const float *__restrict__ w, int col0,
-                                      int k, int C, bool vec) {
-  const int j0 = k * kDepth;
-  if (vec) {
-    constexpr int kQa = kDepth / 4, kQw = kCols / 4;
-    for (int e = threadIdx.x; e < kRows * kQa; e += kThreads) {
-      const int r = e / kQa, j = j0 + (e % kQa) * 4;
-      const bool live = r < valid && j < C;
-      cp_async16(sa + r * kLda + (j - j0), live ? a + (row0 + r) * C + j : a,
-                 live ? 16 : 0);
-    }
-    for (int e = threadIdx.x; e < kDepth * kQw; e += kThreads) {
-      const int jj = e / kQw, c = (e % kQw) * 4;
-      const bool live = j0 + jj < C && col0 + c < C;
-      cp_async16(sw + jj * kCols + c,
-                 live ? w + static_cast<int64_t>(j0 + jj) * C + col0 + c : w,
-                 live ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kRows * kDepth; e += kThreads) {
-      const int r = e / kDepth, j = j0 + e % kDepth;
-      const bool live = r < valid && j < C;
-      cp_async4(sa + r * kLda + (j - j0), live ? a + (row0 + r) * C + j : a,
-                live ? 4 : 0);
-    }
-    for (int e = threadIdx.x; e < kDepth * kCols; e += kThreads) {
-      const int jj = e / kCols, c = e % kCols;
-      const bool live = j0 + jj < C && col0 + c < C;
-      cp_async4(sw + e,
-                live ? w + static_cast<int64_t>(j0 + jj) * C + col0 + c : w,
-                live ? 4 : 0);
-    }
+template <class Cfg>
+__device__ __forceinline__ int col_of() {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return warp % Cfg::kWarpColsN * 8 * Cfg::kTC + lane % 8 * 4;
+}
+
+// The ring of stages: stage s at ring + s * kStageBytes holds a's box
+// ([kRows][kDepth] floats, 128-byte swizzle: row r's 16-byte unit u at
+// u ^ r % 8) and then w's boxes ([kDepth][kBoxCols] floats each, plain).
+// `full` completes when a stage's bytes have landed, `empty` when every
+// warp is done with it. A CTA numbers the k-slices it sums 0, 1, ...
+// over all its tiles: slice j lives in stage j % kStages, in that
+// stage's phase j / kStages. Thread 0 fills the first kStages stages,
+// then refills a stage with slice j + kStages as soon as every warp is
+// done with slice j: one thread issues every box, and the loads run
+// kStages slices ahead of the sums.
+template <class Cfg>
+struct Ring {
+  unsigned char *base;
+  uint64_t *full, *empty;
+  __device__ __forceinline__ float *a(int s) const {
+    return reinterpret_cast<float *>(base + s * Cfg::kStageBytes);
   }
-  cp_async_commit();
-}
-
-// x^2 in place over the elements of a's slice that this thread copied
-// (issue's loops), once its copies have landed: x * x rounded once, as
-// stage_squares forms it.
-__device__ __forceinline__ void square_own(float *sa, bool vec) {
-  if (vec) {
-    constexpr int kQa = kDepth / 4;
-    for (int e = threadIdx.x; e < kRows * kQa; e += kThreads) {
-      float4 *p = reinterpret_cast<float4 *>(sa + (e / kQa) * kLda +
-                                             (e % kQa) * 4);
-      const float4 v = *p;
-      *p = make_float4(v.x * v.x, v.y * v.y, v.z * v.z, v.w * v.w);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kRows * kDepth; e += kThreads) {
-      float *p = sa + (e / kDepth) * kLda + e % kDepth;
-      *p = *p * *p;
-    }
+  __device__ __forceinline__ float *w(int s) const {
+    return reinterpret_cast<float *>(base + s * Cfg::kStageBytes +
+                                     Cfg::kABytes);
   }
+  // thread 0: waits until slice j's stage is free, then announces its
+  // bytes; returns the stage
+  __device__ __forceinline__ int claim(int j) const {
+    const int s = j % Cfg::kStages;
+    if (j >= Cfg::kStages)
+      hop::mbar_wait(empty + s, (j / Cfg::kStages - 1) & 1);
+    hop::mbar_expect(full + s, Cfg::kStageBytes);
+    return s;
+  }
+  // thread 0: w's boxes of k-slice k for the column block at col0
+  __device__ __forceinline__ void load_w(int s, const CUtensorMap &map,
+                                         int col0, int k) const {
+#pragma unroll
+    for (int b = 0; b < Cfg::kWBoxes; ++b)
+      hop::tma_box(w(s) + b * (kDepth * kBoxCols), map, col0 + b * kBoxCols,
+                   k * kDepth, full + s);
+  }
+  // thread 0: a's box of k-slice k for the rows from row0
+  __device__ __forceinline__ void load_a(int s, const CUtensorMap &map,
+                                         int row0, int k) const {
+    hop::tma_box(a(s), map, k * kDepth, row0, full + s);
+  }
+};
+
+// Carves the ring out of the dynamic shared memory and initialises its
+// barriers (thread 0); the caller puts a barrier of the whole CTA between
+// this and any use.
+template <class Cfg>
+__device__ __forceinline__ Ring<Cfg> make_ring(unsigned char *smem_raw,
+                                               uint64_t *full,
+                                               uint64_t *empty) {
+  Ring<Cfg> ring;
+  ring.base = smem_raw + (1024 - hop::smem_at(smem_raw) % 1024) % 1024;
+  ring.full = full;
+  ring.empty = empty;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::kStages; ++s) {
+      hop::mbar_init(full + s);
+      hop::mbar_init(empty + s, Cfg::kThreads / 32);  // an arrival a warp
+    }
+    hop::fence_mbar_init();
+  }
+  return ring;
 }
 
-// acc[k][q] = sum_j a'[r0 + 4 k][j] * w[j][col0 + c0 + q] over j = 0..C-1
-// in order (a' = a^2 with kSquare, else a), one fmaf chain each from 0.f,
-// over k-slices of both operands streamed through `smem` (kSmemBytes):
-// slice k + 1 is copied into one half while slice k is summed from the
-// other. Rows are the CTA's rows row0 .., `valid` of them. Starts with a
-// barrier, so the CTA is done with `smem` and sees what it wrote to
-// device memory before the call; every thread of the CTA must call it.
-template <bool kSquare>
-__device__ __forceinline__ void product(float (&acc)[kTileRows][kTileCols],
-                                        float *smem,
-                                        const float *__restrict__ a,
-                                        int64_t row0, int valid,
-                                        const float *__restrict__ w,
-                                        int col0, int C, int r0, int c0,
-                                        bool vec) {
+__device__ __forceinline__ float part(const float4 &v, int t) {
+  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+}
+
+// acc[k][4 h + q] = sum_j a'[row + kRowGap k][j] * w[j][col + 32 h + q]
+// over j = 0 .. slices * kDepth - 1 in order (a' = a^2, rounded once, with
+// kSquare, else a), one fmaf chain each from 0.f, over the next `slices`
+// stages of the ring from slice *it on; zeros past C in both operands come
+// only after j = C - 1 (fmaf(0, w, acc) == acc, and a chain from +0 is
+// never -0). With kSquare the warps of a warp row square its 32 rows of
+// each stage once it lands, then meet at a named barrier. Per 4 values of
+// j a thread issues 8 16-byte loads of a (one per row: the 8 lanes of a
+// quarter warp read the same 16 bytes, the 4 quarter warps units on
+// different bank quads) and kTC / 4 of w for each j (a quarter warp's 8
+// lanes read 128 consecutive bytes): 24 loads for 512 FMAs at kTC = 16.
+// Once every warp is done with a slice j, thread 0 calls refill(j +
+// kStages), which refills its stage.
+template <class Cfg, bool kSquare, class Refill>
+__device__ __forceinline__ void product(float (&acc)[kRowsT][Cfg::kTC],
+                                        const Ring<Cfg> &ring, int *it,
+                                        int slices, const Lane &me,
+                                        Refill &&refill) {
+  constexpr int kTC = Cfg::kTC;
 #pragma unroll
-  for (int k = 0; k < kTileRows; ++k)
+  for (int k = 0; k < kRowsT; ++k)
 #pragma unroll
-    for (int q = 0; q < kTileCols; ++q) acc[k][q] = 0.f;
-  const int slices = (C + kDepth - 1) / kDepth;
-  __syncthreads();
-  issue(smem, smem + kAFloats, a, row0, valid, w, col0, 0, C, vec);
-  for (int k = 0; k < slices; ++k) {
-    float *sa = smem + (k % 2) * kStageFloats;
-    cp_async_wait_all();  // slice k has landed for this thread ...
-    if (kSquare) square_own(sa, vec);
-    __syncthreads();  // ... and for all; slice k - 1 is done with
-    if (k + 1 < slices) {
-      float *next = smem + ((k + 1) % 2) * kStageFloats;
-      issue(next, next + kAFloats, a, row0, valid, w, col0, k + 1, C, vec);
+    for (int c = 0; c < kTC; ++c) acc[k][c] = 0.f;
+  int j = *it;
+  for (const int end = j + slices; j < end; ++j) {
+    const int s = j % Cfg::kStages;
+    hop::mbar_wait(ring.full + s, (j / Cfg::kStages) & 1);
+    float *sa = ring.a(s);
+    if (kSquare) {
+      // the 32 rows of this warp row, squared by the warps that read them
+      constexpr int kShare = 32 * Cfg::kWarpColsN;
+      const int wr = me.row / 32;
+      float4 *rows = reinterpret_cast<float4 *>(sa + wr * 32 * kDepth);
+      const int t = threadIdx.x % kShare;
+#pragma unroll
+      for (int i = 0; i < 32 * kDepth / 4 / kShare; ++i) {
+        const float4 v = rows[t + i * kShare];
+        rows[t + i * kShare] =
+            make_float4(v.x * v.x, v.y * v.y, v.z * v.z, v.w * v.w);
+      }
+      hop::named_sync(1 + wr, kShare);
     }
-    const float *as = sa + r0 * kLda;
-    const float *ws = sa + kAFloats + c0;
+    const float *as = sa + me.row * kDepth;
+    const float *ws = ring.w(s) + me.wbox;
+#pragma unroll Cfg::kSteps
+    for (int u = 0; u < kDepth / 4; ++u) {
+      // row r's 16-byte unit u lies at u ^ r % 8 (the swizzle)
+      const int uq = u ^ (me.row & 7);
+      if constexpr (kTC == 4) {
+        // one quad of w a j: the step's 4 rows of w held and a read a row
+        // at a time (three CTAs an SM leave 80 registers a thread)
+        float4 bv[4];
 #pragma unroll
-    for (int jj = 0; jj < kDepth; jj += 4) {
-      float4 av[kTileRows], bv[4];
+        for (int t = 0; t < 4; ++t)
+          bv[t] = *reinterpret_cast<const float4 *>(
+              ws + (4 * u + t) * kBoxCols);
 #pragma unroll
-      for (int r = 0; r < kTileRows; ++r)
-        av[r] = *reinterpret_cast<const float4 *>(as + 4 * r * kLda + jj);
+        for (int k = 0; k < kRowsT; ++k) {
+          const float4 a4 = *reinterpret_cast<const float4 *>(
+              as + kRowGap * k * kDepth + (uq ^ (kRowGap * k & 7)) * 4);
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        bv[t] = *reinterpret_cast<const float4 *>(ws + (jj + t) * kCols);
+          for (int t = 0; t < 4; ++t) {
+            const float x = part(a4, t);
+            acc[k][0] = fmaf(x, bv[t].x, acc[k][0]);
+            acc[k][1] = fmaf(x, bv[t].y, acc[k][1]);
+            acc[k][2] = fmaf(x, bv[t].z, acc[k][2]);
+            acc[k][3] = fmaf(x, bv[t].w, acc[k][3]);
+          }
+        }
+      } else {
+        float4 av[kRowsT];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float b[kTileCols] = {bv[t].x, bv[t].y, bv[t].z, bv[t].w};
+        for (int k = 0; k < kRowsT; ++k)
+          av[k] = *reinterpret_cast<const float4 *>(
+              as + kRowGap * k * kDepth + (uq ^ (kRowGap * k & 7)) * 4);
 #pragma unroll
-        for (int r = 0; r < kTileRows; ++r) {
-          const float x = t == 0   ? av[r].x
-                          : t == 1 ? av[r].y
-                          : t == 2 ? av[r].z
-                                   : av[r].w;
+        for (int t = 0; t < 4; ++t) {
+          float4 bv[kTC / 4];
 #pragma unroll
-          for (int q = 0; q < kTileCols; ++q)
-            acc[r][q] = fmaf(x, b[q], acc[r][q]);
+          for (int h = 0; h < kTC / 4; ++h)
+            bv[h] = *reinterpret_cast<const float4 *>(
+                ws + (4 * u + t) * kBoxCols + 32 * h);
+#pragma unroll
+          for (int k = 0; k < kRowsT; ++k) {
+            const float x = part(av[k], t);
+#pragma unroll
+            for (int h = 0; h < kTC / 4; ++h) {
+              acc[k][4 * h + 0] = fmaf(x, bv[h].x, acc[k][4 * h + 0]);
+              acc[k][4 * h + 1] = fmaf(x, bv[h].y, acc[k][4 * h + 1]);
+              acc[k][4 * h + 2] = fmaf(x, bv[h].z, acc[k][4 * h + 2]);
+              acc[k][4 * h + 3] = fmaf(x, bv[h].w, acc[k][4 * h + 3]);
+            }
+          }
         }
       }
     }
+    // the squares' generic stores come before the TMA's next write there
+    if (kSquare) hop::fence_proxy_async();
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) hop::mbar_arrive(ring.empty + s);
+    if (threadIdx.x == 0) refill(j + Cfg::kStages);
   }
+  *it = j;
 }
 
-// v[q] = p[row0 + r][c + q] of an (n, C) row-major array for r < valid
-// and c + q < C, zeros elsewhere; with kNc through the read-only path
-// (__ldg), for arrays the kernel does not write.
-template <bool kNc>
-__device__ __forceinline__ void load_row(float (&v)[kTileCols],
-                                         const float *p, int64_t row0, int r,
-                                         int valid, int c, int C, bool vec) {
-  const float *src = p + (row0 + r) * C + c;
-  if (vec && r < valid && c < C) {  // C % 4 == 0: all 4 channels live
-    const float4 t = kNc ? __ldg(reinterpret_cast<const float4 *>(src))
-                         : *reinterpret_cast<const float4 *>(src);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
+// Rows of C elements at src into rows of `width` at dst (16-byte aligned),
+// zeros past C in each: the zero-padded copies the TMA can address.
+__host__ inline cudaError_t pad_rows(void *dst, const void *src,
+                                     int64_t rows, int C, int width,
+                                     cudaStream_t stream) {
+  const size_t row = 4 * static_cast<size_t>(C);
+  const size_t wide = 4 * static_cast<size_t>(width);
+  cudaError_t err = cudaSuccess;
+  if (wide > row)
+    err = cudaMemset2DAsync(static_cast<char *>(dst) + row, wide, 0,
+                            wide - row, rows, stream);
+  if (err == cudaSuccess)
+    err = cudaMemcpy2DAsync(dst, wide, src, row, row, rows,
+                            cudaMemcpyDeviceToDevice, stream);
+  return err;
+}
+
+// Rows of `width` at src (the kernel's padded output) back into rows of C
+// at dst.
+__host__ inline cudaError_t unpad_rows(void *dst, const void *src,
+                                       int64_t rows, int C, int width,
+                                       cudaStream_t stream) {
+  const size_t row = 4 * static_cast<size_t>(C);
+  return cudaMemcpy2DAsync(dst, row, src, 4 * static_cast<size_t>(width),
+                           row, rows, cudaMemcpyDeviceToDevice, stream);
+}
+
+// A (width, width) zero-padded copy of a (C, C) matrix.
+__host__ inline cudaError_t pad_square(void *dst, const void *src, int C,
+                                       int width, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (width > C)
+    err = cudaMemsetAsync(dst, 0, 4 * static_cast<size_t>(width) * width,
+                          stream);
+  return err == cudaSuccess ? pad_rows(dst, src, C, C, width, stream) : err;
+}
+
+// The TMA's view of a (rows, width) f32 operand a of the blocked loop
+// (width % 4 == 0, 16-byte aligned): boxes of kDepth columns x Cfg::kRows
+// rows with the 128-byte swizzle, zeros past rows and width.
+template <class Cfg>
+__host__ inline cudaError_t a_map(CUtensorMap *map, const void *p,
+                                  int64_t rows, int width) {
+  return hop::tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p, rows,
+                         width, kDepth, Cfg::kRows,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// ... and of a (width, width) f32 w: plain boxes of kDepth rows x
+// kBoxCols columns, zeros past width both ways.
+__host__ inline cudaError_t w_map(CUtensorMap *map, const void *p,
+                                  int width) {
+  return hop::tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p, width,
+                         width, kBoxCols, kDepth, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The persistent grid of `kernel` (Cfg's threads and shared memory, set
+// beforehand) over `tiles` tiles: as many CTAs as the card holds at once,
+// no more than there are tiles. The sums' order does not depend on it.
+template <class Cfg, class Kernel>
+__host__ inline cudaError_t grid_of(Kernel kernel, int64_t tiles,
+                                    int *grid) {
+  const int sms = hop::sm_count();
+  int per_sm = 0;
+  if (!sms || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &per_sm, kernel, Cfg::kThreads, Cfg::kSmemBytes) !=
+                  cudaSuccess || !per_sm)
+    return cudaErrorNoDevice;
+  const int64_t most = int64_t{sms} * per_sm;
+  *grid = static_cast<int>(tiles < most ? tiles : most);
+  return cudaSuccess;
+}
+
+// This CTA's rank in its cluster and the cluster's CTAs (1 and 1 when
+// launched without clusters).
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// A barrier of every thread of the cluster: what each wrote before it
+// (device memory included) is seen by all after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// v[q] = p[c + q] for c + q < live, zeros past it: one 16-byte load with
+// `vec` (p + c 16-byte aligned, all 4 live), else one a value.
+__device__ __forceinline__ float4 load4(const float *p, int c, int live,
+                                        bool vec) {
+  if (vec) return *reinterpret_cast<const float4 *>(p + c);
+  float v[4];
 #pragma unroll
-    for (int q = 0; q < kTileCols; ++q)
-      v[q] = r < valid && c + q < C ? (kNc ? __ldg(src + q) : src[q]) : 0.f;
-  }
+  for (int q = 0; q < 4; ++q) v[q] = c + q < live ? p[c + q] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// p[row0 + r][c + q] = v[q] for r < valid and c + q < C
-__device__ __forceinline__ void store_row(float *p,
-                                          const float (&v)[kTileCols],
-                                          int64_t row0, int r, int valid,
-                                          int c, int C, bool vec) {
-  if (r >= valid || c >= C) return;
-  float *dst = p + (row0 + r) * C + c;
+// p[c + q] = v[q] for c + q < live, as load4 reads them.
+__device__ __forceinline__ void store4(float *p, int c, int live,
+                                       const float (&v)[4], bool vec) {
   if (vec) {
-    *reinterpret_cast<float4 *>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int q = 0; q < kTileCols; ++q)
-      if (c + q < C) dst[q] = v[q];
+    *reinterpret_cast<float4 *>(p + c) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
   }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (c + q < live) p[c + q] = v[q];
+}
+
+// Whether the blocked kernels take 128-column blocks of 8 x 8 sums a
+// thread at this width rather than 256-column blocks of 8 x 16: the wider
+// tiles' loop is ~10 % faster (chip_probes.py gdn-f32-blocked), but their
+// last block may be half empty (C = 640 sums 768 columns in 256-column
+// blocks, 640 in 128-column ones). A rule on C alone.
+__host__ inline bool narrow_blocks(int width) {
+  const int w16 = (width + 255) / 256 * 256, w8 = (width + 127) / 128 * 128;
+  return 11 * w8 < 10 * w16;
+}
+
+// k-slices of a product of depth `width`
+__host__ __device__ constexpr int slices_of(int width) {
+  return (width + kDepth - 1) / kDepth;
 }
 
 }  // namespace blocked

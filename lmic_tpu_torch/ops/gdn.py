@@ -195,11 +195,12 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
     """Launch the forward kernel on CUDA tensors x (..., C), beta (C,) and
     gamma (C, C) of one dtype, float32 or bfloat16, at any C. The C ABI
     picks the kernel by shape: f32 at C <= 384 runs `gdn_fwd_kernel`, wider
-    f32 `gdn_fwd_f32_blocked_kernel`; bf16 at C = 128 and 192 with 16-byte
-    aligned x, gamma and y runs `gdn_fwd_wide_kernel`, other bf16 shapes
-    `gdn_fwd_stream_kernel` (on zero-padded copies in a scratch buffer
-    allocated here where C % 8 != 0 or a base is off 16 bytes); a failed
-    launch or tensor-map encode raises."""
+    f32 `gdn_fwd_f32_blocked_kernel` (on zero-padded copies in a scratch
+    buffer allocated here where C % 4 != 0 or a base is off 16 bytes);
+    bf16 at C = 128 and 192 with 16-byte aligned x, gamma and y runs
+    `gdn_fwd_wide_kernel`, other bf16 shapes `gdn_fwd_stream_kernel` (on
+    zero-padded copies where C % 8 != 0 or a base is off 16 bytes); a
+    failed launch or tensor-map encode raises."""
     C = _check("gdn_fwd", x, beta, gamma)
     lib = _load("gdn_fwd.cu")
     if not x.is_contiguous():
@@ -212,7 +213,8 @@ def gdn_fwd(x, beta, gamma, inverse: bool = False):
     if n == 0:
         return y
     code = _DTYPE_CODES[x.dtype]
-    # the TMA's copies of operands it cannot address (C % 8, bases)
+    # the TMA's copies of operands it cannot address (C % 8 for bf16,
+    # C % 4 for f32 past 384 channels, bases)
     nbytes = lib.lmic_gdn_fwd_scratch_bytes(x.data_ptr(), w.data_ptr(),
                                             y.data_ptr(), n, C, code)
     scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
@@ -256,7 +258,9 @@ def gdn_bwd(x, beta, gamma, g, inverse: bool = False):
     dbeta/dgamma) and `gdn_bwd_reduce` (the fixed-order sum of the
     partials). The C ABI picks the dx kernel by shape: f32
     `gdn_bwd_dx_kernel` at C <= 384, `gdn_bwd_dx_f32_blocked_kernel` past
-    it (both read gamma^T, built here); bf16 at C = 128 and 192 with
+    it (both read gamma^T, built here; the blocked one on zero-padded
+    copies in a scratch buffer allocated here where C % 4 != 0 or a base
+    is off 16 bytes); bf16 at C = 128 and 192 with
     16-byte aligned operands `gdn_bwd_dx_wide_kernel`, other bf16 shapes
     `gdn_bwd_dx_stream_kernel` (on a scratch buffer allocated here: its
     g*scale workspace, and zero-padded copies where C % 8 != 0 or a base

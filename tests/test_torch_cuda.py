@@ -555,6 +555,44 @@ EVERY_WIDTH = {
 }
 
 
+def _launched(run):
+    """run()'s result and the CUDA kernels it launched, by the C ABI's
+    counts."""
+    torch.cuda.synchronize()
+    before = gdn.kernel_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0)
+                 for k, v in gdn.kernel_launches().items()
+                 if v != before.get(k, 0)}
+
+
+def _check_width(dtype, rows, C, offset, kernels):
+    """gdn_fwd and gdn_bwd at rows x C (x a view `offset` elements into
+    its buffer): each within TOL of the plain versions, the same bytes on
+    a second call, one launch of each of `kernels` (forward, dx,
+    partials) by the C ABI's counts."""
+    fwd, dx, partials = kernels
+    x, beta, gamma = _data(rows, C, dtype, seed=C + offset, skew=True)
+    buf = torch.empty(rows * C + offset, dtype=dtype, device="cuda")
+    buf[offset:].copy_(x.view(-1))
+    x = buf[offset:].view(rows, C)
+    g = torch.randn((rows, C), generator=torch.Generator().manual_seed(C)
+                    ).to("cuda", dtype)
+    y, counts = _launched(lambda: gdn.gdn_fwd(x, beta, gamma))
+    assert counts == {fwd: 1}, (rows, C, offset)
+    assert _rel_err(y, gdn.gdn_reference(x, beta, gamma)) < TOL[dtype]
+    assert torch.equal(y, gdn.gdn_fwd(x, beta, gamma)), (rows, C, offset)
+    got, counts = _launched(lambda: gdn.gdn_bwd(x, beta, gamma, g))
+    assert counts == {dx: 1, partials: 1, "gdn_bwd_reduce_kernel": 1}
+    want = gdn.gdn_bwd_reference(x, beta, gamma, g)
+    for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) < TOL[dtype], (rows, C, offset, name)
+    again = gdn.gdn_bwd(x, beta, gamma, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_take_every_width(dtype):
     """gdn_fwd and gdn_bwd take the widths lmic_tpu's gdn_core takes past
@@ -562,37 +600,35 @@ def test_kernels_take_every_width(dtype):
     bytes, bf16 at 1025 and 2048; each within TOL of the plain versions,
     the same bytes on a second call, one launch of each kernel by the C
     ABI's counts."""
-    widths, (fwd, dx, partials) = EVERY_WIDTH[dtype]
-    rows = 200  # three 64-row tiles and a ragged fourth
-
-    def launched(run):
-        torch.cuda.synchronize()
-        before = gdn.kernel_launches()
-        out = run()
-        torch.cuda.synchronize()
-        return out, {k: v - before.get(k, 0)
-                     for k, v in gdn.kernel_launches().items()
-                     if v != before.get(k, 0)}
-
+    widths, kernels = EVERY_WIDTH[dtype]
     for C, offset in widths:
-        x, beta, gamma = _data(rows, C, dtype, seed=C + offset, skew=True)
-        buf = torch.empty(rows * C + offset, dtype=dtype, device="cuda")
-        buf[offset:].copy_(x.view(-1))
-        x = buf[offset:].view(rows, C)
-        g = torch.randn((rows, C), generator=torch.Generator().manual_seed(C)
-                        ).to("cuda", dtype)
-        y, counts = launched(lambda: gdn.gdn_fwd(x, beta, gamma))
-        assert counts == {fwd: 1}, (C, offset)
-        assert _rel_err(y, gdn.gdn_reference(x, beta, gamma)) < TOL[dtype]
-        assert torch.equal(y, gdn.gdn_fwd(x, beta, gamma)), (C, offset)
-        got, counts = launched(lambda: gdn.gdn_bwd(x, beta, gamma, g))
-        assert counts == {dx: 1, partials: 1, "gdn_bwd_reduce_kernel": 1}
-        want = gdn.gdn_bwd_reference(x, beta, gamma, g)
-        for name, a, b in zip(("dx", "dbeta", "dgamma"), got, want):
-            assert a.dtype == b.dtype and a.shape == b.shape, name
-            assert _rel_err(a, b) < TOL[dtype], (C, offset, name)
-        again = gdn.gdn_bwd(x, beta, gamma, g)
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _check_width(dtype, 200, C, offset, kernels)  # a ragged last tile
+
+
+@pytest.mark.parametrize("C,offset", [(385, 0), (388, 0), (640, 0),
+                                      (2048, 0), (512, 1)])
+@pytest.mark.parametrize("rows", [1, 127, 129, 200])
+def test_f32_blocked_kernels_at_tile_edges(rows, C, offset):
+    """The f32 blocked kernels at few rows, where the forward takes its
+    64 x 128 tiles (8 x 4 sums a thread) and dx its 128-row tiles in
+    clusters: one row, one short of a 128-row tile, one past it, a ragged
+    second tile; C ragged (385, on zero-padded copies), a multiple of 4
+    that is not of the block (388), five 128-column blocks (640), sixteen
+    (2048), and a base off 16 bytes; as test_kernels_take_every_width
+    holds them."""
+    _check_width(torch.float32, rows, C, offset,
+                 EVERY_WIDTH[torch.float32][1])
+
+
+@pytest.mark.parametrize("C", [385, 512, 640])
+@pytest.mark.parametrize("rows", [16_511, 16_513])
+def test_f32_blocked_kernels_at_large_tile_edges(rows, C):
+    """The f32 blocked kernels at rows enough that the forward leaves its
+    small tiles: 128 x 256 tiles of 8 x 16 sums a thread (C = 512), 128 x
+    128 of 8 x 8 (640; and 385, whose rows of y are stored a value at a
+    time), with a last 128-row tile of 127 rows or of one; as
+    test_kernels_take_every_width holds them."""
+    _check_width(torch.float32, rows, C, 0, EVERY_WIDTH[torch.float32][1])
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -40,6 +40,12 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # (dtype, C): f32 past 384 (385 ragged, 520 a ragged last column block),
 # bf16 past 1024
 WIDTHS = [("float32", 385), ("float32", 520), ("bfloat16", 1032)]
+# (dtype, C, rows): each width around the 64-row tiles and past a 128-row
+# tile, and f32 at 640 (five 128-column blocks, the last half full) around
+# a 128-row tile
+CASES = ([(dtype, width, rows) for dtype, width in WIDTHS
+          for rows in (63, 65, 135)]
+         + [("float32", 640, 127), ("float32", 640, 129)])
 ARCH = "mbt2018-mean"
 N = M = 400
 IMAGE = (1, 64, 64, 3)
@@ -70,14 +76,14 @@ def _rel_err(got, want) -> float:
 
 @pytest.mark.parametrize("against", ["jnp", "interpret"])
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("rows", [63, 65, 135])
-@pytest.mark.parametrize("dtype,width", WIDTHS)
+@pytest.mark.parametrize("dtype,width,rows", CASES)
 def test_plain_gdn_matches_lmic_tpu_past_the_old_caps(
         dtype, width, rows, inverse, against, monkeypatch):
     """The forward and the backward (dx, dbeta, dgamma for a seeded
     cotangent) against `_gdn_jnp`/`_gdn_bwd_jnp`, or against the Pallas
     forward and fused backward run by the interpreter, around the 64-row
-    tiles of the CUDA kernels and past a 128-row tile."""
+    tiles of the bf16 CUDA kernels and the 128-row tiles of the f32
+    blocked ones, and past a 128-row tile."""
     (jx, jb, jg, jc), (tx, tb, tg, tc) = _data(width + rows,
                                                (rows, width), dtype)
     if against == "jnp":
